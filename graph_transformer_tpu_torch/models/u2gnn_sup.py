@@ -2,13 +2,16 @@
 (``graph_transformer_tpu/models/u2gnn_sup.py``).
 
 Training (``sampled_inputs`` given) is the JAX model's fused branch
-(``u2gnn_sup.py:110-183``): the sampled encoder (kernels K1-K3) samples the
-neighborhoods, builds their features from the codebook and encodes them; the
-self vectors are sum-pooled per graph, dropped out (``cfg.dropout``) and
-scored by a linear head.  Evaluation (no ``sampled_inputs``) is the
-deterministic branch (``:184-239``): the batch's fixed neighborhoods are
-gathered and encoded by the eval encoder (kernel K4) at rate 0.  The encoder
-dropout is 0.5 whatever ``cfg.dropout`` says, as in the reference.
+(``u2gnn_sup.py:110-183``): the sampled encoder samples the neighborhoods,
+builds their features from the codebook and encodes them; the self vectors
+are sum-pooled per graph, dropped out (``cfg.dropout``) and scored by a
+linear head.  The encoder is picked by shape, as in the JAX model
+(``:138-175``): kernels K1-K3 where the folded gate holds and D <= 32, else
+K5/K6 for D <= 128 and S <= 32 (``ops/stored_encoder.training_encoder``).
+Evaluation (no ``sampled_inputs``) is the deterministic branch
+(``:184-239``): the batch's fixed neighborhoods are gathered and encoded by
+the eval encoder (kernel K4, or the wide K4 past D = 32) at rate 0.  The
+encoder dropout is 0.5 whatever ``cfg.dropout`` says, as in the reference.
 
 The slice ported so far is the configuration the main path runs: one hidden
 U2GNN layer, basic recurrence, one head, neighborhood-axis attention.
@@ -30,8 +33,8 @@ from graph_transformer_tpu_torch.ops.attention import (
     xavier_uniform,
 )
 from graph_transformer_tpu_torch.ops.random import HEAD_STREAM, keep_mask
-from graph_transformer_tpu_torch.ops.sampled_encoder import sampled_encoder
 from graph_transformer_tpu_torch.ops.sparse import graph_sum_pool
+from graph_transformer_tpu_torch.ops.stored_encoder import training_encoder
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import u2gnn_encoder
 
 ENCODER_DROPOUT = 0.5  # hard-coded in the reference (u2gnn_sup.py:157,207)
@@ -96,9 +99,9 @@ class U2GNNSup(nn.Module):
             if seed is None:
                 raise ValueError("training needs a seed")
             tag_rows, deg, self_tag, codebook = sampled_inputs
-            out = sampled_encoder(tag_rows, deg, self_tag, codebook,
-                                  enc.stacked(), S, cfg.num_timesteps,
-                                  ENCODER_DROPOUT, seed)
+            encoder = training_encoder(S, codebook.shape[1])
+            out = encoder(tag_rows, deg, self_tag, codebook, enc.stacked(), S,
+                          cfg.num_timesteps, ENCODER_DROPOUT, seed)
             pooled = graph_sum_pool(out * mask, batch.graph_id, B)
             if cfg.dropout > 0.0:
                 pooled = pooled * keep_mask(seed, HEAD_STREAM, pooled.shape,

@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(os.environ.get(
     "GT_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "kernels"))
-SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd")
+SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd", "stored_fwd",
+           "stored_bwd", "wide_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -43,10 +44,22 @@ SIGNATURES = {
                         _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
     "gt_k4_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _I, _I, _I, _I, _I, _I,
                           _F, _U, _U, _F, _I, _P],
+    "gt_k4w_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _U, _U, _F, _I, _P],
+    "gt_k5_stored_fwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                         _U, _U, _F, _I, _P],
+    "gt_k6_layer_bwd": [_P, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k6_slot0_bwd": [_P, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
 }
+# scratch bytes of K6, (N, S, D, F, G, slot0) -> bytes
+WORK_FNS = ("gt_k6_work_bytes",)
 # each kernel's shared memory per block, (G, S, D) -> bytes
 SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
-            "gt_k4_smem_bytes")
+            "gt_k4_smem_bytes", "gt_k4w_smem_bytes", "gt_k5_smem_bytes",
+            "gt_k6_smem_bytes", "gt_k6s_smem_bytes")
 
 _libs: dict = {}
 
@@ -119,6 +132,10 @@ def load(name: str) -> ctypes.CDLL:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = [_I, _I, _I]
                 getattr(lib, fn).restype = ctypes.c_size_t
+        for fn in WORK_FNS:
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = [_I] * 6
+                getattr(lib, fn).restype = ctypes.c_size_t
         _libs[name] = lib
     return lib
 
@@ -132,12 +149,13 @@ def params_array(tensors) -> ctypes.Array:
     return _PARAMS(*[t.data_ptr() for t in tensors])
 
 
-def pick_groups(name: str, smem_fn: str, S: int, D: int,
+def pick_groups(name: str, smem_fn: str, S: int, D: int, rows: int = 128,
                 limit: int = 200 * 1024) -> int:
     """Neighborhoods per block of the kernel whose shared memory ``smem_fn``
-    of source ``name`` gives: up to 128 rows, fewer if shared memory asks."""
+    of source ``name`` gives: up to ``rows`` rows, fewer if shared memory
+    asks."""
     smem = getattr(load(name), smem_fn)
-    G = max(1, 128 // S)
+    G = max(1, rows // S)
     while G > 1 and smem(G, S, D) > limit:
         G -= 1
     if smem(G, S, D) > limit:

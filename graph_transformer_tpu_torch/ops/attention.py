@@ -103,7 +103,8 @@ def layer_forward(x: torch.Tensor, p, *, layer: int, rate: float,
     [N, D] when ``slot0``) and the residuals the backward needs: ``qkv``
     [N, S, 3D], ``attn`` (undropped probabilities, [N, S, S] or [N, S]) and
     ``strip`` = [ctx, y1, uhat1, uhat2, rstd1, rstd2] ([N, S, 4D+2] or
-    [N, 4D+2])."""
+    [N, 4D+2]), and ``h``, the dropped-out FFN hidden ([N, S, F] or [N, F])
+    that the stored-residual backward reads."""
     N, S, D = x.shape
     (w_in, b_in, w_out, b_out, g1, c1, w1, b1, w2, b2, g2, c2) = p
     keep = 1.0 - rate
@@ -134,4 +135,4 @@ def layer_forward(x: torch.Tensor, p, *, layer: int, rate: float,
     z = drop(rnd(h, mm) @ rnd(w2, mm) + b2, 3)
     out, uhat2, rstd2 = layer_norm(y1 + z, g2, c2)
     strip = torch.cat([ctx, y1, uhat1, uhat2, rstd1, rstd2], dim=-1)
-    return out, dict(qkv=qkv, attn=attn, strip=strip)
+    return out, dict(qkv=qkv, attn=attn, strip=strip, h=h)

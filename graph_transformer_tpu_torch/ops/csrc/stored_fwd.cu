@@ -1,0 +1,57 @@
+// K5 — sampled wide-row encoder forward that stores its residuals.
+//
+// Replaces graph_transformer_tpu/ops/pallas_stored_bwd.py:
+// _sampled_stored_fwd_kernel (entry fused_u2gnn_encoder_sampled_stored), the
+// path of the shapes that the folded kernels (K1-K3) do not take: D up to 128
+// (one-hot degree tags of IMDB*, NCI*) and S up to 32.  Per neighborhood: draw
+// S-1 neighbor tags uniformly from the first min(deg, 128) entries of the
+// node's tag row, build x0 = bf16(codebook[tag]), run T post-norm encoder
+// layers (the last for slot 0 only) and write what K6 reads: the layer inputs
+// (bf16), q/k/v, the attention probabilities, the LayerNorm strip
+// [ctx, y1, uhat1, uhat2, rstd1, rstd2] and the FFN hidden after its dropout,
+// h [rows, F] in bf16.  With h stored, K6 needs neither the hidden's
+// recompute nor its mask: relu' times the dropout factor is (h > 0) / keep.
+// The other three dropout masks are replayed from their counters.
+//
+// Bound at N=4096, S=9, D=65, F=1024, T=4, from the H100 SXM data sheet's
+// rates (3.35 TB/s, 989 TFLOP/s bf16): the stored hidden is 3 x 75 MB + 8 MB
+// of writes, so the bytes bound it (~0.08 ms) against ~36 GFLOP of bf16
+// products (~0.036 ms).  This first version runs the products on the CUDA
+// cores in f32 (bf16-rounded operands, wide.cuh) and is bound by those
+// instructions; tensor-core products are later work.
+#include "wide.cuh"
+
+extern "C" size_t gt_k5_smem_bytes(int G, int S, int D) {
+  return wd_fwd_smem_bytes(G, S, D);
+}
+
+extern "C" int gt_k5_stored_fwd(
+    const int* tag_rows, int table_w, const int* deg, const int* self_tag,
+    const float* codebook, const int* draws, int* draws_out,
+    const float* const* params, int stored, float* out, void* xs, float* qkv,
+    float* attn_full, float* attn_last, float* strip_full, float* strip_last,
+    void* h_full, void* h_last, int N, int S, int D, int F, int T, int G,
+    float scale, unsigned int seed, unsigned int keep24, float keep,
+    int drop_on, void* stream) {
+  WdFwdIO io = {};
+  io.tag_rows = tag_rows;
+  io.deg = deg;
+  io.self_tag = self_tag;
+  io.codebook = codebook;
+  io.draws = draws;
+  io.draws_out = draws_out;
+  io.table_w = table_w;
+  io.out = out;
+  io.xs = (__nv_bfloat16*)xs;
+  io.qkv = qkv;
+  io.attn_full = attn_full;
+  io.attn_last = attn_last;
+  io.strip_full = strip_full;
+  io.strip_last = strip_last;
+  io.h_full = (__nv_bfloat16*)h_full;
+  io.h_last = (__nv_bfloat16*)h_last;
+  GtDrop dr{seed, keep24, keep, drop_on};
+  return (int)wd_launch_fwd(io, gt_make_stack(params, stored), dr, N, S, D, F,
+                            T, G, scale, /*mmbf=*/1, /*sampled=*/1,
+                            (cudaStream_t)stream);
+}

@@ -51,10 +51,12 @@ TABLE_WIDTH = 128
 def sampled_forward_plain(tag_rows, deg, self_tag, codebook, params,
                           seq_len: int, num_timesteps: int, rate: float,
                           seed: Optional[int], draws=None,
-                          mm: torch.dtype = torch.bfloat16):
+                          mm: torch.dtype = torch.bfloat16,
+                          residuals=("qkv", "attn", "strip")):
     """Plain version of K1: returns ``(out [N, D], res)`` with ``res`` =
-    dict(draws [N, K], xs, qkv, attn, strip), the last four lists of T
-    per-layer tensors."""
+    dict(draws [N, K], xs, and each of ``residuals``), lists of T per-layer
+    tensors (``xs`` in the saved dtype, the rest as ``layer_forward`` gives
+    them)."""
     S, T = seq_len, num_timesteps
     N = tag_rows.shape[0]
     K = S - 1
@@ -66,13 +68,13 @@ def sampled_forward_plain(tag_rows, deg, self_tag, codebook, params,
     h = codebook.to(torch.float32)[tags].to(torch.bfloat16).to(torch.float32)
     save = torch.bfloat16 if mm == torch.bfloat16 else torch.float32
     stored = params[0].shape[0]
-    res = dict(draws=draws, xs=[], qkv=[], attn=[], strip=[])
+    res = dict(draws=draws, xs=[], **{k: [] for k in residuals})
     for t in range(T):
         res["xs"].append(h.to(save))
         p = [a[t % stored] for a in params]
         h, r = layer_forward(h, p, layer=t, rate=rate, seed=seed, mm=mm,
                              slot0=(t == T - 1))
-        for k in ("qkv", "attn", "strip"):
+        for k in residuals:
             res[k].append(r[k])
     return h, res
 
@@ -158,14 +160,19 @@ def _rows(a, w):
     return a.reshape(-1, w)
 
 
-def _ffn_bwd(y1, dz, du2, p, drop_h, mm):
-    """FFN backward from y1 (the hidden recomputes): dy1 and
-    (dw1, db1, dw2)."""
+def _ffn_bwd(y1, dz, du2, p, drop_h, mm, h=None, keep=1.0):
+    """FFN backward: dy1 and (dw1, db1, dw2).  The hidden recomputes from
+    y1, or comes stored (``h``, as the forward rounded it); a stored hidden
+    gives the relu'·dropout factor exactly as ``(h > 0) / keep``."""
     (_, _, _, _, _, _, w1, b1, w2, _, _, _) = p
     D, F = w1.shape
-    hpre = rnd(y1, mm) @ rnd(w1, mm) + b1
-    fac = drop_h((hpre > 0).to(torch.float32))
-    h = rnd(hpre * fac, mm)
+    if h is None:
+        hpre = rnd(y1, mm) @ rnd(w1, mm) + b1
+        fac = drop_h((hpre > 0).to(torch.float32))
+        h = rnd(hpre * fac, mm)
+    else:
+        h = h.to(torch.float32)
+        fac = (h > 0).to(torch.float32) / keep
     dhpre = (rnd(dz, mm) @ rnd(w2, mm).T) * fac
     dy1 = du2 + rnd(dhpre, mm) @ rnd(w1, mm).T
     dw1 = _rows(rnd(y1, mm), D).T @ _rows(rnd(dhpre, mm), F)
@@ -190,10 +197,11 @@ def _dropper(rate, seed, layer, device):
 
 def layer_backward_plain(x, qkv, attn, strip, g, p, *, layer: int,
                          rate: float, seed: Optional[int],
-                         mm: torch.dtype = torch.bfloat16):
+                         mm: torch.dtype = torch.bfloat16, h=None):
     """Plain version of K2: backward of full layer ``layer`` from its
     residuals.  x [N,S,D] (saved input), qkv [N,S,3D], attn [N,S,S], strip
-    [N,S,4D+2], g [N,S,D].  Returns (dx [N,S,D], 12 grads in KERNEL_ORDER)."""
+    [N,S,4D+2], g [N,S,D]; ``h`` [N,S,F], the stored FFN hidden, or None to
+    recompute it.  Returns (dx [N,S,D], 12 grads in KERNEL_ORDER)."""
     (w_in, b_in, w_out, b_out, g1, c1, w1, b1, w2, b2, g2, c2) = p
     N, S, D = g.shape
     drop = _dropper(rate, seed, layer, g.device)
@@ -202,7 +210,7 @@ def layer_backward_plain(x, qkv, attn, strip, g, p, *, layer: int,
     ctx, y1, uh1, uh2, rs1, rs2 = _split_strip(strip, D)
     du2 = _ln_bwd(g, uh2, rs2, g2)
     dz = drop(3)(du2)
-    dy1, dw1, db1, dw2 = _ffn_bwd(y1, dz, du2, p, drop(2), mm)
+    dy1, dw1, db1, dw2 = _ffn_bwd(y1, dz, du2, p, drop(2), mm, h, 1.0 - rate)
     du1 = _ln_bwd(dy1, uh1, rs1, g1)
     da = drop(1)(du1)
     dctx = rnd(da, mm) @ rnd(w_out, mm).T
@@ -229,10 +237,11 @@ def layer_backward_plain(x, qkv, attn, strip, g, p, *, layer: int,
 
 def slot0_backward_plain(x, qkv, attn0, strip0, g, p, *, layer: int,
                          rate: float, seed: Optional[int],
-                         mm: torch.dtype = torch.bfloat16):
+                         mm: torch.dtype = torch.bfloat16, h=None):
     """Plain version of K3: backward of the slot-0 last layer.  x [N,S,D],
-    qkv [N,S,3D], attn0 [N,S], strip0 [N,4D+2], g [N,D].  Returns
-    (dx [N,S,D], 12 grads in KERNEL_ORDER)."""
+    qkv [N,S,3D], attn0 [N,S], strip0 [N,4D+2], g [N,D]; ``h`` [N,F] or
+    None, as for :func:`layer_backward_plain`.  Returns (dx [N,S,D], 12
+    grads in KERNEL_ORDER)."""
     (w_in, b_in, w_out, b_out, g1, c1, w1, b1, w2, b2, g2, c2) = p
     N, S, _ = x.shape
     D = g.shape[1]
@@ -242,7 +251,7 @@ def slot0_backward_plain(x, qkv, attn0, strip0, g, p, *, layer: int,
     ctx, y1, uh1, uh2, rs1, rs2 = _split_strip(strip0, D)
     du2 = _ln_bwd(g, uh2, rs2, g2)
     dz = drop(3)(du2)
-    dy1, dw1, db1, dw2 = _ffn_bwd(y1, dz, du2, p, drop(2), mm)
+    dy1, dw1, db1, dw2 = _ffn_bwd(y1, dz, du2, p, drop(2), mm, h, 1.0 - rate)
     du1 = _ln_bwd(dy1, uh1, rs1, g1)
     da = drop(1)(du1)
     dctx = rnd(da, mm) @ rnd(w_out, mm).T  # [N, D]
@@ -342,23 +351,33 @@ def slot0_backward(x, qkv, attn0, strip0, g, params, layer: int, rate: float,
 slot0_backward.launches = 0
 
 
-def encoder_backward(res, dout, params, num_timesteps: int, rate: float,
-                     seed: Optional[int], mm: torch.dtype = torch.bfloat16):
-    """Walk the layers backward from the forward's residuals: K3 for the
-    last layer, K2 for the others.  Returns the 12 stacked parameter
-    gradients."""
-    T = num_timesteps
+def walk_backward(dout, params, num_timesteps: int, layer_bwd):
+    """Walk the layers backward, last first: ``layer_bwd(t, g)`` returns the
+    layer input's cotangent and the layer's 12 gradients, which add into
+    slice ``t % stored``.  Returns the 12 stacked parameter gradients."""
     stored = params[0].shape[0]
     dparams = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in params]
     g = dout.to(torch.float32)
-    for t in range(T - 1, -1, -1):
-        bwd = slot0_backward if t == T - 1 else layer_backward
-        g, grads = bwd(res["xs"][t], res["qkv"][t], res["attn"][t],
-                       res["strip"][t], g, params, t, rate, seed, mm)
+    for t in range(num_timesteps - 1, -1, -1):
+        g, grads = layer_bwd(t, g)
         for acc, dg in zip(dparams, grads):
             acc[t % stored] += dg
     return [dp.to(p.dtype) for dp, p in zip(dparams, params)]
+
+
+def encoder_backward(res, dout, params, num_timesteps: int, rate: float,
+                     seed: Optional[int], mm: torch.dtype = torch.bfloat16):
+    """The backward from K1's residuals: K3 for the last layer, K2 for the
+    others."""
+    T = num_timesteps
+
+    def layer_bwd(t, g):
+        bwd = slot0_backward if t == T - 1 else layer_backward
+        return bwd(res["xs"][t], res["qkv"][t], res["attn"][t],
+                   res["strip"][t], g, params, t, rate, seed, mm)
+
+    return walk_backward(dout, params, T, layer_bwd)
 
 
 class SampledEncoderFn(torch.autograd.Function):

@@ -4,9 +4,11 @@ of ``fused_u2gnn_encoder`` (``graph_transformer_tpu/ops/pallas_u2gnn.py:394``).
 ``u2gnn_encoder(x2d [N·S, D], params, S, T)`` returns the slot-0 output of
 the last layer, ``[N, D]`` float32.  Product operands take ``x2d``'s dtype
 (bfloat16 or float32), as in the JAX kernel.  On a CUDA tensor it launches
-kernel K4 (``csrc/encoder_fwd.cu``); on a CPU tensor it runs
-:func:`u2gnn_encoder_plain`.  Forward only: the main path runs it at eval
-(rate 0); the training path is ``ops/sampled_encoder.py``.
+kernel K4 (``csrc/encoder_fwd.cu``) for D <= 32, the wide K4
+(``csrc/wide_fwd.cu``, :func:`wide_encoder`) for 32 < D <= 128, and raises
+beyond; on a CPU tensor it runs :func:`u2gnn_encoder_plain`.  Forward only:
+the main path runs it at eval (rate 0); the training paths are
+``ops/sampled_encoder.py`` and ``ops/stored_encoder.py``.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
 from graph_transformer_tpu_torch.ops.random import drop_args
 
-MAX_D = 32
+MAX_D = 32        # K1-K4: one thread per row, D floats in registers
 MAX_S = 32
+WIDE_MAX_D = 128  # K5, K6 and the wide K4: a warp per row, <= 4 columns a lane
+WIDE_ROWS = 32    # ... and <= 32 rows (whole neighborhoods) a block
 
 
 def u2gnn_encoder_plain(x2d: torch.Tensor, params: Sequence[torch.Tensor],
@@ -43,8 +47,16 @@ def u2gnn_encoder_plain(x2d: torch.Tensor, params: Sequence[torch.Tensor],
 def _check_shapes(S: int, D: int) -> None:
     if S > MAX_S or D > MAX_D:
         raise NotImplementedError(
-            f"S={S}, D={D}: the port's encoder kernels take S <= {MAX_S} and "
-            f"D <= {MAX_D} (ROADMAP.md Queue A, 'Wider rows')")
+            f"S={S}, D={D}: kernels K1-K4 take S <= {MAX_S} and D <= {MAX_D}"
+            "; wider rows take K5/K6 and the wide K4")
+
+
+def check_wide_shapes(S: int, D: int) -> None:
+    if S > MAX_S or D > WIDE_MAX_D:
+        raise NotImplementedError(
+            f"S={S}, D={D}: the port's wide encoder kernels take S <= {MAX_S}"
+            f" and D <= {WIDE_MAX_D} (ROADMAP.md Queue A, 'Rows past D=128 or "
+            "S=32')")
 
 
 def u2gnn_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
@@ -54,9 +66,26 @@ def u2gnn_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
     if not x2d.is_cuda:
         return u2gnn_encoder_plain(x2d, params, seq_len, num_timesteps, rate,
                                    seed)
+    if x2d.shape[1] > MAX_D:
+        return wide_encoder(x2d, params, seq_len, num_timesteps, rate, seed)
+    return _launch(x2d, params, seq_len, num_timesteps, rate, seed, False)
+
+
+def wide_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
+                 seq_len: int, num_timesteps: int, rate: float = 0.0,
+                 seed: Optional[int] = None) -> torch.Tensor:
+    """The wide K4 on CUDA tensors (D <= 128), :func:`u2gnn_encoder_plain`
+    on CPU tensors; same contract as :func:`u2gnn_encoder`."""
+    if not x2d.is_cuda:
+        return u2gnn_encoder_plain(x2d, params, seq_len, num_timesteps, rate,
+                                   seed)
+    return _launch(x2d, params, seq_len, num_timesteps, rate, seed, True)
+
+
+def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool):
     S, T = seq_len, num_timesteps
     D = x2d.shape[1]
-    _check_shapes(S, D)
+    (check_wide_shapes if wide else _check_shapes)(S, D)
     if x2d.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"x2d dtype {x2d.dtype}: bfloat16 or float32 only")
     if x2d.shape[0] % S:
@@ -71,16 +100,22 @@ def u2gnn_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
     out = torch.empty(N, D, dtype=torch.float32, device=x2d.device)
     if N == 0:
         return out
-    lib = _build.load("encoder_fwd")
-    G = _build.pick_groups("encoder_fwd", "gt_k4_smem_bytes", S, D)
-    err = lib.gt_k4_encoder_fwd(
+    if wide:
+        src, smem_fn, fn, rows = ("wide_fwd", "gt_k4w_smem_bytes",
+                                  "gt_k4w_encoder_fwd", WIDE_ROWS)
+    else:
+        src, smem_fn, fn, rows = ("encoder_fwd", "gt_k4_smem_bytes",
+                                  "gt_k4_encoder_fwd", 128)
+    G = _build.pick_groups(src, smem_fn, S, D, rows)
+    err = getattr(_build.load(src), fn)(
         x2d.data_ptr(), int(x2d.dtype == torch.bfloat16),
         _build.params_array(ps), ps[0].shape[0], out.data_ptr(), N, S, D, F,
         T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
         _build.stream_ptr(x2d.device))
-    _build.check(err, "K4 encoder_fwd")
-    u2gnn_encoder.launches += 1
+    _build.check(err, fn)
+    (wide_encoder if wide else u2gnn_encoder).launches += 1
     return out
 
 
 u2gnn_encoder.launches = 0
+wide_encoder.launches = 0

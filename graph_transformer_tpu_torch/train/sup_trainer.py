@@ -2,13 +2,14 @@
 ``train_evaluate_sup`` (``graph_transformer_tpu/train/sup_trainer.py``).
 
 Each training step: the host picks ``batch_size`` random graphs and builds the
-padded batch (numpy); on the device the sampled encoder (K1) resamples every
-node's neighborhood, the model scores the graphs, the label-smoothed soft
-cross entropy is back-propagated (K3, then K2 per earlier layer) and the
-clipped Adam step updates the parameters in place.  :meth:`train_steps` runs
-n steps on one fixed batch — the counterpart of the JAX ``_train_scan``
+padded batch (numpy); on the device the sampled encoder resamples every
+node's neighborhood (K1, or K5 for rows past the folded kernels' shapes), the
+model scores the graphs, the label-smoothed soft cross entropy is
+back-propagated (K3 then K2 per earlier layer, or K6) and the clipped Adam
+step updates the parameters in place.  :meth:`train_steps` runs n steps on
+one fixed batch — the counterpart of the JAX ``_train_scan``
 (``sup_trainer.py:204-242``) that the benchmark drives.  Evaluation runs the
-deterministic model (K4).
+deterministic model (K4, or the wide K4 past D = 32).
 
 Random numbers: the host draws one 31-bit seed per step from a CPU
 ``torch.Generator`` (seeded by ``cfg.train.seed + 1``); the sampler, the

@@ -68,3 +68,43 @@ def test_train_sup_cli_runs_on_cpu(tmp_path):
         .read_text().splitlines()
     assert [ln.split()[:4] for ln in lines] == [
         ["epoch", "1", "fold", "0"], ["epoch", "2", "fold", "0"]]
+
+
+def test_train_sup_cli_takes_the_wide_path_on_imdb_like_data(tmp_path,
+                                                              monkeypatch):
+    """The README quickstart's dataset name forces degree tags, so an
+    IMDBBINARY-like file gives one-hot rows past D=32: training goes through
+    the wide sampled encoder (plain K5/K6 here), never through K1-K3."""
+    import sys
+    from pathlib import Path
+
+    from graph_transformer_tpu_torch.data.tu import load_tu_dataset
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    chip_smoke.write_imdb_like_tu(tmp_path, num_graphs=100)
+    ds = load_tu_dataset("IMDBBINARY", data_dir=str(tmp_path))
+    assert ds.feature_dim > 32
+    calls = {"stored": 0, "sampled": 0}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(st, "stored_forward",
+                        spy("stored", st.stored_forward))
+    monkeypatch.setattr(se, "sampled_forward",
+                        spy("sampled", se.sampled_forward))
+    acc = train_sup.main([
+        "--dataset", "IMDBBINARY", "--data_dir", str(tmp_path),
+        "--batch_size", "4", "--ff_hidden_size", "16", "--num_neighbors",
+        "8", "--num_epochs", "1", "--num_timesteps", "2",
+        "--learning_rate", "0.0005", "--scan_epochs",
+        "--run_folder", str(tmp_path / "runs"), "--device", "cpu"])
+    assert 0.0 <= acc <= 1.0
+    assert calls["stored"] == 23 and calls["sampled"] == 0

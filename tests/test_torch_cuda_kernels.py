@@ -75,9 +75,74 @@ def test_train_steps_launch_every_kernel(cuda):
 
 
 def test_cuda_tensor_never_takes_the_plain_version(cuda):
+    """Past the widest kernel a CUDA tensor raises; it never falls back to
+    the plain version."""
     from graph_transformer_tpu_torch.ops.u2gnn_encoder import u2gnn_encoder
 
-    x = torch.zeros(9 * 4, 40, device=cuda)
-    params = [torch.zeros(1, 40, 40, device=cuda)] * 12
+    x = torch.zeros(9 * 4, 129, device=cuda)
+    params = [torch.zeros(1, 129, 129, device=cuda)] * 12
     with pytest.raises(NotImplementedError):
         u2gnn_encoder(x, params, 9, 1)
+
+
+@pytest.mark.parametrize("S,D,one_hot", [(9, 65, True), (9, 128, False),
+                                         (17, 19, False)])
+def test_wide_kernels_match_plain_versions(cuda, S, D, one_hot):
+    """K5 and K6 against their plain versions at rate 0 and 0.5 (equal
+    draws, forward 2e-2, every gradient leaf at cosine > 0.999), with a
+    ragged last block."""
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(
+        N=301, S=S, D=D, C=D, F=256, Tn=3, stored=3, seed=1, dev=cuda,
+        one_hot=one_hot)
+    chip_smoke.check_stored(f"S{S}D{D}", si, params, S, 3, cuda)
+
+
+def test_stored_path_matches_folded_path(cuda):
+    """K5/K6 and K1/K2/K3 compute one function at D=7."""
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(
+        N=200, S=9, D=7, C=7, F=256, Tn=3, stored=1, seed=2, dev=cuda)
+    chip_smoke.check_paths("D7", si, params, 9, 3, cuda)
+
+
+@pytest.mark.parametrize("D", [65, 128])
+def test_wide_eval_kernel_float32(cuda, D):
+    """The wide K4 with float32 rows against its plain version (1e-4)."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=50, S=9, D=D, C=D, F=256, Tn=3, stored=1, seed=3, dev=cuda)
+    chip_smoke.check_k4_f32(f"D{D}", params, x2d, 9, 3)
+
+
+def test_train_steps_launch_the_wide_kernels(cuda):
+    """One-hot degree features past D=32 train through K5/K6 and evaluate
+    through the wide K4; K1-K4 stay idle."""
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+    import chip_smoke
+
+    ds = synthetic_powerlaw_dataset("S", num_graphs=16, mean_nodes=200,
+                                    seed=0, reddit_like=False)
+    assert 32 < ds.feature_dim <= 128
+    cfg = ExperimentConfig(
+        data=DataConfig(batch_size=4, num_neighbors=4),
+        model=ModelConfig(num_timesteps=3, ff_hidden_size=64),
+        train=TrainConfig(num_epochs=1))
+    tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
+                    test_idx=np.arange(12, 16))
+    counters = chip_smoke.launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = tr.train_steps(tr.builder.sample(), 4)
+    acc = tr.evaluate()
+    assert bool(torch.isfinite(losses).all()) and 0.0 <= acc <= 1.0
+    got = {k: c.launches for k, c in counters.items()}
+    assert (got["K5"], got["K6"], got["K6s"]) == (4, 8, 4)
+    assert got["K4w"] == 1
+    assert got["K1"] == got["K2"] == got["K3"] == got["K4"] == 0
