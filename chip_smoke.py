@@ -19,7 +19,14 @@
      (S=17, D=19), the forward by ``check_bf16_spread``;
    - K5/K6 against K1/K2/K3 at the MUTAG-like shape: equal draws, outputs
      within 2e-2, every gradient leaf at cosine > 0.999;
-   - the wide K4 in float32 at D=65 and D=128 (``check_k4_f32``).
+   - the wide K4 in float32 at D=65 and D=128 (``check_k4_f32``);
+   - K7 (the two-pass sampler) on a heavy-tailed graph at K=16 and K=8:
+     equal ids, every id a neighbor, hub rows drawn from their subsample;
+   - K4t, K8 and K8s at N=4096, F=1024 in float32 and bf16 at the MUTAG HPO
+     arm's shape (S=17, D=7, T=5), the ENZYMES-attribute shape (S=9, D=18,
+     T=4) and the shared-memory edge (S=32, D=32) (``check_two_pass``);
+   - the two-pass path (K7, gather, K4t, K8/K8s) against K1-K3 at one layer
+     on a codebook (``check_two_pass_vs_fused``).
 3. Drives slice 1's main path: ``SupTrainer(device="cuda")`` on the
    benchmark workload of ``bench.py`` (synthetic REDDITMULTI5K-like, batch
    16, K=8, T=4, ff 1024, bf16): warm-up steps, timed ``train_steps`` on a
@@ -31,7 +38,13 @@
    IMDBBINARY-like TU file, whose forced degree tags give rows past D=32;
    asserts finite losses, an accuracy in [0, 1], K5/K6/wide-K4 launches and
    no K1-K4 launch; then times and profiles steps at that configuration.
-5. Prints edges/s, one JSON line describing every kernel (its device time
+5. Drives slice 3's main paths, the two-pass path, through the CLI for 2
+   epochs each: the MUTAG HPO best arm (two U2GNN layers, K=16, T=5, degree
+   tags) on a generated MUTAG-like file and the ENZYMES row with 18
+   continuous node attributes on a generated ENZYMES-like file; asserts
+   finite losses and K7/K4t/K8/K8s launches with no fused-path kernel; then
+   times and profiles the HPO arm's step at 16 graphs a batch.
+6. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
    call's time), the card's name and power limit, and as the last line
@@ -53,6 +66,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12   # H100 SXM, dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12     # H100 SXM, float32 outside the tensor cores
 STEPS, WARMUP = 20, 3
 BATCH, K, T, FF = 16, 8, 4, 1024
 
@@ -381,6 +395,253 @@ def check_paths(label, si, params, S, Tn, dev):
               f"leaf cosine {low:.6f}", flush=True)
 
 
+def check_sampler(label, ds, K, seed, dev):
+    """K7 against its plain version on every node of ``ds``: equal ids, the
+    node itself in slot 0, every other id a true neighbor (or the node, when
+    it has none), and each draw from the first min(deg, 128) entries of the
+    node's table row, so that a hub (deg > 128) draws only from its
+    subsample.  Returns (0, 0): the ids are integers and equal."""
+    import torch
+
+    from graph_transformer_tpu_torch.sampling.neighbor_table import (
+        build_neighbor_table, sample_neighbors, sample_neighbors_plain)
+
+    table = build_neighbor_table(ds, hub_seed=0)
+    n = ds.num_nodes
+    deg = ds.degrees
+    rows = torch.from_numpy(table).to(dev)
+    deg_t = torch.from_numpy(deg.astype(np.int32)).to(dev)
+    gidx = torch.arange(n, dtype=torch.int32, device=dev)
+    ids_k = sample_neighbors(seed, rows, deg_t, gidx, K)
+    ids_p = sample_neighbors_plain(seed, rows, deg_t, gidx, K)
+    torch.cuda.synchronize()
+    if not torch.equal(ids_k, ids_p):
+        fail(f"{label}: K7 ids differ from its plain version")
+    if not torch.equal(ids_k[:, 0], gidx):
+        fail(f"{label}: K7 slot 0 is not the node itself")
+    ids = ids_k[:, 1:].to(torch.int64)
+    src = np.repeat(np.arange(n), np.diff(ds.nbr_offsets))
+    edges = torch.from_numpy(src * n + ds.nbr_ids.astype(np.int64)).to(dev)
+    key = torch.arange(n, device=dev)[:, None] * n + ids
+    isolated = torch.from_numpy(deg == 0).to(dev)[:, None]
+    ok = torch.isin(key, edges) | (isolated & (ids == gidx[:, None].long()))
+    if not bool(ok.all()):
+        fail(f"{label}: {int((~ok).sum())} K7 ids are not neighbors")
+    lim = deg_t.clamp(1, 128).long()
+    cols = torch.arange(128, device=dev)[None, None, :]
+    in_row = ((rows.long()[:, None, :] == ids[:, :, None])
+              & (cols < lim[:, None, None])).any(-1)
+    if not bool(in_row.all()):
+        fail(f"{label}: a K7 draw falls outside its row's first min(deg, "
+             "128) entries")
+    hubs = int((deg > 128).sum())
+    if hubs == 0:
+        fail(f"{label}: the dataset has no hub past 128")
+    print(f"# check {label}: K7 ids equal to the plain version's on {n} "
+          f"nodes at K={K}; all neighbors of their node, {hubs} hub rows "
+          "drew from their subsample", flush=True)
+    return 0.0, 0.0
+
+
+def check_two_pass(label, params, x2d, S, Tn, dev):
+    """K4t, K8 and K8s against their plain versions at rate 0 and 0.5, with
+    rows and products in ``x2d``'s dtype.  The forward (the output and the
+    last saved layer input): in float32 within 1e-4, or within twice the
+    plain version's own float32 error of a float64 reference (as
+    :func:`check_k4_f32`); in bf16 by :func:`check_bf16_spread`.  K8s on the
+    last layer and K8 on layer 0, from the kernel's saved inputs: dx and each
+    of the 12 gradients at cosine > 0.999 on its own.  Returns the errors by
+    (kernel, rate)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+
+    errs = {}
+    f32 = x2d.dtype == torch.float32
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def at(t):
+        return [a[t % a.shape[0]] for a in params]
+
+    for rate in (0.0, 0.5):
+        seed = 97531
+        out_k, xs_k = ue.u2gnn_encoder_train(x2d, params, S, Tn, rate, seed)
+        out_p, xs_p = ue.u2gnn_encoder_train_plain(x2d, params, S, Tn, rate,
+                                                   seed)
+        pairs = [("out", out_k, out_p)]
+        if Tn > 1:
+            pairs.append(("saved input", xs_k[-1].float(), xs_p[-1].float()))
+        for what, a, b in pairs:
+            if f32:
+                e = max_err([a], [b])
+                ok = torch.allclose(a, b, rtol=1e-4, atol=1e-4)
+                if not ok and what == "out":
+                    ref = plain_f64(x2d, params, S, Tn, rate, seed)
+                    ek = float((a.double() - ref).abs().max())
+                    ep = float((b.double() - ref).abs().max())
+                    ok = ek <= 2.0 * ep
+                if not ok:
+                    fail(f"{label} rate {rate}: K4t float32 {what} max err "
+                         f"{e[0]}")
+            else:
+                e = check_bf16_spread(f"{label} rate {rate}: K4t {what}", a,
+                                      b)
+            errs[("K4t", rate)] = max(errs.get(("K4t", rate), (0.0, 0.0)), e)
+        t3 = Tn - 1
+        x3 = (x2d if Tn == 1 else xs_k[t3 - 1]).view(N, S, D)
+        g3 = torch.randn(N, D, device=dev, generator=gen)
+        dx_k, gk = ut.slot0_recompute_backward(x3, g3, params, t3, rate, seed)
+        dx_p, gp = ut.layer_recompute_backward_plain(
+            x3, g3, at(t3), layer=t3, rate=rate, seed=seed, mm=x2d.dtype,
+            slot0=True)
+        errs[("K8s", rate)], c8s = check_grads(
+            f"{label} rate {rate}: K8s", dx_k, gk, dx_p, gp)
+        line = (f"# check {label} rate {rate}: K4t max|err| "
+                f"{errs[('K4t', rate)][0]:.3e} ({errs[('K4t', rate)][1]:.1e});"
+                f" K8s worst leaf {errs[('K8s', rate)][0]:.3e} "
+                f"({errs[('K8s', rate)][1]:.1e}, cos {c8s:.6f})")
+        if Tn > 1:
+            x0 = x2d.view(N, S, D)
+            g0 = torch.randn(N, S, D, device=dev, generator=gen)
+            dx_k, gk = ut.layer_recompute_backward(x0, g0, params, 0, rate,
+                                                   seed)
+            dx_p, gp = ut.layer_recompute_backward_plain(
+                x0, g0, at(0), layer=0, rate=rate, seed=seed, mm=x2d.dtype,
+                slot0=False)
+            errs[("K8", rate)], c8 = check_grads(
+                f"{label} rate {rate}: K8", dx_k, gk, dx_p, gp)
+            line += (f"; K8 worst leaf {errs[('K8', rate)][0]:.3e} "
+                     f"({errs[('K8', rate)][1]:.1e}, cos {c8:.6f})")
+        print(line, flush=True)
+    return errs
+
+
+def check_two_pass_vs_fused(label, si, params, S, Tn, dev):
+    """At one U2GNN layer on a codebook dataset, the two-pass path (K7, the
+    feature gather, K4t, K8/K8s) against the fused path (K1-K3) on the same
+    seed, at rate 0 and 0.5: K7's ids are the table entries K1 draws, the
+    outputs agree within 2e-2 (both run bf16 products over bf16 codebook
+    rows, the same layer code) and each of the 12 gradient leaves at cosine
+    > 0.99.  Not 0.999: K2/K3 read residuals that K1 computed from each
+    layer's unrounded input, while K8 recomputes the layer from the bf16
+    input K4t saved, as the TPU's kernel 5 does: an extra rounding, which
+    on some leaves puts the two-pass gradients farther from float32 than
+    the fused ones (ROADMAP Queue C).  Prints both paths'
+    lowest leaf cosine against the two-pass path in float32 (K4t, K8/K8s
+    with float32 rows and products)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops.u2gnn_train import (
+        u2gnn_train_encoder)
+    from graph_transformer_tpu_torch.sampling.neighbor_table import (
+        sample_neighbors)
+
+    tag_rows, deg, self_tag, codebook = si
+    N, C = tag_rows.shape[0], codebook.shape[0]
+    D = codebook.shape[1]
+    # a global neighbor table whose nodes carry the tags: node v = row v
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tags = torch.randint(0, C, (N,), device=dev, generator=gen,
+                         dtype=torch.int32)
+    table = torch.randint(0, N, (N, 128), device=dev, generator=gen,
+                          dtype=torch.int32)
+    si_f = (tags[table.long()], deg, tags, codebook)
+    x_global = codebook[tags.long()].to(torch.bfloat16)
+    gidx = torch.arange(N, dtype=torch.int32, device=dev)
+    w = torch.randn(N, D, device=dev, generator=gen)
+    for rate in (0.0, 0.5):
+        seed = 13579
+        draws = se.sampled_forward(*si_f, params, S, Tn, rate, seed)[1][
+            "draws"]
+        neigh = sample_neighbors(seed, table, deg, gidx, S - 1)
+        if not (torch.equal(neigh[:, 1:].long(), table.long().gather(1, draws))
+                and torch.equal(neigh[:, 0], gidx)):
+            fail(f"{label} rate {rate}: K7 and K1 draw different neighbors")
+        rows = x_global[neigh.long()].reshape(N * S, D)
+        outs, grads = [], []
+        for run in ("fused", "two-pass", "two-pass float32"):
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            if run == "fused":
+                out = se.sampled_encoder(*si_f, ps, S, Tn, rate, seed)
+            else:
+                x = rows if run == "two-pass" else rows.float()
+                out = u2gnn_train_encoder(x, ps, S, Tn, rate, seed)
+            grads.append(torch.autograd.grad((out * w).sum(), ps))
+            outs.append(out.detach())
+        e = max_err([outs[1]], [outs[0]])
+        if not torch.allclose(outs[1], outs[0], rtol=2e-2, atol=2e-2):
+            fail(f"{label} rate {rate}: two-pass vs fused output max err "
+                 f"{e[0]}")
+        low = {"vs": 1.0, "fused-f32": 1.0, "two-pass-f32": 1.0}
+        for leaf, a, b, r in zip(LEAVES[1:], grads[1], grads[0], grads[2]):
+            c = cosine(a, b)
+            if not c > 0.99:
+                fail(f"{label} rate {rate}: two-pass vs fused {leaf} "
+                     f"cosine {c}")
+            low["vs"] = min(low["vs"], c)
+            low["fused-f32"] = min(low["fused-f32"], cosine(b, r))
+            low["two-pass-f32"] = min(low["two-pass-f32"], cosine(a, r))
+        print(f"# check {label} rate {rate}: two-pass (K7, K4t, K8/K8s) vs "
+              f"fused (K1-K3): draws equal, output max|diff| {e[0]:.3e} "
+              f"({e[1]:.1e}), lowest gradient leaf cosine {low['vs']:.6f}; "
+              f"against the two-pass path in float32: fused "
+              f"{low['fused-f32']:.6f}, two-pass {low['two-pass-f32']:.6f}",
+              flush=True)
+
+
+def write_tu_like(root, name, num_graphs, mean_nodes, mean_edges, num_tags,
+                  num_classes, attr_dim=0, seed=0):
+    """Write a molecule-like TU text file ``<root>/<name>/<name>.txt`` (and,
+    with ``attr_dim``, an ``<name>_node_attributes.txt`` sidecar of
+    standard-normal rows): per graph, n nodes around ``mean_nodes``, a
+    random tree whose edges join nearby nodes, plus random chords to about
+    ``mean_edges`` undirected edges; ``num_tags`` random node tags and
+    random labels of ``num_classes``."""
+    rng = np.random.default_rng(seed)
+    lines, attrs = [str(num_graphs)], []
+    for _ in range(num_graphs):
+        n = max(2, int(round(rng.normal(mean_nodes, 0.3 * mean_nodes))))
+        adj = [set() for _ in range(n)]
+        for j in range(1, n):
+            k = int(rng.integers(max(0, j - 4), j))
+            adj[j].add(k)
+            adj[k].add(j)
+        extra = rng.poisson(max(mean_edges / mean_nodes * n - (n - 1), 0.0))
+        for _ in range(int(extra)):
+            a, b = (int(v) for v in rng.integers(0, n, 2))
+            if a != b:
+                adj[a].add(b)
+                adj[b].add(a)
+        lines.append(f"{n} {int(rng.integers(0, num_classes))}")
+        lines += [" ".join(map(str, [int(rng.integers(0, num_tags)), len(nb),
+                                     *sorted(nb)])) for nb in adj]
+        if attr_dim:
+            attrs.append(rng.standard_normal((n, attr_dim)))
+    os.makedirs(os.path.join(root, name), exist_ok=True)
+    with open(os.path.join(root, name, f"{name}.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    if attr_dim:
+        np.savetxt(os.path.join(root, name, f"{name}_node_attributes.txt"),
+                   np.concatenate(attrs), fmt="%.6f", delimiter=", ")
+    return root
+
+
+def write_mutag_like_tu(root):
+    """MUTAG's statistics: 188 graphs, ~17.9 nodes and ~19.8 edges a graph,
+    7 tags, 2 classes."""
+    return write_tu_like(root, "MUTAG", 188, 17.9, 19.8, 7, 2, seed=1)
+
+
+def write_enzymes_like_tu(root):
+    """ENZYMES's statistics: 600 graphs, ~32.6 nodes and ~62.1 edges a
+    graph, 3 tags, 6 classes, 18 continuous attributes a node."""
+    return write_tu_like(root, "ENZYMES", 600, 32.6, 62.1, 3, 6, attr_dim=18,
+                         seed=2)
+
+
 def write_imdb_like_tu(root, name="IMDBBINARY", num_graphs=1000, seed=0):
     """Write an IMDBBINARY-like TU text file ``<root>/<name>/<name>.txt``:
     ego networks (a hub joined to every node, plus overlapping cliques), 2
@@ -482,13 +743,14 @@ def profile_steps(trainer, batch, n_steps: int) -> None:
 
 
 # ------------------------------------------------------------- library call
-def library_encoder(params, S, Tn, D, F, dev):
-    """torch.nn.TransformerEncoder with the same weights (eval, bf16): the
-    yardstick for K4; the port never calls it."""
+def library_encoder(params, S, Tn, D, F, dev, dtype=None, dropout=0.0):
+    """torch.nn.TransformerEncoder with the same weights (bf16 unless
+    ``dtype``; training mode when ``dropout`` > 0): the yardstick for K4, K4t
+    and K5; the port never calls it."""
     import torch
     from torch import nn
 
-    layer = nn.TransformerEncoderLayer(D, 1, F, dropout=0.0,
+    layer = nn.TransformerEncoderLayer(D, 1, F, dropout=dropout,
                                        batch_first=True)
     enc = nn.TransformerEncoder(layer, Tn, enable_nested_tensor=False)
     stored = params[0].shape[0]
@@ -508,7 +770,8 @@ def library_encoder(params, S, Tn, D, F, dev):
             L.norm1.bias.copy_(c1)
             L.norm2.weight.copy_(g2)
             L.norm2.bias.copy_(c2)
-    return enc.to(dev, torch.bfloat16).eval()
+    enc = enc.to(dev, dtype or torch.bfloat16)
+    return enc.train() if dropout > 0.0 else enc.eval()
 
 
 
@@ -520,23 +783,54 @@ QUICKSTART_FLAGS = ["--dataset", "IMDBBINARY", "--batch_size", "4",
                     "--scan_epochs"]
 
 
+TWO_PASS_FLAGS = {
+    # the MUTAG HPO best arm (RESULTS.md:90)
+    "MUTAG": ["--dataset", "MUTAG", "--num_hidden_layers", "2",
+              "--num_neighbors", "16", "--num_timesteps", "5",
+              "--degree_as_tag", "--batch_size", "4", "--ff_hidden_size",
+              "1024", "--learning_rate", "0.0002971875486100803"],
+    # the ENZYMES row (RESULTS.md:23) with its continuous attributes
+    "ENZYMES": ["--dataset", "ENZYMES", "--use_node_attributes",
+                "--batch_size", "4", "--num_neighbors", "8",
+                "--num_timesteps", "4", "--ff_hidden_size", "1024",
+                "--learning_rate", "0.0005"],
+}
+FUSED_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K6s")
+TWO_PASS_KERNELS = ("K7", "K4t", "K8", "K8s")
+
+
 def launch_counters():
     """Every kernel wrapper's launch counter, by kernel."""
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+    from graph_transformer_tpu_torch.sampling import neighbor_table as nt
 
     return {"K1": se.sampled_forward, "K2": se.layer_backward,
             "K3": se.slot0_backward, "K4": ue.u2gnn_encoder,
             "K4w": ue.wide_encoder, "K5": st.stored_forward,
-            "K6": st.stored_layer_backward, "K6s": st.stored_slot0_backward}
+            "K6": st.stored_layer_backward, "K6s": st.stored_slot0_backward,
+            "K7": nt.sample_neighbors, "K4t": ue.u2gnn_encoder_train,
+            "K8": ut.layer_recompute_backward,
+            "K8s": ut.slot0_recompute_backward}
 
 
-def quickstart(root: str):
-    """The README quickstart (``README.md:47-50``) through the CLI on an
-    IMDBBINARY-like file, for 2 epochs on the card: degree tags are forced,
-    so the rows are wide and training takes K5/K6, evaluation the wide K4.
-    Returns (dataset, launches of every kernel during the run)."""
+def describe(label, ds) -> None:
+    deg = ds.degrees
+    print(f"# {label} data: {ds.num_graphs} graphs, "
+          f"{ds.num_nodes / ds.num_graphs:.2f} nodes and "
+          f"{ds.num_directed_edges / 2 / ds.num_graphs:.2f} undirected edges "
+          f"a graph, max degree {int(deg.max())} ({int((deg > 128).sum())} "
+          f"nodes past 128), feature_dim {ds.feature_dim}", flush=True)
+
+
+def run_cli(label, flags, data, root, want, idle) -> dict:
+    """``cli.train_sup.main`` with ``flags`` for 2 epochs on the card, every
+    launch count set to 0 just before and read just after; asserts two
+    finite epoch losses, an accuracy in [0, 1], at least one launch of each
+    kernel in ``want`` and none of those in ``idle``.  Returns the
+    launches."""
     import contextlib
     import io
     import re
@@ -544,25 +838,13 @@ def quickstart(root: str):
     import torch
 
     from graph_transformer_tpu_torch.cli import train_sup
-    from graph_transformer_tpu_torch.data.tu import load_tu_dataset
 
-    data = write_imdb_like_tu(os.path.join(root, "data"))
-    ds = load_tu_dataset("IMDBBINARY", data_dir=data)
-    deg = ds.degrees
-    print(f"# quickstart data: {ds.num_graphs} graphs, "
-          f"{ds.num_nodes / ds.num_graphs:.2f} nodes and "
-          f"{ds.num_directed_edges / 2 / ds.num_graphs:.2f} undirected edges "
-          f"a graph, max degree {int(deg.max())} ({int((deg > 128).sum())} "
-          f"nodes past 128), feature_dim {ds.feature_dim}", flush=True)
-    if ds.feature_dim <= 32:
-        fail(f"IMDBBINARY-like feature_dim {ds.feature_dim} <= 32: the "
-             "quickstart would not reach the wide kernels")
     counters = launch_counters()
     for c in counters.values():
         c.launches = 0
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
-        acc = train_sup.main(QUICKSTART_FLAGS + [
+        acc = train_sup.main(flags + [
             "--num_epochs", "2", "--device", "cuda", "--data_dir", data,
             "--run_folder", os.path.join(root, "runs")])
     torch.cuda.synchronize()
@@ -571,23 +853,85 @@ def quickstart(root: str):
         print(f"# cli: {line}", flush=True)
     losses = [float(v) for v in
               re.findall(r"\| loss\s+(\S+) \|", log.getvalue())]
-    print(f"# quickstart launches: {launches}", flush=True)
+    print(f"# {label} launches: {launches}", flush=True)
     if len(losses) != 2 or not all(np.isfinite(losses)):
-        fail(f"quickstart epoch losses {losses}")
+        fail(f"{label} epoch losses {losses}")
     if not 0.0 <= acc <= 1.0:
-        fail(f"quickstart accuracy {acc}")
-    for k in ("K5", "K6", "K6s", "K4w"):
+        fail(f"{label} accuracy {acc}")
+    for k in want:
         if launches[k] < 1:
-            fail(f"quickstart: {k} was not launched")
-    for k in ("K1", "K2", "K3", "K4"):
+            fail(f"{label}: {k} was not launched")
+    for k in idle:
         if launches[k]:
-            fail(f"quickstart: {k} launched {launches[k]} times on the "
-                 "wide path")
+            fail(f"{label}: {k} launched {launches[k]} times")
+    return launches
+
+
+def quickstart(root: str):
+    """The README quickstart (``README.md:47-50``) through the CLI on an
+    IMDBBINARY-like file, for 2 epochs on the card: degree tags are forced,
+    so the rows are wide and training takes K5/K6, evaluation the wide K4.
+    Returns (dataset, launches of every kernel during the run)."""
+    from graph_transformer_tpu_torch.data.tu import load_tu_dataset
+
+    data = write_imdb_like_tu(os.path.join(root, "data"))
+    ds = load_tu_dataset("IMDBBINARY", data_dir=data)
+    describe("quickstart", ds)
+    if ds.feature_dim <= 32:
+        fail(f"IMDBBINARY-like feature_dim {ds.feature_dim} <= 32: the "
+             "quickstart would not reach the wide kernels")
+    launches = run_cli("quickstart", QUICKSTART_FLAGS, data, root,
+                       want=("K5", "K6", "K6s", "K4w"),
+                       idle=("K1", "K2", "K3", "K4") + TWO_PASS_KERNELS)
     return ds, launches
 
 
-def bound(b, f):
-    tb, tf = b / HBM_BYTES_PER_S * 1e3, f / BF16_FLOP_PER_S * 1e3
+def two_pass_runs(root: str):
+    """Slice 3's main paths through the CLI on the card, 2 epochs each: the
+    MUTAG HPO best arm (two U2GNN layers) on a MUTAG-like file, and the
+    ENZYMES row with its 18 continuous attributes on an ENZYMES-like file.
+    Both train through K7, K4t, K8 and K8s and evaluate through K4; no
+    fused-path kernel runs.  Returns ({name: dataset}, {name: launches})."""
+    from graph_transformer_tpu_torch.data.tu import load_tu_dataset
+
+    data = os.path.join(root, "data")
+    write_mutag_like_tu(data)
+    write_enzymes_like_tu(data)
+    dsets, launches = {}, {}
+    for name, kw in (("MUTAG", dict(degree_as_tag=True)),
+                     ("ENZYMES", dict(use_node_attributes=True))):
+        ds = load_tu_dataset(name, data_dir=data, **kw)
+        describe(name, ds)
+        dsets[name] = ds
+        launches[name] = run_cli(name, TWO_PASS_FLAGS[name], data, root,
+                                 want=TWO_PASS_KERNELS + ("K4",),
+                                 idle=FUSED_KERNELS)
+    return dsets, launches
+
+
+def timed_steps(trainer, batch, edges: float) -> tuple:
+    """(ms/step, edges/s) of ``train_steps(batch, STEPS)`` after WARMUP
+    steps, by CUDA events; fails on a loss that is not finite."""
+    import torch
+
+    trainer.train_steps(batch, WARMUP)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    losses = trainer.train_steps(batch, STEPS)
+    end.record()
+    end.synchronize()
+    if not bool(torch.isfinite(losses).all()):
+        fail(f"losses not finite: {losses}")
+    ms = start.elapsed_time(end) / STEPS
+    return ms, edges * 1e3 / ms
+
+
+def bound(b, f, flop_rate=BF16_FLOP_PER_S):
+    """The least time (ms) for ``b`` bytes and ``f`` product operations at
+    ``flop_rate``: bf16 products on the tensor cores, float32 products on
+    the CUDA cores."""
+    tb, tf = b / HBM_BYTES_PER_S * 1e3, f / flop_rate * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -619,8 +963,12 @@ def main() -> int:
     from graph_transformer_tpu_torch.ops import _build
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
     from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
-        u2gnn_encoder, u2gnn_encoder_plain, wide_encoder)
+        u2gnn_encoder, u2gnn_encoder_plain, u2gnn_encoder_train,
+        u2gnn_encoder_train_plain, wide_encoder)
+    from graph_transformer_tpu_torch.sampling.neighbor_table import (
+        sample_neighbors, sample_neighbors_plain)
     from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -687,6 +1035,26 @@ def main() -> int:
                                          stored=1, seed=5, dev=dev)
         errs[("K4w", 0.0, D_)] = check_k4_f32(f"wide-d{D_}", params_w,
                                              x2d_w, S, T)
+    # slice 3: K7 on a heavy-tailed graph (hubs past 128) at the HPO arm's
+    # K=16 and at K=8; K4t and K8/K8s at the HPO arm's shape (S=17, D=7,
+    # T=5), the ENZYMES-attribute shape (S=9, D=18, T=4) and the
+    # shared-memory edge (S=32, D=32), in float32 and bf16; the two-pass
+    # path against K1-K3 at one layer
+    ds_h = synthetic_powerlaw_dataset("heavy-tail", num_graphs=24,
+                                      mean_nodes=300, seed=1,
+                                      reddit_like=False, heavy_tail=True)
+    for K_ in (16, 8):
+        errs[("K7", 0.0, K_)] = check_sampler(f"sampler-k{K_}", ds_h, K_, 31,
+                                             dev)
+    for label, S_, D_, T_ in (("hpo-arm", 17, 7, 5), ("enzymes-attr", 9, 18, 4),
+                              ("edge-s32-d32", 32, 32, 2)):
+        _, params_t, x2d_t = random_case(N=4096, S=S_, D=D_, C=D_, F=FF,
+                                         Tn=T_, stored=T_, seed=6, dev=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            errs.update({(k, r, label, str(dt)): v for (k, r), v in
+                         check_two_pass(f"{label} {dt}", params_t,
+                                        x2d_t.to(dt), S_, T_, dev).items()})
+    check_two_pass_vs_fused("mutag-like", si_m, params_m, S, T, dev)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. the main path of slice 1: the bench workload on K1-K4
@@ -738,21 +1106,36 @@ def main() -> int:
     batch_q = trainer_q.builder.sample()
     edges_q = float(batch_q.edge_mask.sum())
     batch_q = batch_q.to(dev)
-    trainer_q.train_steps(batch_q, WARMUP)
-    start.record()
-    losses_q = trainer_q.train_steps(batch_q, STEPS)
-    end.record()
-    end.synchronize()
-    step_ms_q = start.elapsed_time(end) / STEPS
-    if not bool(torch.isfinite(losses_q).all()):
-        fail(f"quickstart losses not finite: {losses_q}")
-    eps_q = edges_q * STEPS / (step_ms_q * STEPS / 1e3)
+    step_ms_q, eps_q = timed_steps(trainer_q, batch_q, edges_q)
     print(f"# quickstart train: {step_ms_q:.3f} ms/step, {eps_q:.1f} edges/s "
           f"({edges_q:.0f} edges/step, N={batch_q.n_pad}, "
           f"D={ds_q.feature_dim})", flush=True)
     profile_steps(trainer_q, batch_q, 5)
 
-    # ---- 5. per-kernel times at each main path's shapes
+    # ---- 5. the main paths of slice 3: the two-pass path through the CLI
+    t0 = time.perf_counter()
+    dsets_2, launches_2 = two_pass_runs(os.path.join(here, "build",
+                                                     "two_pass"))
+    print(f"# two-pass runs through the CLI: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for k in TWO_PASS_KERNELS:
+        launches[k] = launches_2["MUTAG"][k]
+    # the HPO arm's step at 16 graphs a batch
+    cfg_h = config_from_args(base_parser("h").parse_args(
+        TWO_PASS_FLAGS["MUTAG"] + ["--batch_size", "16"]))
+    trainer_h = SupTrainer(dsets_2["MUTAG"], cfg_h, device="cuda")
+    if not trainer_h.two_pass:
+        fail("the HPO arm does not take the two-pass path")
+    batch_h = trainer_h.builder.sample()
+    edges_h = float(batch_h.edge_mask.sum())
+    batch_h = batch_h.to(dev)
+    step_ms_h, eps_h = timed_steps(trainer_h, batch_h, edges_h)
+    print(f"# hpo-arm train (16 graphs a batch): {step_ms_h:.3f} ms/step, "
+          f"{eps_h:.1f} edges/s ({edges_h:.0f} edges/step, "
+          f"N={batch_h.n_pad}, D={dsets_2['MUTAG'].feature_dim})", flush=True)
+    profile_steps(trainer_h, batch_h, 5)
+
+    # ---- 6. per-kernel times at each main path's shapes
     seed = 99
     out_k, res_k = se.sampled_forward(*si, params, S, T, 0.5, seed)
     g3 = torch.randn(N, D, device=dev)
@@ -813,11 +1196,43 @@ def main() -> int:
     k4w_flops = fwd_flops(Neq, S, Dq, F, T)
     k4w_bytes = nbytes(x2d_q) + pbytes_q + Neq * Dq * 4
 
+    # the HPO arm's shapes (two-pass, float32 rows and products): the
+    # training batch of 16 graphs, U2GNN layer 0
+    rows_h, deg_h, gidx_h = trainer_h.two_pass_inputs(batch_h)
+    Kh, Th = cfg_h.data.num_neighbors, cfg_h.model.num_timesteps
+    Sh, Dh, Nh = Kh + 1, dsets_2["MUTAG"].feature_dim, batch_h.n_pad
+    params_h = [p.detach() for p in trainer_h.model.encoders[0].stacked()]
+    Ph = sum(p[0].numel() for p in params_h)
+    neigh_h = sample_neighbors(seed, rows_h, deg_h, gidx_h, Kh)
+    x2d_h = trainer_h._x_global[neigh_h.long()].reshape(Nh * Sh, Dh)
+    out_t, xs_t = u2gnn_encoder_train(x2d_h, params_h, Sh, Th, 0.5, seed)
+    x8 = x2d_h.view(Nh, Sh, Dh)
+    x8s = xs_t[-1].view(Nh, Sh, Dh)
+    g8 = torch.randn(Nh, Sh, Dh, device=dev)
+    g8s = torch.randn(Nh, Dh, device=dev)
+    ph_0 = [a[0] for a in params_h]
+    ph_last = [a[(Th - 1) % a.shape[0]] for a in params_h]
+    k7_bytes = Nh * (4 + 4 + Kh * 4) + nbytes(neigh_h)
+    k4t_bytes = nbytes(x2d_h, out_t, xs_t) + nbytes(*params_h)
+    k4t_flops = fwd_flops(Nh, Sh, Dh, F, Th)
+    # K8/K8s read x, g and the layer's parameters and write dx (the size of
+    # g8) and the gradients; their operations are the layer's forward and
+    # its backward (K6's count)
+    k8_bytes = nbytes(x8, g8) + nbytes(g8) + 2 * 4 * Ph
+    k8_flops = (layer_flops(Nh * Sh, Nh * Sh, Sh, Dh, F)
+                + Nh * Sh * (8 * Dh * F + 4 * Dh * 3 * Dh + 4 * Dh * Dh
+                             + 8 * Sh * Dh))
+    k8s_bytes = nbytes(x8s, g8s) + nbytes(g8) + 2 * 4 * Ph
+    k8s_flops = (layer_flops(Nh, Nh * Sh, Sh, Dh, F)
+                 + Nh * (8 * Dh * F + 4 * Dh * Dh + 8 * Sh * Dh)
+                 + Nh * Sh * 4 * Dh * 3 * Dh)
+
     lib = library_encoder(params, S, T, D, F, dev)
     x3d = x2d_eval.view(Ne, S, D)
     lib_q = library_encoder(params_q, S, T, Dq, F, dev)
     x3d_q = x2d_q.to(torch.bfloat16).view(Neq, S, Dq)
     x0_q = res5["xs"][0]
+    lib_h = library_encoder(params_h, Sh, Th, Dh, F, dev, torch.float32, 0.5)
     with torch.no_grad():
         for name, lb, x3, ko in (
                 ("K4", lib, x3d, u2gnn_encoder(x2d_eval, params, S, T)),
@@ -858,50 +1273,90 @@ def main() -> int:
                         *a6s, pq_last, layer=T - 1, rate=0.5, seed=seed,
                         slot0=True),
                     None),
+            "K7": (lambda: sample_neighbors(seed, rows_h, deg_h, gidx_h, Kh),
+                   lambda: sample_neighbors_plain(seed, rows_h, deg_h, gidx_h,
+                                                  Kh),
+                   None),
+            "K4t": (lambda: u2gnn_encoder_train(x2d_h, params_h, Sh, Th, 0.5,
+                                                seed),
+                    lambda: u2gnn_encoder_train_plain(x2d_h, params_h, Sh, Th,
+                                                      0.5, seed),
+                    lambda: lib_h(x8)),
+            "K8": (lambda: ut.layer_recompute_backward(x8, g8, params_h, 0,
+                                                       0.5, seed),
+                   lambda: ut.layer_recompute_backward_plain(
+                       x8, g8, ph_0, layer=0, rate=0.5, seed=seed,
+                       mm=torch.float32, slot0=False),
+                   None),
+            "K8s": (lambda: ut.slot0_recompute_backward(x8s, g8s, params_h,
+                                                        Th - 1, 0.5, seed),
+                    lambda: ut.layer_recompute_backward_plain(
+                        x8s, g8s, ph_last, layer=Th - 1, rate=0.5, seed=seed,
+                        mm=torch.float32, slot0=True),
+                    None),
         }
         # each wrapper's kernels: the backward kernels include their
         # partial sums (and K6 its split-K weight products)
         k6_kernels = ("wd_stored_bwd_kernel", "wd_reduce_small_kernel",
                       "wd_wgrad_kernel", "gt_reduce_partials_kernel")
+        k8_kernels = ("gt_recompute_bwd_kernel", "gt_reduce_partials_kernel")
         device_kernels = {
             "K1": ("gt_encoder_fwd_kernel",), "K4": ("gt_encoder_fwd_kernel",),
             "K2": ("gt_layer_bwd_kernel", "gt_reduce_partials_kernel"),
             "K3": ("gt_layer_bwd_kernel", "gt_reduce_partials_kernel"),
             "K4w": ("wd_encoder_fwd_kernel",), "K5": ("wd_encoder_fwd_kernel",),
-            "K6": k6_kernels, "K6s": k6_kernels}
+            "K6": k6_kernels, "K6s": k6_kernels,
+            "K7": ("gt_sample_kernel",), "K4t": ("gt_encoder_fwd_kernel",),
+            "K8": k8_kernels, "K8s": k8_kernels}
         timings = {
             key: (device_ms(kern, 10, device_kernels[key]), time_ms(kern, 10),
                   time_ms(plain, 3),
                   None if lib_call is None else time_ms(lib_call, 10))
             for key, (kern, plain, lib_call) in calls.items()}
     src = "graph_transformer_tpu_torch/ops/csrc/"
+    bf, f32 = BF16_FLOP_PER_S, F32_FLOP_PER_S
     meta = {
         "K1": ("sampled_fwd", src + "sampled_fwd.cu",
                "graph_transformer_tpu/ops/pallas_folded.py:1094", k1_bytes,
-               fwd_flops(N, S, D, F, T)),
+               fwd_flops(N, S, D, F, T), bf),
         "K2": ("layer_bwd", src + "layer_bwd.cu",
-               "graph_transformer_tpu/ops/pallas_folded.py:538", k2_bytes, k2_flops),
+               "graph_transformer_tpu/ops/pallas_folded.py:538", k2_bytes,
+               k2_flops, bf),
         "K3": ("slot0_bwd", src + "layer_bwd.cu",
-               "graph_transformer_tpu/ops/pallas_folded.py:683", k3_bytes, k3_flops),
+               "graph_transformer_tpu/ops/pallas_folded.py:683", k3_bytes,
+               k3_flops, bf),
         "K4": ("encoder_fwd", src + "encoder_fwd.cu",
-               "graph_transformer_tpu/ops/pallas_u2gnn.py:266", k4_bytes, k4_flops),
+               "graph_transformer_tpu/ops/pallas_u2gnn.py:266", k4_bytes,
+               k4_flops, bf),
         "K4w": ("wide_encoder_fwd", src + "wide_fwd.cu",
                 "graph_transformer_tpu/ops/pallas_u2gnn.py:266", k4w_bytes,
-                k4w_flops),
+                k4w_flops, f32),
         "K5": ("stored_fwd", src + "stored_fwd.cu",
                "graph_transformer_tpu/ops/pallas_stored_bwd.py:355", k5_bytes,
-               k5_flops),
+               k5_flops, bf),
         "K6": ("stored_layer_bwd", src + "stored_bwd.cu",
                "graph_transformer_tpu/ops/pallas_stored_bwd.py:192", k6_bytes,
-               k6_flops),
+               k6_flops, bf),
         "K6s": ("stored_slot0_bwd", src + "stored_bwd.cu",
                 "graph_transformer_tpu/ops/pallas_stored_bwd.py:192",
-                k6s_bytes, k6s_flops),
+                k6s_bytes, k6s_flops, bf),
+        "K7": ("sample_neighbors", src + "sampler.cu",
+               "graph_transformer_tpu/sampling/pallas_sampler.py:114",
+               k7_bytes, 0, bf),
+        "K4t": ("encoder_train_fwd", src + "encoder_fwd.cu",
+                "graph_transformer_tpu/ops/pallas_u2gnn.py:266", k4t_bytes,
+                k4t_flops, f32),
+        "K8": ("recompute_layer_bwd", src + "recompute_bwd.cu",
+               "graph_transformer_tpu/ops/pallas_u2gnn.py:316", k8_bytes,
+               k8_flops, f32),
+        "K8s": ("recompute_slot0_bwd", src + "recompute_bwd.cu",
+                "graph_transformer_tpu/ops/pallas_u2gnn.py:316", k8s_bytes,
+                k8s_flops, f32),
     }
     kernels = []
-    for key, (name, source, replaces, b, f) in meta.items():
+    for key, (name, source, replaces, b, f, rate) in meta.items():
         ms, wrapper_ms, plain_ms, lib_ms = timings[key]
-        bms, by = bound(b, f)
+        bms, by = bound(b, f, rate)
         errs_k = [v for k, v in errs.items() if k[0] == key]
         kernels.append({
             "name": f"{key} {name}", "route": "cuda", "source": source,
@@ -916,12 +1371,15 @@ def main() -> int:
               f"bound {bms:.5f} by {by}"
               + (f", library {lib_ms:.4f}" if lib_ms is not None else "")
               + ")", flush=True)
-    print(f"# edges/s on the card: bench {eps:.1f}, quickstart {eps_q:.1f}; "
-          f"whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"# edges/s on the card: bench {eps:.1f}, quickstart {eps_q:.1f}, "
+          f"hpo arm {eps_h:.1f}; whole run "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels, "edges_per_s": eps,
                       "ms_per_step": step_ms,
                       "quickstart_edges_per_s": eps_q,
-                      "quickstart_ms_per_step": step_ms_q, "steps": STEPS,
+                      "quickstart_ms_per_step": step_ms_q,
+                      "hpo_arm_edges_per_s": eps_h,
+                      "hpo_arm_ms_per_step": step_ms_h, "steps": STEPS,
                       "build_s": build_s}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -3,10 +3,12 @@
 
 The flags of the supervised quickstart in ``README.md`` (dataset, batch size,
 FFN width, neighbors, epochs, timesteps, learning rate, ``--scan_epochs``),
-the data and output locations, and ``--device`` (default ``cuda``).
-Checkpointing is later work.  Flags of the JAX CLI that choose among TPU
-kernels or pick configurations this slice does not run are left out until a
-slice runs them.
+the JAX CLI's ``--num_hidden_layers``, ``--degree_as_tag`` and
+``--use_node_attributes`` (the two-pass path's configurations), the data and
+output locations, and ``--device`` (default ``cuda``).  Checkpointing is
+later work.  Flags of the JAX CLI that choose among TPU kernels or pick
+configurations the port does not run yet are left out until a slice runs
+them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,12 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--num_epochs", default=50, type=int)
     p.add_argument("--num_timesteps", default=1, type=int,
                    help="T: self-attention layers per U2GNN layer")
+    p.add_argument("--num_hidden_layers", default=1, type=int,
+                   help="k: stacked U2GNN layers")
+    p.add_argument("--degree_as_tag", action="store_true",
+                   help="node degrees as the one-hot tags")
+    p.add_argument("--use_node_attributes", action="store_true",
+                   help="use <dataset>_node_attributes.txt sidecar features")
     p.add_argument("--learning_rate", default=0.0005, type=float)
     p.add_argument("--scan_epochs", action="store_true",
                    help="accepted for parity with the JAX CLI; the port "
@@ -53,6 +61,8 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         data=DataConfig(
             dataset=args.dataset,
             data_dir=args.data_dir,
+            degree_as_tag=args.degree_as_tag or None,
+            use_node_attributes=args.use_node_attributes,
             fold_idx=args.fold_idx,
             batch_size=args.batch_size,
             num_neighbors=args.num_neighbors,
@@ -61,6 +71,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
         model=ModelConfig(
             ff_hidden_size=args.ff_hidden_size,
             num_timesteps=args.num_timesteps,
+            num_hidden_layers=args.num_hidden_layers,
         ),
         train=TrainConfig(
             learning_rate=args.learning_rate,

@@ -1,20 +1,33 @@
 """Supervised U2GNN graph classification — port of ``U2GNNSup``
 (``graph_transformer_tpu/models/u2gnn_sup.py``).
 
-Training (``sampled_inputs`` given) is the JAX model's fused branch
-(``u2gnn_sup.py:110-183``): the sampled encoder samples the neighborhoods,
-builds their features from the codebook and encodes them; the self vectors
-are sum-pooled per graph, dropped out (``cfg.dropout``) and scored by a
-linear head.  The encoder is picked by shape, as in the JAX model
-(``:138-175``): kernels K1-K3 where the folded gate holds and D <= 32, else
-K5/K6 for D <= 128 and S <= 32 (``ops/stored_encoder.training_encoder``).
-Evaluation (no ``sampled_inputs``) is the deterministic branch
-(``:184-239``): the batch's fixed neighborhoods are gathered and encoded by
-the eval encoder (kernel K4, or the wide K4 past D = 32) at rate 0.  The
-encoder dropout is 0.5 whatever ``cfg.dropout`` says, as in the reference.
+Three branches, as in the JAX model:
 
-The slice ported so far is the configuration the main path runs: one hidden
-U2GNN layer, basic recurrence, one head, neighborhood-axis attention.
+- **Fused training** (``sampled_inputs`` given; ``u2gnn_sup.py:110-183``),
+  one U2GNN layer with codebook features: the sampled encoder samples the
+  neighborhoods, builds their features from the codebook and encodes them;
+  the self vectors are sum-pooled per graph, dropped out (``cfg.dropout``)
+  and scored by a linear head.  The encoder is picked by shape
+  (``:138-175``): kernels K1-K3 where the folded gate holds and D <= 32, else
+  K5/K6 for D <= 128 and S <= 32 (``ops/stored_encoder.training_encoder``).
+- **Two-pass training** (``neigh_feat`` given; ``:184-239``), any number of
+  U2GNN layers and any features: the caller samples global neighbor ids
+  (kernel K7) and gathers their features; per U2GNN layer the encoder K4t
+  with the recompute backward K8/K8s (``ops/u2gnn_train.py``) encodes them,
+  ``global_regather`` feeds the next layer, and the per-layer heads' scores
+  add up.  Without a ``seed`` it is deterministic (rate 0, no head
+  dropout), as the JAX model is with ``rng=None``.
+- **Evaluation** (neither): the batch's fixed neighborhoods are gathered and
+  encoded by the eval encoder (kernel K4, or the wide K4 past D = 32) at rate
+  0, re-gathered batch-locally between U2GNN layers (``:233``).
+
+The encoder dropout is 0.5 whatever ``cfg.dropout`` says, as in the
+reference.  Within a training step, U2GNN layer i draws its encoder and head
+dropout from ``ops.random.layer_seed(seed, i)``; layer 0 keeps the step's
+seed, so that one layer on the two-pass path draws what the fused path
+draws.
+
+Ported so far: basic recurrence, one head, neighborhood-axis attention.
 Anything else raises ``NotImplementedError`` naming the ROADMAP item that
 will port it.
 """
@@ -32,22 +45,30 @@ from graph_transformer_tpu_torch.ops.attention import (
     EncoderParams,
     xavier_uniform,
 )
-from graph_transformer_tpu_torch.ops.random import HEAD_STREAM, keep_mask
-from graph_transformer_tpu_torch.ops.sparse import graph_sum_pool
+from graph_transformer_tpu_torch.ops.random import (
+    HEAD_STREAM,
+    keep_mask,
+    layer_seed,
+)
+from graph_transformer_tpu_torch.ops.sparse import (
+    global_regather,
+    graph_sum_pool,
+)
 from graph_transformer_tpu_torch.ops.stored_encoder import training_encoder
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import u2gnn_encoder
+from graph_transformer_tpu_torch.ops.u2gnn_train import (
+    check_two_pass_shapes,
+    u2gnn_train_encoder,
+)
 
 ENCODER_DROPOUT = 0.5  # hard-coded in the reference (u2gnn_sup.py:157,207)
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configurations this slice of the port does not run."""
     gaps = []
-    if cfg.num_hidden_layers != 1:
-        gaps.append("num_hidden_layers > 1 (ROADMAP.md Queue A, "
-                    "'k-layer U2GNNSup with re-gather')")
     if cfg.recurrence != "basic":
         gaps.append(f"recurrence {cfg.recurrence!r} (ROADMAP.md Queue A, "
                     "'UT recurrences')")
@@ -86,34 +107,85 @@ class U2GNNSup(nn.Module):
         self.head_b = nn.Parameter(torch.zeros(k, C))
 
     def forward(self, batch: GraphBatch, sampled_inputs: Optional[tuple] = None,
-                seed: Optional[int] = None) -> torch.Tensor:
-        """Scores [B, C].  Training: ``sampled_inputs`` = (tag_rows [N,128],
-        deg [N], self_tag [N], codebook [C,D]) and an int ``seed`` for the
-        sampler and all dropout.  Evaluation: neither (deterministic)."""
-        cfg = self.cfg
-        B = batch.num_graphs
-        enc = self.encoders[0]
-        S = batch.neigh.shape[1]
-        mask = batch.node_mask[:, None]
+                seed: Optional[int] = None,
+                neigh_feat: Optional[torch.Tensor] = None,
+                neigh_global: Optional[torch.Tensor] = None,
+                num_total_nodes: Optional[int] = None) -> torch.Tensor:
+        """Scores [B, C].  Fused training: ``sampled_inputs`` = (tag_rows
+        [N,128], deg [N], self_tag [N], codebook [C,D]) and an int ``seed``
+        for the sampler and all dropout.  Two-pass training: ``neigh_feat``
+        [N, K+1, D] gathered by the global ids ``neigh_global`` [N, K+1]
+        (needed past one U2GNN layer, with ``num_total_nodes``) and a
+        ``seed``, or none for a deterministic pass.  Evaluation: none of
+        these."""
         if sampled_inputs is not None:
-            if seed is None:
-                raise ValueError("training needs a seed")
-            tag_rows, deg, self_tag, codebook = sampled_inputs
-            encoder = training_encoder(S, codebook.shape[1])
-            out = encoder(tag_rows, deg, self_tag, codebook, enc.stacked(), S,
-                          cfg.num_timesteps, ENCODER_DROPOUT, seed)
-            pooled = graph_sum_pool(out * mask, batch.graph_id, B)
-            if cfg.dropout > 0.0:
-                pooled = pooled * keep_mask(seed, HEAD_STREAM, pooled.shape,
-                                            cfg.dropout, pooled.device) \
-                    / (1.0 - cfg.dropout)
-            return pooled @ self.head_w[0] + self.head_b[0]
-        compute = _DTYPES[cfg.compute_dtype]
+            return self._fused(batch, sampled_inputs, seed)
+        if neigh_feat is not None:
+            return self._two_pass(batch, neigh_feat, neigh_global,
+                                  num_total_nodes, seed)
+        return self._eval(batch)
+
+    def _head(self, i: int, out: torch.Tensor, batch: GraphBatch,
+              seed: Optional[int]) -> torch.Tensor:
+        """Layer i's scores: pool the float32 self vectors of the real rows,
+        head dropout (training), linear head."""
+        mask = batch.node_mask[:, None]
+        pooled = graph_sum_pool(out.to(torch.float32) * mask, batch.graph_id,
+                                batch.num_graphs)
+        rate = self.cfg.dropout
+        if seed is not None and rate > 0.0:
+            pooled = pooled * keep_mask(seed, HEAD_STREAM, pooled.shape, rate,
+                                        pooled.device) / (1.0 - rate)
+        return pooled @ self.head_w[i] + self.head_b[i]
+
+    def _fused(self, batch, sampled_inputs, seed):
+        if seed is None:
+            raise ValueError("training needs a seed")
+        if len(self.encoders) != 1:
+            raise ValueError("the fused sampled encoders train one U2GNN "
+                             "layer; deeper models take the two-pass path")
+        tag_rows, deg, self_tag, codebook = sampled_inputs
+        S = batch.neigh.shape[1]
+        encoder = training_encoder(S, codebook.shape[1])
+        out = encoder(tag_rows, deg, self_tag, codebook,
+                      self.encoders[0].stacked(), S, self.cfg.num_timesteps,
+                      ENCODER_DROPOUT, seed)
+        return self._head(0, out, batch, seed)
+
+    def _two_pass(self, batch, neigh_feat, neigh_global, num_total_nodes,
+                  seed):
+        cfg = self.cfg
+        N, S, D = neigh_feat.shape
+        check_two_pass_shapes(S, D)
+        k = len(self.encoders)
+        if k > 1 and (neigh_global is None or num_total_nodes is None):
+            raise ValueError("a deeper two-pass model re-gathers by global id:"
+                             " pass neigh_global and num_total_nodes")
+        compute = COMPUTE_DTYPES[cfg.compute_dtype]
+        rate = 0.0 if seed is None else ENCODER_DROPOUT
+        x = neigh_feat.to(compute)
+        scores = 0.0
+        for i, enc in enumerate(self.encoders):
+            s_i = None if seed is None else layer_seed(seed, i)
+            out = u2gnn_train_encoder(x.reshape(N * S, D), enc.stacked(), S,
+                                      cfg.num_timesteps, rate, s_i)
+            out = out.to(compute)
+            if i + 1 < k:
+                x = global_regather(out, batch.node_gidx, batch.node_mask,
+                                    neigh_global, num_total_nodes)
+            scores = scores + self._head(i, out, batch, s_i)
+        return scores
+
+    def _eval(self, batch):
+        compute = COMPUTE_DTYPES[self.cfg.compute_dtype]
+        neigh = batch.neigh.to(torch.int64)
+        N, S = neigh.shape
         x = batch.x.to(compute)
-        neigh = x[batch.neigh.to(torch.int64)]  # [N, S, D]
-        N, D = neigh.shape[0], neigh.shape[2]
-        with torch.no_grad():
-            out = u2gnn_encoder(neigh.reshape(N * S, D), enc.stacked(), S,
-                                cfg.num_timesteps).to(compute)
-        pooled = graph_sum_pool(out.to(torch.float32) * mask, batch.graph_id, B)
-        return pooled @ self.head_w[0] + self.head_b[0]
+        scores = 0.0
+        for i, enc in enumerate(self.encoders):
+            with torch.no_grad():
+                out = u2gnn_encoder(x[neigh].reshape(N * S, -1), enc.stacked(),
+                                    S, self.cfg.num_timesteps).to(compute)
+            x = out
+            scores = scores + self._head(i, out, batch, None)
+        return scores

@@ -27,7 +27,7 @@ BUILD_DIR = Path(os.environ.get(
     "GT_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "kernels"))
 SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd", "stored_fwd",
-           "stored_bwd", "wide_fwd")
+           "stored_bwd", "wide_fwd", "sampler", "recompute_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -53,13 +53,21 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
     "gt_k6_slot0_bwd": [_P, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P, _P,
                         _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k7_sample": [_P, _I, _P, _P, _P, _I, _I, _U, _P],
+    "gt_k4t_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _F, _U, _U, _F, _I, _P],
+    "gt_k8_layer_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k8s_slot0_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
 }
 # scratch bytes of K6, (N, S, D, F, G, slot0) -> bytes
 WORK_FNS = ("gt_k6_work_bytes",)
 # each kernel's shared memory per block, (G, S, D) -> bytes
 SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
             "gt_k4_smem_bytes", "gt_k4w_smem_bytes", "gt_k5_smem_bytes",
-            "gt_k6_smem_bytes", "gt_k6s_smem_bytes")
+            "gt_k6_smem_bytes", "gt_k6s_smem_bytes", "gt_k8_smem_bytes",
+            "gt_k8s_smem_bytes")
 
 _libs: dict = {}
 

@@ -4,19 +4,12 @@
 // Replaces graph_transformer_tpu/ops/pallas_folded.py:_folded_bwd_kernel
 // (K2: _folded_bwd1_call, grads summed by _reduce_folded_grads) and
 // _folded_bwd0_kernel (K3: _folded_bwd0_call, grads summed by
-// _reduce_slot0_grads).  Inputs: the layer's input rows (bf16), q/k/v, the
-// attention probabilities, the LayerNorm strip and the output cotangent.  In
-// a full layer every row is a query row; in the last layer only slot 0 of a
-// neighborhood is, while its keys and values span all S slots, so attn,
-// strip and dout are per neighborhood ([N, S], [N, 4D+2], [N, D]).  The FFN
-// hidden of the query rows is recomputed chunk by chunk from y1 (in the last
-// layer the S threads of a neighborhood split the columns of its slot-0 row)
-// and the four dropout masks are regenerated from the same counters as the
-// forward, so nothing of size [rows, F] is stored.  Outputs: dx [N*S, D] and
-// the 12 weight gradients.  Blocks run in any order: each writes its partial
-// weight gradients to its own row of a [blocks, P] buffer and a second pass
-// sums the rows in block order (no float atomics, so runs repeat bit for
-// bit).
+// _reduce_slot0_grads), from the residuals K1 stores: the layer's input rows
+// (bf16), q/k/v, the attention probabilities and the LayerNorm strip.  The
+// body (layer_bwd.cuh) is shared with K8, which recomputes those residuals.
+// Blocks run in any order: each writes its partial weight gradients to its
+// own row of a [blocks, P] buffer and a second pass sums the rows in block
+// order (no float atomics, so runs repeat bit for bit).
 //
 // Bound on the H100 at the bench shapes: K2 reads ~13 MB of residuals and its
 // FFN recompute plus gradients are ~3.3 GFLOP of bf16 products; K3 reads ~4
@@ -24,26 +17,14 @@
 // products on the CUDA cores and writes one partial row per block (~22 MB at
 // bench shapes), which the second pass reads back; larger blocks or
 // tensor-core products are later work.
-#include "common.cuh"
-
-// floats of dynamic shared memory: the R = G*S rows of a block hold x, q/k/v
-// and dq/dk/dv; its QR query rows (R, or G in the last layer) hold the
-// per-query vectors, attention rows and hidden chunks
-static inline size_t bwd_smem_floats(int G, int S, int D, bool slot0) {
-  const size_t R = (size_t)G * S;
-  const size_t QR = slot0 ? (size_t)G : R;
-  const size_t FC = GT_BWD_FC;
-  return (size_t)D * 3 * D + D * D + 2 * D + R * 7 * D +
-         QR * (9 * D + 3 * S) + (slot0 ? R * D : 0) + FC * (2 * D + 1) +
-         2 * QR * FC;
-}
+#include "layer_bwd.cuh"
 
 extern "C" size_t gt_k2_smem_bytes(int G, int S, int D) {
-  return sizeof(float) * bwd_smem_floats(G, S, D, false);
+  return sizeof(float) * gt_bwd_smem_floats(G, S, D, false);
 }
 
 extern "C" size_t gt_k3_smem_bytes(int G, int S, int D) {
-  return sizeof(float) * bwd_smem_floats(G, S, D, true);
+  return sizeof(float) * gt_bwd_smem_floats(G, S, D, true);
 }
 
 template <int DM, bool SLOT0>
@@ -53,280 +34,10 @@ gt_layer_bwd_kernel(const __nv_bfloat16* xs, const float* qkv,
                     GtLayer w, GtDrop dr, int layer, float* dx, float* partial,
                     int N, int S, int D, int F, int G, float scale) {
   extern __shared__ float smem[];
-  const int R = G * S;
-  const int QR = SLOT0 ? G : R;  // query rows in the block
-  const int NQ = SLOT0 ? 1 : S;  // query rows per neighborhood
-  const int D3 = 3 * D;
-  const int SW = 4 * D + 2;
-  const int FC = GT_BWD_FC;
-  const GtGradOff o = gt_grad_offsets(D, F);
-  float* part = partial + (size_t)blockIdx.x * o.P;
-  float* sWin = smem;
-  float* sWout = sWin + D * D3;
-  float* sG1 = sWout + D * D;
-  float* sG2 = sG1 + D;
-  // per row
-  float* sX = sG2 + D;
-  float* sQKV = sX + R * D;
-  float* sDQKV = sQKV + R * D3;
-  // per query row
-  float* sG = sDQKV + R * D3;
-  float* sGU2 = sG + QR * D;
-  float* sDZ = sGU2 + QR * D;
-  float* sY1b = sDZ + QR * D;
-  float* sDY1 = sY1b + QR * D;
-  float* sDY1U = sDY1 + QR * D;
-  float* sDA = sDY1U + QR * D;
-  float* sCTX = sDA + QR * D;
-  float* sDCTX = sCTX + QR * D;
-  float* sA = sDCTX + QR * D;
-  float* sAD = sA + QR * S;
-  float* sDS = sAD + QR * S;
-  // last layer: each thread's partial dy1 of its neighborhood's slot-0 row
-  float* sDY1P = sDS + QR * S;
-  float* sW1c = sDY1P + (SLOT0 ? R * D : 0);
-  float* sW2c = sW1c + D * FC;
-  float* sB1c = sW2c + FC * D;
-  float* sH = sB1c + FC;
-  float* sDH = sH + QR * FC;
-
-  const int tid = threadIdx.x;
-  const int r = tid;
-  const int g = r / S;
-  const int i = r - g * S;
-  const int n = blockIdx.x * G + g;
-  const bool inb = r < R;
-  const bool valid = inb && (n < N);
-  const uint32_t row = (uint32_t)n * S + i;
-  // this thread's query row: its own, or its neighborhood's slot 0
-  const int qr = SLOT0 ? g : r;
-  const uint32_t qidx = SLOT0 ? (uint32_t)n : row;  // its index in the layer
-  const bool qown = valid && (!SLOT0 || i == 0);   // computes the query row
-  const bool qlead = inb && (!SLOT0 || i == 0);    // writes its shared slots
-  const uint32_t kA = gt_stream_key(dr.seed, 4 * layer + 0);
-  const uint32_t kO = gt_stream_key(dr.seed, 4 * layer + 1);
-  const uint32_t kH = gt_stream_key(dr.seed, 4 * layer + 2);
-  const uint32_t kZ = gt_stream_key(dr.seed, 4 * layer + 3);
-
-  for (int e = tid; e < D * D3; e += blockDim.x) sWin[e] = gt_bfr(w.w_in[e]);
-  for (int e = tid; e < D * D; e += blockDim.x) sWout[e] = gt_bfr(w.w_out[e]);
-  for (int e = tid; e < D; e += blockDim.x) {
-    sG1[e] = w.g1[e];
-    sG2[e] = w.g2[e];
-  }
-  __syncthreads();
-
-  // ---- LayerNorm 2 backward, then the FFN-output dropout
-  float gv[DM], y1[DM], u1h[DM], u2h[DM], ctx[DM], du2[DM], dz[DM];
-  float rstd1 = 0.f;
-#pragma unroll
-  for (int d = 0; d < DM; ++d) gv[d] = y1[d] = u1h[d] = u2h[d] = ctx[d] = du2[d] = dz[d] = 0.f;
-  if (qown) {
-    const float* st = strip + (size_t)qidx * SW;
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < D) {
-        gv[d] = dout[(size_t)qidx * D + d];
-        ctx[d] = st[d];
-        y1[d] = st[D + d];
-        u1h[d] = st[2 * D + d];
-        u2h[d] = st[3 * D + d];
-      }
-    rstd1 = st[4 * D];
-    gt_ln_bwd<DM>(gv, sG2, u2h, st[4 * D + 1], D, du2);
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < D) dz[d] = gt_drop(dr, kZ, qidx * D + d, du2[d]);
-  }
-  if (qlead) {
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < D) {
-        sG[qr * D + d] = gv[d];
-        sGU2[qr * D + d] = gv[d] * u2h[d];
-        sDZ[qr * D + d] = dz[d];
-        sY1b[qr * D + d] = gt_bfr(y1[d]);
-      }
-  }
-  __syncthreads();
-
-  // ---- FFN: recompute the query rows' hidden chunk by chunk.  A full layer's
-  // thread walks every column of its own row; in the last layer the S threads
-  // of a neighborhood split the columns of its slot-0 row.
-  float yb[DM], dzb[DM], dyp[DM];
-#pragma unroll
-  for (int d = 0; d < DM; ++d) {
-    yb[d] = dzb[d] = dyp[d] = 0.f;
-    if (inb && d < D) {
-      yb[d] = sY1b[qr * D + d];
-      dzb[d] = gt_bfr(sDZ[qr * D + d]);
-    }
-  }
-  const int fstart = SLOT0 ? i : 0;
-  const int fstep = SLOT0 ? S : 1;
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    const int nfc = min(FC, F - f0);
-    __syncthreads();
-    for (int e = tid; e < D * nfc; e += blockDim.x) {
-      const int d = e / nfc, fc = e - d * nfc;
-      sW1c[d * FC + fc] = gt_bfr(w.w1[(size_t)d * F + f0 + fc]);
-    }
-    for (int e = tid; e < nfc * D; e += blockDim.x)
-      sW2c[e] = gt_bfr(w.w2[(size_t)f0 * D + e]);
-    for (int e = tid; e < nfc; e += blockDim.x) sB1c[e] = w.b1[f0 + e];
-    __syncthreads();
-    if (inb) {
-      for (int fc = fstart; fc < nfc; fc += fstep) {
-        float hb = 0.f, dhp = 0.f;
-        if (valid) {
-          float acc = 0.f;
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < D) acc += yb[d] * sW1c[d * FC + fc];
-          const float hp = acc + sB1c[fc];
-          float fac = hp > 0.f ? 1.f : 0.f;
-          if (dr.on) fac = gt_keep(dr, kH, qidx * (uint32_t)F + f0 + fc) ? fac / dr.keep : 0.f;
-          hb = gt_bfr(hp * fac);
-          float dh = 0.f;
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < D) dh += dzb[d] * sW2c[fc * D + d];
-          dhp = dh * fac;
-          const float dhb = gt_bfr(dhp);
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < D) dyp[d] += dhb * sW1c[d * FC + fc];
-        }
-        sH[qr * FC + fc] = hb;
-        sDH[qr * FC + fc] = dhp;
-      }
-    }
-    __syncthreads();
-    gt_ffn_chunk_grads<DM>(sY1b, sDZ, sH, sDH, QR, D, F, f0, nfc, FC, o, part);
-  }
-  if (SLOT0) {  // sum the S threads' partial products of the slot-0 row
-    if (inb) {
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) sDY1P[r * D + d] = dyp[d];
-    }
-    __syncthreads();
-    if (qown) {
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) {
-          float s = 0.f;
-          for (int ii = 0; ii < S; ++ii) s += sDY1P[(g * S + ii) * D + d];
-          dyp[d] = s;
-        }
-    }
-  }
-
-  // ---- LayerNorm 1, attention-output dropout and projection
-  float dy1[DM], du1[DM], da[DM];
-#pragma unroll
-  for (int d = 0; d < DM; ++d) dy1[d] = du1[d] = da[d] = 0.f;
-  if (qown) {
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < D) dy1[d] = du2[d] + dyp[d];
-    gt_ln_bwd<DM>(dy1, sG1, u1h, rstd1, D, du1);
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < D) da[d] = gt_drop(dr, kO, qidx * D + d, du1[d]);
-  }
-  if (qlead) {
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < D) {
-        sDY1[qr * D + d] = dy1[d];
-        sDY1U[qr * D + d] = dy1[d] * u1h[d];
-        sDA[qr * D + d] = da[d];
-        sCTX[qr * D + d] = ctx[d];
-      }
-    for (int c = 0; c < D; ++c) {
-      float acc = 0.f;
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) acc += gt_bfr(da[d]) * sWout[c * D + d];
-      sDCTX[qr * D + c] = acc;
-    }
-    for (int j = 0; j < S; ++j) sA[qr * S + j] = qown ? attn[(size_t)qidx * S + j] : 0.f;
-  }
-  if (inb) {
-    for (int e = 0; e < D3; ++e) sQKV[r * D3 + e] = valid ? qkv[(size_t)row * D3 + e] : 0.f;
-    for (int d = 0; d < D; ++d)
-      sX[r * D + d] = valid ? __bfloat162float(xs[(size_t)row * D + d]) : 0.f;
-  }
-  __syncthreads();
-
-  // ---- attention backward, query side
-  float dq[DM];
-#pragma unroll
-  for (int d = 0; d < DM; ++d) dq[d] = 0.f;
-  if (qown) {
-    float sdot = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float a = sA[qr * S + j];
-      const bool kp = !dr.on || gt_keep(dr, kA, qidx * S + j);
-      const float ad = dr.on ? (kp ? a / dr.keep : 0.f) : a;
-      sAD[qr * S + j] = gt_bfr(ad);
-      const float* vv = sQKV + (g * S + j) * D3 + 2 * D;
-      float dd = 0.f;
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) dd += gt_bfr(sDCTX[qr * D + d]) * gt_bfr(vv[d]);
-      const float dat = dr.on ? (kp ? dd / dr.keep : 0.f) : dd;
-      sDS[qr * S + j] = dat;
-      sdot += dat * a;
-    }
-    for (int j = 0; j < S; ++j) {
-      const float ds = sA[qr * S + j] * (sDS[qr * S + j] - sdot) * scale;
-      sDS[qr * S + j] = ds;
-      const float* kk = sQKV + (g * S + j) * D3 + D;
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) dq[d] += gt_bfr(ds) * gt_bfr(kk[d]);
-    }
-  }
-  __syncthreads();
-
-  // ---- key/value side (this thread is key slot i of the neighborhood's NQ
-  // query rows), dqkv, dx
-  if (valid) {
-    float dk[DM], dv[DM];
-#pragma unroll
-    for (int d = 0; d < DM; ++d) dk[d] = dv[d] = 0.f;
-    for (int qq = 0; qq < NQ; ++qq) {
-      const int rq = SLOT0 ? g : g * S + qq;  // the query row's slots
-      const float ad = sAD[rq * S + i];
-      const float ds = gt_bfr(sDS[rq * S + i]);
-      const float* qv = sQKV + (g * S + qq) * D3;
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) {
-          dv[d] += ad * gt_bfr(sDCTX[rq * D + d]);
-          dk[d] += ds * gt_bfr(qv[d]);
-        }
-    }
-#pragma unroll
-    for (int d = 0; d < DM; ++d)
-      if (d < D) {
-        sDQKV[r * D3 + d] = dq[d];
-        sDQKV[r * D3 + D + d] = dk[d];
-        sDQKV[r * D3 + 2 * D + d] = dv[d];
-      }
-    for (int c = 0; c < D; ++c) {
-      float acc = 0.f;
-      for (int e = 0; e < D3; ++e) acc += gt_bfr(sDQKV[r * D3 + e]) * sWin[c * D3 + e];
-      dx[(size_t)row * D + c] = du1[c] + acc;
-    }
-  } else if (inb) {
-    for (int e = 0; e < D3; ++e) sDQKV[r * D3 + e] = 0.f;
-  }
-  __syncthreads();
-  gt_small_grads(sX, sDQKV, R, sCTX, sDA, sDY1U, sDY1, sDZ, sGU2, sG, QR, D, o,
-                 part);
+  float* part = partial + (size_t)blockIdx.x * gt_grad_offsets(D, F).P;
+  gt_layer_bwd_body<DM, SLOT0>(smem, xs, /*x_bf16=*/1, qkv, attn, strip, dout,
+                               w, dr, layer, dx, part, N, S, D, F, G, scale,
+                               /*mmbf=*/1);
 }
 
 template <int DM, bool SLOT0>
@@ -337,7 +48,7 @@ static cudaError_t launch_bwd(const void* xs, const float* qkv,
                               float* partial, float* grads, int N, int S,
                               int D, int F, int G, float scale,
                               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * bwd_smem_floats(G, S, D, SLOT0);
+  const size_t smem = sizeof(float) * gt_bwd_smem_floats(G, S, D, SLOT0);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(gt_layer_bwd_kernel<DM, SLOT0>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

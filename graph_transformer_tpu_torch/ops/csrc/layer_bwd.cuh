@@ -1,0 +1,416 @@
+// The backward of one encoder layer over a block's rows, shared by K2/K3
+// (layer_bwd.cu: residuals stored by K1's forward) and K8/K8s
+// (recompute_bwd.cu: residuals recomputed by the same block from the layer's
+// input).  Products take operands in the compute dtype (mmbf: bf16, else
+// f32) and accumulate in f32.
+//
+// Inputs: the layer's input rows x [N*S, D] (bf16 or f32), q/k/v
+// [N*S, 3D], the attention probabilities, the LayerNorm strip and the output
+// cotangent.  In a full layer every row is a query row; in the last layer
+// (SLOT0) only slot 0 of a neighborhood is, while its keys and values span
+// all S slots, so attn, strip and dout are per neighborhood ([N, S],
+// [N, 4D+2], [N, D]).  The FFN hidden of the query rows is recomputed chunk
+// by chunk from y1 (in the last layer the S threads of a neighborhood split
+// the columns of its slot-0 row) and the four dropout masks are regenerated
+// from the same counters as the forward, so nothing of size [rows, F] is
+// stored.  Outputs: dx [N*S, D] and the block's row of partial weight
+// gradients (KERNEL_ORDER), which gt_reduce_partials sums in block order.
+#pragma once
+
+#include "common.cuh"
+
+// floats of dynamic shared memory: the R = G*S rows of a block hold x, q/k/v
+// and dq/dk/dv; its QR query rows (R, or G in the last layer) hold the
+// per-query vectors, attention rows and hidden chunks
+static inline size_t gt_bwd_smem_floats(int G, int S, int D, bool slot0) {
+  const size_t R = (size_t)G * S;
+  const size_t QR = slot0 ? (size_t)G : R;
+  const size_t FC = GT_BWD_FC;
+  return (size_t)D * 3 * D + D * D + 2 * D + R * 7 * D +
+         QR * (9 * D + 3 * S) + (slot0 ? R * D : 0) + FC * (2 * D + 1) +
+         2 * QR * FC;
+}
+
+// dW1 / db1 / dW2 of one hidden chunk from the rows' h (rounded to the
+// compute dtype) and dhpre; yb = rounded y1 [rows, D], dz [rows, D]
+template <int DM>
+__device__ __forceinline__ void gt_ffn_chunk_grads(
+    const float* sY1b, const float* sDZ, const float* sH, const float* sDH,
+    int rows, int D, int F, int f0, int nfc, int FC, const GtGradOff& o,
+    float* part, int mmbf) {
+  for (int p = threadIdx.x; p < 2 * nfc; p += blockDim.x) {
+    const int which = p / nfc;
+    const int fc = p - which * nfc;
+    const int f = f0 + fc;
+    float acc[DM];
+#pragma unroll
+    for (int d = 0; d < DM; ++d) acc[d] = 0.f;
+    if (which == 0) {
+      float accb = 0.f;
+      for (int rr = 0; rr < rows; ++rr) {
+        const float dh = sDH[rr * FC + fc];
+        const float dhb = gt_rn(dh, mmbf);
+        accb += dh;
+#pragma unroll
+        for (int d = 0; d < DM; ++d)
+          if (d < D) acc[d] += sY1b[rr * D + d] * dhb;
+      }
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) part[o.w1 + d * F + f] = acc[d];
+      part[o.b1 + f] = accb;
+    } else {
+      for (int rr = 0; rr < rows; ++rr) {
+        const float hb = sH[rr * FC + fc];
+#pragma unroll
+        for (int d = 0; d < DM; ++d)
+          if (d < D) acc[d] += hb * gt_rn(sDZ[rr * D + d], mmbf);
+      }
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) part[o.w2 + f * D + d] = acc[d];
+    }
+  }
+}
+
+// the small weight gradients: w_in/b_in over rq rows of (x, dqkv); the rest
+// over rs rows of the per-row vectors
+__device__ __forceinline__ void gt_small_grads(
+    const float* sX, const float* sDQKV, int rq, const float* sCTX,
+    const float* sDA, const float* sDY1U, const float* sDY1, const float* sDZ,
+    const float* sGU2, const float* sG, int rs, int D, const GtGradOff& o,
+    float* part, int mmbf) {
+  const int D3 = 3 * D;
+  const int n_win = D * D3, n_wout = D * D;
+  const int total = n_win + D3 + n_wout + 6 * D;
+  for (int p = threadIdx.x; p < total; p += blockDim.x) {
+    float acc = 0.f;
+    int q = p;
+    if (q < n_win) {
+      const int d = q / D3, e = q - d * D3;
+      for (int rr = 0; rr < rq; ++rr)
+        acc += gt_rn(sX[rr * D + d], mmbf) * gt_rn(sDQKV[rr * D3 + e], mmbf);
+      part[o.w_in + q] = acc;
+      continue;
+    }
+    q -= n_win;
+    if (q < D3) {
+      for (int rr = 0; rr < rq; ++rr) acc += sDQKV[rr * D3 + q];
+      part[o.b_in + q] = acc;
+      continue;
+    }
+    q -= D3;
+    if (q < n_wout) {
+      const int c = q / D, d = q - c * D;
+      for (int rr = 0; rr < rs; ++rr)
+        acc += gt_rn(sCTX[rr * D + c], mmbf) * gt_rn(sDA[rr * D + d], mmbf);
+      part[o.w_out + q] = acc;
+      continue;
+    }
+    q -= n_wout;
+    const int which = q / D, d = q - which * D;
+    const float* src;
+    int off;
+    switch (which) {
+      case 0: src = sDA; off = o.b_out; break;
+      case 1: src = sDY1U; off = o.g1; break;
+      case 2: src = sDY1; off = o.c1; break;
+      case 3: src = sDZ; off = o.b2; break;
+      case 4: src = sGU2; off = o.g2; break;
+      default: src = sG; off = o.c2; break;
+    }
+    for (int rr = 0; rr < rs; ++rr) acc += src[rr * D + d];
+    part[off + d] = acc;
+  }
+}
+
+// The block's share of the backward of layer `layer` (its dropout
+// streams); one thread per row r = threadIdx.x, as in the forward.  `part`
+// is this block's row of partial weight gradients.
+template <int DM, bool SLOT0>
+__device__ __forceinline__ void gt_layer_bwd_body(
+    float* smem, const void* xs, int x_bf16, const float* qkv,
+    const float* attn, const float* strip, const float* dout,
+    const GtLayer& w, const GtDrop& dr, int layer, float* dx, float* part,
+    int N, int S, int D, int F, int G, float scale, int mmbf) {
+  const int R = G * S;
+  const int QR = SLOT0 ? G : R;  // query rows in the block
+  const int NQ = SLOT0 ? 1 : S;  // query rows per neighborhood
+  const int D3 = 3 * D;
+  const int SW = 4 * D + 2;
+  const int FC = GT_BWD_FC;
+  const GtGradOff o = gt_grad_offsets(D, F);
+  float* sWin = smem;
+  float* sWout = sWin + D * D3;
+  float* sG1 = sWout + D * D;
+  float* sG2 = sG1 + D;
+  // per row
+  float* sX = sG2 + D;
+  float* sQKV = sX + R * D;
+  float* sDQKV = sQKV + R * D3;
+  // per query row
+  float* sG = sDQKV + R * D3;
+  float* sGU2 = sG + QR * D;
+  float* sDZ = sGU2 + QR * D;
+  float* sY1b = sDZ + QR * D;
+  float* sDY1 = sY1b + QR * D;
+  float* sDY1U = sDY1 + QR * D;
+  float* sDA = sDY1U + QR * D;
+  float* sCTX = sDA + QR * D;
+  float* sDCTX = sCTX + QR * D;
+  float* sA = sDCTX + QR * D;
+  float* sAD = sA + QR * S;
+  float* sDS = sAD + QR * S;
+  // last layer: each thread's partial dy1 of its neighborhood's slot-0 row
+  float* sDY1P = sDS + QR * S;
+  float* sW1c = sDY1P + (SLOT0 ? R * D : 0);
+  float* sW2c = sW1c + D * FC;
+  float* sB1c = sW2c + FC * D;
+  float* sH = sB1c + FC;
+  float* sDH = sH + QR * FC;
+
+  const int tid = threadIdx.x;
+  const int r = tid;
+  const int g = r / S;
+  const int i = r - g * S;
+  const int n = blockIdx.x * G + g;
+  const bool inb = r < R;
+  const bool valid = inb && (n < N);
+  const uint32_t row = (uint32_t)n * S + i;
+  // this thread's query row: its own, or its neighborhood's slot 0
+  const int qr = SLOT0 ? g : r;
+  const uint32_t qidx = SLOT0 ? (uint32_t)n : row;  // its index in the layer
+  const bool qown = valid && (!SLOT0 || i == 0);   // computes the query row
+  const bool qlead = inb && (!SLOT0 || i == 0);    // writes its shared slots
+  const uint32_t kA = gt_stream_key(dr.seed, 4 * layer + 0);
+  const uint32_t kO = gt_stream_key(dr.seed, 4 * layer + 1);
+  const uint32_t kH = gt_stream_key(dr.seed, 4 * layer + 2);
+  const uint32_t kZ = gt_stream_key(dr.seed, 4 * layer + 3);
+
+  __syncthreads();  // earlier users of shared memory are done
+  for (int e = tid; e < D * D3; e += blockDim.x) sWin[e] = gt_rn(w.w_in[e], mmbf);
+  for (int e = tid; e < D * D; e += blockDim.x) sWout[e] = gt_rn(w.w_out[e], mmbf);
+  for (int e = tid; e < D; e += blockDim.x) {
+    sG1[e] = w.g1[e];
+    sG2[e] = w.g2[e];
+  }
+  __syncthreads();
+
+  // ---- LayerNorm 2 backward, then the FFN-output dropout
+  float gv[DM], y1[DM], u1h[DM], u2h[DM], ctx[DM], du2[DM], dz[DM];
+  float rstd1 = 0.f;
+#pragma unroll
+  for (int d = 0; d < DM; ++d) gv[d] = y1[d] = u1h[d] = u2h[d] = ctx[d] = du2[d] = dz[d] = 0.f;
+  if (qown) {
+    const float* st = strip + (size_t)qidx * SW;
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) {
+        gv[d] = dout[(size_t)qidx * D + d];
+        ctx[d] = st[d];
+        y1[d] = st[D + d];
+        u1h[d] = st[2 * D + d];
+        u2h[d] = st[3 * D + d];
+      }
+    rstd1 = st[4 * D];
+    gt_ln_bwd<DM>(gv, sG2, u2h, st[4 * D + 1], D, du2);
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) dz[d] = gt_drop(dr, kZ, qidx * D + d, du2[d]);
+  }
+  if (qlead) {
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) {
+        sG[qr * D + d] = gv[d];
+        sGU2[qr * D + d] = gv[d] * u2h[d];
+        sDZ[qr * D + d] = dz[d];
+        sY1b[qr * D + d] = gt_rn(y1[d], mmbf);
+      }
+  }
+  __syncthreads();
+
+  // ---- FFN: recompute the query rows' hidden chunk by chunk.  A full layer's
+  // thread walks every column of its own row; in the last layer the S threads
+  // of a neighborhood split the columns of its slot-0 row.
+  float yb[DM], dzb[DM], dyp[DM];
+#pragma unroll
+  for (int d = 0; d < DM; ++d) {
+    yb[d] = dzb[d] = dyp[d] = 0.f;
+    if (inb && d < D) {
+      yb[d] = sY1b[qr * D + d];
+      dzb[d] = gt_rn(sDZ[qr * D + d], mmbf);
+    }
+  }
+  const int fstart = SLOT0 ? i : 0;
+  const int fstep = SLOT0 ? S : 1;
+  for (int f0 = 0; f0 < F; f0 += FC) {
+    const int nfc = min(FC, F - f0);
+    __syncthreads();
+    for (int e = tid; e < D * nfc; e += blockDim.x) {
+      const int d = e / nfc, fc = e - d * nfc;
+      sW1c[d * FC + fc] = gt_rn(w.w1[(size_t)d * F + f0 + fc], mmbf);
+    }
+    for (int e = tid; e < nfc * D; e += blockDim.x)
+      sW2c[e] = gt_rn(w.w2[(size_t)f0 * D + e], mmbf);
+    for (int e = tid; e < nfc; e += blockDim.x) sB1c[e] = w.b1[f0 + e];
+    __syncthreads();
+    if (inb) {
+      for (int fc = fstart; fc < nfc; fc += fstep) {
+        float hb = 0.f, dhp = 0.f;
+        if (valid) {
+          float acc = 0.f;
+#pragma unroll
+          for (int d = 0; d < DM; ++d)
+            if (d < D) acc += yb[d] * sW1c[d * FC + fc];
+          const float hp = acc + sB1c[fc];
+          float fac = hp > 0.f ? 1.f : 0.f;
+          if (dr.on) fac = gt_keep(dr, kH, qidx * (uint32_t)F + f0 + fc) ? fac / dr.keep : 0.f;
+          hb = gt_rn(hp * fac, mmbf);
+          float dh = 0.f;
+#pragma unroll
+          for (int d = 0; d < DM; ++d)
+            if (d < D) dh += dzb[d] * sW2c[fc * D + d];
+          dhp = dh * fac;
+          const float dhb = gt_rn(dhp, mmbf);
+#pragma unroll
+          for (int d = 0; d < DM; ++d)
+            if (d < D) dyp[d] += dhb * sW1c[d * FC + fc];
+        }
+        sH[qr * FC + fc] = hb;
+        sDH[qr * FC + fc] = dhp;
+      }
+    }
+    __syncthreads();
+    gt_ffn_chunk_grads<DM>(sY1b, sDZ, sH, sDH, QR, D, F, f0, nfc, FC, o, part,
+                           mmbf);
+  }
+  if (SLOT0) {  // sum the S threads' partial products of the slot-0 row
+    if (inb) {
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) sDY1P[r * D + d] = dyp[d];
+    }
+    __syncthreads();
+    if (qown) {
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) {
+          float s = 0.f;
+          for (int ii = 0; ii < S; ++ii) s += sDY1P[(g * S + ii) * D + d];
+          dyp[d] = s;
+        }
+    }
+  }
+
+  // ---- LayerNorm 1, attention-output dropout and projection
+  float dy1[DM], du1[DM], da[DM];
+#pragma unroll
+  for (int d = 0; d < DM; ++d) dy1[d] = du1[d] = da[d] = 0.f;
+  if (qown) {
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) dy1[d] = du2[d] + dyp[d];
+    gt_ln_bwd<DM>(dy1, sG1, u1h, rstd1, D, du1);
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) da[d] = gt_drop(dr, kO, qidx * D + d, du1[d]);
+  }
+  if (qlead) {
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) {
+        sDY1[qr * D + d] = dy1[d];
+        sDY1U[qr * D + d] = dy1[d] * u1h[d];
+        sDA[qr * D + d] = da[d];
+        sCTX[qr * D + d] = ctx[d];
+      }
+    for (int c = 0; c < D; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) acc += gt_rn(da[d], mmbf) * sWout[c * D + d];
+      sDCTX[qr * D + c] = acc;
+    }
+    for (int j = 0; j < S; ++j) sA[qr * S + j] = qown ? attn[(size_t)qidx * S + j] : 0.f;
+  }
+  if (inb) {
+    for (int e = 0; e < D3; ++e) sQKV[r * D3 + e] = valid ? qkv[(size_t)row * D3 + e] : 0.f;
+    float xr[DM];
+#pragma unroll
+    for (int d = 0; d < DM; ++d) xr[d] = 0.f;
+    if (valid) gt_load_row<DM>(xs, x_bf16, row, D, xr);
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) sX[r * D + d] = xr[d];
+  }
+  __syncthreads();
+
+  // ---- attention backward, query side
+  float dq[DM];
+#pragma unroll
+  for (int d = 0; d < DM; ++d) dq[d] = 0.f;
+  if (qown) {
+    float sdot = 0.f;
+    for (int j = 0; j < S; ++j) {
+      const float a = sA[qr * S + j];
+      const bool kp = !dr.on || gt_keep(dr, kA, qidx * S + j);
+      const float ad = dr.on ? (kp ? a / dr.keep : 0.f) : a;
+      sAD[qr * S + j] = gt_rn(ad, mmbf);
+      const float* vv = sQKV + (g * S + j) * D3 + 2 * D;
+      float dd = 0.f;
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) dd += gt_rn(sDCTX[qr * D + d], mmbf) * gt_rn(vv[d], mmbf);
+      const float dat = dr.on ? (kp ? dd / dr.keep : 0.f) : dd;
+      sDS[qr * S + j] = dat;
+      sdot += dat * a;
+    }
+    for (int j = 0; j < S; ++j) {
+      const float ds = sA[qr * S + j] * (sDS[qr * S + j] - sdot) * scale;
+      sDS[qr * S + j] = ds;
+      const float* kk = sQKV + (g * S + j) * D3 + D;
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) dq[d] += gt_rn(ds, mmbf) * gt_rn(kk[d], mmbf);
+    }
+  }
+  __syncthreads();
+
+  // ---- key/value side (this thread is key slot i of the neighborhood's NQ
+  // query rows), dqkv, dx
+  if (valid) {
+    float dk[DM], dv[DM];
+#pragma unroll
+    for (int d = 0; d < DM; ++d) dk[d] = dv[d] = 0.f;
+    for (int qq = 0; qq < NQ; ++qq) {
+      const int rq = SLOT0 ? g : g * S + qq;  // the query row's slots
+      const float ad = sAD[rq * S + i];
+      const float ds = gt_rn(sDS[rq * S + i], mmbf);
+      const float* qv = sQKV + (g * S + qq) * D3;
+#pragma unroll
+      for (int d = 0; d < DM; ++d)
+        if (d < D) {
+          dv[d] += ad * gt_rn(sDCTX[rq * D + d], mmbf);
+          dk[d] += ds * gt_rn(qv[d], mmbf);
+        }
+    }
+#pragma unroll
+    for (int d = 0; d < DM; ++d)
+      if (d < D) {
+        sDQKV[r * D3 + d] = dq[d];
+        sDQKV[r * D3 + D + d] = dk[d];
+        sDQKV[r * D3 + 2 * D + d] = dv[d];
+      }
+    for (int c = 0; c < D; ++c) {
+      float acc = 0.f;
+      for (int e = 0; e < D3; ++e) acc += gt_rn(sDQKV[r * D3 + e], mmbf) * sWin[c * D3 + e];
+      dx[(size_t)row * D + c] = du1[c] + acc;
+    }
+  } else if (inb) {
+    for (int e = 0; e < D3; ++e) sDQKV[r * D3 + e] = 0.f;
+  }
+  __syncthreads();
+  gt_small_grads(sX, sDQKV, R, sCTX, sDA, sDY1U, sDY1, sDZ, sGU2, sG, QR, D, o,
+                 part, mmbf);
+}

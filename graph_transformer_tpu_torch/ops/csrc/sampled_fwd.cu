@@ -40,7 +40,9 @@ extern "C" int gt_k1_sampled_fwd(
   io.x_rows = nullptr;
   io.x_bf16 = 0;
   io.out = out;
-  io.xs = (__nv_bfloat16*)xs;
+  io.xs = xs;
+  io.xs_bf16 = 1;
+  io.xs_first = 0;
   io.qkv = qkv;
   io.attn_full = attn_full;
   io.attn_last = attn_last;

@@ -29,6 +29,7 @@ M32 = 0xFFFFFFFF
 SITES = 4  # dropout sites per layer: attn, attn-out, FFN hidden, FFN out
 SAMPLER_STREAM = 0x53414D50
 HEAD_STREAM = 0x48454144
+LAYER_STREAM = 0x4C415952
 
 
 def _mul32(x, c: int):
@@ -85,6 +86,16 @@ def uniform_draws(seed: int, n_rows: int, k: int, deg: torch.Tensor,
     u = (bits >> 8).to(torch.float32).view(n_rows, k) * (1.0 / (1 << 24))
     d = deg.clamp(1, table_width).to(torch.float32).view(n_rows, 1)
     return torch.minimum(torch.floor(u * d), d - 1.0).to(torch.int64)
+
+
+def layer_seed(seed: int, layer: int) -> int:
+    """The seed of U2GNN layer ``layer`` within a training step: layer 0
+    keeps the step's seed (so a one-layer model draws what the fused path
+    draws), layer i > 0 takes a 31-bit word of stream ``LAYER_STREAM + i``
+    (the JAX model splits its key per layer instead)."""
+    if layer == 0:
+        return int(seed)
+    return stream_key(seed, LAYER_STREAM + layer) & 0x7FFFFFFF
 
 
 def drop_args(rate: float, seed) -> tuple:

@@ -354,7 +354,8 @@ slot0_backward.launches = 0
 def walk_backward(dout, params, num_timesteps: int, layer_bwd):
     """Walk the layers backward, last first: ``layer_bwd(t, g)`` returns the
     layer input's cotangent and the layer's 12 gradients, which add into
-    slice ``t % stored``.  Returns the 12 stacked parameter gradients."""
+    slice ``t % stored``.  Returns the encoder input's cotangent (float32)
+    and the 12 stacked parameter gradients."""
     stored = params[0].shape[0]
     dparams = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in params]
@@ -363,7 +364,7 @@ def walk_backward(dout, params, num_timesteps: int, layer_bwd):
         g, grads = layer_bwd(t, g)
         for acc, dg in zip(dparams, grads):
             acc[t % stored] += dg
-    return [dp.to(p.dtype) for dp, p in zip(dparams, params)]
+    return g, [dp.to(p.dtype) for dp, p in zip(dparams, params)]
 
 
 def encoder_backward(res, dout, params, num_timesteps: int, rate: float,
@@ -377,7 +378,7 @@ def encoder_backward(res, dout, params, num_timesteps: int, rate: float,
         return bwd(res["xs"][t], res["qkv"][t], res["attn"][t],
                    res["strip"][t], g, params, t, rate, seed, mm)
 
-    return walk_backward(dout, params, T, layer_bwd)
+    return walk_backward(dout, params, T, layer_bwd)[1]
 
 
 class SampledEncoderFn(torch.autograd.Function):

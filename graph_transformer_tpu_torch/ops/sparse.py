@@ -1,9 +1,12 @@
-"""Graph pooling — port of ``graph_sum_pool``
-(``graph_transformer_tpu/ops/sparse.py:20``)."""
+"""Graph pooling and the inter-layer re-gather — ports of ``graph_sum_pool``
+(``graph_transformer_tpu/ops/sparse.py:20``) and ``global_regather``
+(``:110-148``)."""
 
 from __future__ import annotations
 
 import torch
+
+MAX_REGATHER_NODES = 2_000_000
 
 
 def graph_sum_pool(node_vec: torch.Tensor, graph_id: torch.Tensor,
@@ -14,3 +17,31 @@ def graph_sum_pool(node_vec: torch.Tensor, graph_id: torch.Tensor,
                          dtype=node_vec.dtype, device=node_vec.device)
     pooled.index_add_(0, graph_id.to(torch.int64), node_vec)
     return pooled[:num_graphs]
+
+
+def global_regather(out: torch.Tensor, node_gidx: torch.Tensor,
+                    node_mask: torch.Tensor, neigh_global: torch.Tensor,
+                    num_total_nodes: int) -> torch.Tensor:
+    """The next U2GNN layer's neighborhood features ``[N, K+1, D]`` from this
+    layer's batch output ``out [N, D]``, on the two-pass path, whose sampler
+    emits dataset-global neighbor ids ``neigh_global [N, K+1]``.
+
+    Each real row (``node_mask > 0``) is scattered to the slot of its global
+    id ``node_gidx`` in a zero buffer of the dataset's nodes, then the
+    neighborhoods are gathered by global id.  Graphs are disjoint, so every
+    neighbor of a real node is in the batch.  The JAX version sends all
+    padding rows to one dummy slot; here each padding row gets a slot of its
+    own past the dataset's nodes, so that no index repeats in the scatter and
+    no host sync is needed to pick the real rows.  Differentiable in ``out``.
+
+    The buffer scales with the dataset, not the batch: ``num_total_nodes``
+    above 2,000,000 raises, as in JAX."""
+    assert num_total_nodes <= MAX_REGATHER_NODES, (
+        f"global_regather scratch would be [{num_total_nodes + 1}, "
+        f"{out.shape[-1]}] per regather per step; use the batch-local "
+        "re-gather for large-node-count datasets")
+    N = out.shape[0]
+    pad_slot = num_total_nodes + torch.arange(N, device=out.device)
+    idx = torch.where(node_mask > 0, node_gidx.to(torch.int64), pad_slot)
+    buf = out.new_zeros(num_total_nodes + N, out.shape[1])
+    return buf.index_copy(0, idx, out)[neigh_global.to(torch.int64)]

@@ -245,7 +245,7 @@ def stored_encoder_backward(res, dout, params, num_timesteps: int,
         return bwd(res["xs"][t], res["qkv"][t], res["attn"][t],
                    res["strip"][t], res["h"][t], g, params, t, rate, seed, mm)
 
-    return walk_backward(dout, params, T, layer_bwd)
+    return walk_backward(dout, params, T, layer_bwd)[1]
 
 
 class StoredEncoderFn(torch.autograd.Function):

@@ -6,9 +6,14 @@ the last layer, ``[N, D]`` float32.  Product operands take ``x2d``'s dtype
 (bfloat16 or float32), as in the JAX kernel.  On a CUDA tensor it launches
 kernel K4 (``csrc/encoder_fwd.cu``) for D <= 32, the wide K4
 (``csrc/wide_fwd.cu``, :func:`wide_encoder`) for 32 < D <= 128, and raises
-beyond; on a CPU tensor it runs :func:`u2gnn_encoder_plain`.  Forward only:
-the main path runs it at eval (rate 0); the training paths are
-``ops/sampled_encoder.py`` and ``ops/stored_encoder.py``.
+beyond; on a CPU tensor it runs :func:`u2gnn_encoder_plain`.  The main paths
+run it at eval (rate 0).
+
+:func:`u2gnn_encoder_train` is the same forward in training mode, kernel K4t
+(``csrc/encoder_fwd.cu``, D <= 32): dropout from a seed, and the inputs of
+layers 1..T-1 saved in the rows' dtype, as the JAX kernel saves them
+(``pallas_u2gnn.py:271-281``) for its per-layer recompute backward
+(``ops/u2gnn_train.py``).
 """
 
 from __future__ import annotations
@@ -28,20 +33,33 @@ WIDE_MAX_D = 128  # K5, K6 and the wide K4: a warp per row, <= 4 columns a lane
 WIDE_ROWS = 32    # ... and <= 32 rows (whole neighborhoods) a block
 
 
-def u2gnn_encoder_plain(x2d: torch.Tensor, params: Sequence[torch.Tensor],
-                        seq_len: int, num_timesteps: int, rate: float = 0.0,
-                        seed: Optional[int] = None) -> torch.Tensor:
-    """The plain PyTorch version of K4 (same function, same dropout bits)."""
+def u2gnn_encoder_train_plain(x2d: torch.Tensor,
+                              params: Sequence[torch.Tensor], seq_len: int,
+                              num_timesteps: int, rate: float = 0.0,
+                              seed: Optional[int] = None):
+    """The plain version of K4t: ``(out [N, D] float32, xs [T-1, N·S, D])``
+    with ``xs`` the inputs of layers 1..T-1 in ``x2d``'s dtype."""
     S, T = seq_len, num_timesteps
     D = x2d.shape[1]
     mm = torch.bfloat16 if x2d.dtype == torch.bfloat16 else torch.float32
     h = x2d.to(torch.float32).view(-1, S, D)
     stored = params[0].shape[0]
+    xs = []
     for t in range(T):
+        if t > 0:
+            xs.append(h.reshape(-1, D).to(x2d.dtype))
         p = [a[t % stored].to(torch.float32) for a in params]
         h, _ = layer_forward(h, p, layer=t, rate=rate, seed=seed, mm=mm,
                              slot0=(t == T - 1))
-    return h
+    return h, (torch.stack(xs) if xs else x2d.new_empty(0, *x2d.shape))
+
+
+def u2gnn_encoder_plain(x2d: torch.Tensor, params: Sequence[torch.Tensor],
+                        seq_len: int, num_timesteps: int, rate: float = 0.0,
+                        seed: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of K4 (same function, same dropout bits)."""
+    return u2gnn_encoder_train_plain(x2d, params, seq_len, num_timesteps,
+                                     rate, seed)[0]
 
 
 def _check_shapes(S: int, D: int) -> None:
@@ -82,7 +100,25 @@ def wide_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
     return _launch(x2d, params, seq_len, num_timesteps, rate, seed, True)
 
 
-def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool):
+def u2gnn_encoder_train(x2d: torch.Tensor, params: Sequence[torch.Tensor],
+                        seq_len: int, num_timesteps: int, rate: float = 0.0,
+                        seed: Optional[int] = None):
+    """K4t on CUDA tensors (D <= 32), :func:`u2gnn_encoder_train_plain` on
+    CPU tensors: ``(out [N, D] float32, xs [T-1, N·S, D])``."""
+    if not x2d.is_cuda:
+        return u2gnn_encoder_train_plain(x2d, params, seq_len, num_timesteps,
+                                         rate, seed)
+    T, D = num_timesteps, x2d.shape[1]
+    xs = torch.empty(max(T - 1, 0), x2d.shape[0], D, dtype=x2d.dtype,
+                     device=x2d.device)
+    out = _launch(x2d, params, seq_len, num_timesteps, rate, seed, False, xs)
+    return out, xs
+
+
+def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
+            xs=None):
+    """K4 (``wide`` False), the wide K4 (``wide`` True) or, given ``xs``,
+    K4t writing the saved layer inputs there."""
     S, T = seq_len, num_timesteps
     D = x2d.shape[1]
     (check_wide_shapes if wide else _check_shapes)(S, D)
@@ -104,18 +140,22 @@ def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool):
         src, smem_fn, fn, rows = ("wide_fwd", "gt_k4w_smem_bytes",
                                   "gt_k4w_encoder_fwd", WIDE_ROWS)
     else:
-        src, smem_fn, fn, rows = ("encoder_fwd", "gt_k4_smem_bytes",
-                                  "gt_k4_encoder_fwd", 128)
+        src, smem_fn, rows = "encoder_fwd", "gt_k4_smem_bytes", 128
+        fn = "gt_k4_encoder_fwd" if xs is None else "gt_k4t_encoder_fwd"
     G = _build.pick_groups(src, smem_fn, S, D, rows)
+    saved = () if xs is None else (xs.data_ptr() if T > 1 else None,)
     err = getattr(_build.load(src), fn)(
         x2d.data_ptr(), int(x2d.dtype == torch.bfloat16),
-        _build.params_array(ps), ps[0].shape[0], out.data_ptr(), N, S, D, F,
-        T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+        _build.params_array(ps), ps[0].shape[0], out.data_ptr(), *saved, N, S,
+        D, F, T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
         _build.stream_ptr(x2d.device))
     _build.check(err, fn)
-    (wide_encoder if wide else u2gnn_encoder).launches += 1
+    counter = (wide_encoder if wide else
+               u2gnn_encoder if xs is None else u2gnn_encoder_train)
+    counter.launches += 1
     return out
 
 
 u2gnn_encoder.launches = 0
 wide_encoder.launches = 0
+u2gnn_encoder_train.launches = 0

@@ -1,0 +1,186 @@
+"""Two-pass training encoder — port of ``fused_u2gnn_encoder`` with its hybrid
+backward (``graph_transformer_tpu/ops/pallas_u2gnn.py:393-496``), the encoder
+of the JAX two-pass path (sampler, feature gather, encoder).
+
+Forward: kernel K4t (``ops/u2gnn_encoder.u2gnn_encoder_train``) runs T
+encoder layers over pre-gathered rows ``x2d [N·S, D]`` and saves the inputs
+of layers 1..T-1 in the rows' dtype.  Backward, last layer first: kernel K8
+(K8s for the slot-0 last layer, ``ops/csrc/recompute_bwd.cu``) recomputes one
+layer from its saved input and back-propagates through it — the port of
+``_bwd1_kernel`` (``pallas_u2gnn.py:316``).  Products take the rows' dtype,
+as in JAX (``:271, :331``): float32 rows (the default compute dtype) run
+float32 products, bfloat16 rows bfloat16 products.
+
+Unlike the fused sampled encoders, :func:`u2gnn_train_encoder` returns the
+rows' cotangent as well as the parameters' gradients: in a k-layer model,
+layer 0's dx flows back through the re-gather (``ops/sparse.global_regather``)
+into the U2GNN layer below.
+
+Dispatch: every public function takes the kernel on CUDA tensors and the
+plain PyTorch version on CPU tensors.  The plain backward runs the plain
+layer forward and then the plain K2/K3 backward on the recomputed residuals.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from graph_transformer_tpu_torch.ops import _build
+from graph_transformer_tpu_torch.ops.attention import layer_forward
+from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.sampled_encoder import (
+    _split_grads,
+    layer_backward_plain,
+    slot0_backward_plain,
+    walk_backward,
+)
+from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+    MAX_D,
+    check_wide_shapes,
+    u2gnn_encoder_train,
+)
+
+WIDE_BWD_ITEM = ("ROADMAP.md Queue B, 'kernel 5 at 32 < D <= 128 (wide "
+                 "recompute backward)'")
+
+
+def check_two_pass_shapes(S: int, D: int) -> None:
+    """The two-pass path's kernels (K4t, K8) take S <= 32 and D <= 32; raise
+    naming the ROADMAP item that widens them."""
+    check_wide_shapes(S, D)
+    if D > MAX_D:
+        raise NotImplementedError(
+            f"S={S}, D={D}: the two-pass path's recompute backward (K8) takes "
+            f"D <= {MAX_D} ({WIDE_BWD_ITEM})")
+
+
+def _mm(dtype: torch.dtype) -> torch.dtype:
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+# ================================================================ backward
+def layer_recompute_backward_plain(x, g, p, *, layer: int, rate: float,
+                                   seed: Optional[int], mm: torch.dtype,
+                                   slot0: bool):
+    """Plain version of K8 (``slot0`` False) and K8s: the backward of layer
+    ``layer`` recomputed from its input.  x [N,S,D] (the saved input, in its
+    dtype), g [N,S,D] (or [N,D] when ``slot0``), ``p`` the layer's 12
+    tensors.  Returns (dx [N,S,D] float32, 12 grads in KERNEL_ORDER)."""
+    _, res = layer_forward(x.to(torch.float32), p, layer=layer, rate=rate,
+                           seed=seed, mm=mm, slot0=slot0)
+    bwd = slot0_backward_plain if slot0 else layer_backward_plain
+    return bwd(x, res["qkv"], res["attn"], res["strip"], g, p, layer=layer,
+               rate=rate, seed=seed, mm=mm)
+
+
+def _recompute_kernel(fn_name, smem_fn, x, g, params, layer, rate, seed,
+                      slot0):
+    N, S, D = x.shape
+    F = params[6].shape[2]
+    check_two_pass_shapes(S, D)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x dtype {x.dtype}: bfloat16 or float32 only")
+    dev = x.device
+    ps = [p.detach().to(torch.float32).contiguous() for p in params]
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty(N, S, D, **f32)
+    P = sum(math.prod(p.shape[1:]) for p in ps)
+    grads = torch.zeros(P, **f32)
+    if N == 0:
+        return dx, _split_grads(grads, D, F)
+    qrows = N if slot0 else N * S  # query rows of the recomputed layer
+    qkv = torch.empty(N * S, 3 * D, **f32)
+    attn = torch.empty(qrows, S, **f32)
+    strip = torch.empty(qrows, 4 * D + 2, **f32)
+    G = _build.pick_groups("recompute_bwd", smem_fn, S, D)
+    partial = torch.empty((N + G - 1) // G, P, **f32)
+    err = getattr(_build.load("recompute_bwd"), fn_name)(
+        x.contiguous().data_ptr(), int(x.dtype == torch.bfloat16),
+        g.to(torch.float32).contiguous().data_ptr(), _build.params_array(ps),
+        ps[0].shape[0], layer, dx.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+        strip.data_ptr(), partial.data_ptr(), grads.data_ptr(), N, S, D, F, G,
+        1.0 / math.sqrt(D), *drop_args(rate, seed), _build.stream_ptr(dev))
+    _build.check(err, fn_name)
+    return dx, _split_grads(grads, D, F)
+
+
+def layer_recompute_backward(x, g, params, layer: int, rate: float,
+                             seed: Optional[int]):
+    """K8 on CUDA tensors, :func:`layer_recompute_backward_plain` on CPU
+    tensors: a full layer (t < T-1).  ``params``: the 12 stacked tensors
+    (the layer uses slice ``layer % stored``); products in ``x``'s dtype."""
+    if not x.is_cuda:
+        p = [a[layer % a.shape[0]] for a in params]
+        return layer_recompute_backward_plain(
+            x, g.view_as(x), p, layer=layer, rate=rate, seed=seed,
+            mm=_mm(x.dtype), slot0=False)
+    out = _recompute_kernel("gt_k8_layer_bwd", "gt_k8_smem_bytes", x, g,
+                            params, layer, rate, seed, False)
+    layer_recompute_backward.launches += 1
+    return out
+
+
+layer_recompute_backward.launches = 0
+
+
+def slot0_recompute_backward(x, g, params, layer: int, rate: float,
+                             seed: Optional[int]):
+    """K8s on CUDA tensors, the plain version on CPU tensors: the slot-0
+    last layer, g [N, D]."""
+    if not x.is_cuda:
+        p = [a[layer % a.shape[0]] for a in params]
+        return layer_recompute_backward_plain(
+            x, g, p, layer=layer, rate=rate, seed=seed, mm=_mm(x.dtype),
+            slot0=True)
+    out = _recompute_kernel("gt_k8s_slot0_bwd", "gt_k8s_smem_bytes", x, g,
+                            params, layer, rate, seed, True)
+    slot0_recompute_backward.launches += 1
+    return out
+
+
+slot0_recompute_backward.launches = 0
+
+
+# ============================================================== autograd
+class U2GNNTrainFn(torch.autograd.Function):
+    """Differentiable in the rows and the 12 parameters; the seed gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x2d, seed, S, T, rate, *params):
+        out, xs = u2gnn_encoder_train(x2d, params, S, T, rate, seed)
+        ctx.xs = xs
+        ctx.cfg = (S, T, rate, seed)
+        ctx.save_for_backward(x2d, *params)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2d, *params = ctx.saved_tensors
+        S, T, rate, seed = ctx.cfg
+        xs, ctx.xs = ctx.xs, None
+        N, D = x2d.shape[0] // S, x2d.shape[1]
+
+        def layer_bwd(t, g):
+            x = (x2d if t == 0 else xs[t - 1]).view(N, S, D)
+            if t == T - 1:
+                return slot0_recompute_backward(x, g, params, t, rate, seed)
+            return layer_recompute_backward(x, g, params, t, rate, seed)
+
+        dx, dparams = walk_backward(dout, params, T, layer_bwd)
+        dx = dx.reshape(N * S, D).to(x2d.dtype) if ctx.needs_input_grad[0] \
+            else None
+        return (dx, None, None, None, None, *dparams)
+
+
+def u2gnn_train_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
+                        seq_len: int, num_timesteps: int, rate: float = 0.5,
+                        seed: Optional[int] = None) -> torch.Tensor:
+    """[N·S, D] rows (bfloat16 or float32) -> [N, D] float32 (slot 0 of the
+    last layer), differentiable in ``x2d`` and the 12 stacked ``params``
+    (KERNEL_ORDER; timestep t uses slice ``t % stored``)."""
+    return U2GNNTrainFn.apply(x2d, seed, seq_len, num_timesteps, rate,
+                              *params)

@@ -1,4 +1,4 @@
-"""Host-side neighbor and tag tables for the fused sampled encoder.
+"""Neighbor and tag tables, and the two-pass path's neighbor sampler.
 
 Ports of ``build_neighbor_table`` (``graph_transformer_tpu/sampling/
 pallas_sampler.py:69-91``) and of ``dataset_codebook``, ``build_tag_table``
@@ -11,13 +11,22 @@ for isolated nodes).  A hub whose degree exceeds 128 holds a seeded uniform
 with-replacement 128-subsample of its list instead; the sampler clamps the
 degree to 128, so every draw stays marginally uniform over the true list.
 The subsample is drawn once per trainer build, as in the JAX package.
+
+:func:`sample_neighbors` is the two-pass path's sampler, kernel K7
+(``ops/csrc/sampler.cu``), a port of ``resample_batch_neighbors_fast``
+(``graph_transformer_tpu/sampling/pallas_sampler.py:165``, kernel
+``_sample_kernel``): on a CUDA tensor it launches K7, on a CPU tensor it runs
+:func:`sample_neighbors_plain`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from graph_transformer_tpu_torch.data.tu import GraphDataset
+from graph_transformer_tpu_torch.ops import _build
+from graph_transformer_tpu_torch.ops.random import M32, uniform_draws
 
 TABLE_WIDTH = 128  # entries per table row; the sampler clamps degree to it
 
@@ -65,3 +74,43 @@ def setup_fused_tables(node_feat, neighbor_table: np.ndarray):
         return None
     tags, codebook = cb
     return build_tag_table(neighbor_table, tags), tags, codebook
+
+
+def sample_neighbors_plain(seed: int, table_rows: torch.Tensor,
+                           deg: torch.Tensor, node_gidx: torch.Tensor,
+                           K: int) -> torch.Tensor:
+    """The plain version of K7: [N, K+1] int32 global neighbor ids, slot 0
+    the node itself (``node_gidx``), slots 1..K the entries
+    ``min(floor(u·d), d-1)`` of the node's ``table_rows`` row with
+    ``d = clamp(deg, 1, 128)``.  The draws are K1's (``uniform_draws``), so a
+    codebook dataset gets the neighborhoods K1 draws for the same seed."""
+    N = table_rows.shape[0]
+    draws = uniform_draws(seed, N, K, deg.reshape(-1), TABLE_WIDTH)
+    ids = table_rows.to(torch.int64).gather(1, draws)
+    return torch.cat([node_gidx.reshape(N, 1).to(torch.int64), ids],
+                     dim=1).to(torch.int32)
+
+
+def sample_neighbors(seed: int, table_rows: torch.Tensor, deg: torch.Tensor,
+                     node_gidx: torch.Tensor, K: int) -> torch.Tensor:
+    """K7 on CUDA tensors, :func:`sample_neighbors_plain` on CPU tensors.
+    ``table_rows`` [N, 128] int global ids, ``deg`` [N] or [N, 1] int,
+    ``node_gidx`` [N] int; returns [N, K+1] int32."""
+    if not table_rows.is_cuda:
+        return sample_neighbors_plain(seed, table_rows, deg, node_gidx, K)
+    N, W = table_rows.shape
+    if W != TABLE_WIDTH:
+        raise ValueError(f"table rows are {TABLE_WIDTH} wide, got {W}")
+    rows = table_rows.to(torch.int32).contiguous()
+    deg = deg.to(torch.int32).reshape(N).contiguous()
+    gidx = node_gidx.to(torch.int32).reshape(N).contiguous()
+    out = torch.empty(N, K + 1, dtype=torch.int32, device=rows.device)
+    err = _build.load("sampler").gt_k7_sample(
+        rows.data_ptr(), W, deg.data_ptr(), gidx.data_ptr(), out.data_ptr(),
+        N, K, int(seed) & M32, _build.stream_ptr(rows.device))
+    _build.check(err, "K7 sample")
+    sample_neighbors.launches += 1
+    return out
+
+
+sample_neighbors.launches = 0

@@ -2,14 +2,25 @@
 ``train_evaluate_sup`` (``graph_transformer_tpu/train/sup_trainer.py``).
 
 Each training step: the host picks ``batch_size`` random graphs and builds the
-padded batch (numpy); on the device the sampled encoder resamples every
-node's neighborhood (K1, or K5 for rows past the folded kernels' shapes), the
-model scores the graphs, the label-smoothed soft cross entropy is
-back-propagated (K3 then K2 per earlier layer, or K6) and the clipped Adam
-step updates the parameters in place.  :meth:`train_steps` runs n steps on
-one fixed batch — the counterpart of the JAX ``_train_scan``
-(``sup_trainer.py:204-242``) that the benchmark drives.  Evaluation runs the
-deterministic model (K4, or the wide K4 past D = 32).
+padded batch (numpy); on the device every node's neighborhood is resampled,
+the model scores the graphs, the label-smoothed soft cross entropy is
+back-propagated and the clipped Adam step updates the parameters in place.
+Two paths, chosen as the JAX trainer chooses (``sup_trainer.py:80-104``):
+
+- **fused**, for one U2GNN layer over features that factor through a
+  <=128-row codebook: the sampled encoder samples and encodes in one kernel
+  (K1, or K5 for rows past the folded kernels' shapes) and its backward
+  reads the stored residuals (K3 then K2 per earlier layer, or K6);
+- **two-pass**, otherwise (``num_hidden_layers > 1``, continuous node
+  attributes): the sampler K7 draws global neighbor ids from the dataset's
+  neighbor table, their features are gathered from the dataset's feature
+  table on the device (``x_global``, in ``cfg.model.compute_dtype``), and
+  each U2GNN layer runs K4t forward and K8s then K8 per earlier layer
+  backward (``ops/u2gnn_train.py``).
+
+:meth:`train_steps` runs n steps on one fixed batch — the counterpart of the
+JAX ``_train_scan`` (``sup_trainer.py:204-242``) that the benchmark drives.
+Evaluation runs the deterministic model (K4, or the wide K4 past D = 32).
 
 Random numbers: the host draws one 31-bit seed per step from a CPU
 ``torch.Generator`` (seeded by ``cfg.train.seed + 1``); the sampler, the
@@ -32,13 +43,18 @@ from graph_transformer_tpu_torch.config import ExperimentConfig
 from graph_transformer_tpu_torch.data.batching import BatchBuilder, GraphBatch
 from graph_transformer_tpu_torch.data.splits import separate_data_idx
 from graph_transformer_tpu_torch.data.tu import GraphDataset
-from graph_transformer_tpu_torch.models.u2gnn_sup import U2GNNSup
+from graph_transformer_tpu_torch.models.u2gnn_sup import (
+    COMPUTE_DTYPES,
+    U2GNNSup,
+)
 from graph_transformer_tpu_torch.ops.losses import (
     label_smoothing,
     soft_cross_entropy,
 )
+from graph_transformer_tpu_torch.ops.u2gnn_train import check_two_pass_shapes
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     build_neighbor_table,
+    sample_neighbors,
     setup_fused_tables,
 )
 from graph_transformer_tpu_torch.train.optim import (
@@ -80,18 +96,22 @@ class SupTrainer:
                                   cfg.train.learning_rate,
                                   cfg.train.grad_clip_norm)
         table = build_neighbor_table(ds, hub_seed=cfg.train.seed)
-        fused = setup_fused_tables(ds.node_feat, table)
-        if fused is None:
-            raise NotImplementedError(
-                "node features that do not factor through a <=128-row "
-                "codebook need the two-pass sampler path (ROADMAP.md Queue A, "
-                "'Non-codebook features')")
-        tag_table, tags, codebook = fused
+        fused = (setup_fused_tables(ds.node_feat, table)
+                 if cfg.model.num_hidden_layers == 1 else None)
+        self.two_pass = fused is None
         dev = self.device
-        self._tag_table = torch.from_numpy(tag_table).to(dev)
         self._deg = torch.from_numpy(ds.degrees.astype(np.int32)).to(dev)
-        self._tags = torch.from_numpy(tags).to(dev)
-        self._codebook = torch.from_numpy(codebook).to(dev)
+        if self.two_pass:
+            check_two_pass_shapes(cfg.data.num_neighbors + 1, ds.feature_dim)
+            self._nbr_table = torch.from_numpy(table).to(dev)
+            self._x_global = torch.from_numpy(
+                np.asarray(ds.node_feat, np.float32)).to(
+                    dev, COMPUTE_DTYPES[cfg.model.compute_dtype])
+        else:
+            tag_table, tags, codebook = fused
+            self._tag_table = torch.from_numpy(tag_table).to(dev)
+            self._tags = torch.from_numpy(tags).to(dev)
+            self._codebook = torch.from_numpy(codebook).to(dev)
         self._seeds = torch.Generator().manual_seed(cfg.train.seed + 1)
         self.epoch_losses: List[float] = []
         self.lr_scale = 1.0
@@ -103,14 +123,38 @@ class SupTrainer:
 
     # ----------------------------------------------------------- one step
     def sampled_inputs(self, batch: GraphBatch) -> tuple:
-        """(tag_rows, deg, self_tag, codebook) of the batch's node slots."""
+        """(tag_rows, deg, self_tag, codebook) of the batch's node slots, the
+        fused path's inputs."""
         gidx = batch.node_gidx.to(torch.int64)
         return (self._tag_table[gidx], self._deg[gidx], self._tags[gidx],
                 self._codebook)
 
+    def two_pass_inputs(self, batch: GraphBatch) -> tuple:
+        """(table_rows [N,128], deg, node_gidx) of the batch's node slots,
+        what the two-pass path's sampler reads."""
+        gidx = batch.node_gidx.to(torch.int64)
+        return self._nbr_table[gidx], self._deg[gidx], batch.node_gidx
+
+    def step_inputs(self, batch: GraphBatch) -> tuple:
+        """The device tables' rows a training step of this trainer's path
+        reads, gathered once per batch."""
+        return (self.two_pass_inputs(batch) if self.two_pass
+                else self.sampled_inputs(batch))
+
+    def _scores(self, batch: GraphBatch, si: tuple, seed: int):
+        if not self.two_pass:
+            return self.model(batch, sampled_inputs=si, seed=seed)
+        rows, deg, gidx = si
+        neigh_g = sample_neighbors(seed, rows, deg, gidx,
+                                   self.cfg.data.num_neighbors)
+        return self.model(batch, seed=seed,
+                          neigh_feat=self._x_global[neigh_g.to(torch.int64)],
+                          neigh_global=neigh_g,
+                          num_total_nodes=self.ds.num_nodes)
+
     def _step(self, batch: GraphBatch, si: tuple) -> torch.Tensor:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self._seeds))
-        scores = self.model(batch, sampled_inputs=si, seed=seed)
+        scores = self._scores(batch, si, seed)
         targets = label_smoothing(batch.labels, self.ds.num_classes,
                                   self.cfg.model.label_smoothing)
         loss = soft_cross_entropy(scores, targets)
@@ -123,7 +167,7 @@ class SupTrainer:
         """``n_steps`` steps on one fixed batch (neighborhoods resample every
         step); returns the [n_steps] losses on the device, unsynchronised."""
         batch = batch.to(self.device)
-        si = self.sampled_inputs(batch)
+        si = self.step_inputs(batch)
         return torch.stack([self._step(batch, si) for _ in range(n_steps)])
 
     # ---------------------------------------------------------------- loops
@@ -132,7 +176,7 @@ class SupTrainer:
         total = 0.0
         for _ in range(self.num_batches_per_epoch):
             batch = self.builder.sample().to(self.device)
-            total += float(self._step(batch, self.sampled_inputs(batch)))
+            total += float(self._step(batch, self.step_inputs(batch)))
         self.epoch_losses.append(total)
         new_scale = self.sched.update(self.epoch_losses)
         if new_scale != self.lr_scale:

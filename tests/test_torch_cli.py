@@ -1,6 +1,8 @@
 """The port's supervised CLI (``graph_transformer_tpu_torch/cli/train_sup.py``)
-on the CPU: the README quickstart's flags parse into the config, and a run on
-a small TU-format dataset trains, evaluates and writes its accuracy file."""
+on the CPU: the README quickstart's flags parse into the config, and runs on
+small TU-format datasets train, evaluate and write their accuracy file, on
+the fused path and on the two-pass path (two U2GNN layers with degree tags;
+continuous node attributes)."""
 
 import numpy as np
 import pytest
@@ -23,6 +25,18 @@ def test_readme_flags_parse():
     assert (cfg.model.ff_hidden_size, cfg.model.num_timesteps) == (1024, 4)
     assert (cfg.train.num_epochs, cfg.train.learning_rate,
             cfg.train.scan_epochs) == (50, 0.0005, True)
+
+
+def test_two_pass_flags_parse():
+    args = base_parser("t").parse_args(
+        ["--num_hidden_layers", "2", "--degree_as_tag",
+         "--use_node_attributes"])
+    cfg = config_from_args(args)
+    assert cfg.model.num_hidden_layers == 2
+    assert cfg.data.degree_as_tag is True and cfg.data.use_node_attributes
+    # without the flag the dataset decides (degree tags for COLLAB/IMDB*)
+    assert config_from_args(base_parser("t").parse_args([])) \
+        .data.degree_as_tag is None
 
 
 @pytest.mark.parametrize("flag", [["--use_pallas"], ["--host_sampling"],
@@ -108,3 +122,64 @@ def test_train_sup_cli_takes_the_wide_path_on_imdb_like_data(tmp_path,
         "--run_folder", str(tmp_path / "runs"), "--device", "cpu"])
     assert 0.0 <= acc <= 1.0
     assert calls["stored"] == 23 and calls["sampled"] == 0
+
+
+def _spy_paths(monkeypatch):
+    """Count the calls of the two-pass path's sampler and encoder and of the
+    fused paths' forwards."""
+    from graph_transformer_tpu_torch.models import u2gnn_sup
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.train import sup_trainer
+
+    calls = {"sample": 0, "two_pass": 0, "fused": 0}
+
+    def spy(name, mod, attr):
+        fn = getattr(mod, attr)
+
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        monkeypatch.setattr(mod, attr, wrapped)
+
+    spy("sample", sup_trainer, "sample_neighbors")
+    spy("two_pass", u2gnn_sup, "u2gnn_train_encoder")
+    spy("fused", se, "sampled_forward")
+    spy("fused", st, "stored_forward")
+    return calls
+
+
+@pytest.mark.parametrize("case", ["num_hidden_layers", "node_attributes"])
+def test_train_sup_cli_takes_the_two_pass_path(tmp_path, monkeypatch, capsys,
+                                               case):
+    """Two U2GNN layers with degree tags (the MUTAG HPO arm's flags, cut to
+    CPU size), or continuous node attributes from a sidecar file: training
+    goes through the sampler and the two-pass encoder, once per U2GNN layer
+    a step, never through the fused kernels; the epoch losses are finite."""
+    import re
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    if case == "num_hidden_layers":
+        _write_tu(tmp_path, "TINY")
+        flags, k = ["--dataset", "TINY", "--num_hidden_layers", "2",
+                    "--degree_as_tag"], 2
+    else:
+        chip_smoke.write_tu_like(tmp_path, "ATTR", 30, 8, 9, 3, 2,
+                                 attr_dim=3)
+        flags, k = ["--dataset", "ATTR", "--use_node_attributes"], 1
+    calls = _spy_paths(monkeypatch)
+    acc = train_sup.main(flags + [
+        "--data_dir", str(tmp_path), "--batch_size", "4",
+        "--ff_hidden_size", "16", "--num_neighbors", "3",
+        "--num_epochs", "2", "--num_timesteps", "2",
+        "--run_folder", str(tmp_path / "runs"), "--device", "cpu"])
+    assert 0.0 <= acc <= 1.0
+    losses = [float(v) for v in
+              re.findall(r"\| loss\s+(\S+) \|", capsys.readouterr().out)]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    assert calls["fused"] == 0 and calls["sample"] > 0
+    assert calls["two_pass"] == k * calls["sample"]

@@ -146,3 +146,72 @@ def test_train_steps_launch_the_wide_kernels(cuda):
     assert (got["K5"], got["K6"], got["K6s"]) == (4, 8, 4)
     assert got["K4w"] == 1
     assert got["K1"] == got["K2"] == got["K3"] == got["K4"] == 0
+
+
+def test_sampler_kernel_matches_plain_version(cuda):
+    """K7 against its plain version on a heavy-tailed graph (hubs past
+    128): equal ids, true neighbors, hub rows drawn from their subsample."""
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+    import chip_smoke
+
+    ds = synthetic_powerlaw_dataset("heavy-tail", num_graphs=8,
+                                    mean_nodes=300, seed=1, reddit_like=False,
+                                    heavy_tail=True)
+    for K in (16, 8):
+        chip_smoke.check_sampler(f"K{K}", ds, K, 31, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,D,Tn", [(17, 7, 5), (9, 18, 4), (32, 32, 2)])
+def test_two_pass_kernels_match_plain_versions(cuda, S, D, Tn, dtype):
+    """K4t, K8 and K8s against their plain versions at rate 0 and 0.5, in
+    float32 and bf16 (forward 1e-4 or twice the plain version's float32
+    error of float64 / the bf16 spread rule; every gradient leaf at cosine
+    > 0.999), with a ragged last block."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=301, S=S, D=D, C=D, F=256, Tn=Tn, stored=Tn, seed=1, dev=cuda)
+    chip_smoke.check_two_pass(f"S{S}D{D}", params,
+                              x2d.to(getattr(torch, dtype)), S, Tn, cuda)
+
+
+def test_two_pass_matches_fused_path(cuda):
+    """At one U2GNN layer on a codebook dataset, K7 + gather + K4t + K8/K8s
+    and K1-K3 draw the same neighbors and compute one function."""
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(
+        N=200, S=9, D=7, C=7, F=256, Tn=3, stored=1, seed=2, dev=cuda)
+    chip_smoke.check_two_pass_vs_fused("D7", si, params, 9, 3, cuda)
+
+
+def test_train_steps_launch_the_two_pass_kernels(cuda):
+    """Two U2GNN layers train through K7, K4t, K8s and K8 (per step: one
+    sample, per U2GNN layer one K4t, one K8s and T-1 K8) and evaluate
+    through K4 per layer; the fused kernels stay idle."""
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+    import chip_smoke
+
+    ds = synthetic_powerlaw_dataset("S", num_graphs=16, mean_nodes=40,
+                                    seed=0, reddit_like=False)
+    cfg = ExperimentConfig(
+        data=DataConfig(batch_size=4, num_neighbors=4),
+        model=ModelConfig(num_timesteps=3, ff_hidden_size=64,
+                          num_hidden_layers=2),
+        train=TrainConfig(num_epochs=1))
+    tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
+                    test_idx=np.arange(12, 16))
+    counters = chip_smoke.launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = tr.train_steps(tr.builder.sample(), 4)
+    acc = tr.evaluate()
+    assert bool(torch.isfinite(losses).all()) and 0.0 <= acc <= 1.0
+    got = {k: c.launches for k, c in counters.items()}
+    assert (got["K7"], got["K4t"], got["K8s"], got["K8"]) == (4, 8, 8, 16)
+    assert got["K4"] == 2
+    assert all(got[k] == 0 for k in chip_smoke.FUSED_KERNELS)

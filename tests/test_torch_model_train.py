@@ -206,16 +206,17 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_configurations_raise():
-    for kw in (dict(num_hidden_layers=2), dict(recurrence="gru"),
-               dict(attention_axis="node"), dict(num_heads=2)):
+    for kw in (dict(recurrence="gru"), dict(attention_axis="node"),
+               dict(num_heads=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             U2GNNSup(4, 2, ModelConfig(**kw))
     rng = np.random.default_rng(0)
-    # continuous features: more than 128 distinct rows, no codebook
+    # continuous features past D=32: more than 128 distinct rows, no
+    # codebook, so the two-pass path, whose recompute backward takes D <= 32
     ds = synthetic_powerlaw_dataset("S", num_graphs=4, mean_nodes=60, seed=0)
     assert ds.num_nodes > 128
-    ds.node_feat = rng.standard_normal((ds.num_nodes, 3)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="codebook"):
+    ds.node_feat = rng.standard_normal((ds.num_nodes, 33)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="kernel 5 at 32 < D"):
         SupTrainer(ds, small_cfg(1), train_idx=np.arange(3),
                    test_idx=np.arange(3, 4), device="cpu")
 
