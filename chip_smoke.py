@@ -26,7 +26,13 @@
      arm's shape (S=17, D=7, T=5), the ENZYMES-attribute shape (S=9, D=18,
      T=4) and the shared-memory edge (S=32, D=32) (``check_two_pass``);
    - the two-pass path (K7, gather, K4t, K8/K8s) against K1-K3 at one layer
-     on a codebook (``check_two_pass_vs_fused``).
+     on a codebook (``check_two_pass_vs_fused``);
+   - K9/K10 (one encoder layer, every row out; its recompute backward) at
+     (S, D) = (9, 7), (17, 19), (32, 32), N=4096, F=1024, and K11/K12 (the
+     FFN with residual and LayerNorm; its backward) at D = 4, 68, 128 over
+     36,864 rows, in float32 and bf16, every gradient leaf on its own
+     (``check_encoder_layer``, ``check_ffn``); T launches of K9 against K4
+     in float32 (``check_per_layer_vs_whole``).
 3. Drives slice 1's main path: ``SupTrainer(device="cuda")`` on the
    benchmark workload of ``bench.py`` (synthetic REDDITMULTI5K-like, batch
    16, K=8, T=4, ff 1024, bf16): warm-up steps, timed ``train_steps`` on a
@@ -44,7 +50,14 @@
    continuous node attributes on a generated ENZYMES-like file; asserts
    finite losses and K7/K4t/K8/K8s launches with no fused-path kernel; then
    times and profiles the HPO arm's step at 16 graphs a batch.
-6. Prints edges/s, one JSON line describing every kernel (its device time
+6. Drives slice 4's main paths, the per-layer encoder, through the CLI for
+   2 epochs each: the MUTAG row (``RESULTS.md:20``) with ``--recurrence
+   act`` on the MUTAG-like file (K7, K9, K10; nothing else) and the README
+   quickstart with ``--attention_axis node`` on the IMDBBINARY-like file
+   (K7, K11, K12; nothing else); 3 steps of each other recurrence and of two
+   heads; then times and profiles the ACT step at 16 graphs a batch and the
+   node-axis quickstart step.
+7. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
    call's time), the card's name and power limit, and as the last line
@@ -85,12 +98,15 @@ LEAVES = ("dx", "w_in", "b_in", "w_out", "b_out", "g1", "c1", "w1", "b1",
           "w2", "b2", "g2", "c2")
 
 
-def check_grads(label, dx_k, gk, dx_p, gp) -> tuple:
-    """dx and each of the 12 weight gradients on its own: cosine > 0.999
-    (a leaf that is exactly zero in both passes).  Returns the worst leaf's
+FFN_LEAVES = ("dx", "w1", "b1", "w2", "b2", "gamma", "beta")
+
+
+def check_grads(label, dx_k, gk, dx_p, gp, names=LEAVES) -> tuple:
+    """dx and each of the weight gradients on its own: cosine > 0.999 (a
+    leaf that is exactly zero in both passes).  Returns the worst leaf's
     (max |k - p|, that over its max |p|) and the lowest cosine."""
     ab, rel, low = 0.0, 0.0, 1.0
-    for leaf, a, b in zip(LEAVES, (dx_k,) + tuple(gk), (dx_p,) + tuple(gp)):
+    for leaf, a, b in zip(names, (dx_k,) + tuple(gk), (dx_p,) + tuple(gp)):
         err = float((a - b).abs().max())
         ref = float(b.abs().max())
         if err == 0.0 and ref == 0.0:
@@ -474,20 +490,10 @@ def check_two_pass(label, params, x2d, S, Tn, dev):
         if Tn > 1:
             pairs.append(("saved input", xs_k[-1].float(), xs_p[-1].float()))
         for what, a, b in pairs:
-            if f32:
-                e = max_err([a], [b])
-                ok = torch.allclose(a, b, rtol=1e-4, atol=1e-4)
-                if not ok and what == "out":
-                    ref = plain_f64(x2d, params, S, Tn, rate, seed)
-                    ek = float((a.double() - ref).abs().max())
-                    ep = float((b.double() - ref).abs().max())
-                    ok = ek <= 2.0 * ep
-                if not ok:
-                    fail(f"{label} rate {rate}: K4t float32 {what} max err "
-                         f"{e[0]}")
-            else:
-                e = check_bf16_spread(f"{label} rate {rate}: K4t {what}", a,
-                                      b)
+            ref64 = ((lambda: plain_f64(x2d, params, S, Tn, rate, seed))
+                     if what == "out" else None)
+            e = check_forward(f"{label} rate {rate}: K4t {what}", a, b, ref64,
+                              bf16=not f32)
             errs[("K4t", rate)] = max(errs.get(("K4t", rate), (0.0, 0.0)), e)
         t3 = Tn - 1
         x3 = (x2d if Tn == 1 else xs_k[t3 - 1]).view(N, S, D)
@@ -590,6 +596,155 @@ def check_two_pass_vs_fused(label, si, params, S, Tn, dev):
               f"against the two-pass path in float32: fused "
               f"{low['fused-f32']:.6f}, two-pass {low['two-pass-f32']:.6f}",
               flush=True)
+
+
+def check_forward(label, out_k, out_p, ref64, bf16: bool) -> tuple:
+    """A forward kernel against its plain version on the same inputs: with
+    float32 rows and products within 1e-4 (rtol and atol), or within twice
+    the plain version's own float32 error of a float64 reference ``ref64()``
+    where one is given (as :func:`check_k4_f32`); with bf16 ones by
+    :func:`check_bf16_spread`.  Returns (max |err|, relative)."""
+    import torch
+
+    if bf16:
+        return check_bf16_spread(label, out_k.float(), out_p.float())
+    if not torch.allclose(out_k, out_p, rtol=1e-4, atol=1e-4):
+        if ref64 is None:
+            fail(f"{label}: float32 max err {max_err([out_k], [out_p])[0]}")
+        ref = ref64()
+        ek = float((out_k.double() - ref).abs().max())
+        ep = float((out_p.double() - ref).abs().max())
+        if not ek <= 2.0 * ep:
+            fail(f"{label}: float32 max err {max_err([out_k], [out_p])[0]} "
+                 f"(float64 reference: kernel {ek}, plain {ep})")
+    return max_err([out_k], [out_p])
+
+
+def check_encoder_layer(label, params, x2d, S, dev, layer=2):
+    """K9 and K10 against their plain versions at rate 0 and 0.5 on one
+    layer's tensors, timestep ``layer``'s dropout streams, rows and products
+    in ``x2d``'s dtype: the forward (every row) by :func:`check_forward`,
+    K10's dx and each of the 12 gradients at cosine > 0.999 on its own.
+    Returns the errors by (kernel, rate)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops.attention import layer_forward
+
+    errs = {}
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    p = [a[0] for a in params]
+
+    for rate in (0.0, 0.5):
+        seed = 424242
+
+        def ref64():
+            return layer_forward(
+                x2d.double().view(N, S, D), [a.double() for a in p],
+                layer=layer, rate=rate, seed=seed, mm=torch.float32,
+                slot0=False)[0].reshape(N * S, D)
+
+        out_k = el.encoder_layer_forward(x2d, p, S, rate, seed, layer)
+        out_p = el.encoder_layer_forward_plain(x2d, p, S, rate, seed, layer)
+        torch.cuda.synchronize()
+        errs[("K9", rate)] = check_forward(
+            f"{label} rate {rate}: K9", out_k, out_p, ref64,
+            bf16=x2d.dtype == torch.bfloat16)
+        g = torch.randn(N * S, D, device=dev, generator=gen)
+        dx_k, gk = el.encoder_layer_backward(x2d, g, p, S, rate, seed, layer)
+        dx_p, gp = el.encoder_layer_backward_plain(x2d, g, p, S, rate, seed,
+                                                   layer)
+        errs[("K10", rate)], c10 = check_grads(
+            f"{label} rate {rate}: K10", dx_k, gk, dx_p, gp)
+        print(f"# check {label} rate {rate}: K9 max|err| "
+              f"{errs[('K9', rate)][0]:.3e} ({errs[('K9', rate)][1]:.1e}); "
+              f"K10 worst leaf {errs[('K10', rate)][0]:.3e} "
+              f"({errs[('K10', rate)][1]:.1e}, cos {c10:.6f})", flush=True)
+    return errs
+
+
+def check_ffn(label, M, D, F, dtype, dev, layer=1):
+    """K11 and K12 against their plain versions over ``M`` random rows of
+    ``D`` features (``dtype`` rows and products), FFN width ``F``, at rate 0
+    and 0.5: the forward by :func:`check_forward`, K12's dx and each of the
+    six gradients at cosine > 0.999 on its own.  Returns the errors by
+    (kernel, rate)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import ffn
+
+    rng = np.random.default_rng(D)
+
+    def t(shape, scale=0.3, shift=0.0):
+        return torch.tensor(rng.standard_normal(shape) * scale + shift,
+                            dtype=torch.float32, device=dev)
+
+    x = t((M, D), 1.0).to(dtype)
+    p = [t((D, F)), t((F,)), t((F, D)), t((D,)), t((D,), 0.3, 1.0), t((D,))]
+    g = t((M, D), 1.0)
+    errs = {}
+    for rate in (0.0, 0.5):
+        seed = 8642
+
+        def ref64():
+            xd = x.double()
+            h = torch.relu(xd @ p[0].double() + p[1].double())
+            h = ffn.dropout(h, rate, seed, layer, ffn.HIDDEN_SITE)
+            y = ffn.dropout(h @ p[2].double() + p[3].double(), rate, seed,
+                            layer, ffn.OUT_SITE)
+            u = xd + y
+            mu = u.mean(-1, keepdim=True)
+            var = ((u - mu) ** 2).mean(-1, keepdim=True)
+            return ((u - mu) / torch.sqrt(var + 1e-5) * p[4].double()
+                    + p[5].double())
+
+        out_k = ffn.ffn_forward(x, *p, rate=rate, seed=seed, layer=layer)
+        out_p = ffn.ffn_forward_plain(x, *p, rate=rate, seed=seed,
+                                      layer=layer)
+        torch.cuda.synchronize()
+        errs[("K11", rate)] = check_forward(
+            f"{label} rate {rate}: K11", out_k, out_p, ref64,
+            bf16=dtype == torch.bfloat16)
+        dx_k, gk = ffn.ffn_backward(x, g, *p, rate=rate, seed=seed,
+                                    layer=layer)
+        dx_p, gp = ffn.ffn_backward_plain(x, g, *p, rate=rate, seed=seed,
+                                          layer=layer)
+        errs[("K12", rate)], c12 = check_grads(
+            f"{label} rate {rate}: K12", dx_k, gk, dx_p, gp, FFN_LEAVES)
+        print(f"# check {label} rate {rate}: K11 max|err| "
+              f"{errs[('K11', rate)][0]:.3e} ({errs[('K11', rate)][1]:.1e}); "
+              f"K12 worst leaf {errs[('K12', rate)][0]:.3e} "
+              f"({errs[('K12', rate)][1]:.1e}, cos {c12:.6f})", flush=True)
+    return errs
+
+
+def check_per_layer_vs_whole(label, params, x2d, S, Tn):
+    """T launches of K9 at rate 0 (slot 0 of the last layer's output)
+    against K4 on the same float32 rows and stacked parameters, within 1e-4
+    or :func:`check_k4_f32`'s float64 rule: the per-layer and the
+    whole-encoder kernels compute one encoder."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops.encoder_layer import (
+        encoder_layer_forward)
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import u2gnn_encoder
+
+    x32 = x2d.to(torch.float32)
+    N, D = x32.shape[0] // S, x32.shape[1]
+    h = x32
+    for t in range(Tn):
+        h = encoder_layer_forward(h, [a[t % a.shape[0]] for a in params], S,
+                                  layer=t)
+    per_layer = h.view(N, S, D)[:, 0]
+    whole = u2gnn_encoder(x32, params, S, Tn)
+    torch.cuda.synchronize()
+    e = check_forward(f"{label}: {Tn} x K9 vs K4", per_layer, whole,
+                      lambda: plain_f64(x32, params, S, Tn, 0.0, None),
+                      bf16=False)
+    print(f"# check {label}: {Tn} launches of K9 (slot 0) vs K4, float32: "
+          f"max|diff| {e[0]:.3e} ({e[1]:.1e})", flush=True)
+    return e
 
 
 def write_tu_like(root, name, num_graphs, mean_nodes, mean_edges, num_tags,
@@ -704,7 +859,8 @@ def profile_steps(trainer, batch, n_steps: int) -> None:
     """Trace ``n_steps`` training steps with torch.profiler; print the device
     time of each kernel per step and the device's busy share (union of
     device-operation intervals over the span from the first one's start to
-    the last one's end).  The profiler slows the host, so this share is a
+    the last one's end), and return the share, the device operations and
+    the busy ms per step.  The profiler slows the host, so this share is a
     lower bound of the unprofiled one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -723,7 +879,7 @@ def profile_steps(trainer, batch, n_steps: int) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0)
     if not spans:
         print("# profile: the profiler saw no device time", flush=True)
-        return
+        return None
     spans.sort()
     busy, cur0, cur1 = 0.0, *spans[0]
     for t0, t1 in spans[1:]:
@@ -740,6 +896,8 @@ def profile_steps(trainer, batch, n_steps: int) -> None:
           flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"#   {us / n_steps / 1e3:9.4f} ms/step  {name[:90]}", flush=True)
+    return {"busy_share": busy / span, "ops_per_step": len(spans) / n_steps,
+            "busy_ms_per_step": busy / n_steps / 1e3}
 
 
 # ------------------------------------------------------------- library call
@@ -797,10 +955,21 @@ TWO_PASS_FLAGS = {
 }
 FUSED_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K6s")
 TWO_PASS_KERNELS = ("K7", "K4t", "K8", "K8s")
+# the MUTAG row (RESULTS.md:20) with the ACT recurrence, and the README
+# quickstart on the reference's node axis
+PER_LAYER_FLAGS = {
+    "act": ["--dataset", "MUTAG", "--batch_size", "4", "--num_neighbors", "8",
+            "--num_timesteps", "4", "--ff_hidden_size", "1024",
+            "--learning_rate", "0.0005", "--recurrence", "act"],
+    "node": QUICKSTART_FLAGS + ["--attention_axis", "node"],
+}
+PER_LAYER_WANT = {"act": ("K7", "K9", "K10"), "node": ("K7", "K11", "K12")}
 
 
 def launch_counters():
     """Every kernel wrapper's launch counter, by kernel."""
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import ffn
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
@@ -813,7 +982,9 @@ def launch_counters():
             "K6": st.stored_layer_backward, "K6s": st.stored_slot0_backward,
             "K7": nt.sample_neighbors, "K4t": ue.u2gnn_encoder_train,
             "K8": ut.layer_recompute_backward,
-            "K8s": ut.slot0_recompute_backward}
+            "K8s": ut.slot0_recompute_backward,
+            "K9": el.encoder_layer_forward, "K10": el.encoder_layer_backward,
+            "K11": ffn.ffn_forward, "K12": ffn.ffn_backward}
 
 
 def describe(label, ds) -> None:
@@ -909,6 +1080,66 @@ def two_pass_runs(root: str):
     return dsets, launches
 
 
+def per_layer_runs(root: str):
+    """Slice 4's main paths through the CLI on the card, 2 epochs each: the
+    MUTAG row with ``--recurrence act`` on a MUTAG-like file (K7, then K9
+    and K10 per timestep; evaluation K9) and the README quickstart with
+    ``--attention_axis node`` on an IMDBBINARY-like file (K7, the attention
+    in plain torch, K11 and K12 per timestep); every other kernel stays
+    idle.  Returns ({name: dataset}, {name: launches})."""
+    from graph_transformer_tpu_torch.data.tu import load_tu_dataset
+
+    data = os.path.join(root, "data")
+    write_mutag_like_tu(data)
+    write_imdb_like_tu(data)
+    dsets, launches = {}, {}
+    for name, dname in (("act", "MUTAG"), ("node", "IMDBBINARY")):
+        ds = load_tu_dataset(dname, data_dir=data)
+        describe(f"{name} ({dname}-like)", ds)
+        dsets[name] = ds
+        want = PER_LAYER_WANT[name]
+        launches[name] = run_cli(
+            name, PER_LAYER_FLAGS[name], data, root, want=want,
+            idle=tuple(k for k in launch_counters() if k not in want))
+    return dsets, launches
+
+
+def short_runs(ds_act, ds_attr) -> None:
+    """3 training steps on the card of each other recurrence (the ACT run's
+    MUTAG-like data: K9/K10) and of two heads (the ENZYMES-like attributes,
+    D=18: plain attention, K11/K12); fails on a loss that is not finite or
+    a kernel of the path that did not launch."""
+    import dataclasses
+
+    import torch
+
+    from graph_transformer_tpu_torch.cli.common import (
+        base_parser, config_from_args)
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+
+    counters = launch_counters()
+    cases = [(kind, ds_act, PER_LAYER_FLAGS["act"] + ["--recurrence", kind],
+              {}, ("K9", "K10"))
+             for kind in ("skip", "highway", "gru", "lstm", "dwa")]
+    cases.append(("two heads", ds_attr, TWO_PASS_FLAGS["ENZYMES"],
+                  dict(num_heads=2), ("K11", "K12")))
+    for label, ds, flags, kw, want in cases:
+        cfg = config_from_args(base_parser("s").parse_args(flags))
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **kw))
+        trainer = SupTrainer(ds, cfg, device="cuda")
+        for c in counters.values():
+            c.launches = 0
+        losses = trainer.train_steps(trainer.builder.sample(), 3)
+        torch.cuda.synchronize()
+        got = {k: counters[k].launches for k in want}
+        if not bool(torch.isfinite(losses).all()):
+            fail(f"short run {label}: losses {losses}")
+        if min(got.values()) < 1:
+            fail(f"short run {label}: launches {got}")
+        print(f"# short run {label}: losses {losses.tolist()}, launches "
+              f"{got}", flush=True)
+
+
 def timed_steps(trainer, batch, edges: float) -> tuple:
     """(ms/step, edges/s) of ``train_steps(batch, STEPS)`` after WARMUP
     steps, by CUDA events; fails on a loss that is not finite."""
@@ -961,6 +1192,8 @@ def main() -> int:
         DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
     from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
     from graph_transformer_tpu_torch.ops import _build
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import ffn
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.ops import u2gnn_train as ut
@@ -1055,6 +1288,25 @@ def main() -> int:
                          check_two_pass(f"{label} {dt}", params_t,
                                         x2d_t.to(dt), S_, T_, dev).items()})
     check_two_pass_vs_fused("mutag-like", si_m, params_m, S, T, dev)
+    # slice 4: K9/K10 at (S, D) = (9, 7), (17, 19), (32, 32), N=4096; K11/K12
+    # at D = 4, 68 and 128 over 36,864 rows; in float32 and bf16; then T
+    # launches of K9 against K4
+    for label, S_, D_ in (("s9-d7", 9, 7), ("s17-d19", 17, 19),
+                          ("s32-d32", 32, 32)):
+        _, params_l, x2d_l = random_case(N=4096, S=S_, D=D_, C=D_, F=FF,
+                                         Tn=1, stored=1, seed=7, dev=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            errs.update({(k, r, label, str(dt)): v for (k, r), v in
+                         check_encoder_layer(f"{label} {dt}", params_l,
+                                             x2d_l.to(dt), S_, dev).items()})
+    for D_ in (4, 68, 128):
+        for dt in (torch.float32, torch.bfloat16):
+            errs.update({(k, r, D_, str(dt)): v for (k, r), v in check_ffn(
+                f"ffn-d{D_} {dt}", 36864, D_, FF, dt, dev).items()})
+    _, params_v, x2d_v = random_case(N=1000, S=S, D=7, C=7, F=FF, Tn=T,
+                                     stored=T, seed=8, dev=dev)
+    errs[("K9", 0.0, "vs-K4")] = check_per_layer_vs_whole(
+        "mutag-like", params_v, x2d_v, S, T)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. the main path of slice 1: the bench workload on K1-K4
@@ -1135,7 +1387,38 @@ def main() -> int:
           f"N={batch_h.n_pad}, D={dsets_2['MUTAG'].feature_dim})", flush=True)
     profile_steps(trainer_h, batch_h, 5)
 
-    # ---- 6. per-kernel times at each main path's shapes
+    # ---- 6. the main paths of slice 4: the per-layer encoder through the
+    # CLI (ACT on MUTAG-like data; the quickstart on the node axis), short
+    # runs of the other recurrences and of two heads
+    t0 = time.perf_counter()
+    dsets_4, launches_4 = per_layer_runs(os.path.join(here, "build",
+                                                      "per_layer"))
+    for name, want in PER_LAYER_WANT.items():
+        for k in want[1:]:
+            launches[k] = launches_4[name][k]
+    short_runs(dsets_4["act"], dsets_2["ENZYMES"])
+    print(f"# per-layer runs: {time.perf_counter() - t0:.1f} s", flush=True)
+    # the ACT step at 16 graphs a batch, as the HPO arm is timed; the
+    # node-axis quickstart step
+    steps_4 = {}
+    for name, extra in (("act", ["--batch_size", "16"]), ("node", [])):
+        cfg_4 = config_from_args(base_parser(name).parse_args(
+            PER_LAYER_FLAGS[name] + extra))
+        trainer_4 = SupTrainer(dsets_4[name], cfg_4, device="cuda")
+        if not trainer_4.two_pass:
+            fail(f"{name} does not take the two-pass path")
+        batch_4 = trainer_4.builder.sample()
+        edges_4 = float(batch_4.edge_mask.sum())
+        batch_4 = batch_4.to(dev)
+        ms_4, eps_4 = timed_steps(trainer_4, batch_4, edges_4)
+        print(f"# {name} train: {ms_4:.3f} ms/step, {eps_4:.1f} edges/s "
+              f"({edges_4:.0f} edges/step, N={batch_4.n_pad}, "
+              f"D={dsets_4[name].feature_dim})", flush=True)
+        prof_4 = profile_steps(trainer_4, batch_4, 5)
+        steps_4[name] = dict(trainer=trainer_4, batch=batch_4, ms=ms_4,
+                             eps=eps_4, profile=prof_4)
+
+    # ---- 7. per-kernel times at each main path's shapes
     seed = 99
     out_k, res_k = se.sampled_forward(*si, params, S, T, 0.5, seed)
     g3 = torch.randn(N, D, device=dev)
@@ -1227,6 +1510,37 @@ def main() -> int:
                  + Nh * (8 * Dh * F + 4 * Dh * Dh + 8 * Sh * Dh)
                  + Nh * Sh * 4 * Dh * 3 * Dh)
 
+    # the ACT step's shapes (16 graphs, float32 rows, U2GNN layer 0's first
+    # timestep): K9 and K10; the node-axis quickstart's: K11 and K12 over
+    # (K+1) x N_pad rows
+    tr_a, b_a = steps_4["act"]["trainer"], steps_4["act"]["batch"]
+    rows_a, deg_a, gidx_a = tr_a.two_pass_inputs(b_a)
+    Da, Na = dsets_4["act"].feature_dim, b_a.n_pad
+    neigh_a = sample_neighbors(seed, rows_a, deg_a, gidx_a, K)
+    x9 = tr_a._x_global[neigh_a.long()].reshape(Na * S, Da)
+    p9 = [p.detach()[0] for p in tr_a.model.encoders[0].stacked()]
+    g10 = torch.randn(Na * S, Da, device=dev)
+    P9 = sum(p.numel() for p in p9)
+    k9_bytes = 2 * nbytes(x9) + nbytes(*p9)
+    k9_flops = layer_flops(Na * S, Na * S, S, Da, F)
+    k10_bytes = nbytes(x9, g10, g10) + 2 * 4 * P9
+    k10_flops = k9_flops + Na * S * (8 * Da * F + 4 * Da * 3 * Da
+                                     + 4 * Da * Da + 8 * S * Da)
+    tr_n, b_n = steps_4["node"]["trainer"], steps_4["node"]["batch"]
+    Dn, Mn = dsets_4["node"].feature_dim, S * b_n.n_pad
+    enc_n = tr_n.model.encoders[0]
+    p11 = [getattr(enc_n, k).detach()[0] for k in (
+        "w_ff1", "b_ff1", "w_ff2", "b_ff2", "ln2_scale", "ln2_bias")]
+    x11 = torch.randn(Mn, Dn, device=dev)
+    g12 = torch.randn(Mn, Dn, device=dev)
+    k11_bytes = 2 * nbytes(x11) + nbytes(*p11)
+    k11_flops = 4 * Mn * Dn * F
+    k12_bytes = nbytes(x11, g12, g12) + 2 * nbytes(*p11)
+    k12_flops = 12 * Mn * Dn * F
+    lib_a = library_encoder([p[None] for p in p9], S, 1, Da, F, dev,
+                            torch.float32, 0.5).layers[0]
+    x3_a = x9.view(Na, S, Da)
+
     lib = library_encoder(params, S, T, D, F, dev)
     x3d = x2d_eval.view(Ne, S, D)
     lib_q = library_encoder(params_q, S, T, Dq, F, dev)
@@ -1294,6 +1608,24 @@ def main() -> int:
                         x8s, g8s, ph_last, layer=Th - 1, rate=0.5, seed=seed,
                         mm=torch.float32, slot0=True),
                     None),
+            "K9": (lambda: el.encoder_layer_forward(x9, p9, S, 0.5, seed),
+                   lambda: el.encoder_layer_forward_plain(x9, p9, S, 0.5,
+                                                          seed),
+                   lambda: lib_a(x3_a)),
+            "K10": (lambda: el.encoder_layer_backward(x9, g10, p9, S, 0.5,
+                                                      seed),
+                    lambda: el.encoder_layer_backward_plain(x9, g10, p9, S,
+                                                            0.5, seed),
+                    None),
+            "K11": (lambda: ffn.ffn_forward(x11, *p11, rate=0.5, seed=seed),
+                    lambda: ffn.ffn_forward_plain(x11, *p11, rate=0.5,
+                                                  seed=seed),
+                    None),
+            "K12": (lambda: ffn.ffn_backward(x11, g12, *p11, rate=0.5,
+                                             seed=seed),
+                    lambda: ffn.ffn_backward_plain(x11, g12, *p11, rate=0.5,
+                                                   seed=seed),
+                    None),
         }
         # each wrapper's kernels: the backward kernels include their
         # partial sums (and K6 its split-K weight products)
@@ -1307,7 +1639,11 @@ def main() -> int:
             "K4w": ("wd_encoder_fwd_kernel",), "K5": ("wd_encoder_fwd_kernel",),
             "K6": k6_kernels, "K6s": k6_kernels,
             "K7": ("gt_sample_kernel",), "K4t": ("gt_encoder_fwd_kernel",),
-            "K8": k8_kernels, "K8s": k8_kernels}
+            "K8": k8_kernels, "K8s": k8_kernels,
+            "K9": ("gt_layer_fwd_kernel",), "K10": k8_kernels,
+            "K11": ("ff_fwd_kernel",),
+            "K12": ("ff_bwd_kernel", "gt_reduce_partials_kernel",
+                    "wd_wgrad_kernel")}
         timings = {
             key: (device_ms(kern, 10, device_kernels[key]), time_ms(kern, 10),
                   time_ms(plain, 3),
@@ -1352,6 +1688,18 @@ def main() -> int:
         "K8s": ("recompute_slot0_bwd", src + "recompute_bwd.cu",
                 "graph_transformer_tpu/ops/pallas_u2gnn.py:316", k8s_bytes,
                 k8s_flops, f32),
+        "K9": ("encoder_layer_fwd", src + "encoder_layer.cu",
+               "graph_transformer_tpu/ops/pallas_encoder.py:196", k9_bytes,
+               k9_flops, f32),
+        "K10": ("encoder_layer_bwd", src + "encoder_layer.cu",
+                "graph_transformer_tpu/ops/pallas_encoder.py:214", k10_bytes,
+                k10_flops, f32),
+        "K11": ("ffn_fwd", src + "ffn.cu",
+                "graph_transformer_tpu/ops/pallas_ffn.py:70", k11_bytes,
+                k11_flops, f32),
+        "K12": ("ffn_bwd", src + "ffn.cu",
+                "graph_transformer_tpu/ops/pallas_ffn.py:97", k12_bytes,
+                k12_flops, f32),
     }
     kernels = []
     for key, (name, source, replaces, b, f, rate) in meta.items():
@@ -1372,15 +1720,20 @@ def main() -> int:
               + (f", library {lib_ms:.4f}" if lib_ms is not None else "")
               + ")", flush=True)
     print(f"# edges/s on the card: bench {eps:.1f}, quickstart {eps_q:.1f}, "
-          f"hpo arm {eps_h:.1f}; whole run "
+          f"hpo arm {eps_h:.1f}, act {steps_4['act']['eps']:.1f}, node axis "
+          f"{steps_4['node']['eps']:.1f}; whole run "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    cells = {f"{name}_{k}": v for name, st4 in steps_4.items()
+             for k, v in (("edges_per_s", st4["eps"]),
+                          ("ms_per_step", st4["ms"]),
+                          ("profile", st4["profile"]))}
     print(json.dumps({"kernels": kernels, "edges_per_s": eps,
                       "ms_per_step": step_ms,
                       "quickstart_edges_per_s": eps_q,
                       "quickstart_ms_per_step": step_ms_q,
                       "hpo_arm_edges_per_s": eps_h,
-                      "hpo_arm_ms_per_step": step_ms_h, "steps": STEPS,
-                      "build_s": build_s}))
+                      "hpo_arm_ms_per_step": step_ms_h, **cells,
+                      "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -4,11 +4,13 @@
 The flags of the supervised quickstart in ``README.md`` (dataset, batch size,
 FFN width, neighbors, epochs, timesteps, learning rate, ``--scan_epochs``),
 the JAX CLI's ``--num_hidden_layers``, ``--degree_as_tag`` and
-``--use_node_attributes`` (the two-pass path's configurations), the data and
-output locations, and ``--device`` (default ``cuda``).  Checkpointing is
-later work.  Flags of the JAX CLI that choose among TPU kernels or pick
-configurations the port does not run yet are left out until a slice runs
-them.
+``--use_node_attributes`` (the two-pass path's configurations),
+``--attention_axis``, ``--share_timestep_weights`` and ``--recurrence`` (the
+per-layer encoder's; ``cli/common.py:49-57``, with the JAX CLI's choices and
+defaults), the data and output locations, and ``--device`` (default
+``cuda``).  Checkpointing is later work.  Flags of the JAX CLI that choose
+among TPU kernels or pick configurations the port does not run yet are left
+out until a slice runs them.
 """
 
 from __future__ import annotations
@@ -42,6 +44,16 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="node degrees as the one-hot tags")
     p.add_argument("--use_node_attributes", action="store_true",
                    help="use <dataset>_node_attributes.txt sidecar features")
+    p.add_argument("--attention_axis", default="neighborhood",
+                   choices=["neighborhood", "node"],
+                   help="'node' reproduces the PyTorch reference's axis quirk")
+    p.add_argument("--share_timestep_weights", action="store_true",
+                   help="Universal-Transformer weight tying across timesteps")
+    p.add_argument("--recurrence", default="basic",
+                   choices=["basic", "skip", "highway", "gru", "lstm", "dwa",
+                            "act"],
+                   help="UT transition function between timesteps "
+                        "(non-basic implies weight tying)")
     p.add_argument("--learning_rate", default=0.0005, type=float)
     p.add_argument("--scan_epochs", action="store_true",
                    help="accepted for parity with the JAX CLI; the port "
@@ -72,6 +84,9 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
             ff_hidden_size=args.ff_hidden_size,
             num_timesteps=args.num_timesteps,
             num_hidden_layers=args.num_hidden_layers,
+            attention_axis=args.attention_axis,
+            share_timestep_weights=args.share_timestep_weights,
+            recurrence=args.recurrence,
         ),
         train=TrainConfig(
             learning_rate=args.learning_rate,

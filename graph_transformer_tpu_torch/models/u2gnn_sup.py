@@ -12,14 +12,26 @@ Three branches, as in the JAX model:
   K5/K6 for D <= 128 and S <= 32 (``ops/stored_encoder.training_encoder``).
 - **Two-pass training** (``neigh_feat`` given; ``:184-239``), any number of
   U2GNN layers and any features: the caller samples global neighbor ids
-  (kernel K7) and gathers their features; per U2GNN layer the encoder K4t
-  with the recompute backward K8/K8s (``ops/u2gnn_train.py``) encodes them,
-  ``global_regather`` feeds the next layer, and the per-layer heads' scores
-  add up.  Without a ``seed`` it is deterministic (rate 0, no head
-  dropout), as the JAX model is with ``rng=None``.
+  (kernel K7) and gathers their features; per U2GNN layer an encoder
+  encodes them, ``global_regather`` feeds the next layer, and the per-layer
+  heads' scores add up.  Without a ``seed`` it is deterministic (rate 0, no
+  head dropout), as the JAX model is with ``rng=None``.
 - **Evaluation** (neither): the batch's fixed neighborhoods are gathered and
-  encoded by the eval encoder (kernel K4, or the wide K4 past D = 32) at rate
-  0, re-gathered batch-locally between U2GNN layers (``:233``).
+  encoded at rate 0, re-gathered batch-locally between U2GNN layers
+  (``:233``).
+
+The encoder of the last two is picked as the JAX ``neighborhood_encoder``
+picks it (``ops/attention.py:393-433``): basic, single-head,
+neighborhood-axis encoders take the whole-encoder kernels (K4t forward with
+the recompute backward K8/K8s, ``ops/u2gnn_train.py``, in training; K4, or
+the wide K4 past D = 32, at evaluation); every other configuration — the
+Universal-Transformer recurrences (``rec.<i>`` parameters per U2GNN layer),
+``num_heads > 1`` and the reference's node-axis attention — takes the
+per-layer encoder (``ops/attention.neighborhood_encoder``: K9/K10, or plain
+attention and K11/K12), in training and at evaluation alike.  With
+``return_ponder`` the model also returns the summed ACT ponder cost of its
+U2GNN layers (0 for the other recurrences), which the trainer adds to the
+loss.
 
 The encoder dropout is 0.5 whatever ``cfg.dropout`` says, as in the
 reference.  Within a training step, U2GNN layer i draws its encoder and head
@@ -27,9 +39,8 @@ dropout from ``ops.random.layer_seed(seed, i)``; layer 0 keeps the step's
 seed, so that one layer on the two-pass path draws what the fused path
 draws.
 
-Ported so far: basic recurrence, one head, neighborhood-axis attention.
-Anything else raises ``NotImplementedError`` naming the ROADMAP item that
-will port it.
+Models other than ``u2gnn_sup`` raise ``NotImplementedError`` naming the
+ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -43,8 +54,11 @@ from graph_transformer_tpu_torch.config import ModelConfig
 from graph_transformer_tpu_torch.data.batching import GraphBatch
 from graph_transformer_tpu_torch.ops.attention import (
     EncoderParams,
+    neighborhood_encoder,
     xavier_uniform,
 )
+from graph_transformer_tpu_torch.ops.encoder_layer import check_layer_shapes
+from graph_transformer_tpu_torch.ops.ffn import check_ffn_shapes
 from graph_transformer_tpu_torch.ops.random import (
     HEAD_STREAM,
     keep_mask,
@@ -60,6 +74,9 @@ from graph_transformer_tpu_torch.ops.u2gnn_train import (
     check_two_pass_shapes,
     u2gnn_train_encoder,
 )
+from graph_transformer_tpu_torch.ops.ut_recurrence import (
+    init_recurrence_params,
+)
 
 ENCODER_DROPOUT = 0.5  # hard-coded in the reference (u2gnn_sup.py:157,207)
 
@@ -68,31 +85,45 @@ COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the configurations this slice of the port does not run."""
-    gaps = []
-    if cfg.recurrence != "basic":
-        gaps.append(f"recurrence {cfg.recurrence!r} (ROADMAP.md Queue A, "
-                    "'UT recurrences')")
-    if cfg.num_heads != 1:
-        gaps.append("num_heads > 1 (ROADMAP.md Queue B, "
-                    "the per-layer encoder and FFN kernels)")
-    if cfg.attention_axis != "neighborhood":
-        gaps.append("attention_axis 'node' (ROADMAP.md Queue A, "
-                    "'XLA-path encoder on both axes')")
     if cfg.model != "u2gnn_sup":
-        gaps.append(f"model {cfg.model!r} (ROADMAP.md Queue A)")
-    if gaps:
-        raise NotImplementedError("not ported yet: " + "; ".join(gaps))
+        raise NotImplementedError(
+            f"not ported yet: model {cfg.model!r} (ROADMAP.md Queue A)")
+
+
+def whole_encoder_ok(cfg: ModelConfig) -> bool:
+    """Whether the whole-encoder kernels run ``cfg``'s encoder: a basic,
+    single-head, neighborhood-axis one (``ops/attention.py:393-399`` of the
+    JAX package); the rest takes the per-layer encoder."""
+    return (cfg.recurrence == "basic" and cfg.num_heads == 1
+            and cfg.attention_axis == "neighborhood")
+
+
+def check_encoder_shapes(cfg: ModelConfig, S: int, D: int) -> None:
+    """Raise, naming the ROADMAP item, for neighborhoods of S slots and D
+    features that the kernels of ``cfg``'s training encoder do not take:
+    K4t/K8 (whole encoder), K9/K10 (single-head layers without a mask) or
+    K11/K12 (node axis, several heads)."""
+    if whole_encoder_ok(cfg):
+        check_two_pass_shapes(S, D)
+    elif cfg.num_heads == 1 and cfg.attention_axis == "neighborhood":
+        check_layer_shapes(S, D)
+    else:
+        check_ffn_shapes(D)
 
 
 class U2GNNSup(nn.Module):
     """Parameters: ``encoders`` (one :class:`EncoderParams` per U2GNN layer),
-    ``head_w`` [k, D, C] and ``head_b`` [k, C], named as the JAX
+    ``head_w`` [k, D, C], ``head_b`` [k, C] and, for a recurrence with
+    parameters, ``rec`` (one module per U2GNN layer), named as the JAX
     ``U2GNNSupParams`` fields (see ``weights.params_from_jax``)."""
 
     def __init__(self, feature_dim: int, num_classes: int, cfg: ModelConfig,
                  seed: int = 0):
         super().__init__()
         check_supported(cfg)
+        if feature_dim % cfg.num_heads:
+            raise ValueError(f"{cfg.num_heads} heads do not divide "
+                             f"feature_dim {feature_dim}")
         self.cfg = cfg
         self.feature_dim, self.num_classes = feature_dim, num_classes
         k = cfg.num_hidden_layers
@@ -105,25 +136,43 @@ class U2GNNSup(nn.Module):
         self.head_w = nn.Parameter(
             torch.stack([xavier_uniform((D, C), gen) for _ in range(k)]))
         self.head_b = nn.Parameter(torch.zeros(k, C))
+        rec = [init_recurrence_params(cfg.recurrence, D, gen)
+               for _ in range(k)]
+        self.rec = nn.ModuleList(r for r in rec if r is not None)
 
     def forward(self, batch: GraphBatch, sampled_inputs: Optional[tuple] = None,
                 seed: Optional[int] = None,
                 neigh_feat: Optional[torch.Tensor] = None,
                 neigh_global: Optional[torch.Tensor] = None,
-                num_total_nodes: Optional[int] = None) -> torch.Tensor:
-        """Scores [B, C].  Fused training: ``sampled_inputs`` = (tag_rows
-        [N,128], deg [N], self_tag [N], codebook [C,D]) and an int ``seed``
-        for the sampler and all dropout.  Two-pass training: ``neigh_feat``
-        [N, K+1, D] gathered by the global ids ``neigh_global`` [N, K+1]
-        (needed past one U2GNN layer, with ``num_total_nodes``) and a
-        ``seed``, or none for a deterministic pass.  Evaluation: none of
-        these."""
+                num_total_nodes: Optional[int] = None,
+                return_ponder: bool = False):
+        """Scores [B, C], or ``(scores, ponder)`` with ``return_ponder``.
+        Fused training: ``sampled_inputs`` = (tag_rows [N,128], deg [N],
+        self_tag [N], codebook [C,D]) and an int ``seed`` for the sampler and
+        all dropout.  Two-pass training: ``neigh_feat`` [N, K+1, D] gathered
+        by the global ids ``neigh_global`` [N, K+1] (needed past one U2GNN
+        layer, with ``num_total_nodes``) and a ``seed``, or none for a
+        deterministic pass.  Evaluation: none of these."""
         if sampled_inputs is not None:
-            return self._fused(batch, sampled_inputs, seed)
-        if neigh_feat is not None:
-            return self._two_pass(batch, neigh_feat, neigh_global,
-                                  num_total_nodes, seed)
-        return self._eval(batch)
+            out = self._fused(batch, sampled_inputs, seed)
+        elif neigh_feat is not None:
+            out = self._two_pass(batch, neigh_feat, neigh_global,
+                                 num_total_nodes, seed)
+        else:
+            out = self._eval(batch)
+        return out if return_ponder else out[0]
+
+    def _per_layer(self, i: int, x: torch.Tensor, batch: GraphBatch,
+                   seed: Optional[int]):
+        """U2GNN layer i's per-layer encoder over x [N, K+1, D]: (self
+        vectors [N, D], ponder)."""
+        cfg = self.cfg
+        return neighborhood_encoder(
+            self.encoders[i].stacked(), x, cfg.num_heads,
+            0.0 if seed is None else ENCODER_DROPOUT, seed,
+            cfg.attention_axis, cfg.num_timesteps, batch.node_mask,
+            cfg.recurrence, self.rec[i] if len(self.rec) else None,
+            return_ponder=True)
 
     def _head(self, i: int, out: torch.Tensor, batch: GraphBatch,
               seed: Optional[int]) -> torch.Tensor:
@@ -150,13 +199,14 @@ class U2GNNSup(nn.Module):
         out = encoder(tag_rows, deg, self_tag, codebook,
                       self.encoders[0].stacked(), S, self.cfg.num_timesteps,
                       ENCODER_DROPOUT, seed)
-        return self._head(0, out, batch, seed)
+        return self._head(0, out, batch, seed), out.new_zeros(())
 
     def _two_pass(self, batch, neigh_feat, neigh_global, num_total_nodes,
                   seed):
         cfg = self.cfg
         N, S, D = neigh_feat.shape
-        check_two_pass_shapes(S, D)
+        check_encoder_shapes(cfg, S, D)
+        whole = whole_encoder_ok(cfg)
         k = len(self.encoders)
         if k > 1 and (neigh_global is None or num_total_nodes is None):
             raise ValueError("a deeper two-pass model re-gathers by global id:"
@@ -164,28 +214,39 @@ class U2GNNSup(nn.Module):
         compute = COMPUTE_DTYPES[cfg.compute_dtype]
         rate = 0.0 if seed is None else ENCODER_DROPOUT
         x = neigh_feat.to(compute)
-        scores = 0.0
+        scores, ponder = 0.0, x.new_zeros((), dtype=torch.float32)
         for i, enc in enumerate(self.encoders):
             s_i = None if seed is None else layer_seed(seed, i)
-            out = u2gnn_train_encoder(x.reshape(N * S, D), enc.stacked(), S,
-                                      cfg.num_timesteps, rate, s_i)
-            out = out.to(compute)
+            if whole:
+                out = u2gnn_train_encoder(x.reshape(N * S, D), enc.stacked(),
+                                          S, cfg.num_timesteps, rate,
+                                          s_i).to(compute)
+            else:  # its output's dtype, as the JAX model keeps it
+                out, p_i = self._per_layer(i, x, batch, s_i)
+                ponder = ponder + p_i
             if i + 1 < k:
                 x = global_regather(out, batch.node_gidx, batch.node_mask,
                                     neigh_global, num_total_nodes)
             scores = scores + self._head(i, out, batch, s_i)
-        return scores
+        return scores, ponder
 
     def _eval(self, batch):
         compute = COMPUTE_DTYPES[self.cfg.compute_dtype]
+        whole = whole_encoder_ok(self.cfg)
         neigh = batch.neigh.to(torch.int64)
         N, S = neigh.shape
         x = batch.x.to(compute)
         scores = 0.0
+        ponder = x.new_zeros((), dtype=torch.float32)
         for i, enc in enumerate(self.encoders):
             with torch.no_grad():
-                out = u2gnn_encoder(x[neigh].reshape(N * S, -1), enc.stacked(),
-                                    S, self.cfg.num_timesteps).to(compute)
+                if whole:
+                    out = u2gnn_encoder(x[neigh].reshape(N * S, -1),
+                                        enc.stacked(), S,
+                                        self.cfg.num_timesteps).to(compute)
+                else:
+                    out, p_i = self._per_layer(i, x[neigh], batch, None)
+                    ponder = ponder + p_i
             x = out
             scores = scores + self._head(i, out, batch, None)
-        return scores
+        return scores, ponder

@@ -27,12 +27,14 @@ BUILD_DIR = Path(os.environ.get(
     "GT_TORCH_BUILD_DIR",
     Path(__file__).resolve().parents[2] / "build" / "kernels"))
 SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd", "stored_fwd",
-           "stored_bwd", "wide_fwd", "sampler", "recompute_bwd")
+           "stored_bwd", "wide_fwd", "sampler", "recompute_bwd",
+           "encoder_layer", "ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _PARAMS = ctypes.c_void_p * 12
+_FFN_PARAMS = ctypes.c_void_p * 6
 # argument types of each exported function
 SIGNATURES = {
     "gt_k1_sampled_fwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _P, _P, _P,
@@ -60,14 +62,22 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
     "gt_k8s_slot0_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k9_layer_fwd": [_P, _I, _P, _PARAMS, _I, _I, _I, _I, _I, _I, _F, _U,
+                        _U, _F, _I, _P],
+    "gt_k10_layer_bwd": [_P, _I, _P, _PARAMS, _I, _P, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k11_ffn_fwd": [_P, _I, _P, _FFN_PARAMS, _I, _I, _I, _I, _U, _U, _F,
+                       _I, _P],
+    "gt_k12_ffn_bwd": [_P, _I, _P, _FFN_PARAMS, _I, _P, _P, _P, _I, _I, _I,
+                       _U, _U, _F, _I, _P],
 }
-# scratch bytes of K6, (N, S, D, F, G, slot0) -> bytes
-WORK_FNS = ("gt_k6_work_bytes",)
+# scratch bytes: K6 (N, S, D, F, G, slot0), K12 (M, D, F, bf16) -> bytes
+WORK_FNS = {"gt_k6_work_bytes": 6, "gt_k12_work_bytes": 4}
 # each kernel's shared memory per block, (G, S, D) -> bytes
 SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
             "gt_k4_smem_bytes", "gt_k4w_smem_bytes", "gt_k5_smem_bytes",
             "gt_k6_smem_bytes", "gt_k6s_smem_bytes", "gt_k8_smem_bytes",
-            "gt_k8s_smem_bytes")
+            "gt_k8s_smem_bytes", "gt_k9_smem_bytes", "gt_k10_smem_bytes")
 
 _libs: dict = {}
 
@@ -140,9 +150,9 @@ def load(name: str) -> ctypes.CDLL:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = [_I, _I, _I]
                 getattr(lib, fn).restype = ctypes.c_size_t
-        for fn in WORK_FNS:
+        for fn, nargs in WORK_FNS.items():
             if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = [_I] * 6
+                getattr(lib, fn).argtypes = [_I] * nargs
                 getattr(lib, fn).restype = ctypes.c_size_t
         _libs[name] = lib
     return lib
@@ -153,8 +163,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def f32_params(tensors) -> list:
+    """Parameters as the kernels read them: detached, float32, contiguous."""
+    return [t.detach().float().contiguous() for t in tensors]
+
+
+def check_rows_dtype(x) -> None:
+    """The kernels take rows in bfloat16 or float32."""
+    import torch
+
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"rows dtype {x.dtype}: bfloat16 or float32 only")
+
+
 def params_array(tensors) -> ctypes.Array:
-    return _PARAMS(*[t.data_ptr() for t in tensors])
+    """The pointers of the 12 encoder tensors (6 for the FFN kernels)."""
+    kind = _PARAMS if len(tensors) == 12 else _FFN_PARAMS
+    return kind(*[t.data_ptr() for t in tensors])
 
 
 def pick_groups(name: str, smem_fn: str, S: int, D: int, rows: int = 128,

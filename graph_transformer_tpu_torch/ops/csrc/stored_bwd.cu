@@ -21,7 +21,7 @@
 //      per-block partial sums of the eight bias and LayerNorm gradients;
 //   2. the four weight products (x^T dqkv, ctx^T da, y1^T dhpre, h^T dz) run
 //      as split-K products over the rows, each split writing its own
-//      partial tile;
+//      partial tile (wd_wgrad, wide.cuh);
 //   3. a second pass sums the partials in block / split order.
 // No float atomics, so runs repeat bit for bit.
 //
@@ -33,8 +33,6 @@
 // operands; tensor-core products and fusing the dW1 product into the row
 // kernel are later work.
 #include "wide.cuh"
-
-#define WD_SPLIT_BLOCKS 264  // target blocks of a split-K product: 2 per SM
 
 // ------------------------------------------------------------ row kernel
 // floats of shared memory: per query row dz/da, dy1/du1, dctx (3 x [QP, D]),
@@ -333,90 +331,6 @@ __global__ void wd_reduce_small_kernel(const float* part, int nblk, int D,
   else if (p < 6 * D + F) off = o.b1 + (p - 6 * D);
   else off = o.b2 + (p - 6 * D - F);
   grads[off] = s;
-}
-
-// ------------------------------------------------ split-K weight products
-// part[split][m][n] = sum over the split's rows of A[row][m] * B[row][n]
-// (f32 operands rounded to bf16; bf16 operands as they are)
-struct WdOperand {
-  const void* p;
-  int bf16;
-  int ld;   // elements per row
-  int off;  // first column
-};
-
-__device__ __forceinline__ float wd_load(const WdOperand& o, int r, int c) {
-  const size_t e = (size_t)r * o.ld + o.off + c;
-  return o.bf16 ? __bfloat162float(((const __nv_bfloat16*)o.p)[e])
-                : gt_bfr(((const float*)o.p)[e]);
-}
-
-__global__ void __launch_bounds__(256)
-wd_wgrad_kernel(WdOperand A, WdOperand B, int rows, int M1, int N1,
-                int rows_per_split, float* part) {
-  __shared__ float sa[16][64];
-  __shared__ float sb[16][64];
-  const int tilesN = (N1 + 63) / 64;
-  const int m0 = (blockIdx.x / tilesN) * 64;
-  const int nn0 = (blockIdx.x % tilesN) * 64;
-  const int rbeg = blockIdx.y * rows_per_split;
-  const int rend = min(rows, rbeg + rows_per_split);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int r0 = rbeg; r0 < rend; r0 += 16) {
-    for (int e = tid; e < 16 * 64; e += 256) {
-      const int k = e / 64, c = e % 64, r = r0 + k;
-      sa[k][c] = (r < rend && m0 + c < M1) ? wd_load(A, r, m0 + c) : 0.f;
-      sb[k][c] = (r < rend && nn0 + c < N1) ? wd_load(B, r, nn0 + c) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sa[k][ty * 4 + i];
-        b[i] = sb[k][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.y * M1 * N1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, n = nn0 + tx * 4 + j;
-      if (m < M1 && n < N1) out[(size_t)m * N1 + n] = acc[i][j];
-    }
-}
-
-static inline int wd_splits(int rows, int M1, int N1) {
-  const int tiles = ((M1 + 63) / 64) * ((N1 + 63) / 64);
-  int s = (WD_SPLIT_BLOCKS + tiles - 1) / tiles;
-  const int most = (rows + 63) / 64;
-  if (s > most) s = most;
-  return s < 1 ? 1 : s;
-}
-
-static cudaError_t wd_wgrad(WdOperand A, WdOperand B, int rows, int M1,
-                            int N1, float* split, float* out,
-                            cudaStream_t stream) {
-  const int s = wd_splits(rows, M1, N1);
-  const int per = (rows + s - 1) / s;
-  const dim3 grid(((M1 + 63) / 64) * ((N1 + 63) / 64), s);
-  wd_wgrad_kernel<<<grid, 256, 0, stream>>>(A, B, rows, M1, N1, per, split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return gt_reduce_partials(split, s, M1 * N1, out, stream);
 }
 
 // ------------------------------------------------------------- workspace

@@ -33,15 +33,11 @@ import torch
 
 from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import (
+    dropout,
     layer_forward,
     rnd,
 )
-from graph_transformer_tpu_torch.ops.random import (
-    drop_args,
-    dropout_stream,
-    keep_mask,
-    uniform_draws,
-)
+from graph_transformer_tpu_torch.ops.random import drop_args, uniform_draws
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import _check_shapes
 
 TABLE_WIDTH = 128
@@ -108,7 +104,7 @@ def sampled_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
     self_tag = _i32(self_tag, (N,))
     codebook = codebook.to(torch.float32).contiguous()
     draws_in = None if draws is None else _i32(draws, (N, K))
-    ps = [p.detach().to(torch.float32).contiguous() for p in params]
+    ps = _build.f32_params(params)
     f32 = dict(dtype=torch.float32, device=dev)
     out = torch.empty(N, D, **f32)
     draws_out = torch.empty(N, K, dtype=torch.int32, device=dev)
@@ -181,18 +177,9 @@ def _ffn_bwd(y1, dz, du2, p, drop_h, mm, h=None, keep=1.0):
     return dy1, dw1, db1, dw2
 
 
-def _dropper(rate, seed, layer, device):
-    keep = 1.0 - rate
-
-    def drop(site):
-        def f(v):
-            if rate <= 0.0:
-                return v
-            m = keep_mask(seed, dropout_stream(layer, site), v.shape, rate,
-                          device)
-            return v * m / keep
-        return f
-    return drop
+def _dropper(rate, seed, layer):
+    """site -> the dropout of that site of layer ``layer``."""
+    return lambda site: (lambda v: dropout(v, rate, seed, layer, site))
 
 
 def layer_backward_plain(x, qkv, attn, strip, g, p, *, layer: int,
@@ -204,7 +191,7 @@ def layer_backward_plain(x, qkv, attn, strip, g, p, *, layer: int,
     recompute it.  Returns (dx [N,S,D], 12 grads in KERNEL_ORDER)."""
     (w_in, b_in, w_out, b_out, g1, c1, w1, b1, w2, b2, g2, c2) = p
     N, S, D = g.shape
-    drop = _dropper(rate, seed, layer, g.device)
+    drop = _dropper(rate, seed, layer)
     x = x.to(torch.float32)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     ctx, y1, uh1, uh2, rs1, rs2 = _split_strip(strip, D)
@@ -245,7 +232,7 @@ def slot0_backward_plain(x, qkv, attn0, strip0, g, p, *, layer: int,
     (w_in, b_in, w_out, b_out, g1, c1, w1, b1, w2, b2, g2, c2) = p
     N, S, _ = x.shape
     D = g.shape[1]
-    drop = _dropper(rate, seed, layer, g.device)
+    drop = _dropper(rate, seed, layer)
     x = x.to(torch.float32)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     ctx, y1, uh1, uh2, rs1, rs2 = _split_strip(strip0, D)
@@ -297,7 +284,7 @@ def _bwd_kernel(fn_name, smem_fn, x, qkv, attn, strip, g, params, layer,
     dev = x.device
     if x.dtype != torch.bfloat16:
         raise TypeError("the backward kernels take bfloat16 layer inputs")
-    ps = [p.detach().to(torch.float32).contiguous() for p in params]
+    ps = _build.f32_params(params)
     dx = torch.empty(N, S, D, dtype=torch.float32, device=dev)
     P = sum(math.prod(p.shape[1:]) for p in ps)
     lib = _build.load("layer_bwd")

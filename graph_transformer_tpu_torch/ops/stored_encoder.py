@@ -104,7 +104,7 @@ def stored_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
     self_tag = _i32(self_tag, (N,))
     codebook = codebook.to(torch.float32).contiguous()
     draws_in = None if draws is None else _i32(draws, (N, K))
-    ps = [p.detach().to(torch.float32).contiguous() for p in params]
+    ps = _build.f32_params(params)
     f32 = dict(dtype=torch.float32, device=dev)
     bf16 = dict(dtype=torch.bfloat16, device=dev)
     Tf = max(T - 1, 0)
@@ -171,7 +171,7 @@ def _bwd_kernel(fn_name, x, qkv, attn, strip, h, g, params, layer, rate,
     dev = x.device
     if x.dtype != torch.bfloat16 or h.dtype != torch.bfloat16:
         raise TypeError("K6 takes bfloat16 layer inputs and hidden")
-    ps = [p.detach().to(torch.float32).contiguous() for p in params]
+    ps = _build.f32_params(params)
     dx = torch.empty(N, S, D, dtype=torch.float32, device=dev)
     P = sum(math.prod(p.shape[1:]) for p in ps)
     grads = torch.zeros(P, dtype=torch.float32, device=dev)

@@ -122,14 +122,13 @@ def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
     S, T = seq_len, num_timesteps
     D = x2d.shape[1]
     (check_wide_shapes if wide else _check_shapes)(S, D)
-    if x2d.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x2d dtype {x2d.dtype}: bfloat16 or float32 only")
+    _build.check_rows_dtype(x2d)
     if x2d.shape[0] % S:
         raise ValueError("x2d rows must be a multiple of seq_len")
     N = x2d.shape[0] // S
     F = params[6].shape[2]
     x2d = x2d.contiguous()
-    ps = [p.detach().to(torch.float32).contiguous() for p in params]
+    ps = _build.f32_params(params)
     for p in ps:
         if p.device != x2d.device:
             raise ValueError("params and x2d must be on one device")

@@ -43,8 +43,9 @@ from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
     u2gnn_encoder_train,
 )
 
-WIDE_BWD_ITEM = ("ROADMAP.md Queue B, 'kernel 5 at 32 < D <= 128 (wide "
-                 "recompute backward)'")
+WIDE_BWD_ITEM = ("ROADMAP.md Queue B, item 1, 'kernel 5 at 32 < D <= 128, "
+                 "with kernels 14 and 15 (one warp-per-row recompute "
+                 "backward)'")
 
 
 def check_two_pass_shapes(S: int, D: int) -> None:
@@ -81,10 +82,9 @@ def _recompute_kernel(fn_name, smem_fn, x, g, params, layer, rate, seed,
     N, S, D = x.shape
     F = params[6].shape[2]
     check_two_pass_shapes(S, D)
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"x dtype {x.dtype}: bfloat16 or float32 only")
+    _build.check_rows_dtype(x)
     dev = x.device
-    ps = [p.detach().to(torch.float32).contiguous() for p in params]
+    ps = _build.f32_params(params)
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty(N, S, D, **f32)
     P = sum(math.prod(p.shape[1:]) for p in ps)

@@ -7,20 +7,28 @@ the model scores the graphs, the label-smoothed soft cross entropy is
 back-propagated and the clipped Adam step updates the parameters in place.
 Two paths, chosen as the JAX trainer chooses (``sup_trainer.py:80-104``):
 
-- **fused**, for one U2GNN layer over features that factor through a
-  <=128-row codebook: the sampled encoder samples and encodes in one kernel
-  (K1, or K5 for rows past the folded kernels' shapes) and its backward
-  reads the stored residuals (K3 then K2 per earlier layer, or K6);
+- **fused**, where :func:`fused_gate_ok` holds (one U2GNN layer, basic
+  recurrence, one head, neighborhood axis) over features that factor
+  through a <=128-row codebook: the sampled encoder samples and encodes in
+  one kernel (K1, or K5 for rows past the folded kernels' shapes) and its
+  backward reads the stored residuals (K3 then K2 per earlier layer, or K6);
 - **two-pass**, otherwise (``num_hidden_layers > 1``, continuous node
-  attributes): the sampler K7 draws global neighbor ids from the dataset's
+  attributes, the Universal-Transformer recurrences, several heads, the
+  node axis): the sampler K7 draws global neighbor ids from the dataset's
   neighbor table, their features are gathered from the dataset's feature
   table on the device (``x_global``, in ``cfg.model.compute_dtype``), and
-  each U2GNN layer runs K4t forward and K8s then K8 per earlier layer
-  backward (``ops/u2gnn_train.py``).
+  each U2GNN layer runs the encoder the model picks: K4t forward and K8s
+  then K8 per earlier layer backward (``ops/u2gnn_train.py``) for basic
+  single-head neighborhood-axis encoders, else the per-layer encoder
+  (K9/K10, or plain attention with K11/K12).  With ``recurrence="act"`` the
+  loss adds ``act_loss_weight`` times the model's ponder cost
+  (``sup_trainer.py:124-125, 193``).
 
 :meth:`train_steps` runs n steps on one fixed batch — the counterpart of the
 JAX ``_train_scan`` (``sup_trainer.py:204-242``) that the benchmark drives.
-Evaluation runs the deterministic model (K4, or the wide K4 past D = 32).
+Evaluation runs the deterministic model (K4, or the wide K4 past D = 32,
+for the whole-encoder configurations; the per-layer encoder at rate 0 for
+the others).
 
 Random numbers: the host draws one 31-bit seed per step from a CPU
 ``torch.Generator`` (seeded by ``cfg.train.seed + 1``); the sampler, the
@@ -39,19 +47,20 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from graph_transformer_tpu_torch.config import ExperimentConfig
+from graph_transformer_tpu_torch.config import ExperimentConfig, ModelConfig
 from graph_transformer_tpu_torch.data.batching import BatchBuilder, GraphBatch
 from graph_transformer_tpu_torch.data.splits import separate_data_idx
 from graph_transformer_tpu_torch.data.tu import GraphDataset
 from graph_transformer_tpu_torch.models.u2gnn_sup import (
     COMPUTE_DTYPES,
     U2GNNSup,
+    check_encoder_shapes,
+    whole_encoder_ok,
 )
 from graph_transformer_tpu_torch.ops.losses import (
     label_smoothing,
     soft_cross_entropy,
 )
-from graph_transformer_tpu_torch.ops.u2gnn_train import check_two_pass_shapes
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     build_neighbor_table,
     sample_neighbors,
@@ -71,6 +80,14 @@ def resolve_device(device) -> torch.device:
                            "available (pass device='cpu' to run the plain "
                            "versions)")
     return device
+
+
+def fused_gate_ok(cfg_model: ModelConfig) -> bool:
+    """The configuration part of the fused path's gate
+    (``graph_transformer_tpu/ops/pallas_sampled_encoder.py:115-126``; the
+    dataset part is ``setup_fused_tables``).  The JAX gate's flags that pick
+    among TPU kernels are not read: the port has one kernel for each path."""
+    return cfg_model.num_hidden_layers == 1 and whole_encoder_ok(cfg_model)
 
 
 class SupTrainer:
@@ -97,12 +114,13 @@ class SupTrainer:
                                   cfg.train.grad_clip_norm)
         table = build_neighbor_table(ds, hub_seed=cfg.train.seed)
         fused = (setup_fused_tables(ds.node_feat, table)
-                 if cfg.model.num_hidden_layers == 1 else None)
+                 if fused_gate_ok(cfg.model) else None)
         self.two_pass = fused is None
         dev = self.device
         self._deg = torch.from_numpy(ds.degrees.astype(np.int32)).to(dev)
         if self.two_pass:
-            check_two_pass_shapes(cfg.data.num_neighbors + 1, ds.feature_dim)
+            check_encoder_shapes(cfg.model, cfg.data.num_neighbors + 1,
+                                 ds.feature_dim)
             self._nbr_table = torch.from_numpy(table).to(dev)
             self._x_global = torch.from_numpy(
                 np.asarray(ds.node_feat, np.float32)).to(
@@ -113,6 +131,8 @@ class SupTrainer:
             self._tags = torch.from_numpy(tags).to(dev)
             self._codebook = torch.from_numpy(codebook).to(dev)
         self._seeds = torch.Generator().manual_seed(cfg.train.seed + 1)
+        self.act_weight = (cfg.model.act_loss_weight
+                           if cfg.model.recurrence == "act" else 0.0)
         self.epoch_losses: List[float] = []
         self.lr_scale = 1.0
         self.num_batches_per_epoch = max(
@@ -142,22 +162,30 @@ class SupTrainer:
                 else self.sampled_inputs(batch))
 
     def _scores(self, batch: GraphBatch, si: tuple, seed: int):
+        """(scores, ponder) of one training step."""
         if not self.two_pass:
-            return self.model(batch, sampled_inputs=si, seed=seed)
+            return self.model(batch, sampled_inputs=si, seed=seed,
+                              return_ponder=True)
         rows, deg, gidx = si
         neigh_g = sample_neighbors(seed, rows, deg, gidx,
                                    self.cfg.data.num_neighbors)
         return self.model(batch, seed=seed,
                           neigh_feat=self._x_global[neigh_g.to(torch.int64)],
                           neigh_global=neigh_g,
-                          num_total_nodes=self.ds.num_nodes)
+                          num_total_nodes=self.ds.num_nodes,
+                          return_ponder=True)
+
+    def loss(self, batch: GraphBatch, scores, ponder) -> torch.Tensor:
+        """The label-smoothed soft cross entropy, plus the ACT ponder cost
+        times ``act_loss_weight`` for ``recurrence="act"`` (t2t's
+        ``act_loss``)."""
+        targets = label_smoothing(batch.labels, self.ds.num_classes,
+                                  self.cfg.model.label_smoothing)
+        return soft_cross_entropy(scores, targets) + self.act_weight * ponder
 
     def _step(self, batch: GraphBatch, si: tuple) -> torch.Tensor:
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self._seeds))
-        scores = self._scores(batch, si, seed)
-        targets = label_smoothing(batch.labels, self.ds.num_classes,
-                                  self.cfg.model.label_smoothing)
-        loss = soft_cross_entropy(scores, targets)
+        loss = self.loss(batch, *self._scores(batch, si, seed))
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()

@@ -39,8 +39,25 @@ def test_two_pass_flags_parse():
         .data.degree_as_tag is None
 
 
+def test_per_layer_flags_parse():
+    """The JAX CLI's choices and defaults (``cli/common.py:49-57``)."""
+    cfg = config_from_args(base_parser("t").parse_args([]))
+    assert (cfg.model.recurrence, cfg.model.attention_axis,
+            cfg.model.share_timestep_weights) == ("basic", "neighborhood",
+                                                  False)
+    cfg = config_from_args(base_parser("t").parse_args(
+        ["--recurrence", "dwa", "--attention_axis", "node",
+         "--share_timestep_weights"]))
+    assert (cfg.model.recurrence, cfg.model.attention_axis,
+            cfg.model.share_timestep_weights) == ("dwa", "node", True)
+    for bad in (["--recurrence", "rnn"], ["--attention_axis", "edge"],
+                ["--num_heads", "2"]):
+        with pytest.raises(SystemExit):
+            base_parser("t").parse_args(bad)
+
+
 @pytest.mark.parametrize("flag", [["--use_pallas"], ["--host_sampling"],
-                                  ["--recurrence", "gru"]])
+                                  ["--whole_encoder"]])
 def test_flags_of_unported_paths_are_refused(flag):
     with pytest.raises(SystemExit):
         base_parser("t").parse_args(README_FLAGS + flag)
@@ -183,3 +200,45 @@ def test_train_sup_cli_takes_the_two_pass_path(tmp_path, monkeypatch, capsys,
     assert len(losses) == 2 and np.isfinite(losses).all()
     assert calls["fused"] == 0 and calls["sample"] > 0
     assert calls["two_pass"] == k * calls["sample"]
+
+
+@pytest.mark.parametrize("flags,per_layer", [
+    (["--recurrence", "act"], True),
+    (["--attention_axis", "node"], True),
+    (["--share_timestep_weights"], False)],
+    ids=["act", "node", "tied"])
+def test_train_sup_cli_per_layer_flags(tmp_path, monkeypatch, capsys, flags,
+                                       per_layer):
+    """Each new flag trains on a tiny TU file on the CPU: ACT and the node
+    axis through the sampler and the per-layer encoder (never the fused or
+    the whole-encoder kernels), tied timesteps through the fused path with
+    one stored layer; finite epoch losses."""
+    import re
+
+    from graph_transformer_tpu_torch.models import u2gnn_sup
+
+    _write_tu(tmp_path, "TINY")
+    calls = _spy_paths(monkeypatch)
+    calls["per_layer"] = 0
+    fn = u2gnn_sup.neighborhood_encoder
+
+    def spy(*a, **k):
+        calls["per_layer"] += 1
+        return fn(*a, **k)
+
+    monkeypatch.setattr(u2gnn_sup, "neighborhood_encoder", spy)
+    acc = train_sup.main(flags + [
+        "--dataset", "TINY", "--data_dir", str(tmp_path), "--batch_size",
+        "4", "--ff_hidden_size", "16", "--num_neighbors", "3",
+        "--num_epochs", "2", "--num_timesteps", "2",
+        "--run_folder", str(tmp_path / "runs"), "--device", "cpu"])
+    assert 0.0 <= acc <= 1.0
+    losses = [float(v) for v in
+              re.findall(r"\| loss\s+(\S+) \|", capsys.readouterr().out)]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    if per_layer:
+        assert calls["fused"] == calls["two_pass"] == 0
+        assert calls["sample"] > 0 and calls["per_layer"] > calls["sample"]
+    else:
+        assert calls["fused"] > 0
+        assert calls["sample"] == calls["two_pass"] == calls["per_layer"] == 0

@@ -215,3 +215,74 @@ def test_train_steps_launch_the_two_pass_kernels(cuda):
     assert (got["K7"], got["K4t"], got["K8s"], got["K8"]) == (4, 8, 8, 16)
     assert got["K4"] == 2
     assert all(got[k] == 0 for k in chip_smoke.FUSED_KERNELS)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,D", [(9, 7), (17, 19), (32, 32)])
+def test_encoder_layer_kernels_match_plain_versions(cuda, S, D, dtype):
+    """K9 and K10 against their plain versions at rate 0 and 0.5, in
+    float32 and bf16 (forward 1e-4 or the float64 rule / the bf16 spread
+    rule; dx and every gradient leaf at cosine > 0.999), with a ragged last
+    block."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=301, S=S, D=D, C=D, F=256, Tn=1, stored=1, seed=1, dev=cuda)
+    chip_smoke.check_encoder_layer(f"S{S}D{D}", params,
+                                   x2d.to(getattr(torch, dtype)), S, cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [4, 68, 128])
+def test_ffn_kernels_match_plain_versions(cuda, D, dtype):
+    """K11 and K12 against their plain versions over 1,000 rows (a ragged
+    last block) at rate 0 and 0.5, every gradient leaf on its own."""
+    import chip_smoke
+
+    chip_smoke.check_ffn(f"D{D}", 1000, D, 256, getattr(torch, dtype), cuda)
+
+
+def test_per_layer_kernels_match_whole_encoder(cuda):
+    """T launches of K9 at rate 0 give K4's slot-0 output in float32."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=200, S=9, D=7, C=7, F=256, Tn=3, stored=3, seed=2, dev=cuda)
+    chip_smoke.check_per_layer_vs_whole("D7", params, x2d, 9, 3)
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(recurrence="act"), ("K7", "K9", "K10")),
+    (dict(attention_axis="node"), ("K7", "K11", "K12"))], ids=["act", "node"])
+def test_train_steps_launch_the_per_layer_kernels(cuda, kw, want):
+    """ACT trains through K7 and K9/K10 once per timestep; the node axis
+    through K7 and K11/K12; evaluation runs K9 or K11; no other kernel
+    launches."""
+    import dataclasses
+
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+    import chip_smoke
+
+    ds = synthetic_powerlaw_dataset("S", num_graphs=16, mean_nodes=40,
+                                    seed=0, reddit_like=False)
+    cfg = ExperimentConfig(
+        data=DataConfig(batch_size=4, num_neighbors=4),
+        model=dataclasses.replace(
+            ModelConfig(num_timesteps=3, ff_hidden_size=64), **kw),
+        train=TrainConfig(num_epochs=1))
+    tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
+                    test_idx=np.arange(12, 16))
+    counters = chip_smoke.launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = tr.train_steps(tr.builder.sample(), 4)
+    train = {k: c.launches for k, c in counters.items()}
+    acc = tr.evaluate()
+    assert bool(torch.isfinite(losses).all()) and 0.0 <= acc <= 1.0
+    got = {k: c.launches for k, c in counters.items()}
+    assert (train[want[0]], train[want[1]], train[want[2]]) == (4, 12, 12)
+    assert got[want[1]] > train[want[1]] and got[want[2]] == 12
+    assert all(v == 0 for k, v in got.items() if k not in want)

@@ -48,6 +48,7 @@ from graph_transformer_tpu_torch.ops.sparse import graph_sum_pool
 from graph_transformer_tpu_torch.train import optim
 from graph_transformer_tpu_torch.train.sup_trainer import (
     SupTrainer,
+    fused_gate_ok,
     train_evaluate_sup,
 )
 from graph_transformer_tpu_torch.weights import params_from_jax
@@ -206,19 +207,28 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_configurations_raise():
-    for kw in (dict(recurrence="gru"), dict(attention_axis="node"),
-               dict(num_heads=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            U2GNNSup(4, 2, ModelConfig(**kw))
+    """Models other than U2GNNSup, and rows past the kernels of each
+    encoder path, raise naming their ROADMAP item: the whole-encoder
+    recompute backward K8 and the encoder-layer kernels K9/K10 past D=32
+    (Queue B item 1), the FFN kernels K11/K12 past D=128 (Queue A item 2)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        U2GNNSup(4, 2, ModelConfig(model="gcn"))
     rng = np.random.default_rng(0)
-    # continuous features past D=32: more than 128 distinct rows, no
-    # codebook, so the two-pass path, whose recompute backward takes D <= 32
+    # continuous features: more than 128 distinct rows, no codebook, so the
+    # two-pass path
     ds = synthetic_powerlaw_dataset("S", num_graphs=4, mean_nodes=60, seed=0)
     assert ds.num_nodes > 128
-    ds.node_feat = rng.standard_normal((ds.num_nodes, 33)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="kernel 5 at 32 < D"):
-        SupTrainer(ds, small_cfg(1), train_idx=np.arange(3),
-                   test_idx=np.arange(3, 4), device="cpu")
+    for D, kw, match in ((33, {}, "kernel 5 at 32 < D"),
+                         (33, dict(recurrence="gru"), "K9/K10"),
+                         (130, dict(attention_axis="node"), "K11/K12"),
+                         (130, dict(num_heads=2), "Queue A, item 2")):
+        ds.node_feat = rng.standard_normal((ds.num_nodes, D)).astype(
+            np.float32)
+        cfg = small_cfg(1)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **kw))
+        with pytest.raises(NotImplementedError, match=match):
+            SupTrainer(ds, cfg, train_idx=np.arange(3),
+                       test_idx=np.arange(3, 4), device="cpu")
 
 
 def test_params_from_jax_rejects_unknown_keys():
@@ -226,3 +236,57 @@ def test_params_from_jax_rejects_unknown_keys():
         params_from_jax({"head_w": np.zeros((1, 2, 2)),
                          "head_b": np.zeros((1, 2)),
                          "encoders.0.w_bogus": np.zeros(1)})
+
+
+def codebook_ds():
+    """A one-hot 4-tag dataset: its features factor through a codebook, so
+    only the configuration decides the path."""
+    ds = synthetic_powerlaw_dataset("S", num_graphs=12, mean_nodes=20, seed=0,
+                                    reddit_like=False)
+    tags = np.random.default_rng(0).integers(0, 4, ds.num_nodes)
+    ds.node_feat = np.eye(4, dtype=np.float32)[tags]
+    return ds
+
+
+@pytest.mark.parametrize("kw", [{}, dict(recurrence="gru"),
+                                dict(attention_axis="node"),
+                                dict(num_heads=2)],
+                         ids=["basic", "gru", "node", "heads2"])
+def test_fused_gate_sends_per_layer_configs_to_two_pass(kw):
+    """One U2GNN layer over a codebook keeps the fused path only for a
+    basic, single-head, neighborhood-axis encoder (the JAX
+    ``fused_gate_ok``); a recurrence, the node axis or two heads take the
+    two-pass path with the per-layer encoder, and train."""
+    cfg = small_cfg(1)
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, num_timesteps=2, **kw))
+    tr = SupTrainer(codebook_ds(), cfg, train_idx=np.arange(9),
+                    test_idx=np.arange(9, 12), device="cpu")
+    assert fused_gate_ok(cfg.model) == (not kw)
+    assert tr.two_pass == bool(kw)
+    losses = tr.train_steps(tr.builder.sample(), 2)
+    assert bool(torch.isfinite(losses).all())
+    assert 0.0 <= tr.evaluate() <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["act", "gru"])
+def test_act_loss_adds_ponder(kind):
+    """With ``recurrence="act"`` a training step's loss is the soft cross
+    entropy plus 0.01 (``act_loss_weight``) times the ponder cost; other
+    recurrences add nothing."""
+    cfg = small_cfg(1)
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, recurrence=kind))
+    ds = codebook_ds()
+    tr = SupTrainer(ds, cfg, train_idx=np.arange(9),
+                    test_idx=np.arange(9, 12), device="cpu")
+    batch = tr.builder.sample()
+    scores, ponder = tr._scores(batch, tr.step_inputs(batch), 1234)
+    ce = soft_cross_entropy(scores, label_smoothing(batch.labels,
+                                                    ds.num_classes, 0.1))
+    loss = tr.loss(batch, scores, ponder)
+    if kind == "act":
+        assert tr.act_weight == 0.01 and float(ponder.detach()) > 1.0
+        torch.testing.assert_close(loss, ce + 0.01 * ponder)
+    else:
+        assert tr.act_weight == 0.0 and float(ponder) == 0.0
+        torch.testing.assert_close(loss, ce)
