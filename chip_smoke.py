@@ -236,19 +236,22 @@ def check_kernels(label, si, params, x2d, S, Tn, dev):
     return errs
 
 
-def plain_f64(x2d, params, S, Tn, rate, seed):
+def plain_f64(x2d, params, S, Tn, rate, seed, slot0=True):
     """The plain encoder in float64 with unrounded operands: the reference
-    that shows how far float32 sum order alone moves an output."""
+    that shows how far float32 sum order alone moves an output.  With
+    ``slot0`` False the last layer is a full one and every row comes out
+    ([N·S, D]: the input of layer Tn, as the training forwards save it)."""
     import torch
 
     from graph_transformer_tpu_torch.ops.attention import layer_forward
 
-    h = x2d.double().view(-1, S, x2d.shape[1])
+    D = x2d.shape[1]
+    h = x2d.double().view(-1, S, D)
     for t in range(Tn):
         p = [a[t % a.shape[0]].double() for a in params]
         h, _ = layer_forward(h, p, layer=t, rate=rate, seed=seed,
-                             mm=torch.float32, slot0=(t == Tn - 1))
-    return h
+                             mm=torch.float32, slot0=slot0 and t == Tn - 1)
+    return h if slot0 else h.reshape(-1, D)
 
 
 def check_k4_f32(label, params, x2d, S, Tn):
@@ -460,8 +463,9 @@ def check_sampler(label, ds, K, seed, dev):
 
 
 def check_two_pass(label, params, x2d, S, Tn, dev):
-    """K4t, K8 and K8s against their plain versions at rate 0 and 0.5, with
-    rows and products in ``x2d``'s dtype.  The forward (the output and the
+    """K4t, K8 and K8s (K4tw, K8w and K8ws past D=32) against their plain
+    versions at rate 0 and 0.5, with rows and products in ``x2d``'s
+    dtype.  The forward (the output and the
     last saved layer input): in float32 within 1e-4, or within twice the
     plain version's own float32 error of a float64 reference (as
     :func:`check_k4_f32`); in bf16 by :func:`check_bf16_spread`.  K8s on the
@@ -491,7 +495,9 @@ def check_two_pass(label, params, x2d, S, Tn, dev):
             pairs.append(("saved input", xs_k[-1].float(), xs_p[-1].float()))
         for what, a, b in pairs:
             ref64 = ((lambda: plain_f64(x2d, params, S, Tn, rate, seed))
-                     if what == "out" else None)
+                     if what == "out" else
+                     (lambda: plain_f64(x2d, params, S, Tn - 1, rate, seed,
+                                        slot0=False)))
             e = check_forward(f"{label} rate {rate}: K4t {what}", a, b, ref64,
                               bf16=not f32)
             errs[("K4t", rate)] = max(errs.get(("K4t", rate), (0.0, 0.0)), e)
@@ -521,7 +527,17 @@ def check_two_pass(label, params, x2d, S, Tn, dev):
             line += (f"; K8 worst leaf {errs[('K8', rate)][0]:.3e} "
                      f"({errs[('K8', rate)][1]:.1e}, cos {c8:.6f})")
         print(line, flush=True)
-    return errs
+    return wide_names(errs, D)
+
+
+def wide_names(errs, D):
+    """The errors by kernel under the names of the kernels that ran: past
+    D=32 the wrappers launch K4tw, K8w, K8ws, K9w and K10w."""
+    if D <= 32:
+        return errs
+    names = {"K4t": "K4tw", "K8": "K8w", "K8s": "K8ws", "K9": "K9w",
+             "K10": "K10w"}
+    return {(names[k[0]],) + k[1:]: v for k, v in errs.items()}
 
 
 def check_two_pass_vs_fused(label, si, params, S, Tn, dev):
@@ -621,11 +637,11 @@ def check_forward(label, out_k, out_p, ref64, bf16: bool) -> tuple:
 
 
 def check_encoder_layer(label, params, x2d, S, dev, layer=2):
-    """K9 and K10 against their plain versions at rate 0 and 0.5 on one
-    layer's tensors, timestep ``layer``'s dropout streams, rows and products
-    in ``x2d``'s dtype: the forward (every row) by :func:`check_forward`,
-    K10's dx and each of the 12 gradients at cosine > 0.999 on its own.
-    Returns the errors by (kernel, rate)."""
+    """K9 and K10 (K9w and K10w past D=32) against their plain versions at
+    rate 0 and 0.5 on one layer's tensors, timestep ``layer``'s dropout
+    streams, rows and products in ``x2d``'s dtype: the forward (every row)
+    by :func:`check_forward`, K10's dx and each of the 12 gradients at
+    cosine > 0.999 on its own.  Returns the errors by (kernel, rate)."""
     import torch
 
     from graph_transformer_tpu_torch.ops import encoder_layer as el
@@ -661,7 +677,7 @@ def check_encoder_layer(label, params, x2d, S, dev, layer=2):
               f"{errs[('K9', rate)][0]:.3e} ({errs[('K9', rate)][1]:.1e}); "
               f"K10 worst leaf {errs[('K10', rate)][0]:.3e} "
               f"({errs[('K10', rate)][1]:.1e}, cos {c10:.6f})", flush=True)
-    return errs
+    return wide_names(errs, D)
 
 
 def check_ffn(label, M, D, F, dtype, dev, layer=1):
@@ -745,6 +761,154 @@ def check_per_layer_vs_whole(label, params, x2d, S, Tn):
     print(f"# check {label}: {Tn} launches of K9 (slot 0) vs K4, float32: "
           f"max|diff| {e[0]:.3e} ({e[1]:.1e})", flush=True)
     return e
+
+
+def k13_plain_grads(xs, params, S, Tn, rate, seed, w):
+    """The plain recompute backward (the plain K8s, then K8 per earlier
+    layer) from the bf16 saved layer inputs ``xs`` [T, N·S, D] of a K13
+    forward, on the card: the 12 stacked parameter gradients of
+    sum(out * w)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops.sampled_encoder import walk_backward
+    from graph_transformer_tpu_torch.ops.u2gnn_train import (
+        layer_recompute_backward_plain)
+
+    N, D = w.shape
+
+    def layer_bwd(t, g):
+        last = t == Tn - 1
+        return layer_recompute_backward_plain(
+            xs[t].view(N, S, D), g if last else g.view(N, S, D),
+            [a[t % a.shape[0]] for a in params], layer=t, rate=rate,
+            seed=seed, mm=torch.bfloat16, slot0=last)
+
+    return walk_backward(w, params, Tn, layer_bwd)[1]
+
+
+def check_fused_sampled(label, si, params, S, Tn, dev):
+    """K13 at rate 0 and 0.5 with one seed: against its plain version
+    (equal draws; the output within 2e-2 at D <= 32, as K1's check, and by
+    :func:`check_bf16_spread` past it; every gradient leaf of K13 with its
+    recompute backward at cosine > 0.999 against the plain backward's on the
+    same bf16 saved inputs, as :func:`check_two_pass` feeds K8: past D=32
+    the bf16 forwards of kernel and plain version spread apart, ROADMAP
+    Queue C, and at D=68, rate 0.5, gradients each taken from its own
+    forward agree only at cosine 0.9988 on b_out);
+    against the two-pass path (K4t/K4tw and K8/K8w) on the bf16 codebook
+    rows of K13's draws, which computes the same function with the same
+    code: output and every gradient leaf bit for bit; and against K1
+    (D <= 32) or K5 (past): the same draws, output and saved layer inputs
+    bit for bit, every gradient leaf against K1-K3's or K5/K6's at cosine
+    > 0.98.  Not 0.99: K2/K3 and K6 read residuals of each layer's
+    unrounded input, K13's backward recomputes from the bf16 saved input,
+    and that extra rounding put the MUTAG-like case's c1 leaf at 0.9899 at
+    rate 0.5 on the H100 (:func:`check_two_pass_vs_fused` reads
+    0.9925-0.9952 on another seed; ROADMAP Queue C).  Returns the errors by
+    (kernel, rate), the kernel named K13w past D=32."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops.u2gnn_train import (
+        u2gnn_train_encoder)
+
+    N, D = si[0].shape[0], si[3].shape[1]
+    wide = D > 32
+    name, other = ("K13w", "K5") if wide else ("K13", "K1")
+    fwd, enc = ((st.stored_forward, st.stored_encoder) if wide
+                else (se.sampled_forward, se.sampled_encoder))
+    w = torch.randn(N, D, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(14))
+    errs = {}
+    for rate in (0.0, 0.5):
+        seed = 1357911
+        out_k, xs_k, draws_k = fs.fused_sampled_forward(*si, params, S, Tn,
+                                                        rate, seed)
+        out_p, _, draws_p = fs.fused_sampled_forward_plain(*si, params, S, Tn,
+                                                           rate, seed)
+        out_o, res_o = fwd(*si, params, S, Tn, rate, seed)
+        torch.cuda.synchronize()
+        if not torch.equal(draws_k, draws_p):
+            fail(f"{label} rate {rate}: {name} sampled indices differ")
+        if wide:
+            e = check_bf16_spread(f"{label} rate {rate}: {name}", out_k, out_p)
+        else:
+            e = max_err([out_k], [out_p])
+            if not torch.allclose(out_k, out_p, rtol=2e-2, atol=2e-2):
+                fail(f"{label} rate {rate}: {name} forward max err {e[0]}")
+        errs[(name, rate)] = e
+        xs_o = torch.stack(res_o["xs"]).reshape(Tn, N * S, D)
+        if not (torch.equal(draws_k, res_o["draws"])
+                and torch.equal(out_k, out_o) and torch.equal(xs_k, xs_o)):
+            fail(f"{label} rate {rate}: {name} is not bit-equal to {other} "
+                 f"(output max|diff| {max_err([out_k], [out_o])[0]})")
+        tags = torch.cat([si[2].long()[:, None],
+                          si[0].long().gather(1, draws_k)], 1)
+        rows = si[3][tags].to(torch.bfloat16).reshape(N * S, D)
+        outs, grads = [], []
+        for f in (fs.fused_sampled_encoder, enc, None):
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            out = (u2gnn_train_encoder(rows, ps, S, Tn, rate, seed) if f is None
+                   else f(*si, ps, S, Tn, rate, seed))
+            grads.append(torch.autograd.grad((out * w).sum(), ps))
+            outs.append(out.detach())
+        if not (torch.equal(outs[0], outs[2])
+                and all(torch.equal(a, b) for a, b in zip(grads[0],
+                                                          grads[2]))):
+            fail(f"{label} rate {rate}: {name} differs from the two-pass "
+                 f"path: output max|diff| {max_err([outs[0]], [outs[2]])[0]}"
+                 f", gradients {max_err(grads[0], grads[2])[0]}")
+        gp = k13_plain_grads(xs_k, params, S, Tn, rate, seed, w)
+        low = {"plain": 1.0, other: 1.0}
+        for leaf, a, b, o in zip(LEAVES[1:], grads[0], gp, grads[1]):
+            c, co = cosine(a, b), cosine(a, o)
+            if not (c > 0.999 and co > 0.98):
+                fail(f"{label} rate {rate}: {name} {leaf} gradient cosine "
+                     f"{c} to the plain version's, {co} to {other}'s path")
+            low = {"plain": min(low["plain"], c), other: min(low[other], co)}
+        print(f"# check {label} rate {rate}: {name} max|err| {e[0]:.3e} "
+              f"({e[1]:.1e}, draws equal), bit-equal to {other} (output, "
+              f"draws, saved inputs) and to the two-pass path (output, "
+              f"gradients); lowest gradient leaf cosine {low['plain']:.6f} "
+              f"to the plain version, {low[other]:.6f} to {other}'s path",
+              flush=True)
+    return errs
+
+
+def config_run(label, ds, cfg, want, dev, train_idx=None, test_idx=None):
+    """``SupTrainer(cfg)`` on ``ds`` (fold 0, or the given split) on the
+    card: every launch count set to 0, then :func:`timed_steps` on one batch
+    and ``evaluate()``; asserts at least one launch of each kernel in
+    ``want`` and none of any other, then profiles 5 steps.  Returns
+    dict(trainer, batch, ms, eps, profile, launches)."""
+    import torch
+
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+
+    trainer = SupTrainer(ds, cfg, train_idx, test_idx, device="cuda")
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    batch = trainer.builder.sample()
+    edges = float(batch.edge_mask.sum())
+    batch = batch.to(dev)
+    ms, eps = timed_steps(trainer, batch, edges)
+    acc = trainer.evaluate()
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"# {label}: {ms:.3f} ms/step, {eps:.1f} edges/s ({edges:.0f} "
+          f"edges/step, N={batch.n_pad}, D={ds.feature_dim}), eval acc "
+          f"{acc:.4f}; launches {launches}", flush=True)
+    if not 0.0 <= acc <= 1.0:
+        fail(f"{label} accuracy {acc}")
+    for k, v in launches.items():
+        if (v > 0) != (k in want):
+            fail(f"{label}: {k} launched {v} times")
+    prof = profile_steps(trainer, batch, 5)
+    return dict(trainer=trainer, batch=batch, ms=ms, eps=eps, profile=prof,
+                launches=launches)
 
 
 def write_tu_like(root, name, num_graphs, mean_nodes, mean_edges, num_tags,
@@ -953,8 +1117,22 @@ TWO_PASS_FLAGS = {
                 "--num_timesteps", "4", "--ff_hidden_size", "1024",
                 "--learning_rate", "0.0005"],
 }
-FUSED_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K6s")
+FUSED_KERNELS = ("K1", "K2", "K3", "K5", "K6", "K6s", "K13")
 TWO_PASS_KERNELS = ("K7", "K4t", "K8", "K8s")
+# the README quickstart through the CLI (the two-pass path in float32 on
+# wide rows), with two U2GNN layers, and with the ACT recurrence
+WIDE_TWO_PASS = ("K7", "K4tw", "K8w", "K8ws", "K4w")
+QUICKSTART_RUNS = {
+    "quickstart": (QUICKSTART_FLAGS, WIDE_TWO_PASS),
+    "quickstart k2": (QUICKSTART_FLAGS + ["--num_hidden_layers", "2"],
+                      WIDE_TWO_PASS),
+    "quickstart act": (QUICKSTART_FLAGS + ["--recurrence", "act"],
+                       ("K7", "K9w", "K10w")),
+}
+# the fused path's three flags (JAX's fused_gate_ok); without use_folded or
+# use_stored_bwd it runs K13 with the recompute backward
+FUSED_FLAGS = dict(use_fused_sampler=True, use_pallas=True,
+                   use_pallas_whole_encoder=True)
 # the MUTAG row (RESULTS.md:20) with the ACT recurrence, and the README
 # quickstart on the reference's node axis
 PER_LAYER_FLAGS = {
@@ -970,6 +1148,7 @@ def launch_counters():
     """Every kernel wrapper's launch counter, by kernel."""
     from graph_transformer_tpu_torch.ops import encoder_layer as el
     from graph_transformer_tpu_torch.ops import ffn
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
@@ -984,7 +1163,13 @@ def launch_counters():
             "K8": ut.layer_recompute_backward,
             "K8s": ut.slot0_recompute_backward,
             "K9": el.encoder_layer_forward, "K10": el.encoder_layer_backward,
-            "K11": ffn.ffn_forward, "K12": ffn.ffn_backward}
+            "K11": ffn.ffn_forward, "K12": ffn.ffn_backward,
+            "K4tw": ue.wide_encoder_train,
+            "K8w": ut.wide_layer_recompute_backward,
+            "K8ws": ut.wide_slot0_recompute_backward,
+            "K9w": el.wide_encoder_layer_forward,
+            "K10w": el.wide_encoder_layer_backward,
+            "K13": fs.fused_sampled_forward}
 
 
 def describe(label, ds) -> None:
@@ -1040,9 +1225,12 @@ def run_cli(label, flags, data, root, want, idle) -> dict:
 
 def quickstart(root: str):
     """The README quickstart (``README.md:47-50``) through the CLI on an
-    IMDBBINARY-like file, for 2 epochs on the card: degree tags are forced,
-    so the rows are wide and training takes K5/K6, evaluation the wide K4.
-    Returns (dataset, launches of every kernel during the run)."""
+    IMDBBINARY-like file, for 2 epochs on the card, as is and with
+    ``--num_hidden_layers 2`` and ``--recurrence act``: degree tags are
+    forced, so the rows are wide (D > 32), and the CLI, like the JAX CLI,
+    trains on the two-pass path in float32 (K7, K4tw, K8ws/K8w; the wide K4
+    at evaluation; ACT: K7, K9w, K10w); every other kernel stays idle.
+    Returns (dataset, {run: launches})."""
     from graph_transformer_tpu_torch.data.tu import load_tu_dataset
 
     data = write_imdb_like_tu(os.path.join(root, "data"))
@@ -1051,9 +1239,11 @@ def quickstart(root: str):
     if ds.feature_dim <= 32:
         fail(f"IMDBBINARY-like feature_dim {ds.feature_dim} <= 32: the "
              "quickstart would not reach the wide kernels")
-    launches = run_cli("quickstart", QUICKSTART_FLAGS, data, root,
-                       want=("K5", "K6", "K6s", "K4w"),
-                       idle=("K1", "K2", "K3", "K4") + TWO_PASS_KERNELS)
+    launches = {}
+    for name, (flags, want) in QUICKSTART_RUNS.items():
+        launches[name] = run_cli(
+            name, flags, data, root, want=want,
+            idle=tuple(k for k in launch_counters() if k not in want))
     return ds, launches
 
 
@@ -1179,6 +1369,8 @@ def fwd_flops(N, S, D, F, Tn):
 
 
 def main() -> int:
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1194,12 +1386,13 @@ def main() -> int:
     from graph_transformer_tpu_torch.ops import _build
     from graph_transformer_tpu_torch.ops import encoder_layer as el
     from graph_transformer_tpu_torch.ops import ffn
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.ops import u2gnn_train as ut
     from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
         u2gnn_encoder, u2gnn_encoder_plain, u2gnn_encoder_train,
-        u2gnn_encoder_train_plain, wide_encoder)
+        u2gnn_encoder_train_plain, wide_encoder, wide_encoder_train)
     from graph_transformer_tpu_torch.sampling.neighbor_table import (
         sample_neighbors, sample_neighbors_plain)
     from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
@@ -1307,6 +1500,25 @@ def main() -> int:
                                      stored=T, seed=8, dev=dev)
     errs[("K9", 0.0, "vs-K4")] = check_per_layer_vs_whole(
         "mutag-like", params_v, x2d_v, S, T)
+    # slice 5: K4tw, K8w/K8ws (T=3) and K9w/K10w at D = 40, 68 and 128,
+    # N=4096, in float32 and bf16; K13 against its plain version and bit for
+    # bit against K1 (the MUTAG-like case, D=7) and K5 (one-hot D=68)
+    for D_ in (40, 68, 128):
+        _, params_w, x2d_w = random_case(N=4096, S=S, D=D_, C=D_, F=FF, Tn=3,
+                                         stored=3, seed=9, dev=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"wide-d{D_} {dt}"
+            errs.update({(k, r, label): v for (k, r), v in check_two_pass(
+                label, params_w, x2d_w.to(dt), S, 3, dev).items()})
+            errs.update({(k, r, label): v for (k, r), v in
+                         check_encoder_layer(label, params_w, x2d_w.to(dt), S,
+                                             dev).items()})
+    errs.update({(k, r, "m"): v for (k, r), v in check_fused_sampled(
+        "mutag-like", si_m, params_m, S, T, dev).items()})
+    si_68, params_68, _ = random_case(N=4096, S=S, D=68, C=68, F=FF, Tn=T,
+                                      stored=T, seed=10, dev=dev, one_hot=True)
+    errs.update({(k, r, "d68"): v for (k, r), v in check_fused_sampled(
+        "imdb-width-68", si_68, params_68, S, T, dev).items()})
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. the main path of slice 1: the bench workload on K1-K4
@@ -1345,24 +1557,29 @@ def main() -> int:
 
     profile_steps(trainer, batch, 5)
 
-    # ---- 4. the main path of slice 2: the README quickstart on wide rows
+    # ---- 4. the main paths of slices 2 and 5: the README quickstart on
+    # wide rows through the CLI (the two-pass path in float32), also with two
+    # U2GNN layers and with ACT
     t0 = time.perf_counter()
     ds_q, launches_q = quickstart(os.path.join(here, "build", "quickstart"))
-    print(f"# quickstart through the CLI: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    for k in ("K4w", "K5", "K6", "K6s"):
-        launches[k] = launches_q[k]
+    print(f"# quickstart runs through the CLI: {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    for name in ("quickstart", "quickstart act"):
+        for k in QUICKSTART_RUNS[name][1][1:]:
+            launches[k] = launches_q[name][k]
     cfg_q = config_from_args(base_parser("q").parse_args(
         QUICKSTART_FLAGS + ["--num_epochs", "2"]))
     trainer_q = SupTrainer(ds_q, cfg_q, device="cuda")
     batch_q = trainer_q.builder.sample()
     edges_q = float(batch_q.edge_mask.sum())
     batch_q = batch_q.to(dev)
+    if not trainer_q.two_pass:
+        fail("the quickstart does not take the two-pass path")
     step_ms_q, eps_q = timed_steps(trainer_q, batch_q, edges_q)
     print(f"# quickstart train: {step_ms_q:.3f} ms/step, {eps_q:.1f} edges/s "
           f"({edges_q:.0f} edges/step, N={batch_q.n_pad}, "
-          f"D={ds_q.feature_dim})", flush=True)
-    profile_steps(trainer_q, batch_q, 5)
+          f"D={ds_q.feature_dim}, float32)", flush=True)
+    prof_q = profile_steps(trainer_q, batch_q, 5)
 
     # ---- 5. the main paths of slice 3: the two-pass path through the CLI
     t0 = time.perf_counter()
@@ -1418,7 +1635,33 @@ def main() -> int:
         steps_4[name] = dict(trainer=trainer_4, batch=batch_4, ms=ms_4,
                              eps=eps_4, profile=prof_4)
 
-    # ---- 7. per-kernel times at each main path's shapes
+    # ---- 7. the config paths of slice 5: the fused path's three flags
+    # without use_folded or use_stored_bwd (K13 with the recompute backward)
+    # on the bench workload and on the quickstart file, and with
+    # use_stored_bwd (K5/K6) on the quickstart file
+    t0 = time.perf_counter()
+    runs_5 = {
+        "bench K13": config_run(
+            "bench K13", ds, cfg.replace(model=dataclasses.replace(
+                cfg.model, use_stored_bwd=False, use_folded=False)),
+            ("K13", "K8", "K8s", "K4"), dev, trainer.train_idx,
+            trainer.test_idx),
+        "quickstart K13": config_run(
+            "quickstart K13", ds_q, cfg_q.replace(model=dataclasses.replace(
+                cfg_q.model, **FUSED_FLAGS)),
+            ("K13", "K8w", "K8ws", "K4w"), dev),
+        "quickstart stored": config_run(
+            "quickstart stored", ds_q, cfg_q.replace(
+                model=dataclasses.replace(cfg_q.model, use_stored_bwd=True,
+                                          **FUSED_FLAGS)),
+            ("K5", "K6", "K6s", "K4w"), dev)}
+    print(f"# config runs: {time.perf_counter() - t0:.1f} s", flush=True)
+    launches["K13"] = runs_5["bench K13"]["launches"]["K13"]
+    launches["K13w"] = runs_5["quickstart K13"]["launches"]["K13"]
+    for k in ("K5", "K6", "K6s"):
+        launches[k] = runs_5["quickstart stored"]["launches"][k]
+
+    # ---- 8. per-kernel times at each main path's shapes
     seed = 99
     out_k, res_k = se.sampled_forward(*si, params, S, T, 0.5, seed)
     g3 = torch.randn(N, D, device=dev)
@@ -1446,11 +1689,14 @@ def main() -> int:
     k4_flops = fwd_flops(Ne, S, D, F, T)
     k4_bytes = nbytes(x2d_eval) + pbytes + Ne * D * 4
 
-    # the quickstart's shapes: training batch (K5/K6), first eval batch (K4w,
-    # float32 rows as the model's default compute dtype gives them)
-    si_q = trainer_q.sampled_inputs(batch_q)
-    params_q = [p.detach() for p in trainer_q.model.encoders[0].stacked()]
-    Dq, Nq = ds_q.feature_dim, batch_q.n_pad
+    # the quickstart's shapes: the stored config run's training batch
+    # (K5/K6), the first eval batch (K4w, float32 rows as the model's default
+    # compute dtype gives them)
+    tr_qs = runs_5["quickstart stored"]["trainer"]
+    b_qs = runs_5["quickstart stored"]["batch"]
+    si_q = tr_qs.sampled_inputs(b_qs)
+    params_q = [p.detach() for p in tr_qs.model.encoders[0].stacked()]
+    Dq, Nq = ds_q.feature_dim, b_qs.n_pad
     Pq = sum(p[0].numel() for p in params_q)
     pbytes_q = nbytes(*params_q)
     out5, res5 = st.stored_forward(*si_q, params_q, S, T, 0.5, seed)
@@ -1478,6 +1724,56 @@ def main() -> int:
     k6s_bytes = nbytes(*a6s) + pbytes_q + nbytes(g6) + 4 * Pq
     k4w_flops = fwd_flops(Neq, S, Dq, F, T)
     k4w_bytes = nbytes(x2d_q) + pbytes_q + Neq * Dq * 4
+
+    # the quickstart's two-pass shapes (float32 rows, its training batch,
+    # U2GNN layer 0): K4tw, K8w and K8ws; K9w and K10w (the ACT run's
+    # layer) over the same rows
+    rows_q, deg_q, gidx_q = trainer_q.two_pass_inputs(batch_q)
+    Nt = batch_q.n_pad
+    neigh_q = sample_neighbors(seed, rows_q, deg_q, gidx_q, K)
+    x2d_tw = trainer_q._x_global[neigh_q.long()].reshape(Nt * S, Dq)
+    params_tw = [p.detach() for p in trainer_q.model.encoders[0].stacked()]
+    out_tw, xs_tw = wide_encoder_train(x2d_tw, params_tw, S, T, 0.5, seed)
+    x8w = x2d_tw.view(Nt, S, Dq)
+    x8ws = xs_tw[-1].view(Nt, S, Dq)
+    g8w = torch.randn(Nt, S, Dq, device=dev)
+    g8ws = torch.randn(Nt, Dq, device=dev)
+    ptw_0 = [a[0] for a in params_tw]
+    ptw_last = [a[(T - 1) % a.shape[0]] for a in params_tw]
+    k4tw_bytes = nbytes(x2d_tw, out_tw, xs_tw) + nbytes(*params_tw)
+    k4tw_flops = fwd_flops(Nt, S, Dq, F, T)
+    k8w_bytes = nbytes(x8w, g8w) + nbytes(g8w) + 2 * 4 * Pq
+    k8w_flops = (layer_flops(Nt * S, Nt * S, S, Dq, F)
+                 + Nt * S * (8 * Dq * F + 4 * Dq * 3 * Dq + 4 * Dq * Dq
+                             + 8 * S * Dq))
+    k8ws_bytes = nbytes(x8ws, g8ws) + nbytes(g8w) + 2 * 4 * Pq
+    k8ws_flops = (layer_flops(Nt, Nt * S, S, Dq, F)
+                  + Nt * (8 * Dq * F + 4 * Dq * Dq + 8 * S * Dq)
+                  + Nt * S * 4 * Dq * 3 * Dq)
+    g10w = torch.randn(Nt * S, Dq, device=dev)
+    k9w_bytes = 2 * nbytes(x2d_tw) + nbytes(*ptw_0)
+    k9w_flops = layer_flops(Nt * S, Nt * S, S, Dq, F)
+    k10w_bytes = nbytes(x2d_tw, g10w, g10w) + 2 * 4 * Pq
+    k10w_flops = k9w_flops + Nt * S * (8 * Dq * F + 4 * Dq * 3 * Dq
+                                       + 4 * Dq * Dq + 8 * S * Dq)
+    lib_tw = library_encoder(params_tw, S, T, Dq, F, dev, torch.float32, 0.5)
+    lib_9w = library_encoder([p[None] for p in ptw_0], S, 1, Dq, F, dev,
+                             torch.float32, 0.5).layers[0]
+
+    # K13 at the bench workload's training batch (D=4) and at the
+    # quickstart K13 run's (D=68)
+    k13 = {}
+    for key, run in (("K13", "bench K13"), ("K13w", "quickstart K13")):
+        tr, b = runs_5[run]["trainer"], runs_5[run]["batch"]
+        si_k = tr.sampled_inputs(b)
+        p_k = [p.detach() for p in tr.model.encoders[0].stacked()]
+        o_k, xs_k, d_k = fs.fused_sampled_forward(*si_k, p_k, S, T, 0.5, seed)
+        n_k, d_dim = b.n_pad, si_k[3].shape[1]
+        k13[key] = dict(
+            si=si_k, params=p_k, x0=xs_k[0].view(n_k, S, d_dim),
+            bytes=(nbytes(*si_k[1:]) + n_k * K * si_k[0].element_size()
+                   + nbytes(*p_k) + nbytes(o_k, xs_k, d_k.int())),
+            flops=fwd_flops(n_k, S, d_dim, F, T))
 
     # the HPO arm's shapes (two-pass, float32 rows and products): the
     # training batch of 16 graphs, U2GNN layer 0
@@ -1626,12 +1922,55 @@ def main() -> int:
                     lambda: ffn.ffn_backward_plain(x11, g12, *p11, rate=0.5,
                                                    seed=seed),
                     None),
+            "K4tw": (lambda: wide_encoder_train(x2d_tw, params_tw, S, T, 0.5,
+                                                seed),
+                     lambda: u2gnn_encoder_train_plain(x2d_tw, params_tw, S,
+                                                       T, 0.5, seed),
+                     lambda: lib_tw(x8w)),
+            "K8w": (lambda: ut.wide_layer_recompute_backward(
+                        x8w, g8w, params_tw, 0, 0.5, seed),
+                    lambda: ut.layer_recompute_backward_plain(
+                        x8w, g8w, ptw_0, layer=0, rate=0.5, seed=seed,
+                        mm=torch.float32, slot0=False),
+                    None),
+            "K8ws": (lambda: ut.wide_slot0_recompute_backward(
+                         x8ws, g8ws, params_tw, T - 1, 0.5, seed),
+                     lambda: ut.layer_recompute_backward_plain(
+                         x8ws, g8ws, ptw_last, layer=T - 1, rate=0.5,
+                         seed=seed, mm=torch.float32, slot0=True),
+                     None),
+            "K9w": (lambda: el.wide_encoder_layer_forward(x2d_tw, ptw_0, S,
+                                                          0.5, seed),
+                    lambda: el.encoder_layer_forward_plain(x2d_tw, ptw_0, S,
+                                                           0.5, seed),
+                    lambda: lib_9w(x8w)),
+            "K10w": (lambda: el.wide_encoder_layer_backward(
+                         x2d_tw, g10w, ptw_0, S, 0.5, seed),
+                     lambda: el.encoder_layer_backward_plain(
+                         x2d_tw, g10w, ptw_0, S, 0.5, seed),
+                     None),
+            "K13": (lambda: fs.fused_sampled_forward(
+                        *k13["K13"]["si"], k13["K13"]["params"], S, T, 0.5,
+                        seed),
+                    lambda: fs.fused_sampled_forward_plain(
+                        *k13["K13"]["si"], k13["K13"]["params"], S, T, 0.5,
+                        seed),
+                    lambda: lib(k13["K13"]["x0"])),
+            "K13w": (lambda: fs.fused_sampled_forward(
+                         *k13["K13w"]["si"], k13["K13w"]["params"], S, T, 0.5,
+                         seed),
+                     lambda: fs.fused_sampled_forward_plain(
+                         *k13["K13w"]["si"], k13["K13w"]["params"], S, T,
+                         0.5, seed),
+                     lambda: lib_q(k13["K13w"]["x0"])),
         }
         # each wrapper's kernels: the backward kernels include their
         # partial sums (and K6 its split-K weight products)
         k6_kernels = ("wd_stored_bwd_kernel", "wd_reduce_small_kernel",
                       "wd_wgrad_kernel", "gt_reduce_partials_kernel")
         k8_kernels = ("gt_recompute_bwd_kernel", "gt_reduce_partials_kernel")
+        k8w_kernels = ("wd_recompute_bwd_kernel", "wd_reduce_small_kernel",
+                       "wd_wgrad_kernel", "gt_reduce_partials_kernel")
         device_kernels = {
             "K1": ("gt_encoder_fwd_kernel",), "K4": ("gt_encoder_fwd_kernel",),
             "K2": ("gt_layer_bwd_kernel", "gt_reduce_partials_kernel"),
@@ -1643,7 +1982,11 @@ def main() -> int:
             "K9": ("gt_layer_fwd_kernel",), "K10": k8_kernels,
             "K11": ("ff_fwd_kernel",),
             "K12": ("ff_bwd_kernel", "gt_reduce_partials_kernel",
-                    "wd_wgrad_kernel")}
+                    "wd_wgrad_kernel"),
+            "K4tw": ("wd_encoder_fwd_kernel",), "K8w": k8w_kernels,
+            "K8ws": k8w_kernels, "K9w": ("wd_encoder_fwd_kernel",),
+            "K10w": k8w_kernels, "K13": ("gt_encoder_fwd_kernel",),
+            "K13w": ("wd_encoder_fwd_kernel",)}
         timings = {
             key: (device_ms(kern, 10, device_kernels[key]), time_ms(kern, 10),
                   time_ms(plain, 3),
@@ -1700,6 +2043,27 @@ def main() -> int:
         "K12": ("ffn_bwd", src + "ffn.cu",
                 "graph_transformer_tpu/ops/pallas_ffn.py:97", k12_bytes,
                 k12_flops, f32),
+        "K4tw": ("wide_encoder_train_fwd", src + "wide_fwd.cu",
+                 "graph_transformer_tpu/ops/pallas_u2gnn.py:266", k4tw_bytes,
+                 k4tw_flops, f32),
+        "K8w": ("wide_recompute_layer_bwd", src + "recompute_bwd.cu",
+                "graph_transformer_tpu/ops/pallas_u2gnn.py:316", k8w_bytes,
+                k8w_flops, f32),
+        "K8ws": ("wide_recompute_slot0_bwd", src + "recompute_bwd.cu",
+                 "graph_transformer_tpu/ops/pallas_u2gnn.py:316", k8ws_bytes,
+                 k8ws_flops, f32),
+        "K9w": ("wide_encoder_layer_fwd", src + "encoder_layer.cu",
+                "graph_transformer_tpu/ops/pallas_encoder.py:196", k9w_bytes,
+                k9w_flops, f32),
+        "K10w": ("wide_encoder_layer_bwd", src + "encoder_layer.cu",
+                 "graph_transformer_tpu/ops/pallas_encoder.py:214",
+                 k10w_bytes, k10w_flops, f32),
+        "K13": ("fused_sampled_fwd", src + "fused_sampled_fwd.cu",
+                "graph_transformer_tpu/ops/pallas_sampled_encoder.py:139",
+                k13["K13"]["bytes"], k13["K13"]["flops"], bf),
+        "K13w": ("fused_sampled_fwd_wide", src + "fused_sampled_fwd.cu",
+                 "graph_transformer_tpu/ops/pallas_sampled_encoder.py:139",
+                 k13["K13w"]["bytes"], k13["K13w"]["flops"], bf),
     }
     kernels = []
     for key, (name, source, replaces, b, f, rate) in meta.items():
@@ -1721,16 +2085,19 @@ def main() -> int:
               + ")", flush=True)
     print(f"# edges/s on the card: bench {eps:.1f}, quickstart {eps_q:.1f}, "
           f"hpo arm {eps_h:.1f}, act {steps_4['act']['eps']:.1f}, node axis "
-          f"{steps_4['node']['eps']:.1f}; whole run "
-          f"{time.perf_counter() - t_start:.1f} s", flush=True)
-    cells = {f"{name}_{k}": v for name, st4 in steps_4.items()
-             for k, v in (("edges_per_s", st4["eps"]),
-                          ("ms_per_step", st4["ms"]),
-                          ("profile", st4["profile"]))}
+          f"{steps_4['node']['eps']:.1f}, "
+          + ", ".join(f"{k} {v['eps']:.1f}" for k, v in runs_5.items())
+          + f"; whole run {time.perf_counter() - t_start:.1f} s", flush=True)
+    cells = {f"{name.replace(' ', '_')}_{k}": v
+             for name, run in list(steps_4.items()) + list(runs_5.items())
+             for k, v in (("edges_per_s", run["eps"]),
+                          ("ms_per_step", run["ms"]),
+                          ("profile", run["profile"]))}
     print(json.dumps({"kernels": kernels, "edges_per_s": eps,
                       "ms_per_step": step_ms,
                       "quickstart_edges_per_s": eps_q,
                       "quickstart_ms_per_step": step_ms_q,
+                      "quickstart_profile": prof_q,
                       "hpo_arm_edges_per_s": eps_h,
                       "hpo_arm_ms_per_step": step_ms_h, **cells,
                       "steps": STEPS, "build_s": build_s}))

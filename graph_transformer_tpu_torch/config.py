@@ -2,10 +2,13 @@
 
 The port keeps its own copy so that it imports nothing of the JAX package;
 both packages read configurations that look alike.  The flags that choose
-among TPU kernels (``use_pallas``, ``use_pallas_whole_encoder``,
-``use_fused_sampler``, ``use_stored_bwd``, ``use_folded``) are kept so that
-configs read alike, but the port does not branch on them: on CUDA it always
-runs its own kernels.
+among TPU kernels choose the port's paths as they choose JAX's: the fused
+sampled path needs ``use_fused_sampler``, ``use_pallas`` and
+``use_pallas_whole_encoder`` (``train/sup_trainer.fused_gate_ok``), and on
+it ``use_folded`` and ``use_stored_bwd`` pick K1-K3, K5/K6 or K13
+(``ops/stored_encoder.training_encoder``).  Off the fused path the port
+runs its own kernels whatever ``use_pallas`` and
+``use_pallas_whole_encoder`` say, where JAX runs XLA without them.
 
 The reference threads a mutable, untyped ``Namespace`` dict-bag through every
 loader/trainer and mutates it in place (reference: ``U2GNN_pytorch/util.py:36-41``,

@@ -4,12 +4,17 @@
 Three branches, as in the JAX model:
 
 - **Fused training** (``sampled_inputs`` given; ``u2gnn_sup.py:110-183``),
-  one U2GNN layer with codebook features: the sampled encoder samples the
-  neighborhoods, builds their features from the codebook and encodes them;
-  the self vectors are sum-pooled per graph, dropped out (``cfg.dropout``)
-  and scored by a linear head.  The encoder is picked by shape
-  (``:138-175``): kernels K1-K3 where the folded gate holds and D <= 32, else
-  K5/K6 for D <= 128 and S <= 32 (``ops/stored_encoder.training_encoder``).
+  one U2GNN layer with codebook features, where the trainer's gate holds
+  (``use_fused_sampler``, ``use_pallas`` and ``use_pallas_whole_encoder``,
+  as in JAX): the sampled encoder samples the neighborhoods, builds their
+  features from the codebook and encodes them; the self vectors are
+  sum-pooled per graph, dropped out (``cfg.dropout``) and scored by a linear
+  head.  The encoder is picked from the flags and the shape as JAX picks it
+  (``:138-175``, ``ops/stored_encoder.training_encoder``): ``use_folded``
+  where the folded gate holds, kernels K1-K3; ``use_stored_bwd`` or
+  ``use_folded`` otherwise, K5/K6; neither, K13 with the recompute backward
+  K8s/K8 (``ops/fused_sampled_encoder.py``).  All three compute in bf16,
+  whatever ``compute_dtype`` says, as the JAX kernels do.
 - **Two-pass training** (``neigh_feat`` given; ``:184-239``), any number of
   U2GNN layers and any features: the caller samples global neighbor ids
   (kernel K7) and gathers their features; per U2GNN layer an encoder
@@ -21,14 +26,15 @@ Three branches, as in the JAX model:
   (``:233``).
 
 The encoder of the last two is picked as the JAX ``neighborhood_encoder``
-picks it (``ops/attention.py:393-433``): basic, single-head,
-neighborhood-axis encoders take the whole-encoder kernels (K4t forward with
-the recompute backward K8/K8s, ``ops/u2gnn_train.py``, in training; K4, or
-the wide K4 past D = 32, at evaluation); every other configuration — the
-Universal-Transformer recurrences (``rec.<i>`` parameters per U2GNN layer),
-``num_heads > 1`` and the reference's node-axis attention — takes the
-per-layer encoder (``ops/attention.neighborhood_encoder``: K9/K10, or plain
-attention and K11/K12), in training and at evaluation alike.  With
+picks it (``ops/attention.py:393-433``), in ``compute_dtype``: basic,
+single-head, neighborhood-axis encoders take the whole-encoder kernels (K4t
+forward with the recompute backward K8/K8s, ``ops/u2gnn_train.py``, in
+training, K4tw and K8w/K8ws past D = 32; K4, or the wide K4 past D = 32, at
+evaluation); every other configuration — the Universal-Transformer
+recurrences (``rec.<i>`` parameters per U2GNN layer), ``num_heads > 1`` and
+the reference's node-axis attention — takes the per-layer encoder
+(``ops/attention.neighborhood_encoder``: K9/K10, K9w/K10w past D = 32, or
+plain attention and K11/K12), in training and at evaluation alike.  With
 ``return_ponder`` the model also returns the summed ACT ponder cost of its
 U2GNN layers (0 for the other recurrences), which the trainer adds to the
 loss.
@@ -69,11 +75,11 @@ from graph_transformer_tpu_torch.ops.sparse import (
     graph_sum_pool,
 )
 from graph_transformer_tpu_torch.ops.stored_encoder import training_encoder
-from graph_transformer_tpu_torch.ops.u2gnn_encoder import u2gnn_encoder
-from graph_transformer_tpu_torch.ops.u2gnn_train import (
-    check_two_pass_shapes,
-    u2gnn_train_encoder,
+from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+    check_wide_shapes,
+    u2gnn_encoder,
 )
+from graph_transformer_tpu_torch.ops.u2gnn_train import u2gnn_train_encoder
 from graph_transformer_tpu_torch.ops.ut_recurrence import (
     init_recurrence_params,
 )
@@ -101,10 +107,10 @@ def whole_encoder_ok(cfg: ModelConfig) -> bool:
 def check_encoder_shapes(cfg: ModelConfig, S: int, D: int) -> None:
     """Raise, naming the ROADMAP item, for neighborhoods of S slots and D
     features that the kernels of ``cfg``'s training encoder do not take:
-    K4t/K8 (whole encoder), K9/K10 (single-head layers without a mask) or
-    K11/K12 (node axis, several heads)."""
+    K4t/K8 and K4tw/K8w (whole encoder), K9/K10 and K9w/K10w (single-head
+    layers without a mask) or K11/K12 (node axis, several heads)."""
     if whole_encoder_ok(cfg):
-        check_two_pass_shapes(S, D)
+        check_wide_shapes(S, D)
     elif cfg.num_heads == 1 and cfg.attention_axis == "neighborhood":
         check_layer_shapes(S, D)
     else:
@@ -195,7 +201,7 @@ class U2GNNSup(nn.Module):
                              "layer; deeper models take the two-pass path")
         tag_rows, deg, self_tag, codebook = sampled_inputs
         S = batch.neigh.shape[1]
-        encoder = training_encoder(S, codebook.shape[1])
+        encoder = training_encoder(S, codebook.shape[1], self.cfg)
         out = encoder(tag_rows, deg, self_tag, codebook,
                       self.encoders[0].stacked(), S, self.cfg.num_timesteps,
                       ENCODER_DROPOUT, seed)

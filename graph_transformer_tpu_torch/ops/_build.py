@@ -28,7 +28,7 @@ BUILD_DIR = Path(os.environ.get(
     Path(__file__).resolve().parents[2] / "build" / "kernels"))
 SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd", "stored_fwd",
            "stored_bwd", "wide_fwd", "sampler", "recompute_bwd",
-           "encoder_layer", "ffn")
+           "encoder_layer", "ffn", "fused_sampled_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -66,18 +66,34 @@ SIGNATURES = {
                         _U, _F, _I, _P],
     "gt_k10_layer_bwd": [_P, _I, _P, _PARAMS, _I, _P, _P, _P, _P, _P, _P, _I,
                          _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k4tw_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _F, _U, _U, _F, _I, _P],
+    "gt_k8w_layer_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k8ws_slot0_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _I, _I, _I,
+                          _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k9w_layer_fwd": [_P, _I, _P, _PARAMS, _I, _I, _I, _I, _I, _I, _F, _U,
+                         _U, _F, _I, _P],
+    "gt_k10w_layer_bwd": [_P, _I, _P, _PARAMS, _I, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _F, _U, _U, _F, _I, _P],
+    "gt_k13_sampled_fwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _P, _P, _I,
+                           _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
     "gt_k11_ffn_fwd": [_P, _I, _P, _FFN_PARAMS, _I, _I, _I, _I, _U, _U, _F,
                        _I, _P],
     "gt_k12_ffn_bwd": [_P, _I, _P, _FFN_PARAMS, _I, _P, _P, _P, _I, _I, _I,
                        _U, _U, _F, _I, _P],
 }
-# scratch bytes: K6 (N, S, D, F, G, slot0), K12 (M, D, F, bf16) -> bytes
-WORK_FNS = {"gt_k6_work_bytes": 6, "gt_k12_work_bytes": 4}
+# scratch bytes: K6 (N, S, D, F, G, slot0), K8w/K10w (N, S, D, F, G, slot0,
+# bf16), K12 (M, D, F, bf16) -> bytes
+WORK_FNS = {"gt_k6_work_bytes": 6, "gt_k8w_work_bytes": 7,
+            "gt_k10w_work_bytes": 7, "gt_k12_work_bytes": 4}
 # each kernel's shared memory per block, (G, S, D) -> bytes
 SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
             "gt_k4_smem_bytes", "gt_k4w_smem_bytes", "gt_k5_smem_bytes",
             "gt_k6_smem_bytes", "gt_k6s_smem_bytes", "gt_k8_smem_bytes",
-            "gt_k8s_smem_bytes", "gt_k9_smem_bytes", "gt_k10_smem_bytes")
+            "gt_k8s_smem_bytes", "gt_k9_smem_bytes", "gt_k10_smem_bytes",
+            "gt_k8w_smem_bytes", "gt_k8ws_smem_bytes", "gt_k9w_smem_bytes",
+            "gt_k10w_smem_bytes", "gt_k13_smem_bytes", "gt_k13w_smem_bytes")
 
 _libs: dict = {}
 

@@ -1,5 +1,6 @@
 // K9 — one post-norm encoder layer over rows x [N*S, D], every row out, and
-// K10 — its backward recomputed from x.
+// K10 — its backward recomputed from x; K9w and K10w — the same for rows of
+// 32 < D <= 128, a warp per row.
 //
 // Replace graph_transformer_tpu/ops/pallas_encoder.py:_fwd_kernel and
 // _bwd_kernel (entry fused_encoder_layer), which the JAX per-layer encoder
@@ -25,7 +26,12 @@
 // the forward's ~0.27 GFLOP of float32 products take ~4 us at 67 TFLOP/s.
 // This version runs them on the CUDA cores; the small grid at such batches
 // (K8's problem, PERF.md) is later work.
+//
+// K9w is the wide forward layer (wd_fwd_layer, wide.cuh) run as a full
+// layer that writes every row in the rows' dtype; K10w is K8w's recompute
+// backward (wide_recompute.cuh) over one layer's tensors.
 #include "recompute.cuh"
+#include "wide_recompute.cuh"
 
 extern "C" size_t gt_k9_smem_bytes(int G, int S, int D) {
   return gt_fwd_smem_bytes(G, S, D);
@@ -114,4 +120,50 @@ extern "C" int gt_k10_layer_bwd(const void* x, int x_bf16, const float* dout,
                                       layer, dx, qkv, attn, strip, partial,
                                       grads, N, S, D, F, G, scale, seed,
                                       keep24, keep, drop_on, stream);
+}
+
+extern "C" size_t gt_k9w_smem_bytes(int G, int S, int D) {
+  return wd_fwd_smem_bytes(G, S, D);
+}
+
+extern "C" size_t gt_k10w_smem_bytes(int G, int S, int D) {
+  return wd_recompute_smem_bytes(G, S, D, false);
+}
+
+extern "C" size_t gt_k10w_work_bytes(int N, int S, int D, int F, int G,
+                                     int slot0, int x_bf16) {
+  WdBwdWork w;
+  return wd_bwd_work(N, S, D, F, G, slot0 != 0, x_bf16, true, nullptr, &w);
+}
+
+// K9w.  x, out [N*S, D] (bf16 if x_bf16, else f32); params: one layer's 12
+// tensors; dropout streams of timestep `layer`
+extern "C" int gt_k9w_layer_fwd(const void* x, int x_bf16, void* out,
+                                const float* const* params, int layer, int N,
+                                int S, int D, int F, int G, float scale,
+                                unsigned int seed, unsigned int keep24,
+                                float keep, int drop_on, void* stream) {
+  WdFwdIO io = {};
+  io.x_rows = x;
+  io.x_bf16 = x_bf16;
+  io.t0 = layer;
+  io.rows_out = out;
+  const GtDrop dr{seed, keep24, keep, drop_on};
+  return (int)wd_launch_fwd(io, gt_make_stack(params, 1), dr, N, S, D, F,
+                            /*T=*/1, G, scale, /*mmbf=*/x_bf16, /*sampled=*/0,
+                            (cudaStream_t)stream);
+}
+
+// K10w.  x [N*S, D] (bf16 if x_bf16, else f32), dout [N*S, D] f32, params:
+// one layer's 12 tensors; work: gt_k10w_work_bytes(..., 0, x_bf16) bytes;
+// out: dx [N*S, D] f32, grads [P]
+extern "C" int gt_k10w_layer_bwd(const void* x, int x_bf16, const float* dout,
+                                 const float* const* params, int layer,
+                                 float* dx, void* work, float* grads, int N,
+                                 int S, int D, int F, int G, float scale,
+                                 unsigned int seed, unsigned int keep24,
+                                 float keep, int drop_on, void* stream) {
+  return wd_recompute_bwd<false>(x, x_bf16, dout, params, /*stored=*/1, layer,
+                                 dx, work, grads, N, S, D, F, G, scale, seed,
+                                 keep24, keep, drop_on, stream);
 }

@@ -1,6 +1,8 @@
 // K8 — backward of one full encoder layer (t < T-1) recomputed from its
 // input, and K8s — the same for the slot-0 last layer: one kernel, templated
-// on SLOT0 (recompute.cuh, shared with K10).
+// on SLOT0 (recompute.cuh, shared with K10); K8w and K8ws — the same for
+// rows of 32 < D <= 128, a warp per row (wide_recompute.cuh, shared with
+// K10w).
 //
 // Replaces graph_transformer_tpu/ops/pallas_u2gnn.py:_bwd1_kernel (entry
 // _bwd1_call, driven layer by layer, last first, by _bwd_rule_hybrid).
@@ -20,7 +22,20 @@
 // D = 32 shared memory allows one neighborhood (32 threads) a block.
 // Tensor-core products and keeping the recomputed residuals in shared memory
 // are later work.
+//
+// K8w/K8ws: each block of G neighborhoods (<= 32 rows) recomputes its layer
+// with the wide forward row code (wd_fwd_layer, the layer of K5/K4w/K4tw),
+// writing q/k/v, the probabilities, the strip and the FFN hidden to a
+// block-private scratch, then runs K6's backward body on them and K6's
+// split-K weight products; float32 rows keep the hidden, the per-row
+// factors and every product operand in float32, as the TPU kernel keeps
+// them (pallas_u2gnn.py:331-339).  Bound on the H100 at the quickstart's
+// shapes (N=640, S=9, D=68, F=1024, float32): ~10*D*F product operations a
+// row against ~12*D bytes of x, g and dx, so the operations (~0.02 ms at
+// 67 TFLOP/s); the [rows, F] hidden and its cotangent round-trip device
+// memory (~47 MB at 5,760 float32 rows).
 #include "recompute.cuh"
+#include "wide_recompute.cuh"
 
 extern "C" size_t gt_k8_smem_bytes(int G, int S, int D) {
   return gt_recompute_smem_bytes(G, S, D, false);
@@ -58,4 +73,48 @@ extern "C" int gt_k8s_slot0_bwd(const void* x, int x_bf16, const float* dout,
                                      dx, qkv, attn, strip, partial, grads, N,
                                      S, D, F, G, scale, seed, keep24, keep,
                                      drop_on, stream);
+}
+
+extern "C" size_t gt_k8w_smem_bytes(int G, int S, int D) {
+  return wd_recompute_smem_bytes(G, S, D, false);
+}
+
+extern "C" size_t gt_k8ws_smem_bytes(int G, int S, int D) {
+  return wd_recompute_smem_bytes(G, S, D, true);
+}
+
+// scratch of K8w (slot0 0) or K8ws (slot0 1) for rows in bf16 (x_bf16) or
+// f32
+extern "C" size_t gt_k8w_work_bytes(int N, int S, int D, int F, int G,
+                                    int slot0, int x_bf16) {
+  WdBwdWork w;
+  return wd_bwd_work(N, S, D, F, G, slot0 != 0, x_bf16, true, nullptr, &w);
+}
+
+// K8w.  x [N*S, D] (bf16 if x_bf16, else f32), dout [N*S, D] f32; work:
+// gt_k8w_work_bytes(..., 0, x_bf16) bytes; out: dx [N*S, D] f32, grads [P]
+extern "C" int gt_k8w_layer_bwd(const void* x, int x_bf16, const float* dout,
+                                const float* const* params, int stored,
+                                int layer, float* dx, void* work,
+                                float* grads, int N, int S, int D, int F,
+                                int G, float scale, unsigned int seed,
+                                unsigned int keep24, float keep, int drop_on,
+                                void* stream) {
+  return wd_recompute_bwd<false>(x, x_bf16, dout, params, stored, layer, dx,
+                                 work, grads, N, S, D, F, G, scale, seed,
+                                 keep24, keep, drop_on, stream);
+}
+
+// K8ws.  dout [N, D]; work: gt_k8w_work_bytes(..., 1, x_bf16) bytes; the
+// rest as K8w
+extern "C" int gt_k8ws_slot0_bwd(const void* x, int x_bf16, const float* dout,
+                                 const float* const* params, int stored,
+                                 int layer, float* dx, void* work,
+                                 float* grads, int N, int S, int D, int F,
+                                 int G, float scale, unsigned int seed,
+                                 unsigned int keep24, float keep, int drop_on,
+                                 void* stream) {
+  return wd_recompute_bwd<true>(x, x_bf16, dout, params, stored, layer, dx,
+                                work, grads, N, S, D, F, G, scale, seed,
+                                keep24, keep, drop_on, stream);
 }

@@ -42,7 +42,8 @@ extern "C" int gt_k5_stored_fwd(
   io.draws_out = draws_out;
   io.table_w = table_w;
   io.out = out;
-  io.xs = (__nv_bfloat16*)xs;
+  io.xs = xs;
+  io.xs_bf16 = 1;
   io.qkv = qkv;
   io.attn_full = attn_full;
   io.attn_last = attn_last;

@@ -1,6 +1,7 @@
 """One encoder layer over neighborhood rows — port of ``fused_encoder_layer``
 (``graph_transformer_tpu/ops/pallas_encoder.py``): kernels K9 (forward,
-``pallas_encoder.py:196``) and K10 (recompute backward, ``:214``),
+``pallas_encoder.py:196``) and K10 (recompute backward, ``:214``) for
+D <= 32, K9w and K10w (a warp per row) for 32 < D <= 128,
 ``ops/csrc/encoder_layer.cu``.
 
 ``fused_encoder_layer(x2d [N·S, D], 12 tensors, seed, S, rate, layer)`` runs
@@ -14,11 +15,11 @@ timestep ``layer`` from ``seed`` (``ops/random.py``).  The backward
 recomputes the layer from ``x2d`` and returns dx in ``x2d``'s dtype and the
 12 gradients, as the TPU kernel does; ``dout`` is taken in ``x2d``'s dtype.
 
-Dispatch: on CUDA tensors K9/K10 (a launch counter each), on CPU tensors the
-plain versions (``layer_forward`` and ``layer_recompute_backward_plain``);
-S <= 32 and D <= 32 either way, wider rows raise naming ROADMAP Queue B
-item 1.  The TPU kernel's dense [R, R] block-masked attention is a TPU
-layout and is not carried over.
+Dispatch: on CUDA tensors K9/K10 or K9w/K10w (a launch counter each), on
+CPU tensors the plain versions (``layer_forward`` and
+``layer_recompute_backward_plain``); S <= 32 and D <= 128 either way, wider
+rows raise naming ROADMAP Queue A item 2.  The TPU kernel's dense [R, R]
+block-masked attention is a TPU layout and is not carried over.
 """
 
 from __future__ import annotations
@@ -32,19 +33,24 @@ from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
 from graph_transformer_tpu_torch.ops.random import drop_args
 from graph_transformer_tpu_torch.ops.sampled_encoder import _split_grads
-from graph_transformer_tpu_torch.ops.u2gnn_encoder import MAX_D, MAX_S
+from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+    MAX_D,
+    MAX_S,
+    WIDE_MAX_D,
+    WIDE_ROWS,
+)
 from graph_transformer_tpu_torch.ops.u2gnn_train import (
-    WIDE_BWD_ITEM,
     _mm,
     layer_recompute_backward_plain,
 )
 
 
 def check_layer_shapes(S: int, D: int) -> None:
-    if S > MAX_S or D > MAX_D:
+    if S > MAX_S or D > WIDE_MAX_D:
         raise NotImplementedError(
-            f"S={S}, D={D}: the encoder-layer kernels K9/K10 take S <= "
-            f"{MAX_S} and D <= {MAX_D} ({WIDE_BWD_ITEM})")
+            f"S={S}, D={D}: the encoder-layer kernels K9/K10 (K9w/K10w past "
+            f"D={MAX_D}) take S <= {MAX_S} and D <= {WIDE_MAX_D} (ROADMAP.md "
+            "Queue A, item 2, 'Rows past D=128 or S=32')")
 
 
 def _split(x2d, S):
@@ -83,39 +89,84 @@ def encoder_layer_backward_plain(x2d, dout, params: Sequence[torch.Tensor],
 def encoder_layer_forward(x2d, params: Sequence[torch.Tensor], S: int,
                           rate: float = 0.0, seed: Optional[int] = None,
                           layer: int = 0) -> torch.Tensor:
-    """K9 on CUDA tensors, :func:`encoder_layer_forward_plain` on CPU
-    tensors.  ``params``: one layer's 12 tensors in KERNEL_ORDER."""
+    """K9 on CUDA tensors (D <= 32; K9w past),
+    :func:`encoder_layer_forward_plain` on CPU tensors.  ``params``: one
+    layer's 12 tensors in KERNEL_ORDER."""
     N, D = _split(x2d, S)
     if not x2d.is_cuda:
         return encoder_layer_forward_plain(x2d, params, S, rate, seed, layer)
+    if D > MAX_D:
+        return wide_encoder_layer_forward(x2d, params, S, rate, seed, layer)
+    return _forward(x2d, params, S, rate, seed, layer, False)
+
+
+def wide_encoder_layer_forward(x2d, params: Sequence[torch.Tensor], S: int,
+                               rate: float = 0.0, seed: Optional[int] = None,
+                               layer: int = 0) -> torch.Tensor:
+    """K9w (D <= 128) on CUDA tensors, the plain version on CPU tensors;
+    the contract of :func:`encoder_layer_forward`."""
+    _split(x2d, S)
+    if not x2d.is_cuda:
+        return encoder_layer_forward_plain(x2d, params, S, rate, seed, layer)
+    return _forward(x2d, params, S, rate, seed, layer, True)
+
+
+def _forward(x2d, params, S, rate, seed, layer, wide):
+    N, D = _split(x2d, S)
     _build.check_rows_dtype(x2d)
     x2d = x2d.contiguous()
     ps = _build.f32_params(params)
     out = torch.empty_like(x2d)
     if N:
-        G = _build.pick_groups("encoder_layer", "gt_k9_smem_bytes", S, D)
-        err = _build.load("encoder_layer").gt_k9_layer_fwd(
+        fn = "gt_k9w_layer_fwd" if wide else "gt_k9_layer_fwd"
+        G = _build.pick_groups(
+            "encoder_layer", "gt_k9w_smem_bytes" if wide else
+            "gt_k9_smem_bytes", S, D, WIDE_ROWS if wide else 128)
+        err = getattr(_build.load("encoder_layer"), fn)(
             x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), out.data_ptr(),
             _build.params_array(ps), layer, N, S, D, ps[6].shape[1], G,
             1.0 / math.sqrt(D), *drop_args(rate, seed),
             _build.stream_ptr(x2d.device))
-        _build.check(err, "K9 layer_fwd")
-        encoder_layer_forward.launches += 1
+        _build.check(err, fn)
+        (wide_encoder_layer_forward if wide
+         else encoder_layer_forward).launches += 1
     return out
 
 
 encoder_layer_forward.launches = 0
+wide_encoder_layer_forward.launches = 0
 
 
 def encoder_layer_backward(x2d, dout, params: Sequence[torch.Tensor], S: int,
                            rate: float = 0.0, seed: Optional[int] = None,
                            layer: int = 0):
-    """K10 on CUDA tensors, :func:`encoder_layer_backward_plain` on CPU
-    tensors; same return value."""
+    """K10 on CUDA tensors (D <= 32; K10w past),
+    :func:`encoder_layer_backward_plain` on CPU tensors; same return
+    value."""
     N, D = _split(x2d, S)
     if not x2d.is_cuda:
         return encoder_layer_backward_plain(x2d, dout, params, S, rate, seed,
                                             layer)
+    if D > MAX_D:
+        return wide_encoder_layer_backward(x2d, dout, params, S, rate, seed,
+                                           layer)
+    return _backward(x2d, dout, params, S, rate, seed, layer, False)
+
+
+def wide_encoder_layer_backward(x2d, dout, params: Sequence[torch.Tensor],
+                                S: int, rate: float = 0.0,
+                                seed: Optional[int] = None, layer: int = 0):
+    """K10w (D <= 128) on CUDA tensors, the plain version on CPU tensors;
+    the contract of :func:`encoder_layer_backward`."""
+    _split(x2d, S)
+    if not x2d.is_cuda:
+        return encoder_layer_backward_plain(x2d, dout, params, S, rate, seed,
+                                            layer)
+    return _backward(x2d, dout, params, S, rate, seed, layer, True)
+
+
+def _backward(x2d, dout, params, S, rate, seed, layer, wide):
+    N, D = _split(x2d, S)
     _build.check_rows_dtype(x2d)
     x2d = x2d.contiguous()
     ps = _build.f32_params(params)
@@ -125,24 +176,36 @@ def encoder_layer_backward(x2d, dout, params: Sequence[torch.Tensor], S: int,
     P = sum(p.numel() for p in ps)
     grads = torch.zeros(P, **f32)
     if N:
-        G = _build.pick_groups("encoder_layer", "gt_k10_smem_bytes", S, D)
-        qkv = torch.empty(N * S, 3 * D, **f32)
-        attn = torch.empty(N * S, S, **f32)
-        strip = torch.empty(N * S, 4 * D + 2, **f32)
-        partial = torch.empty((N + G - 1) // G, P, **f32)
+        lib = _build.load("encoder_layer")
+        bf = int(x2d.dtype == torch.bfloat16)
+        if wide:
+            fn = "gt_k10w_layer_bwd"
+            G = _build.pick_groups("encoder_layer", "gt_k10w_smem_bytes", S,
+                                   D, WIDE_ROWS)
+            scratch = [torch.empty(
+                lib.gt_k10w_work_bytes(N, S, D, F, G, 0, bf),
+                dtype=torch.uint8, device=x2d.device)]
+        else:
+            fn = "gt_k10_layer_bwd"
+            G = _build.pick_groups("encoder_layer", "gt_k10_smem_bytes", S,
+                                   D)
+            scratch = [torch.empty(*shape, **f32) for shape in (
+                (N * S, 3 * D), (N * S, S), (N * S, 4 * D + 2),
+                ((N + G - 1) // G, P))]
         g = dout.to(x2d.dtype).to(torch.float32).contiguous()
-        err = _build.load("encoder_layer").gt_k10_layer_bwd(
-            x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), g.data_ptr(),
-            _build.params_array(ps), layer, dx.data_ptr(), qkv.data_ptr(),
-            attn.data_ptr(), strip.data_ptr(), partial.data_ptr(),
-            grads.data_ptr(), N, S, D, F, G, 1.0 / math.sqrt(D),
-            *drop_args(rate, seed), _build.stream_ptr(x2d.device))
-        _build.check(err, "K10 layer_bwd")
-        encoder_layer_backward.launches += 1
+        err = getattr(lib, fn)(
+            x2d.data_ptr(), bf, g.data_ptr(), _build.params_array(ps), layer,
+            dx.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
+            N, S, D, F, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+            _build.stream_ptr(x2d.device))
+        _build.check(err, fn)
+        (wide_encoder_layer_backward if wide
+         else encoder_layer_backward).launches += 1
     return dx.to(x2d.dtype), _split_grads(grads, D, F)
 
 
 encoder_layer_backward.launches = 0
+wide_encoder_layer_backward.launches = 0
 
 
 class EncoderLayerFn(torch.autograd.Function):

@@ -16,8 +16,9 @@ hidden nor replays its mask, since relu' times the dropout factor is
 Dispatch: every public function takes the kernel on CUDA tensors (bfloat16
 products) and the plain PyTorch version on CPU tensors; the plain versions
 take ``mm`` (bfloat16 or float32 products).  :func:`training_encoder` picks
-K1-K3 or K5/K6 by shape, as ``models/u2gnn_sup.py:138-175`` of the JAX
-package picks the folded or the row-space stored kernels.
+the fused path's encoder from the model's flags and the shape, as
+``models/u2gnn_sup.py:138-175`` of the JAX package picks the folded, the
+row-space stored or the recompute kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from typing import Optional, Sequence
 import torch
 
 from graph_transformer_tpu_torch.ops import _build
+from graph_transformer_tpu_torch.ops.fused_sampled_encoder import (
+    fused_sampled_encoder,
+)
 from graph_transformer_tpu_torch.ops.random import drop_args
 from graph_transformer_tpu_torch.ops.sampled_encoder import (
     _i32,
@@ -52,15 +56,22 @@ def folded_shape_ok(S: int, D: int) -> bool:
     return S * D <= 128 and S * S * D <= 1024
 
 
-def training_encoder(S: int, D: int):
-    """The sampled encoder that trains neighborhoods of S slots and D
-    features: K1-K3 (``sampled_encoder``) where the folded gate holds and
-    D <= 32, K5/K6 (:func:`stored_encoder`) where D <= 128 and S <= 32;
-    raises beyond."""
-    if folded_shape_ok(S, D) and D <= MAX_D:
-        return sampled_encoder
+def training_encoder(S: int, D: int, cfg):
+    """The fused path's encoder for neighborhoods of S slots and D features
+    under the flags of ``cfg`` (a ``ModelConfig``), as the JAX model picks
+    it: ``use_folded`` where the folded gate holds takes K1-K3
+    (``sampled_encoder``); ``use_stored_bwd`` or ``use_folded`` otherwise
+    takes K5/K6 (:func:`stored_encoder`); neither takes K13 with the
+    recompute backward (``fused_sampled_encoder``).  Raises past D = 128 or
+    S = 32."""
     check_wide_shapes(S, D)
-    return stored_encoder
+    if cfg.use_folded and folded_shape_ok(S, D):
+        # the folded gate admits D > 32 only at S <= 3, past K1-K3's rows;
+        # K5/K6 compute the same stored-residual function there
+        return sampled_encoder if D <= MAX_D else stored_encoder
+    if cfg.use_stored_bwd or cfg.use_folded:
+        return stored_encoder
+    return fused_sampled_encoder
 
 
 # ================================================================= forward

@@ -9,11 +9,12 @@ kernel K4 (``csrc/encoder_fwd.cu``) for D <= 32, the wide K4
 beyond; on a CPU tensor it runs :func:`u2gnn_encoder_plain`.  The main paths
 run it at eval (rate 0).
 
-:func:`u2gnn_encoder_train` is the same forward in training mode, kernel K4t
-(``csrc/encoder_fwd.cu``, D <= 32): dropout from a seed, and the inputs of
-layers 1..T-1 saved in the rows' dtype, as the JAX kernel saves them
-(``pallas_u2gnn.py:271-281``) for its per-layer recompute backward
-(``ops/u2gnn_train.py``).
+:func:`u2gnn_encoder_train` is the same forward in training mode: dropout
+from a seed, and the inputs of layers 1..T-1 saved in the rows' dtype, as the
+JAX kernel saves them (``pallas_u2gnn.py:271-281``) for its per-layer
+recompute backward (``ops/u2gnn_train.py``).  Kernel K4t
+(``csrc/encoder_fwd.cu``) for D <= 32, K4tw (``csrc/wide_fwd.cu``,
+:func:`wide_encoder_train`) for 32 < D <= 128.
 """
 
 from __future__ import annotations
@@ -27,9 +28,10 @@ from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
 from graph_transformer_tpu_torch.ops.random import drop_args
 
-MAX_D = 32        # K1-K4: one thread per row, D floats in registers
-MAX_S = 32
-WIDE_MAX_D = 128  # K5, K6 and the wide K4: a warp per row, <= 4 columns a lane
+MAX_D = 32        # K1-K4, K4t, K8-K10: one thread per row, D floats in
+MAX_S = 32        # registers
+WIDE_MAX_D = 128  # K5, K6, the wide K4 and the wide two-pass kernels: a warp
+#                   per row, <= 4 columns a lane
 WIDE_ROWS = 32    # ... and <= 32 rows (whole neighborhoods) a block
 
 
@@ -103,22 +105,42 @@ def wide_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
 def u2gnn_encoder_train(x2d: torch.Tensor, params: Sequence[torch.Tensor],
                         seq_len: int, num_timesteps: int, rate: float = 0.0,
                         seed: Optional[int] = None):
-    """K4t on CUDA tensors (D <= 32), :func:`u2gnn_encoder_train_plain` on
-    CPU tensors: ``(out [N, D] float32, xs [T-1, N·S, D])``."""
+    """K4t on CUDA tensors (D <= 32; K4tw past),
+    :func:`u2gnn_encoder_train_plain` on CPU tensors: ``(out [N, D]
+    float32, xs [T-1, N·S, D])``."""
     if not x2d.is_cuda:
         return u2gnn_encoder_train_plain(x2d, params, seq_len, num_timesteps,
                                          rate, seed)
+    if x2d.shape[1] > MAX_D:
+        return wide_encoder_train(x2d, params, seq_len, num_timesteps, rate,
+                                  seed)
+    return _launch_train(x2d, params, seq_len, num_timesteps, rate, seed,
+                         False)
+
+
+def wide_encoder_train(x2d: torch.Tensor, params: Sequence[torch.Tensor],
+                       seq_len: int, num_timesteps: int, rate: float = 0.0,
+                       seed: Optional[int] = None):
+    """K4tw on CUDA tensors (D <= 128), :func:`u2gnn_encoder_train_plain` on
+    CPU tensors; same contract as :func:`u2gnn_encoder_train`."""
+    if not x2d.is_cuda:
+        return u2gnn_encoder_train_plain(x2d, params, seq_len, num_timesteps,
+                                         rate, seed)
+    return _launch_train(x2d, params, seq_len, num_timesteps, rate, seed, True)
+
+
+def _launch_train(x2d, params, seq_len, num_timesteps, rate, seed, wide):
     T, D = num_timesteps, x2d.shape[1]
     xs = torch.empty(max(T - 1, 0), x2d.shape[0], D, dtype=x2d.dtype,
                      device=x2d.device)
-    out = _launch(x2d, params, seq_len, num_timesteps, rate, seed, False, xs)
+    out = _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide, xs)
     return out, xs
 
 
 def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
             xs=None):
     """K4 (``wide`` False), the wide K4 (``wide`` True) or, given ``xs``,
-    K4t writing the saved layer inputs there."""
+    K4t / K4tw writing the saved layer inputs there."""
     S, T = seq_len, num_timesteps
     D = x2d.shape[1]
     (check_wide_shapes if wide else _check_shapes)(S, D)
@@ -136,8 +158,8 @@ def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
     if N == 0:
         return out
     if wide:
-        src, smem_fn, fn, rows = ("wide_fwd", "gt_k4w_smem_bytes",
-                                  "gt_k4w_encoder_fwd", WIDE_ROWS)
+        src, smem_fn, rows = "wide_fwd", "gt_k4w_smem_bytes", WIDE_ROWS
+        fn = "gt_k4w_encoder_fwd" if xs is None else "gt_k4tw_encoder_fwd"
     else:
         src, smem_fn, rows = "encoder_fwd", "gt_k4_smem_bytes", 128
         fn = "gt_k4_encoder_fwd" if xs is None else "gt_k4t_encoder_fwd"
@@ -149,12 +171,13 @@ def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
         D, F, T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
         _build.stream_ptr(x2d.device))
     _build.check(err, fn)
-    counter = (wide_encoder if wide else
-               u2gnn_encoder if xs is None else u2gnn_encoder_train)
-    counter.launches += 1
+    counters = ((u2gnn_encoder, u2gnn_encoder_train),
+                (wide_encoder, wide_encoder_train))[wide]
+    counters[xs is not None].launches += 1
     return out
 
 
 u2gnn_encoder.launches = 0
 wide_encoder.launches = 0
 u2gnn_encoder_train.launches = 0
+wide_encoder_train.launches = 0

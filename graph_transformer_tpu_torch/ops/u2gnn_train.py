@@ -2,14 +2,16 @@
 backward (``graph_transformer_tpu/ops/pallas_u2gnn.py:393-496``), the encoder
 of the JAX two-pass path (sampler, feature gather, encoder).
 
-Forward: kernel K4t (``ops/u2gnn_encoder.u2gnn_encoder_train``) runs T
-encoder layers over pre-gathered rows ``x2d [N·S, D]`` and saves the inputs
-of layers 1..T-1 in the rows' dtype.  Backward, last layer first: kernel K8
-(K8s for the slot-0 last layer, ``ops/csrc/recompute_bwd.cu``) recomputes one
-layer from its saved input and back-propagates through it — the port of
-``_bwd1_kernel`` (``pallas_u2gnn.py:316``).  Products take the rows' dtype,
-as in JAX (``:271, :331``): float32 rows (the default compute dtype) run
-float32 products, bfloat16 rows bfloat16 products.
+Forward: kernel K4t (K4tw past D = 32;
+``ops/u2gnn_encoder.u2gnn_encoder_train``) runs T encoder layers over
+pre-gathered rows ``x2d [N·S, D]`` and saves the inputs of layers 1..T-1 in
+the rows' dtype.  Backward, last layer first: kernel K8 (K8s for the slot-0
+last layer, ``ops/csrc/recompute_bwd.cu``; K8w and K8ws, a warp per row, for
+32 < D <= 128) recomputes one layer from its saved input and back-propagates
+through it — the port of ``_bwd1_kernel`` (``pallas_u2gnn.py:316``).
+Products take the rows' dtype, as in JAX (``:271, :331``): float32 rows (the
+default compute dtype) run float32 products, bfloat16 rows bfloat16
+products.
 
 Unlike the fused sampled encoders, :func:`u2gnn_train_encoder` returns the
 rows' cotangent as well as the parameters' gradients: in a k-layer model,
@@ -39,23 +41,10 @@ from graph_transformer_tpu_torch.ops.sampled_encoder import (
 )
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
     MAX_D,
+    WIDE_ROWS,
     check_wide_shapes,
     u2gnn_encoder_train,
 )
-
-WIDE_BWD_ITEM = ("ROADMAP.md Queue B, item 1, 'kernel 5 at 32 < D <= 128, "
-                 "with kernels 14 and 15 (one warp-per-row recompute "
-                 "backward)'")
-
-
-def check_two_pass_shapes(S: int, D: int) -> None:
-    """The two-pass path's kernels (K4t, K8) take S <= 32 and D <= 32; raise
-    naming the ROADMAP item that widens them."""
-    check_wide_shapes(S, D)
-    if D > MAX_D:
-        raise NotImplementedError(
-            f"S={S}, D={D}: the two-pass path's recompute backward (K8) takes "
-            f"D <= {MAX_D} ({WIDE_BWD_ITEM})")
 
 
 def _mm(dtype: torch.dtype) -> torch.dtype:
@@ -79,9 +68,14 @@ def layer_recompute_backward_plain(x, g, p, *, layer: int, rate: float,
 
 def _recompute_kernel(fn_name, smem_fn, x, g, params, layer, rate, seed,
                       slot0):
+    """K8/K8s (a thread per row, D <= 32) or, for ``fn_name`` of K8w/K8ws, a
+    warp per row (D <= 128)."""
     N, S, D = x.shape
     F = params[6].shape[2]
-    check_two_pass_shapes(S, D)
+    wide = fn_name.startswith("gt_k8w")
+    check_wide_shapes(S, D)
+    if not wide and D > MAX_D:
+        raise NotImplementedError(f"D={D}: K8 takes D <= {MAX_D}; use K8w")
     _build.check_rows_dtype(x)
     dev = x.device
     ps = _build.f32_params(params)
@@ -91,57 +85,96 @@ def _recompute_kernel(fn_name, smem_fn, x, g, params, layer, rate, seed,
     grads = torch.zeros(P, **f32)
     if N == 0:
         return dx, _split_grads(grads, D, F)
-    qrows = N if slot0 else N * S  # query rows of the recomputed layer
-    qkv = torch.empty(N * S, 3 * D, **f32)
-    attn = torch.empty(qrows, S, **f32)
-    strip = torch.empty(qrows, 4 * D + 2, **f32)
-    G = _build.pick_groups("recompute_bwd", smem_fn, S, D)
-    partial = torch.empty((N + G - 1) // G, P, **f32)
-    err = getattr(_build.load("recompute_bwd"), fn_name)(
-        x.contiguous().data_ptr(), int(x.dtype == torch.bfloat16),
-        g.to(torch.float32).contiguous().data_ptr(), _build.params_array(ps),
-        ps[0].shape[0], layer, dx.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
-        strip.data_ptr(), partial.data_ptr(), grads.data_ptr(), N, S, D, F, G,
-        1.0 / math.sqrt(D), *drop_args(rate, seed), _build.stream_ptr(dev))
+    lib = _build.load("recompute_bwd")
+    bf = int(x.dtype == torch.bfloat16)
+    if wide:
+        G = _build.pick_groups("recompute_bwd", smem_fn, S, D, WIDE_ROWS)
+        scratch = [torch.empty(lib.gt_k8w_work_bytes(N, S, D, F, G,
+                                                     int(slot0), bf),
+                               dtype=torch.uint8, device=dev)]
+    else:
+        qrows = N if slot0 else N * S  # query rows of the recomputed layer
+        G = _build.pick_groups("recompute_bwd", smem_fn, S, D)
+        scratch = [torch.empty(*shape, **f32) for shape in (
+            (N * S, 3 * D), (qrows, S), (qrows, 4 * D + 2),
+            ((N + G - 1) // G, P))]
+    x = x.contiguous()
+    g = g.to(torch.float32).contiguous()
+    err = getattr(lib, fn_name)(
+        x.data_ptr(), bf, g.data_ptr(), _build.params_array(ps),
+        ps[0].shape[0], layer, dx.data_ptr(),
+        *(t.data_ptr() for t in scratch), grads.data_ptr(), N,
+        S, D, F, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+        _build.stream_ptr(dev))
     _build.check(err, fn_name)
     return dx, _split_grads(grads, D, F)
 
 
+def _plain(x, g, params, layer, rate, seed, slot0):
+    p = [a[layer % a.shape[0]] for a in params]
+    return layer_recompute_backward_plain(
+        x, g if slot0 else g.view_as(x), p, layer=layer, rate=rate, seed=seed,
+        mm=_mm(x.dtype), slot0=slot0)
+
+
 def layer_recompute_backward(x, g, params, layer: int, rate: float,
                              seed: Optional[int]):
-    """K8 on CUDA tensors, :func:`layer_recompute_backward_plain` on CPU
-    tensors: a full layer (t < T-1).  ``params``: the 12 stacked tensors
-    (the layer uses slice ``layer % stored``); products in ``x``'s dtype."""
+    """K8 on CUDA tensors (D <= 32; K8w past), the plain version
+    (:func:`layer_recompute_backward_plain`) on CPU tensors: a full layer
+    (t < T-1).  ``params``: the 12 stacked tensors (the layer uses slice
+    ``layer % stored``); products in ``x``'s dtype."""
     if not x.is_cuda:
-        p = [a[layer % a.shape[0]] for a in params]
-        return layer_recompute_backward_plain(
-            x, g.view_as(x), p, layer=layer, rate=rate, seed=seed,
-            mm=_mm(x.dtype), slot0=False)
+        return _plain(x, g, params, layer, rate, seed, False)
+    if x.shape[2] > MAX_D:
+        return wide_layer_recompute_backward(x, g, params, layer, rate, seed)
     out = _recompute_kernel("gt_k8_layer_bwd", "gt_k8_smem_bytes", x, g,
                             params, layer, rate, seed, False)
     layer_recompute_backward.launches += 1
     return out
 
 
-layer_recompute_backward.launches = 0
-
-
 def slot0_recompute_backward(x, g, params, layer: int, rate: float,
                              seed: Optional[int]):
-    """K8s on CUDA tensors, the plain version on CPU tensors: the slot-0
-    last layer, g [N, D]."""
+    """K8s on CUDA tensors (D <= 32; K8ws past), the plain version on CPU
+    tensors: the slot-0 last layer, g [N, D]."""
     if not x.is_cuda:
-        p = [a[layer % a.shape[0]] for a in params]
-        return layer_recompute_backward_plain(
-            x, g, p, layer=layer, rate=rate, seed=seed, mm=_mm(x.dtype),
-            slot0=True)
+        return _plain(x, g, params, layer, rate, seed, True)
+    if x.shape[2] > MAX_D:
+        return wide_slot0_recompute_backward(x, g, params, layer, rate, seed)
     out = _recompute_kernel("gt_k8s_slot0_bwd", "gt_k8s_smem_bytes", x, g,
                             params, layer, rate, seed, True)
     slot0_recompute_backward.launches += 1
     return out
 
 
+def wide_layer_recompute_backward(x, g, params, layer: int, rate: float,
+                                  seed: Optional[int]):
+    """K8w (D <= 128) on CUDA tensors, the plain version on CPU tensors;
+    the contract of :func:`layer_recompute_backward`."""
+    if not x.is_cuda:
+        return _plain(x, g, params, layer, rate, seed, False)
+    out = _recompute_kernel("gt_k8w_layer_bwd", "gt_k8w_smem_bytes", x, g,
+                            params, layer, rate, seed, False)
+    wide_layer_recompute_backward.launches += 1
+    return out
+
+
+def wide_slot0_recompute_backward(x, g, params, layer: int, rate: float,
+                                  seed: Optional[int]):
+    """K8ws (D <= 128) on CUDA tensors, the plain version on CPU tensors;
+    the contract of :func:`slot0_recompute_backward`."""
+    if not x.is_cuda:
+        return _plain(x, g, params, layer, rate, seed, True)
+    out = _recompute_kernel("gt_k8ws_slot0_bwd", "gt_k8ws_smem_bytes", x, g,
+                            params, layer, rate, seed, True)
+    wide_slot0_recompute_backward.launches += 1
+    return out
+
+
+layer_recompute_backward.launches = 0
 slot0_recompute_backward.launches = 0
+wide_layer_recompute_backward.launches = 0
+wide_slot0_recompute_backward.launches = 0
 
 
 # ============================================================== autograd

@@ -7,22 +7,26 @@ the model scores the graphs, the label-smoothed soft cross entropy is
 back-propagated and the clipped Adam step updates the parameters in place.
 Two paths, chosen as the JAX trainer chooses (``sup_trainer.py:80-104``):
 
-- **fused**, where :func:`fused_gate_ok` holds (one U2GNN layer, basic
-  recurrence, one head, neighborhood axis) over features that factor
+- **fused**, where :func:`fused_gate_ok` holds (``use_fused_sampler``,
+  ``use_pallas`` and ``use_pallas_whole_encoder`` set; one U2GNN layer,
+  basic recurrence, one head, neighborhood axis) over features that factor
   through a <=128-row codebook: the sampled encoder samples and encodes in
-  one kernel (K1, or K5 for rows past the folded kernels' shapes) and its
-  backward reads the stored residuals (K3 then K2 per earlier layer, or K6);
-- **two-pass**, otherwise (``num_hidden_layers > 1``, continuous node
-  attributes, the Universal-Transformer recurrences, several heads, the
-  node axis): the sampler K7 draws global neighbor ids from the dataset's
-  neighbor table, their features are gathered from the dataset's feature
-  table on the device (``x_global``, in ``cfg.model.compute_dtype``), and
-  each U2GNN layer runs the encoder the model picks: K4t forward and K8s
-  then K8 per earlier layer backward (``ops/u2gnn_train.py``) for basic
+  one kernel and trains in bf16, picked by the model's flags (K1 with K3/K2
+  under ``use_folded``, K5 with K6 under ``use_stored_bwd``, else K13 with
+  the recompute backward K8s/K8);
+- **two-pass**, otherwise (the default configuration, as the JAX CLI
+  cannot set ``use_fused_sampler``; ``num_hidden_layers > 1``, continuous
+  node attributes, the Universal-Transformer recurrences, several heads,
+  the node axis): the sampler K7 draws global neighbor ids from the
+  dataset's neighbor table, their features are gathered from the dataset's
+  feature table on the device (``x_global``, in ``cfg.model.compute_dtype``,
+  float32 by default), and each U2GNN layer runs the encoder the model
+  picks: K4t forward and K8s then K8 per earlier layer backward
+  (``ops/u2gnn_train.py``; K4tw and K8ws/K8w past D = 32) for basic
   single-head neighborhood-axis encoders, else the per-layer encoder
-  (K9/K10, or plain attention with K11/K12).  With ``recurrence="act"`` the
-  loss adds ``act_loss_weight`` times the model's ponder cost
-  (``sup_trainer.py:124-125, 193``).
+  (K9/K10 or K9w/K10w, or plain attention with K11/K12).  With
+  ``recurrence="act"`` the loss adds ``act_loss_weight`` times the model's
+  ponder cost (``sup_trainer.py:124-125, 193``).
 
 :meth:`train_steps` runs n steps on one fixed batch — the counterpart of the
 JAX ``_train_scan`` (``sup_trainer.py:204-242``) that the benchmark drives.
@@ -83,11 +87,14 @@ def resolve_device(device) -> torch.device:
 
 
 def fused_gate_ok(cfg_model: ModelConfig) -> bool:
-    """The configuration part of the fused path's gate
+    """The configuration part of the fused path's gate, JAX's
     (``graph_transformer_tpu/ops/pallas_sampled_encoder.py:115-126``; the
-    dataset part is ``setup_fused_tables``).  The JAX gate's flags that pick
-    among TPU kernels are not read: the port has one kernel for each path."""
-    return cfg_model.num_hidden_layers == 1 and whole_encoder_ok(cfg_model)
+    dataset part, a codebook of at most 128 rows, is
+    ``setup_fused_tables``)."""
+    return (cfg_model.use_fused_sampler and cfg_model.use_pallas
+            and cfg_model.use_pallas_whole_encoder
+            and cfg_model.num_hidden_layers == 1
+            and whole_encoder_ok(cfg_model))
 
 
 class SupTrainer:

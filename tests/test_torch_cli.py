@@ -1,8 +1,9 @@
 """The port's supervised CLI (``graph_transformer_tpu_torch/cli/train_sup.py``)
 on the CPU: the README quickstart's flags parse into the config, and runs on
 small TU-format datasets train, evaluate and write their accuracy file, on
-the fused path and on the two-pass path (two U2GNN layers with degree tags;
-continuous node attributes)."""
+the two-pass path, which every CLI command takes as in the JAX CLI (one-hot
+tags, wide degree tags, two U2GNN layers, continuous node attributes, the
+per-layer flags)."""
 
 import numpy as np
 import pytest
@@ -104,14 +105,17 @@ def test_train_sup_cli_runs_on_cpu(tmp_path):
 def test_train_sup_cli_takes_the_wide_path_on_imdb_like_data(tmp_path,
                                                               monkeypatch):
     """The README quickstart's dataset name forces degree tags, so an
-    IMDBBINARY-like file gives one-hot rows past D=32: training goes through
-    the wide sampled encoder (plain K5/K6 here), never through K1-K3."""
+    IMDBBINARY-like file gives one-hot rows past D=32.  The CLI, like the
+    JAX CLI, cannot set ``use_fused_sampler``, so training takes the wide
+    two-pass path (plain K7, K4tw and K8w/K8ws here) on float32 rows, once a
+    step, and never a fused kernel."""
     import sys
     from pathlib import Path
 
+    import torch
+
     from graph_transformer_tpu_torch.data.tu import load_tu_dataset
-    from graph_transformer_tpu_torch.ops import sampled_encoder as se
-    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.models import u2gnn_sup
 
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke
@@ -119,18 +123,15 @@ def test_train_sup_cli_takes_the_wide_path_on_imdb_like_data(tmp_path,
     chip_smoke.write_imdb_like_tu(tmp_path, num_graphs=100)
     ds = load_tu_dataset("IMDBBINARY", data_dir=str(tmp_path))
     assert ds.feature_dim > 32
-    calls = {"stored": 0, "sampled": 0}
+    calls = _spy_paths(monkeypatch)
+    dtypes = set()
+    encode = u2gnn_sup.u2gnn_train_encoder
 
-    def spy(name, fn):
-        def wrapped(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return wrapped
+    def spy(x2d, *a, **k):
+        dtypes.add((x2d.dtype, x2d.shape[1]))
+        return encode(x2d, *a, **k)
 
-    monkeypatch.setattr(st, "stored_forward",
-                        spy("stored", st.stored_forward))
-    monkeypatch.setattr(se, "sampled_forward",
-                        spy("sampled", se.sampled_forward))
+    monkeypatch.setattr(u2gnn_sup, "u2gnn_train_encoder", spy)
     acc = train_sup.main([
         "--dataset", "IMDBBINARY", "--data_dir", str(tmp_path),
         "--batch_size", "4", "--ff_hidden_size", "16", "--num_neighbors",
@@ -138,13 +139,15 @@ def test_train_sup_cli_takes_the_wide_path_on_imdb_like_data(tmp_path,
         "--learning_rate", "0.0005", "--scan_epochs",
         "--run_folder", str(tmp_path / "runs"), "--device", "cpu"])
     assert 0.0 <= acc <= 1.0
-    assert calls["stored"] == 23 and calls["sampled"] == 0
+    assert calls["fused"] == 0 and calls["sample"] == 23
+    assert dtypes == {(torch.float32, ds.feature_dim)}
 
 
 def _spy_paths(monkeypatch):
     """Count the calls of the two-pass path's sampler and encoder and of the
     fused paths' forwards."""
     from graph_transformer_tpu_torch.models import u2gnn_sup
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.train import sup_trainer
@@ -163,6 +166,7 @@ def _spy_paths(monkeypatch):
     spy("two_pass", u2gnn_sup, "u2gnn_train_encoder")
     spy("fused", se, "sampled_forward")
     spy("fused", st, "stored_forward")
+    spy("fused", fs, "fused_sampled_forward")
     return calls
 
 
@@ -211,8 +215,9 @@ def test_train_sup_cli_per_layer_flags(tmp_path, monkeypatch, capsys, flags,
                                        per_layer):
     """Each new flag trains on a tiny TU file on the CPU: ACT and the node
     axis through the sampler and the per-layer encoder (never the fused or
-    the whole-encoder kernels), tied timesteps through the fused path with
-    one stored layer; finite epoch losses."""
+    the whole-encoder kernels), tied timesteps through the sampler and the
+    two-pass whole encoder with one stored layer (the CLI never takes the
+    fused path); finite epoch losses."""
     import re
 
     from graph_transformer_tpu_torch.models import u2gnn_sup
@@ -240,5 +245,5 @@ def test_train_sup_cli_per_layer_flags(tmp_path, monkeypatch, capsys, flags,
         assert calls["fused"] == calls["two_pass"] == 0
         assert calls["sample"] > 0 and calls["per_layer"] > calls["sample"]
     else:
-        assert calls["fused"] > 0
-        assert calls["sample"] == calls["two_pass"] == calls["per_layer"] == 0
+        assert calls["fused"] == calls["per_layer"] == 0
+        assert calls["sample"] == calls["two_pass"] > 0

@@ -15,6 +15,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 pytestmark = pytest.mark.cuda
+# the fused path's gate (use_folded or use_stored_bwd pick among its kernels)
+FUSED_FLAGS = dict(use_fused_sampler=True, use_pallas=True,
+                   use_pallas_whole_encoder=True)
 
 
 @pytest.fixture
@@ -59,7 +62,8 @@ def test_train_steps_launch_every_kernel(cuda):
                                     seed=0)
     cfg = ExperimentConfig(
         data=DataConfig(batch_size=4, num_neighbors=4),
-        model=ModelConfig(num_timesteps=3, ff_hidden_size=64),
+        model=ModelConfig(num_timesteps=3, ff_hidden_size=64, use_folded=True,
+                          **FUSED_FLAGS),
         train=TrainConfig(num_epochs=1))
     tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
                     test_idx=np.arange(12, 16))
@@ -119,8 +123,8 @@ def test_wide_eval_kernel_float32(cuda, D):
 
 
 def test_train_steps_launch_the_wide_kernels(cuda):
-    """One-hot degree features past D=32 train through K5/K6 and evaluate
-    through the wide K4; K1-K4 stay idle."""
+    """With ``use_stored_bwd``, one-hot degree features past D=32 train
+    through K5/K6 and evaluate through the wide K4; K1-K4 stay idle."""
     from graph_transformer_tpu_torch.config import (
         DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
     from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
@@ -132,7 +136,8 @@ def test_train_steps_launch_the_wide_kernels(cuda):
     assert 32 < ds.feature_dim <= 128
     cfg = ExperimentConfig(
         data=DataConfig(batch_size=4, num_neighbors=4),
-        model=ModelConfig(num_timesteps=3, ff_hidden_size=64),
+        model=ModelConfig(num_timesteps=3, ff_hidden_size=64,
+                          use_stored_bwd=True, **FUSED_FLAGS),
         train=TrainConfig(num_epochs=1))
     tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
                     test_idx=np.arange(12, 16))
@@ -285,4 +290,110 @@ def test_train_steps_launch_the_per_layer_kernels(cuda, kw, want):
     got = {k: c.launches for k, c in counters.items()}
     assert (train[want[0]], train[want[1]], train[want[2]]) == (4, 12, 12)
     assert got[want[1]] > train[want[1]] and got[want[2]] == 12
+    assert all(v == 0 for k, v in got.items() if k not in want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [40, 68, 128])
+def test_wide_two_pass_kernels_match_plain_versions(cuda, D, dtype):
+    """K4tw, K8w and K8ws against their plain versions at rate 0 and 0.5, in
+    float32 and bf16 (the rules of the narrow ones), with a ragged last
+    block."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=301, S=9, D=D, C=D, F=256, Tn=3, stored=3, seed=1, dev=cuda)
+    errs = chip_smoke.check_two_pass(f"D{D}", params,
+                                     x2d.to(getattr(torch, dtype)), 9, 3, cuda)
+    assert {k[0] for k in errs} == {"K4tw", "K8w", "K8ws"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [40, 68, 128])
+def test_wide_encoder_layer_kernels_match_plain_versions(cuda, D, dtype):
+    """K9w and K10w against their plain versions at rate 0 and 0.5, in
+    float32 and bf16, with a ragged last block."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=301, S=9, D=D, C=D, F=256, Tn=1, stored=1, seed=1, dev=cuda)
+    errs = chip_smoke.check_encoder_layer(
+        f"D{D}", params, x2d.to(getattr(torch, dtype)), 9, cuda)
+    assert {k[0] for k in errs} == {"K9w", "K10w"}
+
+
+@pytest.mark.parametrize("D", [7, 68])
+def test_fused_sampled_kernel_matches_plain_and_fused_paths(cuda, D):
+    """K13 against its plain version (draws equal, forward, every gradient
+    leaf at cosine > 0.999) and bit for bit against K1 (D=7) or K5 (D=68)
+    for one seed, its gradients within cosine 0.99 of theirs."""
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(
+        N=200, S=9, D=D, C=D, F=256, Tn=3, stored=1 if D == 7 else 3, seed=2,
+        dev=cuda, one_hot=D > 32)
+    chip_smoke.check_fused_sampled(f"D{D}", si, params, 9, 3, cuda)
+
+
+def _steps_launches(ds, model_cfg, steps=4):
+    """Launches of every kernel over ``steps`` training steps and one
+    evaluation on the card."""
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, TrainConfig)
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+    import chip_smoke
+
+    cfg = ExperimentConfig(data=DataConfig(batch_size=4, num_neighbors=4),
+                           model=model_cfg, train=TrainConfig(num_epochs=1))
+    tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
+                    test_idx=np.arange(12, 16))
+    counters = chip_smoke.launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = tr.train_steps(tr.builder.sample(), steps)
+    train = {k: c.launches for k, c in counters.items()}
+    acc = tr.evaluate()
+    assert bool(torch.isfinite(losses).all()) and 0.0 <= acc <= 1.0
+    return train, {k: c.launches for k, c in counters.items()}
+
+
+@pytest.mark.parametrize("mean_nodes,want", [
+    (40, ("K13", "K8", "K8s", "K4")), (200, ("K13", "K8w", "K8ws", "K4w"))],
+    ids=["narrow", "wide"])
+def test_train_steps_launch_the_k13_kernels(cuda, mean_nodes, want):
+    """The fused path's three flags without ``use_folded`` or
+    ``use_stored_bwd`` train through K13 and its recompute backward (per
+    step one K13, one K8s and T-1 K8; K8ws/K8w past D=32) and evaluate
+    through K4 or the wide K4; nothing else launches."""
+    from graph_transformer_tpu_torch.config import ModelConfig
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+
+    ds = synthetic_powerlaw_dataset("S", num_graphs=16, mean_nodes=mean_nodes,
+                                    seed=0, reddit_like=False)
+    train, got = _steps_launches(
+        ds, ModelConfig(num_timesteps=3, ff_hidden_size=64, **FUSED_FLAGS))
+    assert tuple(train[k] for k in want[:3]) == (4, 8, 4)
+    assert got[want[3]] == 1
+    assert all(v == 0 for k, v in got.items() if k not in want)
+
+
+@pytest.mark.parametrize("kw,want", [
+    ({}, ("K7", "K4tw", "K8w", "K8ws", "K4w")),
+    (dict(num_hidden_layers=2), ("K7", "K4tw", "K8w", "K8ws", "K4w")),
+    (dict(recurrence="act"), ("K7", "K9w", "K10w"))],
+    ids=["default", "k2", "act"])
+def test_train_steps_launch_the_wide_two_pass_kernels(cuda, kw, want):
+    """One-hot degree features past D=32 under the default configuration
+    (float32) train on the two-pass path through K7, K4tw and K8ws/K8w and
+    evaluate through the wide K4, with two U2GNN layers likewise, with ACT
+    through K7, K9w and K10w; nothing else launches."""
+    from graph_transformer_tpu_torch.config import ModelConfig
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+
+    ds = synthetic_powerlaw_dataset("S", num_graphs=16, mean_nodes=200,
+                                    seed=0, reddit_like=False)
+    assert 32 < ds.feature_dim <= 128
+    _, got = _steps_launches(
+        ds, ModelConfig(num_timesteps=3, ff_hidden_size=64, **kw))
+    assert all(got[k] > 0 for k in want)
     assert all(v == 0 for k, v in got.items() if k not in want)

@@ -209,8 +209,8 @@ def test_entry_points_default_to_cuda():
 def test_unported_configurations_raise():
     """Models other than U2GNNSup, and rows past the kernels of each
     encoder path, raise naming their ROADMAP item: the whole-encoder
-    recompute backward K8 and the encoder-layer kernels K9/K10 past D=32
-    (Queue B item 1), the FFN kernels K11/K12 past D=128 (Queue A item 2)."""
+    kernels (K4tw, K8w), the encoder-layer kernels K9w/K10w and the FFN
+    kernels K11/K12 past D=128 (Queue A item 2)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         U2GNNSup(4, 2, ModelConfig(model="gcn"))
     rng = np.random.default_rng(0)
@@ -218,8 +218,8 @@ def test_unported_configurations_raise():
     # two-pass path
     ds = synthetic_powerlaw_dataset("S", num_graphs=4, mean_nodes=60, seed=0)
     assert ds.num_nodes > 128
-    for D, kw, match in ((33, {}, "kernel 5 at 32 < D"),
-                         (33, dict(recurrence="gru"), "K9/K10"),
+    for D, kw, match in ((130, {}, "Rows past D=128"),
+                         (130, dict(recurrence="gru"), "K9/K10"),
                          (130, dict(attention_axis="node"), "K11/K12"),
                          (130, dict(num_heads=2), "Queue A, item 2")):
         ds.node_feat = rng.standard_normal((ds.num_nodes, D)).astype(
@@ -253,13 +253,15 @@ def codebook_ds():
                                 dict(num_heads=2)],
                          ids=["basic", "gru", "node", "heads2"])
 def test_fused_gate_sends_per_layer_configs_to_two_pass(kw):
-    """One U2GNN layer over a codebook keeps the fused path only for a
-    basic, single-head, neighborhood-axis encoder (the JAX
-    ``fused_gate_ok``); a recurrence, the node axis or two heads take the
-    two-pass path with the per-layer encoder, and train."""
+    """With the fused path's three flags set, one U2GNN layer over a
+    codebook keeps the fused path only for a basic, single-head,
+    neighborhood-axis encoder (the JAX ``fused_gate_ok``); a recurrence,
+    the node axis or two heads take the two-pass path with the per-layer
+    encoder, and train."""
     cfg = small_cfg(1)
     cfg = cfg.replace(model=dataclasses.replace(
-        cfg.model, num_timesteps=2, **kw))
+        cfg.model, num_timesteps=2, use_fused_sampler=True, use_pallas=True,
+        use_pallas_whole_encoder=True, **kw))
     tr = SupTrainer(codebook_ds(), cfg, train_idx=np.arange(9),
                     test_idx=np.arange(9, 12), device="cpu")
     assert fused_gate_ok(cfg.model) == (not kw)

@@ -151,13 +151,14 @@ def test_encoder_layer_matches_jax_kernel14_15(dtype):
 
 
 def test_encoder_layer_shapes():
-    """K9/K10 take S <= 32 and D <= 32; wider rows name ROADMAP Queue B
-    item 1 (the warp-per-row recompute backward)."""
-    check_layer_shapes(32, 32)
-    for S_, D_ in ((33, 8), (9, 33)):
-        with pytest.raises(NotImplementedError, match="Queue B, item 1"):
+    """K9/K10 take S <= 32 and D <= 32, K9w/K10w D <= 128; wider rows name
+    ROADMAP Queue A item 2."""
+    for S_, D_ in ((32, 32), (9, 33), (32, 128)):
+        check_layer_shapes(S_, D_)
+    for S_, D_ in ((33, 8), (9, 129)):
+        with pytest.raises(NotImplementedError, match="Queue A, item 2"):
             check_layer_shapes(S_, D_)
-    x = torch.zeros(9 * 2, 40)
+    x = torch.zeros(9 * 2, 130)
     with pytest.raises(NotImplementedError, match="K9/K10"):
         fused_encoder_layer(x, *[torch.zeros(1)] * 12, None, 9)
 

@@ -18,6 +18,7 @@ from graph_transformer_tpu.ops.pallas_stored_bwd import (
     fused_u2gnn_encoder_stored,
 )
 from graph_transformer_tpu.ops.pallas_u2gnn import fused_u2gnn_encoder
+from graph_transformer_tpu_torch.config import ModelConfig
 from graph_transformer_tpu_torch.ops.sampled_encoder import sampled_encoder
 from graph_transformer_tpu_torch.ops.stored_encoder import (
     stored_encoder,
@@ -140,21 +141,26 @@ def test_stored_backward_matches_autograd_f32(rate):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
 
 
+FOLDED = ModelConfig(use_fused_sampler=True, use_pallas=True,
+                     use_pallas_whole_encoder=True, use_folded=True)
+
+
 @pytest.mark.parametrize("S_,D,kernels", [
     (9, 4, "K1-K3"), (9, 7, "K1-K3"), (9, 19, "K5/K6"), (17, 19, "K5/K6"),
-    (9, 37, "K5/K6"), (9, 65, "K5/K6"), (32, 128, "K5/K6")])
+    (9, 37, "K5/K6"), (9, 65, "K5/K6"), (32, 128, "K5/K6"), (2, 40, "K5/K6")])
 def test_model_picks_training_encoder_by_shape(S_, D, kernels):
-    """K1-K3 where the folded gate holds (S·D <= 128, S·S·D <= 1024) and
-    D <= 32, else K5/K6: PTC at K=16 (S=17, D=19) moves to K5/K6 as in the
-    JAX model."""
+    """Under ``use_folded``: K1-K3 where the folded gate holds (S·D <= 128,
+    S·S·D <= 1024) and D <= 32, else K5/K6: PTC at K=16 (S=17, D=19) moves
+    to K5/K6 as in the JAX model, and so do rows past D=32 that the folded
+    gate admits (S=2, D=40)."""
     want = sampled_encoder if kernels == "K1-K3" else stored_encoder
-    assert training_encoder(S_, D) is want
+    assert training_encoder(S_, D, FOLDED) is want
 
 
 @pytest.mark.parametrize("S_,D", [(9, 129), (33, 8)])
 def test_shapes_past_the_wide_kernels_raise(S_, D):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        training_encoder(S_, D)
+        training_encoder(S_, D, FOLDED)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),

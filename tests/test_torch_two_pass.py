@@ -51,12 +51,10 @@ from graph_transformer_tpu_torch.ops.random import layer_seed
 from graph_transformer_tpu_torch.ops.sampled_encoder import sampled_encoder
 from graph_transformer_tpu_torch.ops.sparse import global_regather
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+    check_wide_shapes,
     u2gnn_encoder_train_plain,
 )
-from graph_transformer_tpu_torch.ops.u2gnn_train import (
-    check_two_pass_shapes,
-    u2gnn_train_encoder,
-)
+from graph_transformer_tpu_torch.ops.u2gnn_train import u2gnn_train_encoder
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     build_neighbor_table,
     sample_neighbors,
@@ -316,25 +314,30 @@ def test_layer_seeds():
     assert layer_seed(124, 1) != layer_seed(123, 1)
 
 
-def small_cfg(k=1, dtype="float32"):
+FUSED_FLAGS = dict(use_fused_sampler=True, use_pallas=True,
+                   use_pallas_whole_encoder=True)
+
+
+def small_cfg(k=1, dtype="float32", **flags):
     return ExperimentConfig(
         data=DataConfig(batch_size=4, num_neighbors=3),
         model=ModelConfig(num_timesteps=2, ff_hidden_size=16,
-                          num_hidden_layers=k, compute_dtype=dtype),
+                          num_hidden_layers=k, compute_dtype=dtype, **flags),
         train=TrainConfig(num_epochs=1, learning_rate=5e-3))
 
 
 @pytest.mark.parametrize("case", ["k2", "attributes", "codebook"])
 def test_trainer_dispatch(case):
-    """Two U2GNN layers, or continuous features, take the two-pass path and
-    train; one layer over a codebook keeps the fused path."""
+    """With the fused path's three flags set, two U2GNN layers, or
+    continuous features, take the two-pass path and train; one layer over a
+    codebook keeps the fused path."""
     ds = synthetic_powerlaw_dataset("S", num_graphs=12, mean_nodes=20,
                                     seed=0, reddit_like=False)
     k = 2 if case == "k2" else 1
     if case == "attributes":
         ds.node_feat = np.random.default_rng(0).standard_normal(
             (ds.num_nodes, 5)).astype(np.float32)
-    tr = SupTrainer(ds, small_cfg(k), train_idx=np.arange(9),
+    tr = SupTrainer(ds, small_cfg(k, **FUSED_FLAGS), train_idx=np.arange(9),
                     test_idx=np.arange(9, 12), device="cpu")
     assert tr.two_pass == (case != "codebook")
     losses = tr.train_steps(tr.builder.sample(), 2)
@@ -343,11 +346,12 @@ def test_trainer_dispatch(case):
 
 
 def test_two_pass_past_d32_raises():
-    """Rows past D=32 on the two-pass path name the ROADMAP item of the
-    wide recompute backward; past D=128 the wide kernels' item.  (The
-    trainer's raise on such features: test_unported_configurations_raise.)"""
-    check_two_pass_shapes(32, 32)
-    with pytest.raises(NotImplementedError, match="kernel 5 at 32 < D"):
-        check_two_pass_shapes(9, 33)
-    with pytest.raises(NotImplementedError, match="Rows past D=128"):
-        check_two_pass_shapes(9, 129)
+    """Rows past D=32 on the two-pass path take the wide kernels (K4tw,
+    K8w), whose shape check the model runs; past D=128 or S=32 they raise
+    naming the wide kernels' ROADMAP item.  (The trainer's raise on such
+    features: test_unported_configurations_raise.)"""
+    for S_, D_ in ((32, 32), (9, 33), (32, 128)):
+        check_wide_shapes(S_, D_)
+    for S_, D_ in ((9, 129), (33, 8)):
+        with pytest.raises(NotImplementedError, match="Rows past D=128"):
+            check_wide_shapes(S_, D_)
