@@ -32,7 +32,15 @@
      FFN with residual and LayerNorm; its backward) at D = 4, 68, 128 over
      36,864 rows, in float32 and bf16, every gradient leaf on its own
      (``check_encoder_layer``, ``check_ffn``); T launches of K9 against K4
-     in float32 (``check_per_layer_vs_whole``).
+     in float32 (``check_per_layer_vs_whole``);
+   - K14 (the whole-stack backward) against the K8 chain on the same saved
+     inputs and against its plain version at (S, D, T) = (9, 4, 4) and
+     (17, 19, 4), K14w at D = 40, 68, 128, weight-tied or not, float32 and
+     bf16 (``check_mega``); K15 and K16 bit for bit against K1 on K1's rows
+     (``check_folded``), K17 against K5 on K5's rows and, with float32
+     rows, with K6 against the plain forward and backward
+     (``check_stored_rows``, ``check_stored_rows_f32``), K13 with K14 or
+     K14w against K13 with its chain (``check_fused_mega``).
 3. Drives slice 1's main path: ``SupTrainer(device="cuda")`` on the
    benchmark workload of ``bench.py`` (synthetic REDDITMULTI5K-like, batch
    16, K=8, T=4, ff 1024, bf16): warm-up steps, timed ``train_steps`` on a
@@ -57,7 +65,17 @@
    (K7, K11, K12; nothing else); 3 steps of each other recurrence and of two
    heads; then times and profiles the ACT step at 16 graphs a batch and the
    node-axis quickstart step.
-7. Prints edges/s, one JSON line describing every kernel (its device time
+7. Drives slice 5's fused flags through ``SupTrainer`` (K13 with K8/K8w,
+   K5/K6), slice 6's host sampling (the quickstart through the CLI with
+   ``--host_sampling``: K4tw, K8ws/K8w and the wide K4, no K7), and slice
+   6's main path, the encoder variants that the A/B scripts compare at
+   their workload (``encoder_variants``: hybrid K4t/K8s/K8, mega K4t/K14,
+   folded K15/K3/K2, stored K17/K6, K16 alone; at the quickstart's width
+   K4tw/K8w, K4tw/K14w, K17/K6), each with every other kernel idle, then
+   holds K14/K14w, K15, K16, K17 and the K6 and K3/K2 backwards against
+   their plain versions on those inputs and the stored and folded
+   gradients against hybrid's (``check_variants``).
+8. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
    call's time), the card's name and power limit, and as the last line
@@ -877,6 +895,491 @@ def check_fused_sampled(label, si, params, S, Tn, dev):
     return errs
 
 
+def leaf_close(label, a, b) -> float:
+    """Float32 gradients of one function by two routes: max |a - b| within
+    1e-4 of max |b| (``scripts/bench_hybrid.py:62-70`` holds JAX's mega
+    backward to its hybrid chain so); returns the relative error."""
+    err = float((a - b).abs().max())
+    ref = float(b.abs().max())
+    if not err <= 1e-4 * max(ref, 1e-30):
+        fail(f"{label}: max|diff| {err}, max|ref| {ref}")
+    return err / max(ref, 1e-30)
+
+
+def check_mega(label, params, x2d, S, Tn, dev):
+    """K14 (K14w past D=32) at rate 0 and 0.5 on K4t's (K4tw's) saved
+    inputs: against the K8 chain on the same inputs (K8s, then K8 per
+    earlier layer, summed by the host) — in float32 dx and each leaf within
+    1e-4 of its own max, in bf16 each at cosine > 0.999, and whether they
+    are equal bit for bit (the kernel replays the chain's sums in its
+    order) — and against its plain version (dx and each leaf at cosine >
+    0.999).  Returns the errors by (kernel, rate)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+    name = "K14w" if D > 32 else "K14"
+    f32 = x2d.dtype == torch.float32
+    gen = torch.Generator(device=dev).manual_seed(15)
+    errs = {}
+    for rate in (0.0, 0.5):
+        seed = 86420
+        _, xs = ue.u2gnn_encoder_train(x2d, params, S, Tn, rate, seed)
+        g = torch.randn(N, D, device=dev, generator=gen)
+        dx_k, gk = ut.mega_recompute_backward(x2d, xs, g, params, S, Tn,
+                                              rate, seed)
+        dx_c, gc = ut.chain_backward(x2d, xs, g, params, S, Tn, rate, seed)
+        dx_p, gp = ut.mega_recompute_backward_plain(x2d, xs, g, params, S,
+                                                    Tn, rate, seed)
+        torch.cuda.synchronize()
+        equal = torch.equal(dx_k, dx_c) and all(
+            torch.equal(a, b) for a, b in zip(gk, gc))
+        worst = 0.0
+        for leaf, a, b in zip(LEAVES, (dx_k,) + tuple(gk),
+                              (dx_c,) + tuple(gc)):
+            if f32:
+                worst = max(worst, leaf_close(
+                    f"{label} rate {rate}: {name} vs the K8 chain {leaf}", a,
+                    b))
+            elif float(b.abs().max()) > 0.0:
+                c = cosine(a, b)
+                if not c > 0.999:
+                    fail(f"{label} rate {rate}: {name} vs the K8 chain {leaf}"
+                         f" cosine {c}")
+                worst = max(worst, 1.0 - c)
+        errs[(name, rate)], low = check_grads(
+            f"{label} rate {rate}: {name}", dx_k, gk, dx_p, gp)
+        print(f"# check {label} rate {rate}: {name} vs the K8 chain: "
+              + ("equal bit for bit" if equal else
+                 (f"worst leaf {worst:.2e} of its max" if f32 else
+                  f"lowest leaf cosine {1.0 - worst:.6f}"))
+              + f"; vs plain worst leaf {errs[(name, rate)][0]:.3e} "
+              f"({errs[(name, rate)][1]:.1e}, cos {low:.6f})", flush=True)
+    return errs
+
+
+def check_folded(label, si, params, S, Tn, dev):
+    """K15 and K16 at rate 0 and 0.5, fed K1's own bf16 x0 rows and seed:
+    K15's output and residuals equal K1's bit for bit, K16's output K15's,
+    and the gradients of K15 with K3 and (T-1)xK2 K1-K3's; each against its
+    plain version within 2e-2 (bf16, as K1).  Returns the errors by
+    (kernel, rate)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+
+    N, D = si[0].shape[0], si[3].shape[1]
+    w = torch.randn(N, D, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(16))
+    errs = {}
+    for rate in (0.0, 0.5):
+        seed = 97531
+        out1, res1 = se.sampled_forward(*si, params, S, Tn, rate, seed)
+        x0 = res1["xs"][0].reshape(N * S, D)
+        out15, res15 = fe.folded_stored_forward(x0, params, S, Tn, rate, seed)
+        out16 = fe.folded_forward(x0, params, S, Tn, rate, seed)
+        outp, _ = fe.folded_stored_forward_plain(x0, params, S, Tn, rate,
+                                                 seed)
+        torch.cuda.synchronize()
+        if not (torch.equal(out15, out1) and all(
+                torch.equal(a, b) for k in ("xs", "qkv", "attn", "strip")
+                for a, b in zip(res15[k], res1[k]))):
+            fail(f"{label} rate {rate}: K15 is not bit-equal to K1 (output "
+                 f"max|diff| {max_err([out15], [out1])[0]})")
+        if not torch.equal(out16, out15):
+            fail(f"{label} rate {rate}: K16 is not bit-equal to K15")
+        for k, o in (("K15", out15), ("K16", out16)):
+            errs[(k, rate)] = max_err([o], [outp])
+            if not torch.allclose(o, outp, rtol=2e-2, atol=2e-2):
+                fail(f"{label} rate {rate}: {k} forward max err "
+                     f"{errs[(k, rate)][0]}")
+        grads = []
+        for run in ("k1", "folded"):
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            out = (se.sampled_encoder(*si, ps, S, Tn, rate, seed)
+                   if run == "k1" else
+                   fe.folded_u2gnn_encoder_grad(x0, ps, S, Tn, rate, seed))
+            grads.append(torch.autograd.grad((out * w).sum(), ps))
+        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+            fail(f"{label} rate {rate}: K15 + K3/K2 gradients differ from "
+                 f"K1-K3's: max|diff| {max_err(grads[1], grads[0])[0]}")
+        print(f"# check {label} rate {rate}: K15 bit-equal to K1 (output, "
+              f"residuals) and its gradients to K1-K3's, K16 to K15; vs "
+              f"plain K15 {errs[('K15', rate)][0]:.3e} "
+              f"({errs[('K15', rate)][1]:.1e})", flush=True)
+    return errs
+
+
+def check_stored_rows(label, si, params, S, Tn, dev):
+    """K17 at rate 0 and 0.5, fed K5's own bf16 x0 rows and seed: output
+    and residuals equal K5's bit for bit, and the gradients of K17 with K6
+    K5/K6's; against its plain version by :func:`check_bf16_spread`, and
+    with K6 every gradient leaf (dx too) against the plain backward on its
+    residuals at cosine > 0.999.  Returns the errors by (kernel, rate)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+
+    N, D = si[0].shape[0], si[3].shape[1]
+    w = torch.randn(N, D, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(17))
+    errs = {}
+    for rate in (0.0, 0.5):
+        seed = 75319
+        out5, res5 = st.stored_forward(*si, params, S, Tn, rate, seed)
+        x0 = res5["xs"][0].reshape(N * S, D)
+        out17, res17 = st.stored_rows_forward(x0, params, S, Tn, rate, seed)
+        outp, _ = st.stored_rows_forward_plain(x0, params, S, Tn, rate, seed)
+        torch.cuda.synchronize()
+        if not (torch.equal(out17, out5) and all(
+                torch.equal(a, b) for k in ("xs", "qkv", "attn", "strip", "h")
+                for a, b in zip(res17[k], res5[k]))):
+            fail(f"{label} rate {rate}: K17 is not bit-equal to K5 (output "
+                 f"max|diff| {max_err([out17], [out5])[0]})")
+        errs[("K17", rate)] = check_bf16_spread(
+            f"{label} rate {rate}: K17", out17, outp)
+        grads = []
+        for run in ("k5", "k17"):
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            out = (st.stored_encoder(*si, ps, S, Tn, rate, seed)
+                   if run == "k5" else
+                   st.fused_u2gnn_encoder_stored(x0, ps, S, Tn, rate, seed))
+            grads.append(torch.autograd.grad((out * w).sum(), ps))
+        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+            fail(f"{label} rate {rate}: K17 + K6 gradients differ from "
+                 f"K5/K6's: max|diff| {max_err(grads[1], grads[0])[0]}")
+        print(f"# check {label} rate {rate}: K17 bit-equal to K5 (output, "
+              f"residuals) and its gradients with K6 to K5/K6's", flush=True)
+    return errs
+
+
+def plain_walk(res, w, params, Tn, rate, seed, mm):
+    """The plain backward over a forward's residuals ``res``: K3 then K2
+    per earlier layer, or K6 (slot 0, then per earlier layer) where ``res``
+    holds the stored hidden ``h``.  Returns (dx [N, S, D], the 12 stacked
+    gradients) of sum(out * w)."""
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+
+    def layer_bwd(t, g):
+        last = t == Tn - 1
+        x = res["xs"][t]
+        bwd = se.slot0_backward_plain if last else se.layer_backward_plain
+        h = {"h": res["h"][t]} if "h" in res else {}
+        return bwd(x, res["qkv"][t], res["attn"][t], res["strip"][t],
+                   g if last else g.view_as(x),
+                   [a[t % a.shape[0]] for a in params], layer=t, rate=rate,
+                   seed=seed, mm=mm, **h)
+
+    return se.walk_backward(w, params, Tn, layer_bwd)
+
+
+def cat_leaves(ts):
+    import torch
+
+    return torch.cat([t.float().flatten() for t in ts])
+
+
+def residuals_f64(x2d, params, S, Tn, rate, seed):
+    """The plain stored-residual forward in float64 with unrounded
+    operands (as :func:`plain_f64`): its residuals, lists by kind."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops.sampled_encoder import (
+        rows_forward_plain)
+
+    D = x2d.shape[1]
+    return rows_forward_plain(
+        x2d.double().view(-1, S, D), [p.double() for p in params], Tn, rate,
+        seed, torch.float32, torch.float64,
+        residuals=("qkv", "attn", "strip", "h"))[1]
+
+
+def check_stored_rows_f32(label, params, x2d, S, Tn, dev):
+    """K17 with float32 rows at rate 0 and 0.5: the output by
+    :func:`check_forward` (1e-4 or the float64 rule of :func:`check_k4_f32`)
+    and each kind of residual against the plain forward's — within 1e-4 of
+    its max, or, where float32 sum order alone moves the plain version
+    further than that from the float64 forward's, within twice the plain
+    version's own error of them (as :func:`check_k4_f32`); then with K6 dx
+    and each gradient leaf within 1e-4 of its own max of the plain backward
+    on K17's residuals.  The plain backward is not run on the plain
+    forward's residuals: float32 gradients amplify the two forwards'
+    rounding far past 1e-4 at D=68.  Returns the errors by (kernel,
+    rate)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+    w = torch.randn(N, D, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(18))
+    errs = {}
+    for rate in (0.0, 0.5):
+        seed = 24680
+        out_k, res_k = st.stored_rows_forward(x2d, params, S, Tn, rate, seed)
+        out_p, res_p = st.stored_rows_forward_plain(x2d, params, S, Tn, rate,
+                                                    seed)
+        errs[("K17", rate)] = check_forward(
+            f"{label} rate {rate}: K17", out_k, out_p,
+            lambda: plain_f64(x2d, params, S, Tn, rate, seed), bf16=False)
+        res64, ratio, own = None, 0.0, 0.0
+        for k in res_k:
+            a, b = cat_leaves(res_k[k]), cat_leaves(res_p[k])
+            if float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()):
+                continue
+            if res64 is None:
+                res64 = residuals_f64(x2d, params, S, Tn, rate, seed)
+            r = torch.cat([t.flatten() for t in res64[k]])
+            ek = float((a.double() - r).abs().max())
+            ep = float((b.double() - r).abs().max())
+            if not ek <= 2.0 * ep:
+                fail(f"{label} rate {rate}: K17 residual {k}: max|diff| "
+                     f"{float((a - b).abs().max())} (float64 reference: "
+                     f"kernel {ek}, plain {ep})")
+            ratio = max(ratio, ek / ep)
+            own = max(own, ep / float(r.abs().max()))
+        ps = [p.detach().clone().requires_grad_(True) for p in params]
+        x = x2d.detach().clone().requires_grad_(True)
+        out = st.fused_u2gnn_encoder_stored(x, ps, S, Tn, rate, seed)
+        gk = torch.autograd.grad((out * w).sum(), [x] + ps)
+        dx_p, gp = plain_walk(res_k, w, params, Tn, rate, seed,
+                              torch.float32)
+        worst = max(leaf_close(f"{label} rate {rate}: K17 + K6 {leaf}", a, b)
+                    for leaf, a, b in zip(LEAVES, gk, (dx_p.reshape(N * S, D),)
+                                          + tuple(gp)))
+        print(f"# check {label} rate {rate}: K17 max|err| "
+              f"{errs[('K17', rate)][0]:.3e} ({errs[('K17', rate)][1]:.1e}), "
+              f"residuals within 1e-4 of their max"
+              + (f" or the float64 rule (worst kernel/plain {ratio:.2f}; "
+                 f"plain float32 vs float64 up to {own:.1e} of the max)"
+                 if ratio else "")
+              + f"; with K6 against the plain backward on its residuals: "
+              f"worst leaf {worst:.2e} of its max", flush=True)
+    return errs
+
+
+def check_fused_mega(label, si, params, S, Tn, dev):
+    """K13 with the whole-stack backward (``fused_sampled_encoder(...,
+    mega_bwd=True)``: K14, K14w past D=32, on K13's saved bf16 inputs)
+    against K13 with its chain (K8s/K8 or K8ws/K8w) at rate 0 and 0.5: the
+    same output, every gradient leaf at cosine > 0.999, and whether they
+    are equal bit for bit."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+
+    N, D = si[0].shape[0], si[3].shape[1]
+    w = torch.randn(N, D, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(19))
+    name = "K14w" if D > 32 else "K14"
+    for rate in (0.0, 0.5):
+        seed = 11235
+        outs, grads = [], []
+        for mega in (False, True):
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            out = fs.fused_sampled_encoder(*si, ps, S, Tn, rate, seed,
+                                           mega_bwd=mega)
+            grads.append(torch.autograd.grad((out * w).sum(), ps))
+            outs.append(out.detach())
+        if not torch.equal(outs[0], outs[1]):
+            fail(f"{label} rate {rate}: K13 output differs between runs")
+        low = min(cosine(a, b) for a, b in zip(grads[1], grads[0]))
+        if not low > 0.999:
+            fail(f"{label} rate {rate}: K13 + {name} vs K13 + chain lowest "
+                 f"leaf cosine {low}")
+        equal = all(torch.equal(a, b) for a, b in zip(*grads))
+        print(f"# check {label} rate {rate}: K13 + {name} vs K13 + its chain:"
+              + (" equal bit for bit" if equal else
+                 f" lowest leaf cosine {low:.6f}"), flush=True)
+
+
+def check_variants(width, x2d, params, w, res, S, Tn, rate, seed):
+    """This slice's kernels against their plain versions on the main path's
+    own inputs, run after its launch counts were read: K14 (K14w) on K4t's
+    (K4tw's) saved inputs and the backward of the stored (folded) variant —
+    K6 on K17's residuals (K3/K2 on K15's) — by :func:`check_grads`; K17's
+    (K15's) output and each kind of residual, and K16's output, by
+    :func:`check_bf16_spread`.  The stored and folded variants' gradient
+    leaves against hybrid's at cosine > 0.99: designs that round their bf16
+    residuals at different points (the bound of the two-pass against the
+    fused path, ROADMAP Queue C).  Returns the errors by (kernel, rate,
+    label)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+
+    N, D = w.shape
+    label = f"{width} main path"
+    errs = {}
+    _, xs = ue.u2gnn_encoder_train(x2d, params, S, Tn, rate, seed)
+    name = "K14w" if D > 32 else "K14"
+    dx_k, gk = ut.mega_recompute_backward(x2d, xs, w, params, S, Tn, rate,
+                                          seed)
+    dx_p, gp = ut.mega_recompute_backward_plain(x2d, xs, w, params, S, Tn,
+                                                rate, seed)
+    errs[(name, rate, label)], low = check_grads(f"{label}: {name}", dx_k, gk,
+                                                 dx_p, gp)
+    line = f"# check {label}: {name} vs plain lowest leaf cosine {low:.6f}"
+    runs = [("K17", "stored", st.stored_rows_forward,
+             st.stored_rows_forward_plain)]
+    if "folded" in res:
+        runs.append(("K15", "folded", fe.folded_stored_forward,
+                     fe.folded_stored_forward_plain))
+    for name, variant, fwd, plain in runs:
+        out_k, res_k = fwd(x2d, params, S, Tn, rate, seed)
+        out_p, res_p = plain(x2d, params, S, Tn, rate, seed)
+        out_v, g_v = res[variant]
+        if not torch.equal(out_k, out_v):
+            fail(f"{label}: {name} differs between two runs")
+        errs[(name, rate, label)] = check_bf16_spread(
+            f"{label}: {name} output", out_k, out_p)
+        for k in res_k:
+            check_bf16_spread(f"{label}: {name} residual {k}",
+                              cat_leaves(res_k[k]), cat_leaves(res_p[k]))
+        if name == "K15":
+            errs[("K16", rate, label)] = check_bf16_spread(
+                f"{label}: K16 output",
+                fe.folded_forward(x2d, params, S, Tn, rate, seed), out_p)
+        dx_p, gp = plain_walk(res_k, w, params, Tn, rate, seed,
+                              torch.bfloat16)
+        _, low = check_grads(f"{label}: {variant} backward", g_v[0].float(),
+                             g_v[1:], dx_p.reshape(N * S, D), gp)
+        cross = min(cosine(a, b) for a, b in zip(g_v, res["hybrid"][1]))
+        if not cross > 0.99:
+            fail(f"{label}: {variant} vs hybrid lowest leaf cosine {cross}")
+        line += (f"; {variant} backward vs plain {low:.6f}, vs hybrid "
+                 f"{cross:.6f}")
+    print(line, flush=True)
+    return errs
+
+
+AB_ROWS = dict(N=8832, S=9, D=4, Tn=4)  # scripts/bench_hybrid.py:32
+
+
+def encoder_variants(dev):
+    """This slice's main path: the encoder's forward and backward designs
+    that ``scripts/bench_hybrid.py``, ``bench_folded.py`` and
+    ``bench_stored_bwd.py`` A/B, at their workload (8,832 neighborhoods x
+    S=9 = 79,488 rows, D=4, F=1024, T=4, bf16 rows, rate 0.5, stored = T),
+    for one seed and the same weights: hybrid (K4t, K8s, 3xK8), mega (K4t,
+    K14), folded (K15, K3, 3xK2), stored (K17, K6s, 3xK6), each forward +
+    backward with every launch count set to 0 just before and read just
+    after (each of its kernels launched as often as said, every other idle),
+    then K16 alone; and at the quickstart's width (D=68 one-hot rows, the
+    same rows), where the folded gate fails: hybrid (K4tw, K8ws, 3xK8w), mega
+    (K4tw, K14w), stored (K17, K6s, 3xK6).  Holds the outputs against each
+    other (hybrid, mega and folded bit for bit at D=4; stored by
+    :func:`check_bf16_spread`), K14/K14w against the chain's gradients
+    (cosine > 0.999) and K16 against K15, then each kernel against its
+    plain version on these inputs (:func:`check_variants`).  Returns (the
+    launches by kernel, the A/B and wide cases, the errors by (kernel, rate,
+    label))."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+
+    N, S, Tn = AB_ROWS["N"], AB_ROWS["S"], AB_ROWS["Tn"]
+    rate, seed = 0.5, 4321
+    counters = launch_counters()
+    total = {k: 0 for k in counters}
+    cases, errs = {}, {}
+    for width, D in (("ab", AB_ROWS["D"]), ("wide", 68)):
+        _, params, x2d = random_case(N=N, S=S, D=D, C=D, F=FF, Tn=Tn,
+                                     stored=Tn, seed=12, dev=dev)
+        if D > 32:  # one-hot degree-tag rows, as the quickstart's
+            tags = torch.randint(0, D, (N * S,), device=dev,
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(20))
+            x2d = torch.eye(D, device=dev)[tags].to(torch.bfloat16)
+        w = torch.randn(N, D, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(21))
+        wide = width == "wide"
+        variants = {
+            "hybrid": (lambda ps, x: ut.u2gnn_train_encoder(
+                x, ps, S, Tn, rate, seed),
+                {"K4tw": 1, "K8ws": 1, "K8w": Tn - 1} if wide
+                else {"K4t": 1, "K8s": 1, "K8": Tn - 1}),
+            "mega": (lambda ps, x: ut.u2gnn_train_encoder(
+                x, ps, S, Tn, rate, seed, mega_bwd=True),
+                {"K4tw": 1, "K14w": 1} if wide else {"K4t": 1, "K14": 1}),
+            "stored": (lambda ps, x: st.fused_u2gnn_encoder_stored(
+                x, ps, S, Tn, rate, seed), {"K17": 1, "K6s": 1, "K6": Tn - 1}),
+        }
+        if width == "ab":
+            variants["folded"] = (lambda ps, x: fe.folded_u2gnn_encoder_grad(
+                x, ps, S, Tn, rate, seed), {"K15": 1, "K3": 1, "K2": Tn - 1})
+        res = {}
+        for name, (fn, want) in variants.items():
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            x = x2d.detach().clone().requires_grad_(True)
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            out = fn(ps, x)
+            g = torch.autograd.grad((out * w).sum(), [x] + ps)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in counters.items()}
+            for k, v in launches.items():
+                total[k] += v
+                if v != want.get(k, 0):
+                    fail(f"{width} {name}: {k} launched {v} times, expected "
+                         f"{want.get(k, 0)}")
+            if not (bool(torch.isfinite(out).all())
+                    and all(bool(torch.isfinite(t).all()) for t in g)):
+                fail(f"{width} {name}: output or gradients not finite")
+            res[name] = (out.detach(), g)
+            print(f"# encoder variant {width} (N={N}, S={S}, D={D}) {name}: "
+                  f"forward + backward {dt * 1e3:.1f} ms (first call), "
+                  f"launches {dict((k, v) for k, v in launches.items() if v)}",
+                  flush=True)
+        out_h, g_h = res["hybrid"]
+        if not torch.equal(res["mega"][0], out_h):
+            fail(f"{width}: the mega variant's forward differs from hybrid's")
+        low = min(cosine(a.float(), b.float())
+                  for a, b in zip(res["mega"][1], g_h))
+        if not low > 0.999:
+            fail(f"{width}: mega vs hybrid lowest leaf cosine {low}")
+        equal = all(torch.equal(a, b) for a, b in zip(res["mega"][1], g_h))
+        e_st = check_bf16_spread(f"{width}: stored vs hybrid output",
+                                 res["stored"][0], out_h)
+        line = (f"# encoder variants {width}: mega vs hybrid "
+                + ("equal bit for bit" if equal else
+                   f"lowest leaf cosine {low:.6f}")
+                + f"; stored vs hybrid output max|diff| {e_st[0]:.3e}")
+        if width == "ab":
+            if not torch.equal(res["folded"][0], out_h):
+                fail("ab: the folded variant's output differs from hybrid's "
+                     f"({max_err([res['folded'][0]], [out_h])[0]})")
+            for c in counters.values():
+                c.launches = 0
+            out16 = fe.folded_u2gnn_encoder(x2d, params, S, Tn, rate, seed)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            for k, v in launches.items():
+                total[k] += v
+                if v != (k == "K16"):
+                    fail(f"ab K16: {k} launched {v} times")
+            if not torch.equal(out16, res["folded"][0]):
+                fail("ab: K16 is not bit-equal to K15")
+            line += "; folded output equal to hybrid's; K16 equal to K15"
+        print(line, flush=True)
+        errs.update(check_variants(width, x2d, params, w, res, S, Tn, rate,
+                                   seed))
+        cases[width] = dict(params=params, x2d=x2d, w=w, D=D)
+    print(f"# encoder variants launches: "
+          f"{dict((k, v) for k, v in total.items() if v)}", flush=True)
+    return total, cases, errs
+
+
 def config_run(label, ds, cfg, want, dev, train_idx=None, test_idx=None):
     """``SupTrainer(cfg)`` on ``ds`` (fold 0, or the given split) on the
     card: every launch count set to 0, then :func:`timed_steps` on one batch
@@ -1000,23 +1503,29 @@ def write_imdb_like_tu(root, name="IMDBBINARY", num_graphs=1000, seed=0):
 def device_ms(fn, reps: int, kernels) -> float:
     """Device time per call of ``fn`` spent in the CUDA kernels whose names
     hold one of ``kernels``, from torch.profiler (the wrapper's own
-    allocations, fills and casts are left out)."""
+    allocations, fills and casts are left out).  A profiler session that
+    records none of these kernels (CUPTI now and then drops a session's
+    records) is run again, up to three sessions."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in e.name for k in kernels))
-    if us <= 0:
-        fail(f"the profiler saw no device time in {kernels}")
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.time_range.end - e.time_range.start for e in device
+                 if any(k in e.name for k in kernels))
+        if us > 0:
+            return us / reps / 1e3
+        print(f"# the profiler saw no device time in {kernels} ({len(device)}"
+              f" device events); profiling again", flush=True)
+    fail(f"the profiler saw no device time in {kernels} in three sessions")
 
 
 def profile_steps(trainer, batch, n_steps: int) -> None:
@@ -1128,6 +1637,9 @@ QUICKSTART_RUNS = {
                       WIDE_TWO_PASS),
     "quickstart act": (QUICKSTART_FLAGS + ["--recurrence", "act"],
                        ("K7", "K9w", "K10w")),
+    # the host batcher's neighborhoods: no sampler launch
+    "quickstart host": (QUICKSTART_FLAGS + ["--host_sampling"],
+                        ("K4tw", "K8w", "K8ws", "K4w")),
 }
 # the fused path's three flags (JAX's fused_gate_ok); without use_folded or
 # use_stored_bwd it runs K13 with the recompute backward
@@ -1148,6 +1660,7 @@ def launch_counters():
     """Every kernel wrapper's launch counter, by kernel."""
     from graph_transformer_tpu_torch.ops import encoder_layer as el
     from graph_transformer_tpu_torch.ops import ffn
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
     from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
@@ -1169,7 +1682,11 @@ def launch_counters():
             "K8ws": ut.wide_slot0_recompute_backward,
             "K9w": el.wide_encoder_layer_forward,
             "K10w": el.wide_encoder_layer_backward,
-            "K13": fs.fused_sampled_forward}
+            "K13": fs.fused_sampled_forward,
+            "K14": ut.mega_recompute_backward,
+            "K14w": ut.wide_mega_recompute_backward,
+            "K15": fe.folded_stored_forward, "K16": fe.folded_forward,
+            "K17": st.stored_rows_forward}
 
 
 def describe(label, ds) -> None:
@@ -1225,11 +1742,12 @@ def run_cli(label, flags, data, root, want, idle) -> dict:
 
 def quickstart(root: str):
     """The README quickstart (``README.md:47-50``) through the CLI on an
-    IMDBBINARY-like file, for 2 epochs on the card, as is and with
-    ``--num_hidden_layers 2`` and ``--recurrence act``: degree tags are
-    forced, so the rows are wide (D > 32), and the CLI, like the JAX CLI,
-    trains on the two-pass path in float32 (K7, K4tw, K8ws/K8w; the wide K4
-    at evaluation; ACT: K7, K9w, K10w); every other kernel stays idle.
+    IMDBBINARY-like file, for 2 epochs on the card, as is, with
+    ``--num_hidden_layers 2``, ``--recurrence act`` and ``--host_sampling``:
+    degree tags are forced, so the rows are wide (D > 32), and the CLI, like
+    the JAX CLI, trains on the two-pass path in float32 (K7, K4tw,
+    K8ws/K8w; the wide K4 at evaluation; ACT: K7, K9w, K10w; host sampling:
+    no K7); every other kernel stays idle.
     Returns (dataset, {run: launches})."""
     from graph_transformer_tpu_torch.data.tu import load_tu_dataset
 
@@ -1386,6 +1904,7 @@ def main() -> int:
     from graph_transformer_tpu_torch.ops import _build
     from graph_transformer_tpu_torch.ops import encoder_layer as el
     from graph_transformer_tpu_torch.ops import ffn
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
     from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
@@ -1519,6 +2038,36 @@ def main() -> int:
                                       stored=T, seed=10, dev=dev, one_hot=True)
     errs.update({(k, r, "d68"): v for (k, r), v in check_fused_sampled(
         "imdb-width-68", si_68, params_68, S, T, dev).items()})
+    # slice 6: K14 against the K8 chain and its plain version at (S, D, T) =
+    # (9, 4, 4) and (17, 19, 4), K14w at D = 40, 68, 128 (T=3), weight-tied
+    # or not, float32 and bf16; K15/K16 against K1 (the bench's rows and
+    # the MUTAG-like case), K17 against K5 (MUTAG-like, one-hot D=68) and
+    # in float32; K13 with K14/K14w against K13 with its chain
+    for S_, D_, T_, st_ in ((9, 4, 4, 4), (9, 4, 4, 1), (17, 19, 4, 4),
+                            (17, 19, 4, 1), (9, 40, 3, 3), (9, 68, 3, 3),
+                            (9, 68, 3, 1), (9, 128, 3, 3)):
+        _, params_g, x2d_g = random_case(N=2048, S=S_, D=D_, C=D_, F=FF,
+                                         Tn=T_, stored=st_, seed=13, dev=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            label = f"mega s{S_}-d{D_} stored {st_} {dt}"
+            errs.update({(k, r, label): v for (k, r), v in check_mega(
+                label, params_g, x2d_g.to(dt), S_, T_, dev).items()})
+    for label, si_f, params_f in (("bench", si, params),
+                                  ("mutag-like", si_m, params_m)):
+        errs.update({(k, r, label): v for (k, r), v in check_folded(
+            label, si_f, params_f, S, T, dev).items()})
+    for label, si_s, params_s in (("mutag-like", si_m, params_m),
+                                  ("imdb-width-68", si_68, params_68)):
+        errs.update({(k, r, label): v for (k, r), v in check_stored_rows(
+            label, si_s, params_s, S, T, dev).items()})
+    for D_ in (7, 68):
+        _, params_r, x2d_r = random_case(N=2048, S=S, D=D_, C=D_, F=FF, Tn=T,
+                                         stored=T, seed=14, dev=dev)
+        label = f"stored rows d{D_} float32"
+        errs.update({(k, r, label): v for (k, r), v in check_stored_rows_f32(
+            label, params_r, x2d_r.float(), S, T, dev).items()})
+    check_fused_mega("mutag-like", si_m, params_m, S, T, dev)
+    check_fused_mega("imdb-width-68", si_68, params_68, S, T, dev)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. the main path of slice 1: the bench workload on K1-K4
@@ -1661,7 +2210,16 @@ def main() -> int:
     for k in ("K5", "K6", "K6s"):
         launches[k] = runs_5["quickstart stored"]["launches"][k]
 
-    # ---- 8. per-kernel times at each main path's shapes
+    # ---- 8. the main path of slice 6: the encoder's forward and backward
+    # variants at the A/B scripts' workload and at the quickstart's width
+    t0 = time.perf_counter()
+    launches_v, cases_v, errs_v = encoder_variants(dev)
+    errs.update(errs_v)
+    print(f"# encoder variants: {time.perf_counter() - t0:.1f} s", flush=True)
+    for k in ("K14", "K14w", "K15", "K16", "K17"):
+        launches[k] = launches_v[k]
+
+    # ---- 9. per-kernel times at each main path's shapes
     seed = 99
     out_k, res_k = se.sampled_forward(*si, params, S, T, 0.5, seed)
     g3 = torch.randn(N, D, device=dev)
@@ -1837,6 +2395,39 @@ def main() -> int:
                             torch.float32, 0.5).layers[0]
     x3_a = x9.view(Na, S, Da)
 
+    # this slice's shapes: the encoder variants at the A/B workload (K14,
+    # K15, K16, K17; bf16 rows) and at the quickstart's width (K14w)
+    Nv, Sv, Tv = AB_ROWS["N"], AB_ROWS["S"], AB_ROWS["Tn"]
+    mega = {}
+    for key, case in (("K14", cases_v["ab"]), ("K14w", cases_v["wide"])):
+        p_v, x_v, Dv = case["params"], case["x2d"], case["D"]
+        _, xs_v = u2gnn_encoder_train(x_v, p_v, Sv, Tv, 0.5, seed)
+        full = (layer_flops(Nv * Sv, Nv * Sv, Sv, Dv, F)
+                + Nv * Sv * (8 * Dv * F + 4 * Dv * 3 * Dv + 4 * Dv * Dv
+                             + 8 * Sv * Dv))
+        slot0 = (layer_flops(Nv, Nv * Sv, Sv, Dv, F)
+                 + Nv * (8 * Dv * F + 4 * Dv * Dv + 8 * Sv * Dv)
+                 + Nv * Sv * 4 * Dv * 3 * Dv)
+        mega[key] = dict(
+            args=(x_v, xs_v, case["w"], p_v, Sv, Tv, 0.5, seed),
+            bytes=(nbytes(x_v, xs_v, case["w"]) + 2 * nbytes(*p_v)
+                   + Nv * Sv * Dv * 4),
+            flops=(Tv - 1) * full + slot0)
+    p_ab, x_ab = cases_v["ab"]["params"], cases_v["ab"]["x2d"]
+    Dv = cases_v["ab"]["D"]
+    x3_ab = x_ab.view(Nv, Sv, Dv)
+    out15, res15 = fe.folded_stored_forward(x_ab, p_ab, Sv, Tv, 0.5, seed)
+    out17, res17 = st.stored_rows_forward(x_ab, p_ab, Sv, Tv, 0.5, seed)
+    v_in = nbytes(x_ab) + nbytes(*p_ab)
+    k15_bytes = v_in + nbytes(out15) + sum(
+        nbytes(t) for k in ("xs", "qkv", "attn", "strip") for t in res15[k])
+    k16_bytes = v_in + nbytes(out15)
+    k17_bytes = v_in + nbytes(out17) + sum(
+        nbytes(t) for k in ("qkv", "attn", "strip", "h") for t in res17[k]) \
+        + sum(nbytes(t) for t in res17["xs"][1:])
+    v_flops = fwd_flops(Nv, Sv, Dv, F, Tv)
+    lib_ab = library_encoder(p_ab, Sv, Tv, Dv, F, dev, torch.bfloat16, 0.5)
+
     lib = library_encoder(params, S, T, D, F, dev)
     x3d = x2d_eval.view(Ne, S, D)
     lib_q = library_encoder(params_q, S, T, Dq, F, dev)
@@ -1963,6 +2554,29 @@ def main() -> int:
                          *k13["K13w"]["si"], k13["K13w"]["params"], S, T,
                          0.5, seed),
                      lambda: lib_q(k13["K13w"]["x0"])),
+            "K14": (lambda: ut.mega_recompute_backward(*mega["K14"]["args"]),
+                    lambda: ut.mega_recompute_backward_plain(
+                        *mega["K14"]["args"]),
+                    None),
+            "K14w": (lambda: ut.mega_recompute_backward(
+                         *mega["K14w"]["args"]),
+                     lambda: ut.mega_recompute_backward_plain(
+                         *mega["K14w"]["args"]),
+                     None),
+            "K15": (lambda: fe.folded_stored_forward(x_ab, p_ab, Sv, Tv, 0.5,
+                                                     seed),
+                    lambda: fe.folded_stored_forward_plain(
+                        x_ab, p_ab, Sv, Tv, 0.5, seed),
+                    lambda: lib_ab(x3_ab)),
+            "K16": (lambda: fe.folded_forward(x_ab, p_ab, Sv, Tv, 0.5, seed),
+                    lambda: fe.folded_forward_plain(x_ab, p_ab, Sv, Tv, 0.5,
+                                                    seed),
+                    lambda: lib_ab(x3_ab)),
+            "K17": (lambda: st.stored_rows_forward(x_ab, p_ab, Sv, Tv, 0.5,
+                                                   seed),
+                    lambda: st.stored_rows_forward_plain(x_ab, p_ab, Sv, Tv,
+                                                         0.5, seed),
+                    lambda: lib_ab(x3_ab)),
         }
         # each wrapper's kernels: the backward kernels include their
         # partial sums (and K6 its split-K weight products)
@@ -1986,7 +2600,13 @@ def main() -> int:
             "K4tw": ("wd_encoder_fwd_kernel",), "K8w": k8w_kernels,
             "K8ws": k8w_kernels, "K9w": ("wd_encoder_fwd_kernel",),
             "K10w": k8w_kernels, "K13": ("gt_encoder_fwd_kernel",),
-            "K13w": ("wd_encoder_fwd_kernel",)}
+            "K13w": ("wd_encoder_fwd_kernel",),
+            "K14": ("gt_mega_bwd_kernel", "gt_mega_reduce_kernel"),
+            "K14w": ("wd_mega_bwd_kernel", "wd_reduce_small_kernel",
+                     "wd_wgrad_kernel", "gt_reduce_partials_kernel",
+                     "gt_mega_reduce_kernel"),
+            "K15": ("gt_encoder_fwd_kernel",), "K16": ("gt_encoder_fwd_kernel",),
+            "K17": ("wd_encoder_fwd_kernel",)}
         timings = {
             key: (device_ms(kern, 10, device_kernels[key]), time_ms(kern, 10),
                   time_ms(plain, 3),
@@ -2064,6 +2684,21 @@ def main() -> int:
         "K13w": ("fused_sampled_fwd_wide", src + "fused_sampled_fwd.cu",
                  "graph_transformer_tpu/ops/pallas_sampled_encoder.py:139",
                  k13["K13w"]["bytes"], k13["K13w"]["flops"], bf),
+        "K14": ("mega_bwd", src + "mega_bwd.cu",
+                "graph_transformer_tpu/ops/pallas_u2gnn.py:284",
+                mega["K14"]["bytes"], mega["K14"]["flops"], bf),
+        "K14w": ("wide_mega_bwd", src + "mega_bwd.cu",
+                 "graph_transformer_tpu/ops/pallas_u2gnn.py:284",
+                 mega["K14w"]["bytes"], mega["K14w"]["flops"], bf),
+        "K15": ("folded_stored_fwd", src + "folded_fwd.cu",
+                "graph_transformer_tpu/ops/pallas_folded.py:502", k15_bytes,
+                v_flops, bf),
+        "K16": ("folded_fwd", src + "folded_fwd.cu",
+                "graph_transformer_tpu/ops/pallas_folded.py:382", k16_bytes,
+                v_flops, bf),
+        "K17": ("stored_rows_fwd", src + "stored_fwd.cu",
+                "graph_transformer_tpu/ops/pallas_stored_bwd.py:106",
+                k17_bytes, v_flops, bf),
     }
     kernels = []
     for key, (name, source, replaces, b, f, rate) in meta.items():
@@ -2077,12 +2712,22 @@ def main() -> int:
             "max_rel_err": max(e[1] for e in errs_k),
             "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-            "bytes": b, "flops": f})
+            "bytes": b, "flops": f,
+            "excess_ms": launches[key] * (ms - bms)})
         print(f"# {key} {name}: {ms:.4f} ms/launch on the device (wrapper "
               f"{wrapper_ms:.4f}, plain {plain_ms:.4f}, "
               f"bound {bms:.5f} by {by}"
               + (f", library {lib_ms:.4f}" if lib_ms is not None else "")
               + ")", flush=True)
+    # the speed queue's order: kernels slower than their library call
+    # first, then launches x (ms - bound) on their main paths
+    slower = [k["name"].split()[0] for k in kernels
+              if k["library_ms"] is not None and k["ms"] > k["library_ms"]]
+    queue = sorted(kernels, key=lambda k: -k["excess_ms"])
+    print(f"# slower than their library call: {slower or 'none'}; launches x "
+          "(ms - bound): " + ", ".join(f"{k['name'].split()[0]} "
+                                       f"{k['excess_ms']:.1f}"
+                                       for k in queue), flush=True)
     print(f"# edges/s on the card: bench {eps:.1f}, quickstart {eps_q:.1f}, "
           f"hpo arm {eps_h:.1f}, act {steps_4['act']['eps']:.1f}, node axis "
           f"{steps_4['node']['eps']:.1f}, "

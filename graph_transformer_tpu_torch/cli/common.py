@@ -7,8 +7,9 @@ the JAX CLI's ``--num_hidden_layers``, ``--degree_as_tag`` and
 ``--use_node_attributes`` (the two-pass path's configurations),
 ``--attention_axis``, ``--share_timestep_weights`` and ``--recurrence`` (the
 per-layer encoder's; ``cli/common.py:49-57``, with the JAX CLI's choices and
-defaults), the data and output locations, and ``--device`` (default
-``cuda``).  Checkpointing is later work.  Flags of the JAX CLI that choose
+defaults), ``--host_sampling`` (train on the host batcher's neighborhoods,
+``cli/common.py:70, 113``), the data and output locations, and ``--device``
+(default ``cuda``).  Checkpointing is later work.  Flags of the JAX CLI that choose
 among TPU kernels or pick configurations the port does not run yet are left
 out until a slice runs them.
 """
@@ -58,6 +59,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--scan_epochs", action="store_true",
                    help="accepted for parity with the JAX CLI; the port "
                         "trains the same per-step loop either way")
+    p.add_argument("--host_sampling", action="store_true",
+                   help="sample neighborhoods on host instead of on device")
     p.add_argument("--data_dir", default=None, help="TU dataset root")
     p.add_argument("--fold_idx", default=0, type=int, help="0-9")
     p.add_argument("--seed", default=123, type=int)
@@ -92,6 +95,7 @@ def config_from_args(args: argparse.Namespace) -> ExperimentConfig:
             learning_rate=args.learning_rate,
             num_epochs=args.num_epochs,
             seed=args.seed,
+            on_device_sampling=not args.host_sampling,
             scan_epochs=args.scan_epochs,
         ),
         parallel=ParallelConfig(),

@@ -21,11 +21,16 @@ Three branches, as in the JAX model:
   encodes them, ``global_regather`` feeds the next layer, and the per-layer
   heads' scores add up.  Without a ``seed`` it is deterministic (rate 0, no
   head dropout), as the JAX model is with ``rng=None``.
-- **Evaluation** (neither): the batch's fixed neighborhoods are gathered and
-  encoded at rate 0, re-gathered batch-locally between U2GNN layers
-  (``:233``).
+- **Host-sampled training** (neither, with a ``seed``; ``:184-186``), the
+  trainer's path with ``on_device_sampling`` off: the batch's own
+  neighborhoods ``x[batch.neigh]`` (in ``compute_dtype``) are encoded with
+  dropout, as on the two-pass path, and re-gathered batch-locally,
+  ``out[batch.neigh]``, between U2GNN layers (``:232-233``).
+- **Evaluation** (none of these): the batch's fixed neighborhoods are
+  gathered and encoded at rate 0, re-gathered batch-locally between U2GNN
+  layers (``:233``).
 
-The encoder of the last two is picked as the JAX ``neighborhood_encoder``
+The encoder of the last three is picked as the JAX ``neighborhood_encoder``
 picks it (``ops/attention.py:393-433``), in ``compute_dtype``: basic,
 single-head, neighborhood-axis encoders take the whole-encoder kernels (K4t
 forward with the recompute backward K8/K8s, ``ops/u2gnn_train.py``, in
@@ -158,12 +163,23 @@ class U2GNNSup(nn.Module):
         all dropout.  Two-pass training: ``neigh_feat`` [N, K+1, D] gathered
         by the global ids ``neigh_global`` [N, K+1] (needed past one U2GNN
         layer, with ``num_total_nodes``) and a ``seed``, or none for a
-        deterministic pass.  Evaluation: none of these."""
+        deterministic pass.  Host-sampled training: only a ``seed`` (the
+        batch's own neighborhoods).  Evaluation: none of these."""
         if sampled_inputs is not None:
             out = self._fused(batch, sampled_inputs, seed)
         elif neigh_feat is not None:
-            out = self._two_pass(batch, neigh_feat, neigh_global,
-                                 num_total_nodes, seed)
+            if len(self.encoders) > 1 and (neigh_global is None
+                                           or num_total_nodes is None):
+                raise ValueError("a deeper two-pass model re-gathers by "
+                                 "global id: pass neigh_global and "
+                                 "num_total_nodes")
+            out = self._two_pass(batch, neigh_feat, lambda o: global_regather(
+                o, batch.node_gidx, batch.node_mask, neigh_global,
+                num_total_nodes), seed)
+        elif seed is not None:
+            neigh = batch.neigh.to(torch.int64)
+            x = batch.x.to(COMPUTE_DTYPES[self.cfg.compute_dtype])
+            out = self._two_pass(batch, x[neigh], lambda o: o[neigh], seed)
         else:
             out = self._eval(batch)
         return out if return_ponder else out[0]
@@ -207,16 +223,15 @@ class U2GNNSup(nn.Module):
                       ENCODER_DROPOUT, seed)
         return self._head(0, out, batch, seed), out.new_zeros(())
 
-    def _two_pass(self, batch, neigh_feat, neigh_global, num_total_nodes,
-                  seed):
+    def _two_pass(self, batch, neigh_feat, regather, seed):
+        """Training (or, without a seed, the deterministic pass) over the
+        neighborhoods ``neigh_feat`` [N, K+1, D]; ``regather(out)`` gives
+        the next U2GNN layer's."""
         cfg = self.cfg
         N, S, D = neigh_feat.shape
         check_encoder_shapes(cfg, S, D)
         whole = whole_encoder_ok(cfg)
         k = len(self.encoders)
-        if k > 1 and (neigh_global is None or num_total_nodes is None):
-            raise ValueError("a deeper two-pass model re-gathers by global id:"
-                             " pass neigh_global and num_total_nodes")
         compute = COMPUTE_DTYPES[cfg.compute_dtype]
         rate = 0.0 if seed is None else ENCODER_DROPOUT
         x = neigh_feat.to(compute)
@@ -231,8 +246,7 @@ class U2GNNSup(nn.Module):
                 out, p_i = self._per_layer(i, x, batch, s_i)
                 ponder = ponder + p_i
             if i + 1 < k:
-                x = global_regather(out, batch.node_gidx, batch.node_mask,
-                                    neigh_global, num_total_nodes)
+                x = regather(out)
             scores = scores + self._head(i, out, batch, s_i)
         return scores, ponder
 

@@ -28,7 +28,8 @@ BUILD_DIR = Path(os.environ.get(
     Path(__file__).resolve().parents[2] / "build" / "kernels"))
 SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd", "stored_fwd",
            "stored_bwd", "wide_fwd", "sampler", "recompute_bwd",
-           "encoder_layer", "ffn", "fused_sampled_fwd")
+           "encoder_layer", "ffn", "fused_sampled_fwd", "mega_bwd",
+           "folded_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -51,10 +52,10 @@ SIGNATURES = {
     "gt_k5_stored_fwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                          _U, _U, _F, _I, _P],
-    "gt_k6_layer_bwd": [_P, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
-    "gt_k6_slot0_bwd": [_P, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k6_layer_bwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P,
+                        _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k6_slot0_bwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P,
+                        _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
     "gt_k7_sample": [_P, _I, _P, _P, _P, _I, _I, _U, _P],
     "gt_k4t_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _P, _I, _I, _I, _I, _I,
                            _I, _F, _U, _U, _F, _I, _P],
@@ -82,18 +83,33 @@ SIGNATURES = {
                        _I, _P],
     "gt_k12_ffn_bwd": [_P, _I, _P, _FFN_PARAMS, _I, _P, _P, _P, _I, _I, _I,
                        _U, _U, _F, _I, _P],
+    "gt_k14_mega_bwd": [_P, _P, _I, _P, _PARAMS, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I,
+                        _P],
+    "gt_k14w_mega_bwd": [_P, _P, _I, _P, _PARAMS, _I, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, _F, _U, _U, _F, _I, _P],
+    "gt_k15_folded_stored_fwd": [_P, _PARAMS, _I, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I,
+                                 _P],
+    "gt_k16_folded_fwd": [_P, _PARAMS, _I, _P, _I, _I, _I, _I, _I, _I, _F, _U,
+                          _U, _F, _I, _P],
+    "gt_k17_stored_rows_fwd": [_P, _I, _PARAMS, _I, _P, _P, _P, _P, _P, _P,
+                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U,
+                               _U, _F, _I, _P],
 }
-# scratch bytes: K6 (N, S, D, F, G, slot0), K8w/K10w (N, S, D, F, G, slot0,
-# bf16), K12 (M, D, F, bf16) -> bytes
-WORK_FNS = {"gt_k6_work_bytes": 6, "gt_k8w_work_bytes": 7,
-            "gt_k10w_work_bytes": 7, "gt_k12_work_bytes": 4}
+# scratch bytes: K6, K8w/K10w (N, S, D, F, G, slot0, bf16), K12 (M, D, F,
+# bf16), K14w (N, S, D, F, G, T, bf16) -> bytes
+WORK_FNS = {"gt_k6_work_bytes": 7, "gt_k8w_work_bytes": 7,
+            "gt_k10w_work_bytes": 7, "gt_k12_work_bytes": 4,
+            "gt_k14w_work_bytes": 7}
 # each kernel's shared memory per block, (G, S, D) -> bytes
 SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
             "gt_k4_smem_bytes", "gt_k4w_smem_bytes", "gt_k5_smem_bytes",
             "gt_k6_smem_bytes", "gt_k6s_smem_bytes", "gt_k8_smem_bytes",
             "gt_k8s_smem_bytes", "gt_k9_smem_bytes", "gt_k10_smem_bytes",
             "gt_k8w_smem_bytes", "gt_k8ws_smem_bytes", "gt_k9w_smem_bytes",
-            "gt_k10w_smem_bytes", "gt_k13_smem_bytes", "gt_k13w_smem_bytes")
+            "gt_k10w_smem_bytes", "gt_k13_smem_bytes", "gt_k13w_smem_bytes",
+            "gt_k14_smem_bytes", "gt_k14w_smem_bytes", "gt_k15_smem_bytes")
 
 _libs: dict = {}
 

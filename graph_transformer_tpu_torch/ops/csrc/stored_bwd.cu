@@ -5,8 +5,9 @@
 //
 // Replaces graph_transformer_tpu/ops/pallas_stored_bwd.py:_stored_bwd1_kernel
 // (entry _stored_bwd1_call, slot0 flag; walked by _stored_bwd_core).  Inputs:
-// the layer's input rows (bf16), q/k/v, the attention probabilities, the
-// LayerNorm strip, the FFN hidden h (bf16) and the output cotangent; in the
+// the layer's input rows, q/k/v, the attention probabilities, the LayerNorm
+// strip, the FFN hidden h (rows and h in bf16 from K5, in the rows' dtype
+// from K17; products in that dtype) and the output cotangent; in the
 // last layer only slot 0 of a neighborhood is a query row, while its keys and
 // values span all S slots.  The relu' times dropout factor of the hidden is
 // (h > 0) / keep, exact from h alone; the other three dropout masks replay
@@ -35,24 +36,27 @@ __global__ void __launch_bounds__(WD_THREADS)
 wd_stored_bwd_kernel(const float* __restrict__ qkv,
                      const float* __restrict__ attn,
                      const float* __restrict__ strip,
-                     const __nv_bfloat16* __restrict__ h,
+                     const void* __restrict__ h,
                      const float* __restrict__ dout, GtLayer w, GtDrop dr,
                      int layer, float* dx, WdBwdWork wk, int N, int S, int D,
-                     int F, int G, float scale) {
+                     int F, int G, float scale, int bf) {
   extern __shared__ float smem[];
   wd_bwd_body<SLOT0>(smem, qkv, attn, strip, h, dout, w, dr, layer, dx, wk, N,
-                     S, D, F, G, scale, /*bf=*/1);
+                     S, D, F, G, scale, bf);
 }
 
+// scratch of a full layer (slot0 0) or the slot-0 layer, for rows and
+// hidden in bf16 (x_bf16) or f32
 extern "C" size_t gt_k6_work_bytes(int N, int S, int D, int F, int G,
-                                   int slot0) {
+                                   int slot0, int x_bf16) {
   WdBwdWork w;
-  return wd_bwd_work(N, S, D, F, G, slot0 != 0, 1, false, nullptr, &w);
+  return wd_bwd_work(N, S, D, F, G, slot0 != 0, x_bf16, false, nullptr, &w);
 }
 
 template <bool SLOT0>
-static int wd_bwd(const void* xs, const float* qkv, const float* attn,
-                  const float* strip, const void* h, const float* dout,
+static int wd_bwd(const void* xs, int x_bf16, const float* qkv,
+                  const float* attn, const float* strip, const void* h,
+                  const float* dout,
                   const float* const* params, int stored, int layer, float* dx,
                   void* work, float* grads, int N, int S, int D, int F, int G,
                   float scale, unsigned int seed, unsigned int keep24,
@@ -63,7 +67,7 @@ static int wd_bwd(const void* xs, const float* qkv, const float* attn,
   const GtDrop dr{seed, keep24, keep, drop_on};
   cudaStream_t s = (cudaStream_t)stream;
   WdBwdWork wk;
-  wd_bwd_work(N, S, D, F, G, SLOT0, 1, false, (char*)work, &wk);
+  wd_bwd_work(N, S, D, F, G, SLOT0, x_bf16, false, (char*)work, &wk);
   const size_t smem = sizeof(float) * wd_bwd_smem_floats(G, S, D, SLOT0);
   cudaError_t e = cudaFuncSetAttribute(
       wd_stored_bwd_kernel<SLOT0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -71,17 +75,19 @@ static int wd_bwd(const void* xs, const float* qkv, const float* attn,
   if (e != cudaSuccess) return (int)e;
   const int blocks = (N + G - 1) / G;
   wd_stored_bwd_kernel<SLOT0><<<blocks, WD_THREADS, smem, s>>>(
-      qkv, attn, strip, (const __nv_bfloat16*)h, dout, w, dr, layer, dx, wk,
-      N, S, D, F, G, scale);
+      qkv, attn, strip, h, dout, w, dr, layer, dx, wk, N, S, D, F, G, scale,
+      x_bf16);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)wd_bwd_products(xs, strip, h, wk, grads, N, S, D, F, G, SLOT0,
-                              1, s);
+                              x_bf16, s);
 }
 
-// K6, a full layer.  attn [N*S, S], strip [N*S, 4D+2], h [N*S, F] (bf16),
-// dout [N*S, D]; work: gt_k6_work_bytes(..., 0) bytes of scratch; grads: [P]
+// K6, a full layer.  xs [N*S, D] and h [N*S, F] in bf16 (x_bf16: K5's,
+// K17's bf16 rows) or f32 (K17's float32 rows), products in that dtype;
+// attn [N*S, S], strip [N*S, 4D+2], dout [N*S, D]; work:
+// gt_k6_work_bytes(..., 0, x_bf16) bytes of scratch; grads: [P]
 // (KERNEL_ORDER, flattened)
-extern "C" int gt_k6_layer_bwd(const void* xs, const float* qkv,
+extern "C" int gt_k6_layer_bwd(const void* xs, int x_bf16, const float* qkv,
                                const float* attn, const float* strip,
                                const void* h, const float* dout,
                                const float* const* params, int stored,
@@ -89,14 +95,15 @@ extern "C" int gt_k6_layer_bwd(const void* xs, const float* qkv,
                                int N, int S, int D, int F, int G, float scale,
                                unsigned int seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
-  return wd_bwd<false>(xs, qkv, attn, strip, h, dout, params, stored, layer,
-                       dx, work, grads, N, S, D, F, G, scale, seed, keep24,
-                       keep, drop_on, stream);
+  return wd_bwd<false>(xs, x_bf16, qkv, attn, strip, h, dout, params, stored,
+                       layer, dx, work, grads, N, S, D, F, G, scale, seed,
+                       keep24, keep, drop_on, stream);
 }
 
 // K6, the slot-0 last layer.  attn0 [N, S], strip0 [N, 4D+2], h0 [N, F],
-// dout [N, D]; work: gt_k6_work_bytes(..., 1) bytes; the rest as above
-extern "C" int gt_k6_slot0_bwd(const void* xs, const float* qkv,
+// dout [N, D]; work: gt_k6_work_bytes(..., 1, x_bf16) bytes; the rest as
+// above
+extern "C" int gt_k6_slot0_bwd(const void* xs, int x_bf16, const float* qkv,
                                const float* attn0, const float* strip0,
                                const void* h0, const float* dout,
                                const float* const* params, int stored,
@@ -104,7 +111,7 @@ extern "C" int gt_k6_slot0_bwd(const void* xs, const float* qkv,
                                int N, int S, int D, int F, int G, float scale,
                                unsigned int seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
-  return wd_bwd<true>(xs, qkv, attn0, strip0, h0, dout, params, stored, layer,
-                      dx, work, grads, N, S, D, F, G, scale, seed, keep24,
-                      keep, drop_on, stream);
+  return wd_bwd<true>(xs, x_bf16, qkv, attn0, strip0, h0, dout, params,
+                      stored, layer, dx, work, grads, N, S, D, F, G, scale,
+                      seed, keep24, keep, drop_on, stream);
 }

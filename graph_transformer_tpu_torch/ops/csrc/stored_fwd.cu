@@ -1,4 +1,5 @@
-// K5 — sampled wide-row encoder forward that stores its residuals.
+// K5 — sampled wide-row encoder forward that stores its residuals, and
+// K17 — the same forward on given rows.
 //
 // Replaces graph_transformer_tpu/ops/pallas_stored_bwd.py:
 // _sampled_stored_fwd_kernel (entry fused_u2gnn_encoder_sampled_stored), the
@@ -49,10 +50,54 @@ extern "C" int gt_k5_stored_fwd(
   io.attn_last = attn_last;
   io.strip_full = strip_full;
   io.strip_last = strip_last;
-  io.h_full = (__nv_bfloat16*)h_full;
-  io.h_last = (__nv_bfloat16*)h_last;
+  io.h_full = h_full;
+  io.h_last = h_last;
+  io.h_bf16 = 1;
   GtDrop dr{seed, keep24, keep, drop_on};
   return (int)wd_launch_fwd(io, gt_make_stack(params, stored), dr, N, S, D, F,
                             T, G, scale, /*mmbf=*/1, /*sampled=*/1,
+                            (cudaStream_t)stream);
+}
+
+// K17 — the stored-residual forward on given rows.
+//
+// Replaces graph_transformer_tpu/ops/pallas_stored_bwd.py:_stored_fwd_kernel
+// (entry fused_u2gnn_encoder_stored): K5 without the sampler.  Rows x
+// [N*S, D] in bf16 or f32 (x_bf16), products in that dtype, T layers (the
+// last for slot 0 only); writes out [N, D] f32, the inputs of layers
+// 1..T-1 in the rows' dtype (layer 0's is x), and per layer q/k/v, the
+// probabilities and the strip in f32 and the FFN hidden after its dropout
+// in the rows' dtype (pallas_stored_bwd.py:167-171; K5 keeps it in bf16),
+// which K6 reads back.
+//
+// Bound on the H100 at the A/B workload (79,488 rows, S=9, D=4, F=1024,
+// T=4, bf16): the stored hidden, ~0.5 GB of bf16 writes, bounds it
+// (~0.16 ms at 3.35 TB/s) against ~4 GFLOP of products.  This first
+// version is K5's layer loop (a warp per row, products on the CUDA cores);
+// at D=4 the row-wise work leaves 28 of a warp's 32 lanes idle.
+extern "C" int gt_k17_stored_rows_fwd(
+    const void* x_rows, int x_bf16, const float* const* params, int stored,
+    float* out, void* xs, float* qkv, float* attn_full, float* attn_last,
+    float* strip_full, float* strip_last, void* h_full, void* h_last, int N,
+    int S, int D, int F, int T, int G, float scale, unsigned int seed,
+    unsigned int keep24, float keep, int drop_on, void* stream) {
+  WdFwdIO io = {};
+  io.x_rows = x_rows;
+  io.x_bf16 = x_bf16;
+  io.out = out;
+  io.xs = xs;
+  io.xs_bf16 = x_bf16;
+  io.xs_first = 1;
+  io.qkv = qkv;
+  io.attn_full = attn_full;
+  io.attn_last = attn_last;
+  io.strip_full = strip_full;
+  io.strip_last = strip_last;
+  io.h_full = h_full;
+  io.h_last = h_last;
+  io.h_bf16 = x_bf16;
+  GtDrop dr{seed, keep24, keep, drop_on};
+  return (int)wd_launch_fwd(io, gt_make_stack(params, stored), dr, N, S, D, F,
+                            T, G, scale, /*mmbf=*/x_bf16, /*sampled=*/0,
                             (cudaStream_t)stream);
 }

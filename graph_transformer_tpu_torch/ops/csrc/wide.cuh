@@ -1,5 +1,6 @@
 // Device code of the wide-row encoder kernels: K5 (sampled forward that
-// stores its residuals, FFN hidden included), the wide K4 (eval forward) and
+// stores its residuals, FFN hidden included), K17 (the same on given rows,
+// in their dtype), the wide K4 (eval forward) and
 // K6 (per-layer backward from K5's residuals); K11/K12 (ffn.cu) share the
 // warp helpers and the split-K weight products.  Rows hold up to 128
 // features.
@@ -133,8 +134,9 @@ struct WdFwdIO {
   float* attn_last;            // [N, S]
   float* strip_full;           // [T-1, N*S, 4D+2]
   float* strip_last;           // [N, 4D+2]
-  __nv_bfloat16* h_full;       // [T-1, N*S, F] FFN hidden after dropout
-  __nv_bfloat16* h_last;       // [N, F]
+  void* h_full;                // [T-1, N*S, F] FFN hidden after dropout
+  void* h_last;                // [N, F]
+  int h_bf16;                  // the hidden in bf16 (K5), else f32
 };
 
 // What one forward layer writes, offset to the block's first row (qkv) or
@@ -341,6 +343,7 @@ wd_encoder_fwd_kernel(WdFwdIO io, GtStack st, GtDrop dr, int N, int S, int D,
   const int Rv = Gv * S;           // its rows
   const size_t row0 = (size_t)n0 * S;
   const size_t NS = (size_t)N * S;
+  const size_t hsz = io.h_bf16 ? 2 : 4;  // bytes of a stored hidden value
 
   // ---- layer-0 input: sampled codebook rows (K5, K13) or given rows
   if (sampled) {
@@ -380,18 +383,20 @@ wd_encoder_fwd_kernel(WdFwdIO io, GtStack st, GtDrop dr, int N, int S, int D,
     // with rows_out every layer is a full layer (K9)
     const bool last = (t == T - 1) && !io.rows_out;
     WdLayerRes res;
-    res.h_bf16 = 1;
+    res.h_bf16 = io.h_bf16;
     if (last) {
       res.attn = io.attn_last ? io.attn_last + (size_t)n0 * S : nullptr;
       res.strip = io.strip_last ? io.strip_last + (size_t)n0 * SW : nullptr;
-      res.h = io.h_last ? io.h_last + (size_t)n0 * F : nullptr;
+      res.h = io.h_last ? (char*)io.h_last + (size_t)n0 * F * hsz : nullptr;
       res.out = io.out + (size_t)n0 * D;
     } else {
       res.attn = io.attn_full ? io.attn_full + ((size_t)t * NS + row0) * S
                               : nullptr;
       res.strip = io.strip_full ? io.strip_full + ((size_t)t * NS + row0) * SW
                                 : nullptr;
-      res.h = io.h_full ? io.h_full + ((size_t)t * NS + row0) * F : nullptr;
+      res.h = io.h_full
+                  ? (char*)io.h_full + ((size_t)t * NS + row0) * F * hsz
+                  : nullptr;
       res.out = nullptr;
     }
     res.qkv = io.qkv ? io.qkv + ((size_t)t * NS + row0) * D3 : nullptr;

@@ -2,7 +2,8 @@
 ``fused_u2gnn_encoder_sampled`` (``graph_transformer_tpu/ops/
 pallas_sampled_encoder.py:246``): kernel K13 (``_sampled_fwd_kernel``,
 ``:139``) forward, kernel 5's hybrid chain (K8s, then K8 per earlier layer;
-K8ws/K8w past D = 32, ``ops/u2gnn_train.py``) backward.
+K8ws/K8w past D = 32, ``ops/u2gnn_train.py``) backward, or with ``mega_bwd``
+(``:251, 281``) the whole-stack backward K14 (K14w past D = 32).
 
 Per node n: draw K = S-1 neighbor slots uniformly from the first
 min(deg, 128) entries of its tag row, build x0 = bf16(codebook[tags]) (the
@@ -36,7 +37,6 @@ from graph_transformer_tpu_torch.ops.random import drop_args
 from graph_transformer_tpu_torch.ops.sampled_encoder import (
     _i32,
     sampled_forward_plain,
-    walk_backward,
 )
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
     MAX_D,
@@ -44,8 +44,8 @@ from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
     check_wide_shapes,
 )
 from graph_transformer_tpu_torch.ops.u2gnn_train import (
-    layer_recompute_backward,
-    slot0_recompute_backward,
+    chain_backward,
+    mega_recompute_backward,
 )
 
 
@@ -112,20 +112,16 @@ fused_sampled_forward.launches = 0
 
 def fused_sampled_backward(xs, dout, params, seq_len: int,
                            num_timesteps: int, rate: float,
-                           seed: Optional[int]):
-    """Kernel 5's hybrid chain (``pallas_u2gnn.py:455-496``) from K13's saved
-    bf16 inputs ``xs`` [T, N·S, D]: K8s (K8ws) for the last layer, K8 (K8w)
-    for the others.  Returns the 12 stacked parameter gradients."""
-    S, T = seq_len, num_timesteps
-    D = xs.shape[2]
-
-    def layer_bwd(t, g):
-        x = xs[t].view(-1, S, D)
-        bwd = slot0_recompute_backward if t == T - 1 \
-            else layer_recompute_backward
-        return bwd(x, g, params, t, rate, seed)
-
-    return walk_backward(dout, params, T, layer_bwd)[1]
+                           seed: Optional[int], mega_bwd: bool = False):
+    """From K13's saved bf16 inputs ``xs`` [T, N·S, D]: kernel 5's hybrid
+    chain (``pallas_u2gnn.py:455-496``; K8s (K8ws) for the last layer, K8
+    (K8w) for the others) or, with ``mega_bwd``, the whole-stack backward
+    K14 (K14w; ``pallas_sampled_encoder.py:281``).  Returns the 12 stacked
+    parameter gradients."""
+    bwd = mega_recompute_backward if mega_bwd else chain_backward
+    dparams = bwd(xs[0], xs[1:], dout, params, seq_len, num_timesteps, rate,
+                  seed)[1]
+    return [d.to(p.dtype) for d, p in zip(dparams, params)]
 
 
 class FusedSampledEncoderFn(torch.autograd.Function):
@@ -134,32 +130,34 @@ class FusedSampledEncoderFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, tag_rows, deg, self_tag, codebook, draws, seed, S, T,
-                rate, *params):
+                rate, mega_bwd, *params):
         out, xs, _ = fused_sampled_forward(tag_rows, deg, self_tag, codebook,
                                            params, S, T, rate, seed, draws)
         ctx.xs = xs
-        ctx.cfg = (S, T, rate, seed)
+        ctx.cfg = (S, T, rate, seed, mega_bwd)
         ctx.save_for_backward(*params)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         params = ctx.saved_tensors
-        S, T, rate, seed = ctx.cfg
+        S, T, rate, seed, mega_bwd = ctx.cfg
         xs, ctx.xs = ctx.xs, None
-        dparams = fused_sampled_backward(xs, dout, params, S, T, rate, seed)
-        return (None,) * 9 + tuple(dparams)
+        dparams = fused_sampled_backward(xs, dout, params, S, T, rate, seed,
+                                         mega_bwd)
+        return (None,) * 10 + tuple(dparams)
 
 
 def fused_sampled_encoder(tag_rows, deg, self_tag, codebook,
                           params: Sequence[torch.Tensor], seq_len: int,
                           num_timesteps: int, rate: float = 0.5,
-                          seed: Optional[int] = None,
-                          draws=None) -> torch.Tensor:
+                          seed: Optional[int] = None, draws=None,
+                          mega_bwd: bool = False) -> torch.Tensor:
     """[N] rows -> [N, D] float32, differentiable in ``params``: the
     contract of ``sampled_encoder.sampled_encoder`` (tag rows [N, 128], 12
     stacked tensors in KERNEL_ORDER, ``draws`` made outside or None), always
-    in bf16."""
+    in bf16.  ``mega_bwd`` takes the whole-stack backward (K14/K14w) in
+    place of the per-layer chain."""
     return FusedSampledEncoderFn.apply(tag_rows, deg, self_tag, codebook,
                                        draws, seed, seq_len, num_timesteps,
-                                       rate, *params)
+                                       rate, mega_bwd, *params)

@@ -63,8 +63,21 @@ def sampled_forward_plain(tag_rows, deg, self_tag, codebook, params,
                       tag_rows.to(torch.int64).gather(1, draws)], dim=1)
     h = codebook.to(torch.float32)[tags].to(torch.bfloat16).to(torch.float32)
     save = torch.bfloat16 if mm == torch.bfloat16 else torch.float32
+    out, res = rows_forward_plain(h, params, T, rate, seed, mm, save,
+                                  residuals)
+    return out, dict(draws=draws, **res)
+
+
+def rows_forward_plain(h, params, num_timesteps: int, rate: float,
+                       seed: Optional[int], mm: torch.dtype,
+                       save: torch.dtype, residuals=("qkv", "attn", "strip")):
+    """T encoder layers over rows h [N, S, D] (float32 values), products in
+    ``mm``, the last for slot 0 only: ``(out [N, D], res)`` with ``res`` =
+    dict(xs, and each of ``residuals``), lists of T per-layer tensors, the
+    layer inputs ``xs`` in ``save``."""
+    T = num_timesteps
     stored = params[0].shape[0]
-    res = dict(draws=draws, xs=[], **{k: [] for k in residuals})
+    res = dict(xs=[], **{k: [] for k in residuals})
     for t in range(T):
         res["xs"].append(h.to(save))
         p = [a[t % stored] for a in params]
@@ -357,7 +370,8 @@ def walk_backward(dout, params, num_timesteps: int, layer_bwd):
 def encoder_backward(res, dout, params, num_timesteps: int, rate: float,
                      seed: Optional[int], mm: torch.dtype = torch.bfloat16):
     """The backward from K1's residuals: K3 for the last layer, K2 for the
-    others."""
+    others.  Returns (the encoder input's cotangent [N, S, D] float32, the
+    12 stacked parameter gradients)."""
     T = num_timesteps
 
     def layer_bwd(t, g):
@@ -365,7 +379,7 @@ def encoder_backward(res, dout, params, num_timesteps: int, rate: float,
         return bwd(res["xs"][t], res["qkv"][t], res["attn"][t],
                    res["strip"][t], g, params, t, rate, seed, mm)
 
-    return walk_backward(dout, params, T, layer_bwd)[1]
+    return walk_backward(dout, params, T, layer_bwd)
 
 
 class SampledEncoderFn(torch.autograd.Function):
@@ -386,7 +400,8 @@ class SampledEncoderFn(torch.autograd.Function):
     def backward(ctx, dout):
         params = ctx.saved_tensors
         T, rate, seed, mm = ctx.cfg
-        dparams = encoder_backward(ctx.res, dout, params, T, rate, seed, mm)
+        dparams = encoder_backward(ctx.res, dout, params, T, rate, seed,
+                                   mm)[1]
         ctx.res = None
         return (None,) * 10 + tuple(dparams)
 

@@ -13,9 +13,18 @@ does (``pallas_stored_bwd.py:11-17``): the backward neither recomputes the
 hidden nor replays its mask, since relu' times the dropout factor is
 ``(h > 0) / keep`` (``:239``).
 
+:func:`fused_u2gnn_encoder_stored` is the port of the row-input entry
+point ``fused_u2gnn_encoder_stored`` (``pallas_stored_bwd.py:284``): kernel
+K17 (``_stored_fwd_kernel``, ``:106``) runs K5's layers on given rows
+[N·S, D] in bfloat16 or float32, products and the stored hidden in the
+rows' dtype (``:167-171``), and K6 (which takes either dtype) walks the
+layers back, returning the rows' cotangent as ``_stored_bwd_rule`` does
+(``:336-347``).
+
 Dispatch: every public function takes the kernel on CUDA tensors (bfloat16
-products) and the plain PyTorch version on CPU tensors; the plain versions
-take ``mm`` (bfloat16 or float32 products).  :func:`training_encoder` picks
+products for the sampled K5; the rows' dtype for K17 and K6) and the plain
+PyTorch version on CPU tensors; the plain versions take ``mm`` (bfloat16 or
+float32 products).  :func:`training_encoder` picks
 the fused path's encoder from the model's flags and the shape, as
 ``models/u2gnn_sup.py:138-175`` of the JAX package picks the folded, the
 row-space stored or the recompute kernels.
@@ -37,6 +46,7 @@ from graph_transformer_tpu_torch.ops.sampled_encoder import (
     _i32,
     _split_grads,
     layer_backward_plain,
+    rows_forward_plain,
     sampled_encoder,
     sampled_forward_plain,
     slot0_backward_plain,
@@ -159,6 +169,76 @@ def stored_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
 stored_forward.launches = 0
 
 
+def stored_rows_forward_plain(x2d, params, seq_len: int, num_timesteps: int,
+                              rate: float, seed: Optional[int]):
+    """Plain version of K17: ``(out [N, D] float32, res)`` with ``res`` =
+    dict(xs, qkv, attn, strip, h) as :func:`stored_forward_plain` gives it,
+    the layer inputs (``xs[0]`` = the rows) and ``h`` in the rows' dtype,
+    products in that dtype."""
+    D = x2d.shape[1]
+    mm = torch.bfloat16 if x2d.dtype == torch.bfloat16 else torch.float32
+    out, res = rows_forward_plain(
+        x2d.to(torch.float32).view(-1, seq_len, D), params, num_timesteps,
+        rate, seed, mm, x2d.dtype, residuals=("qkv", "attn", "strip", "h"))
+    res["h"] = [h.to(x2d.dtype) for h in res["h"]]
+    return out, res
+
+
+def stored_rows_forward(x2d, params, seq_len: int, num_timesteps: int,
+                        rate: float, seed: Optional[int]):
+    """K17 on CUDA tensors, :func:`stored_rows_forward_plain` on CPU
+    tensors; same return value.  Rows [N·S, D] in bfloat16 or float32."""
+    if not x2d.is_cuda:
+        return stored_rows_forward_plain(x2d, params, seq_len, num_timesteps,
+                                         rate, seed)
+    S, T = seq_len, num_timesteps
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+    F = params[6].shape[2]
+    check_wide_shapes(S, D)
+    _build.check_rows_dtype(x2d)
+    dev, dt = x2d.device, x2d.dtype
+    x = x2d.contiguous()
+    ps = _build.f32_params(params)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rows = dict(dtype=dt, device=dev)
+    Tf = max(T - 1, 0)
+    out = torch.empty(N, D, **f32)
+    xs = torch.empty(Tf, N, S, D, **rows)
+    qkv = torch.empty(T, N, S, 3 * D, **f32)
+    attn_full = torch.empty(Tf, N, S, S, **f32)
+    attn_last = torch.empty(N, S, **f32)
+    strip_full = torch.empty(Tf, N, S, 4 * D + 2, **f32)
+    strip_last = torch.empty(N, 4 * D + 2, **f32)
+    h_full = torch.empty(Tf, N, S, F, **rows)
+    h_last = torch.empty(N, F, **rows)
+    if N:
+        lib = _build.load("stored_fwd")
+        G = _build.pick_groups("stored_fwd", "gt_k5_smem_bytes", S, D,
+                               WIDE_ROWS)
+
+        def opt(t):
+            return t.data_ptr() if T > 1 else None
+
+        err = lib.gt_k17_stored_rows_fwd(
+            x.data_ptr(), int(dt == torch.bfloat16), _build.params_array(ps),
+            ps[0].shape[0], out.data_ptr(), opt(xs), qkv.data_ptr(),
+            opt(attn_full), attn_last.data_ptr(), opt(strip_full),
+            strip_last.data_ptr(), opt(h_full), h_last.data_ptr(), N, S, D, F,
+            T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+            _build.stream_ptr(dev))
+        _build.check(err, "K17 stored_rows_fwd")
+        stored_rows_forward.launches += 1
+    res = dict(xs=[x.view(N, S, D)] + list(xs.unbind(0)),
+               qkv=list(qkv.unbind(0)),
+               attn=list(attn_full.unbind(0)) + [attn_last],
+               strip=list(strip_full.unbind(0)) + [strip_last],
+               h=list(h_full.unbind(0)) + [h_last])
+    return out, res
+
+
+stored_rows_forward.launches = 0
+
+
 # ================================================================ backward
 def stored_layer_backward_plain(x, qkv, attn, strip, h, g, p, *, layer: int,
                                 rate: float, seed: Optional[int],
@@ -180,8 +260,11 @@ def _bwd_kernel(fn_name, x, qkv, attn, strip, h, g, params, layer, rate,
     F = params[6].shape[2]
     check_wide_shapes(S, D)
     dev = x.device
-    if x.dtype != torch.bfloat16 or h.dtype != torch.bfloat16:
-        raise TypeError("K6 takes bfloat16 layer inputs and hidden")
+    _build.check_rows_dtype(x)
+    if h.dtype != x.dtype:
+        raise TypeError(f"K6 takes the hidden in the rows' dtype {x.dtype}, "
+                        f"not {h.dtype}")
+    bf = int(x.dtype == torch.bfloat16)
     ps = _build.f32_params(params)
     dx = torch.empty(N, S, D, dtype=torch.float32, device=dev)
     P = sum(math.prod(p.shape[1:]) for p in ps)
@@ -190,10 +273,11 @@ def _bwd_kernel(fn_name, x, qkv, attn, strip, h, g, params, layer, rate,
         lib = _build.load("stored_bwd")
         smem_fn = "gt_k6s_smem_bytes" if slot0 else "gt_k6_smem_bytes"
         G = _build.pick_groups("stored_bwd", smem_fn, S, D, WIDE_ROWS)
-        work = torch.empty(lib.gt_k6_work_bytes(N, S, D, F, G, int(slot0)),
+        work = torch.empty(lib.gt_k6_work_bytes(N, S, D, F, G, int(slot0),
+                                                bf),
                            dtype=torch.uint8, device=dev)
         err = getattr(lib, fn_name)(
-            x.contiguous().data_ptr(), qkv.contiguous().data_ptr(),
+            x.contiguous().data_ptr(), bf, qkv.contiguous().data_ptr(),
             attn.contiguous().data_ptr(), strip.contiguous().data_ptr(),
             h.contiguous().data_ptr(),
             g.to(torch.float32).contiguous().data_ptr(),
@@ -246,9 +330,10 @@ stored_slot0_backward.launches = 0
 def stored_encoder_backward(res, dout, params, num_timesteps: int,
                             rate: float, seed: Optional[int],
                             mm: torch.dtype = torch.bfloat16):
-    """The backward from K5's residuals (``_stored_bwd_core``,
+    """The backward from K5's (or K17's) residuals (``_stored_bwd_core``,
     ``pallas_stored_bwd.py:303-333``): K6 with the slot-0 flag for the last
-    layer, K6 for the others.  Returns the 12 stacked parameter gradients."""
+    layer, K6 for the others.  Returns (the encoder input's cotangent
+    [N, S, D] float32, the 12 stacked parameter gradients)."""
     T = num_timesteps
 
     def layer_bwd(t, g):
@@ -256,7 +341,7 @@ def stored_encoder_backward(res, dout, params, num_timesteps: int,
         return bwd(res["xs"][t], res["qkv"][t], res["attn"][t],
                    res["strip"][t], res["h"][t], g, params, t, rate, seed, mm)
 
-    return walk_backward(dout, params, T, layer_bwd)[1]
+    return walk_backward(dout, params, T, layer_bwd)
 
 
 class StoredEncoderFn(torch.autograd.Function):
@@ -278,7 +363,7 @@ class StoredEncoderFn(torch.autograd.Function):
         params = ctx.saved_tensors
         T, rate, seed, mm = ctx.cfg
         dparams = stored_encoder_backward(ctx.res, dout, params, T, rate,
-                                          seed, mm)
+                                          seed, mm)[1]
         ctx.res = None
         return (None,) * 10 + tuple(dparams)
 
@@ -294,3 +379,43 @@ def stored_encoder(tag_rows, deg, self_tag, codebook,
     return StoredEncoderFn.apply(tag_rows, deg, self_tag, codebook, draws,
                                  seed, seq_len, num_timesteps, rate, mm,
                                  *params)
+
+
+class StoredRowsEncoderFn(torch.autograd.Function):
+    """Differentiable in the rows and the 12 parameters; the seed gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x2d, seed, S, T, rate, *params):
+        out, res = stored_rows_forward(x2d, params, S, T, rate, seed)
+        ctx.res = res
+        ctx.cfg = (T, rate, seed)
+        ctx.save_for_backward(*params)
+        ctx.x_shape = x2d.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        params = ctx.saved_tensors
+        T, rate, seed = ctx.cfg
+        dt = ctx.res["xs"][0].dtype
+        mm = torch.bfloat16 if dt == torch.bfloat16 else torch.float32
+        dx, dparams = stored_encoder_backward(ctx.res, dout, params, T, rate,
+                                              seed, mm)
+        ctx.res = None
+        dx = dx.reshape(ctx.x_shape).to(dt) if ctx.needs_input_grad[0] \
+            else None
+        return (dx, None, None, None, None, *dparams)
+
+
+def fused_u2gnn_encoder_stored(x2d: torch.Tensor,
+                               params: Sequence[torch.Tensor], seq_len: int,
+                               num_timesteps: int, rate: float = 0.0,
+                               seed: Optional[int] = None) -> torch.Tensor:
+    """[N·S, D] rows (bfloat16 or float32) -> [N, D] float32 (slot 0 of the
+    last layer), differentiable in ``x2d`` and the 12 stacked ``params``:
+    K17 forward, K6 (slot 0), then K6 per earlier layer backward, products
+    in the rows' dtype.  The contract of ``u2gnn_train.u2gnn_train_encoder``
+    with the stored-residual backward."""
+    return StoredRowsEncoderFn.apply(x2d, seed, seq_len, num_timesteps, rate,
+                                     *params)

@@ -13,6 +13,15 @@ Products take the rows' dtype, as in JAX (``:271, :331``): float32 rows (the
 default compute dtype) run float32 products, bfloat16 rows bfloat16
 products.
 
+With ``mega_bwd`` (the counterpart of ``fused_u2gnn_encoder(...,
+mega_bwd=True)``, ``pallas_u2gnn.py:449-450, 499-535``) the backward is one
+launch of kernel K14 (K14w past D = 32, ``ops/csrc/mega_bwd.cu``): each block
+walks the layers last first over its own neighborhoods, K8's recompute and
+backward per layer, and sums the weight gradients into their stored slices
+in the chain's order — the port of ``_bwd_kernel`` (``pallas_u2gnn.py:284``).
+It gives the chain's dx and gradients (:func:`mega_recompute_backward`); the
+default stays the chain, as in JAX.
+
 Unlike the fused sampled encoders, :func:`u2gnn_train_encoder` returns the
 rows' cotangent as well as the parameters' gradients: in a k-layer model,
 layer 0's dx flows back through the re-gather (``ops/sparse.global_regather``)
@@ -177,43 +186,161 @@ wide_layer_recompute_backward.launches = 0
 wide_slot0_recompute_backward.launches = 0
 
 
+# ====================================================== whole-stack backward
+def mega_recompute_backward_plain(x2d, xs, dout, params, seq_len: int,
+                                  num_timesteps: int, rate: float,
+                                  seed: Optional[int]):
+    """Plain version of K14 and K14w: the plain K8 chain (K8s for the last
+    layer, then K8 per earlier layer) walked in one function.  x2d [N·S, D]
+    the encoder input, xs [T-1, N·S, D] the saved inputs of layers 1..T-1
+    (both in the rows' dtype), dout [N, D].  Returns (dx [N·S, D] float32,
+    the 12 stacked gradients float32)."""
+    S, T = seq_len, num_timesteps
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+
+    def layer_bwd(t, g):
+        x = (x2d if t == 0 else xs[t - 1]).view(N, S, D)
+        return _plain(x, g, params, t, rate, seed, t == T - 1)
+
+    dx, dparams = walk_backward(dout, params, T, layer_bwd)
+    return dx.reshape(N * S, D), [d.to(torch.float32) for d in dparams]
+
+
+def _mega_kernel(x2d, xs, dout, params, S, T, rate, seed, wide):
+    """K14 (a thread per row, D <= 32) or K14w (a warp per row, D <= 128)."""
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+    F = params[6].shape[2]
+    check_wide_shapes(S, D)
+    if not wide and D > MAX_D:
+        raise NotImplementedError(f"D={D}: K14 takes D <= {MAX_D}; use K14w")
+    _build.check_rows_dtype(x2d)
+    dev = x2d.device
+    ps = _build.f32_params(params)
+    stored = ps[0].shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    P = sum(math.prod(p.shape[1:]) for p in ps)
+    dx = torch.zeros(N * S, D, **f32)
+    grads = torch.zeros(stored, P, **f32)
+    if N:
+        lib = _build.load("mega_bwd")
+        x = x2d.contiguous()
+        saved = xs.to(x.dtype).contiguous() if T > 1 else None
+        g = dout.to(torch.float32).contiguous()
+        bf = int(x.dtype == torch.bfloat16)
+        args = (x.data_ptr(), None if saved is None else saved.data_ptr(), bf,
+                g.data_ptr(), _build.params_array(ps), stored, dx.data_ptr())
+        tail = (N, S, D, F, T)
+        if wide:
+            G = _build.pick_groups("mega_bwd", "gt_k14w_smem_bytes", S, D,
+                                   WIDE_ROWS)
+            work = torch.empty(lib.gt_k14w_work_bytes(N, S, D, F, G, T, bf),
+                               dtype=torch.uint8, device=dev)
+            err = lib.gt_k14w_mega_bwd(
+                *args, work.data_ptr(), grads.data_ptr(), *tail, G,
+                1.0 / math.sqrt(D), *drop_args(rate, seed),
+                _build.stream_ptr(dev))
+        else:
+            G = _build.pick_groups("mega_bwd", "gt_k14_smem_bytes", S, D)
+            scratch = [torch.empty(*shape, **f32) for shape in (
+                (N * S, 3 * D), (N * S, S), (N * S, 4 * D + 2), (N, S),
+                (N, 4 * D + 2), ((N + G - 1) // G, T, P))]
+            err = lib.gt_k14_mega_bwd(
+                *args, *(t.data_ptr() for t in scratch), grads.data_ptr(),
+                *tail, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+                _build.stream_ptr(dev))
+        _build.check(err, "K14w mega_bwd" if wide else "K14 mega_bwd")
+    per_slice = [_split_grads(grads[s], D, F) for s in range(stored)]
+    return dx, [torch.stack(leaf) for leaf in zip(*per_slice)]
+
+
+def mega_recompute_backward(x2d, xs, dout, params, seq_len: int,
+                            num_timesteps: int, rate: float,
+                            seed: Optional[int]):
+    """K14 on CUDA tensors (D <= 32; K14w past), the plain version
+    (:func:`mega_recompute_backward_plain`) on CPU tensors: the whole
+    stack's backward in one launch.  Same arguments and return value."""
+    if not x2d.is_cuda:
+        return mega_recompute_backward_plain(x2d, xs, dout, params, seq_len,
+                                             num_timesteps, rate, seed)
+    if x2d.shape[1] > MAX_D:
+        return wide_mega_recompute_backward(x2d, xs, dout, params, seq_len,
+                                            num_timesteps, rate, seed)
+    out = _mega_kernel(x2d, xs, dout, params, seq_len, num_timesteps, rate,
+                       seed, False)
+    mega_recompute_backward.launches += 1
+    return out
+
+
+def wide_mega_recompute_backward(x2d, xs, dout, params, seq_len: int,
+                                 num_timesteps: int, rate: float,
+                                 seed: Optional[int]):
+    """K14w (D <= 128) on CUDA tensors, the plain version on CPU tensors;
+    the contract of :func:`mega_recompute_backward`."""
+    if not x2d.is_cuda:
+        return mega_recompute_backward_plain(x2d, xs, dout, params, seq_len,
+                                             num_timesteps, rate, seed)
+    out = _mega_kernel(x2d, xs, dout, params, seq_len, num_timesteps, rate,
+                       seed, True)
+    wide_mega_recompute_backward.launches += 1
+    return out
+
+
+mega_recompute_backward.launches = 0
+wide_mega_recompute_backward.launches = 0
+
+
 # ============================================================== autograd
+def chain_backward(x2d, xs, dout, params, seq_len: int, num_timesteps: int,
+                   rate: float, seed: Optional[int]):
+    """Kernel 5's hybrid chain (``pallas_u2gnn.py:455-496``): K8s (K8ws) for
+    the last layer, then K8 (K8w) per earlier layer, from the encoder input
+    x2d [N·S, D] and the saved inputs xs [T-1, N·S, D].  Returns (dx
+    [N·S, D] float32, the 12 stacked gradients)."""
+    S, T = seq_len, num_timesteps
+    N, D = x2d.shape[0] // S, x2d.shape[1]
+
+    def layer_bwd(t, g):
+        x = (x2d if t == 0 else xs[t - 1]).view(N, S, D)
+        if t == T - 1:
+            return slot0_recompute_backward(x, g, params, t, rate, seed)
+        return layer_recompute_backward(x, g, params, t, rate, seed)
+
+    dx, dparams = walk_backward(dout, params, T, layer_bwd)
+    return dx.reshape(N * S, D), dparams
+
+
 class U2GNNTrainFn(torch.autograd.Function):
     """Differentiable in the rows and the 12 parameters; the seed gets no
     gradient."""
 
     @staticmethod
-    def forward(ctx, x2d, seed, S, T, rate, *params):
+    def forward(ctx, x2d, seed, S, T, rate, mega_bwd, *params):
         out, xs = u2gnn_encoder_train(x2d, params, S, T, rate, seed)
         ctx.xs = xs
-        ctx.cfg = (S, T, rate, seed)
+        ctx.cfg = (S, T, rate, seed, mega_bwd)
         ctx.save_for_backward(x2d, *params)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         x2d, *params = ctx.saved_tensors
-        S, T, rate, seed = ctx.cfg
+        S, T, rate, seed, mega_bwd = ctx.cfg
         xs, ctx.xs = ctx.xs, None
-        N, D = x2d.shape[0] // S, x2d.shape[1]
-
-        def layer_bwd(t, g):
-            x = (x2d if t == 0 else xs[t - 1]).view(N, S, D)
-            if t == T - 1:
-                return slot0_recompute_backward(x, g, params, t, rate, seed)
-            return layer_recompute_backward(x, g, params, t, rate, seed)
-
-        dx, dparams = walk_backward(dout, params, T, layer_bwd)
-        dx = dx.reshape(N * S, D).to(x2d.dtype) if ctx.needs_input_grad[0] \
-            else None
-        return (dx, None, None, None, None, *dparams)
+        bwd = mega_recompute_backward if mega_bwd else chain_backward
+        dx, dparams = bwd(x2d, xs, dout, params, S, T, rate, seed)
+        dx = dx.to(x2d.dtype) if ctx.needs_input_grad[0] else None
+        dparams = [d.to(p.dtype) for d, p in zip(dparams, params)]
+        return (dx, None, None, None, None, None, *dparams)
 
 
 def u2gnn_train_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
                         seq_len: int, num_timesteps: int, rate: float = 0.5,
-                        seed: Optional[int] = None) -> torch.Tensor:
+                        seed: Optional[int] = None,
+                        mega_bwd: bool = False) -> torch.Tensor:
     """[N·S, D] rows (bfloat16 or float32) -> [N, D] float32 (slot 0 of the
     last layer), differentiable in ``x2d`` and the 12 stacked ``params``
-    (KERNEL_ORDER; timestep t uses slice ``t % stored``)."""
+    (KERNEL_ORDER; timestep t uses slice ``t % stored``).  ``mega_bwd``
+    takes the whole-stack backward (K14/K14w) in place of the per-layer
+    chain."""
     return U2GNNTrainFn.apply(x2d, seed, seq_len, num_timesteps, rate,
-                              *params)
+                              mega_bwd, *params)

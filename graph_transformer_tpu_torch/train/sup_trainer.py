@@ -28,6 +28,13 @@ Two paths, chosen as the JAX trainer chooses (``sup_trainer.py:80-104``):
   ``recurrence="act"`` the loss adds ``act_loss_weight`` times the model's
   ponder cost (``sup_trainer.py:124-125, 193``).
 
+With ``cfg.train.on_device_sampling`` off (the CLI's ``--host_sampling``)
+the trainer builds no neighbor table and no fused tables and launches no
+sampler, as the JAX trainer (``sup_trainer.py:71, 80-81, 157-158``): each
+step trains the two-pass encoders on the host batch's own neighborhoods
+``batch.neigh`` (the model's host-sampled branch), which ``train_steps``
+keeps fixed and ``train_epoch`` draws anew with every batch.
+
 :meth:`train_steps` runs n steps on one fixed batch — the counterpart of the
 JAX ``_train_scan`` (``sup_trainer.py:204-242``) that the benchmark drives.
 Evaluation runs the deterministic model (K4, or the wide K4 past D = 32,
@@ -119,20 +126,24 @@ class SupTrainer:
         self.opt = make_optimizer(self.model.parameters(),
                                   cfg.train.learning_rate,
                                   cfg.train.grad_clip_norm)
-        table = build_neighbor_table(ds, hub_seed=cfg.train.seed)
+        self.host_sampling = not cfg.train.on_device_sampling
+        table = (None if self.host_sampling
+                 else build_neighbor_table(ds, hub_seed=cfg.train.seed))
         fused = (setup_fused_tables(ds.node_feat, table)
-                 if fused_gate_ok(cfg.model) else None)
+                 if table is not None and fused_gate_ok(cfg.model) else None)
         self.two_pass = fused is None
         dev = self.device
-        self._deg = torch.from_numpy(ds.degrees.astype(np.int32)).to(dev)
+        if table is not None:
+            self._deg = torch.from_numpy(ds.degrees.astype(np.int32)).to(dev)
         if self.two_pass:
             check_encoder_shapes(cfg.model, cfg.data.num_neighbors + 1,
                                  ds.feature_dim)
+        if table is not None and self.two_pass:
             self._nbr_table = torch.from_numpy(table).to(dev)
             self._x_global = torch.from_numpy(
                 np.asarray(ds.node_feat, np.float32)).to(
                     dev, COMPUTE_DTYPES[cfg.model.compute_dtype])
-        else:
+        elif fused is not None:
             tag_table, tags, codebook = fused
             self._tag_table = torch.from_numpy(tag_table).to(dev)
             self._tags = torch.from_numpy(tags).to(dev)
@@ -164,12 +175,16 @@ class SupTrainer:
 
     def step_inputs(self, batch: GraphBatch) -> tuple:
         """The device tables' rows a training step of this trainer's path
-        reads, gathered once per batch."""
+        reads, gathered once per batch (none when sampling on the host)."""
+        if self.host_sampling:
+            return ()
         return (self.two_pass_inputs(batch) if self.two_pass
                 else self.sampled_inputs(batch))
 
     def _scores(self, batch: GraphBatch, si: tuple, seed: int):
         """(scores, ponder) of one training step."""
+        if self.host_sampling:
+            return self.model(batch, seed=seed, return_ponder=True)
         if not self.two_pass:
             return self.model(batch, sampled_inputs=si, seed=seed,
                               return_ponder=True)
@@ -200,7 +215,9 @@ class SupTrainer:
 
     def train_steps(self, batch: GraphBatch, n_steps: int) -> torch.Tensor:
         """``n_steps`` steps on one fixed batch (neighborhoods resample every
-        step); returns the [n_steps] losses on the device, unsynchronised."""
+        step on the device; with host sampling every step reuses the batch's
+        ``neigh``); returns the [n_steps] losses on the device,
+        unsynchronised."""
         batch = batch.to(self.device)
         si = self.step_inputs(batch)
         return torch.stack([self._step(batch, si) for _ in range(n_steps)])

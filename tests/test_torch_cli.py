@@ -60,6 +60,16 @@ def test_per_layer_flags_parse():
 @pytest.mark.parametrize("flag", [["--use_pallas"], ["--host_sampling"],
                                   ["--whole_encoder"]])
 def test_flags_of_unported_paths_are_refused(flag):
+    """``--use_pallas`` and ``--whole_encoder`` are refused (ROADMAP Queue
+    A item 1); ``--host_sampling`` parses into ``on_device_sampling=False``,
+    as the JAX CLI sets it (``cli/common.py:113``)."""
+    if flag == ["--host_sampling"]:
+        cfg = config_from_args(base_parser("t").parse_args(README_FLAGS
+                                                            + flag))
+        assert cfg.train.on_device_sampling is False
+        assert config_from_args(base_parser("t").parse_args(
+            README_FLAGS)).train.on_device_sampling is True
+        return
     with pytest.raises(SystemExit):
         base_parser("t").parse_args(README_FLAGS + flag)
 

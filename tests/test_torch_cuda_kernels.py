@@ -397,3 +397,98 @@ def test_train_steps_launch_the_wide_two_pass_kernels(cuda, kw, want):
         ds, ModelConfig(num_timesteps=3, ff_hidden_size=64, **kw))
     assert all(got[k] > 0 for k in want)
     assert all(v == 0 for k, v in got.items() if k not in want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,D,Tn,stored", [
+    (9, 4, 4, 4), (9, 4, 4, 1), (17, 19, 4, 1), (9, 40, 3, 3), (9, 68, 3, 1),
+    (9, 128, 3, 3)])
+def test_mega_kernels_match_plain_and_chain(cuda, S, D, Tn, stored, dtype):
+    """K14 (K14w past D=32) against the K8 chain on the same saved inputs
+    (float32 within 1e-4 of each leaf's max, bf16 at cosine > 0.999) and
+    against its plain version (cosine > 0.999), at rate 0 and 0.5."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=301, S=S, D=D, C=D, F=256, Tn=Tn, stored=stored, seed=3, dev=cuda)
+    chip_smoke.check_mega(f"S{S} D{D}", params,
+                          x2d.to(getattr(torch, dtype)), S, Tn, cuda)
+
+
+@pytest.mark.parametrize("D,C", [(4, 1), (7, 7)])
+def test_folded_kernels_match_k1(cuda, D, C):
+    """K15 fed K1's x0 rows: K1's output, residuals and (with K3/K2)
+    gradients bit for bit; K16 K15's output; both against their plain
+    versions within 2e-2."""
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(
+        N=301, S=9, D=D, C=C, F=256, Tn=3, stored=1, seed=4, dev=cuda)
+    chip_smoke.check_folded(f"D{D}", si, params, 9, 3, cuda)
+
+
+@pytest.mark.parametrize("D,one_hot", [(7, False), (68, True)])
+def test_stored_rows_kernel_matches_k5_and_plain(cuda, D, one_hot):
+    """K17 fed K5's x0 rows: K5's output, residuals and (with K6) gradients
+    bit for bit; with float32 rows, its output and residuals against the
+    plain forward's and, with K6, the plain backward on its residuals."""
+    import chip_smoke
+
+    si, params, x2d = chip_smoke.random_case(
+        N=301, S=9, D=D, C=D, F=256, Tn=3, stored=3, seed=5, dev=cuda,
+        one_hot=one_hot)
+    chip_smoke.check_stored_rows(f"D{D}", si, params, 9, 3, cuda)
+    chip_smoke.check_stored_rows_f32(f"D{D} float32", params, x2d.float(), 9,
+                                     3, cuda)
+
+
+@pytest.mark.parametrize("D,one_hot", [(7, False), (68, True)])
+def test_fused_sampled_mega_matches_its_chain(cuda, D, one_hot):
+    """K13 with K14 (K14w) against K13 with its chain: cosine > 0.999."""
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(
+        N=301, S=9, D=D, C=D, F=256, Tn=3, stored=3, seed=6, dev=cuda,
+        one_hot=one_hot)
+    chip_smoke.check_fused_mega(f"D{D}", si, params, 9, 3, cuda)
+
+
+def test_encoder_variants_launch_their_kernels(cuda, monkeypatch):
+    """The hybrid, mega, folded and stored variants and K16 alone, at 301
+    neighborhoods: each launches its kernels as often as its layers ask and
+    nothing else; their outputs and gradients agree with each other and
+    with their plain versions (``chip_smoke.check_variants``)."""
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "AB_ROWS", dict(N=301, S=9, D=4, Tn=4))
+    total, _, _ = chip_smoke.encoder_variants(cuda)
+    assert all(total[k] >= 1 for k in ("K14", "K14w", "K15", "K16", "K17"))
+
+
+def test_host_sampling_launches_no_sampler(cuda):
+    """``on_device_sampling=False``: training launches the two-pass encoder
+    kernels on the host batch's neighborhoods and never K7."""
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+    import chip_smoke
+
+    ds = synthetic_powerlaw_dataset("S", num_graphs=16, mean_nodes=40,
+                                    seed=0, reddit_like=False)
+    cfg = ExperimentConfig(
+        data=DataConfig(batch_size=4, num_neighbors=4),
+        model=ModelConfig(num_timesteps=3, ff_hidden_size=64),
+        train=TrainConfig(num_epochs=1, on_device_sampling=False))
+    tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
+                    test_idx=np.arange(12, 16))
+    counters = chip_smoke.launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses = tr.train_steps(tr.builder.sample(), 3)
+    assert bool(torch.isfinite(losses).all())
+    got = {k: c.launches for k, c in counters.items()}
+    want = ("K4t", "K8", "K8s") if ds.feature_dim <= 32 else (
+        "K4tw", "K8w", "K8ws")
+    assert got["K7"] == 0 and all(got[k] == 3 for k in want[:1])
+    assert all(v == 0 for k, v in got.items() if k not in want)
