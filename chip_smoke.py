@@ -37,8 +37,10 @@
      inputs and against its plain version at (S, D, T) = (9, 4, 4) and
      (17, 19, 4), K14w at D = 40, 68, 128, weight-tied or not, float32 and
      bf16 (``check_mega``); K15 and K16 bit for bit against K1 on K1's rows
-     (``check_folded``), K17 against K5 on K5's rows and, with float32
-     rows, with K6 against the plain forward and backward
+     (``check_folded``), K17 against K5 on K5's rows (bit for bit past
+     D=32; up to it, where K17 runs K1's layer, bit for bit against K15 and
+     within the bf16 spread of K5) and, with float32 rows, with K6 against
+     the plain forward and backward
      (``check_stored_rows``, ``check_stored_rows_f32``), K13 with K14 or
      K14w against K13 with its chain (``check_fused_mega``).
 3. Drives slice 1's main path: ``SupTrainer(device="cuda")`` on the
@@ -1014,16 +1016,29 @@ def check_folded(label, si, params, S, Tn, dev):
 
 
 def check_stored_rows(label, si, params, S, Tn, dev):
-    """K17 at rate 0 and 0.5, fed K5's own bf16 x0 rows and seed: output
-    and residuals equal K5's bit for bit, and the gradients of K17 with K6
-    K5/K6's; against its plain version by :func:`check_bf16_spread`, and
-    with K6 every gradient leaf (dx too) against the plain backward on its
-    residuals at cosine > 0.999.  Returns the errors by (kernel, rate)."""
+    """K17 at rate 0 and 0.5, fed K5's own bf16 x0 rows and seed.  Past
+    D=32 K17 runs K5's layer: its output and residuals equal K5's bit for
+    bit, and the gradients of K17 with K6 K5/K6's.  Up to D=32 it runs K1's
+    thread-per-row layer, whose LayerNorm statistics and softmax denominator
+    are sums in row order where K5's warp per row sums them by butterfly;
+    the two orders round apart in the last bit and the next layer's bf16
+    operands carry that on.  There the first step agrees bit for bit (layer
+    0's q/k/v, the products of the same inputs in the same order), K17
+    equals K15 (the same layer code, without the hidden) bit for bit in
+    output and every residual K15 writes, and against K5 the output and each
+    residual pass :func:`check_bf16_spread` and the gradients with K6 agree
+    leaf by leaf at cosine > 0.999.  Against its plain version by
+    :func:`check_bf16_spread`, and with K6 every gradient leaf (dx too)
+    against the plain backward on its residuals at cosine > 0.999.  Returns
+    the errors by (kernel, rate)."""
     import torch
 
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
     from graph_transformer_tpu_torch.ops import stored_encoder as st
 
     N, D = si[0].shape[0], si[3].shape[1]
+    narrow = D <= 32
+    kinds = ("xs", "qkv", "attn", "strip", "h")
     w = torch.randn(N, D, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(17))
     errs = {}
@@ -1034,9 +1049,26 @@ def check_stored_rows(label, si, params, S, Tn, dev):
         out17, res17 = st.stored_rows_forward(x0, params, S, Tn, rate, seed)
         outp, _ = st.stored_rows_forward_plain(x0, params, S, Tn, rate, seed)
         torch.cuda.synchronize()
-        if not (torch.equal(out17, out5) and all(
-                torch.equal(a, b) for k in ("xs", "qkv", "attn", "strip", "h")
-                for a, b in zip(res17[k], res5[k]))):
+        same5 = torch.equal(out17, out5) and all(
+            torch.equal(a, b) for k in kinds
+            for a, b in zip(res17[k], res5[k]))
+        if narrow:
+            out15, res15 = fe.folded_stored_forward(x0, params, S, Tn, rate,
+                                                    seed)
+            if not (torch.equal(out17, out15) and all(
+                    torch.equal(a, b) for k in res15
+                    for a, b in zip(res17[k], res15[k]))):
+                fail(f"{label} rate {rate}: K17 is not bit-equal to K15 "
+                     f"(output max|diff| {max_err([out17], [out15])[0]})")
+            if not torch.equal(res17["qkv"][0], res5["qkv"][0]):
+                fail(f"{label} rate {rate}: K17's layer-0 q/k/v differ from "
+                     f"K5's")
+            check_bf16_spread(f"{label} rate {rate}: K17 vs K5 output",
+                              out17, out5)
+            for k in kinds:
+                check_bf16_spread(f"{label} rate {rate}: K17 vs K5 {k}",
+                                  cat_leaves(res17[k]), cat_leaves(res5[k]))
+        elif not same5:
             fail(f"{label} rate {rate}: K17 is not bit-equal to K5 (output "
                  f"max|diff| {max_err([out17], [out5])[0]})")
         errs[("K17", rate)] = check_bf16_spread(
@@ -1048,7 +1080,22 @@ def check_stored_rows(label, si, params, S, Tn, dev):
                    if run == "k5" else
                    st.fused_u2gnn_encoder_stored(x0, ps, S, Tn, rate, seed))
             grads.append(torch.autograd.grad((out * w).sum(), ps))
-        if not all(torch.equal(a, b) for a, b in zip(*grads)):
+        gsame = all(torch.equal(a, b) for a, b in zip(*grads))
+        if narrow:
+            low = min(cosine(a, b) for a, b in zip(grads[1], grads[0]))
+            if not low > 0.999:
+                fail(f"{label} rate {rate}: K17 + K6 vs K5/K6 lowest leaf "
+                     f"cosine {low}")
+            print(f"# check {label} rate {rate}: K17 (thread per row) "
+                  f"bit-equal to K15 (output, residuals), layer 0's q/k/v "
+                  f"to K5's; against K5 "
+                  + ("bit-equal" if same5 else
+                     f"output max|diff| {max_err([out17], [out5])[0]:.3e}")
+                  + ", gradients with K6 "
+                  + ("bit-equal" if gsame else f"lowest leaf cosine {low:.6f}"),
+                  flush=True)
+            continue
+        if not gsame:
             fail(f"{label} rate {rate}: K17 + K6 gradients differ from "
                  f"K5/K6's: max|diff| {max_err(grads[1], grads[0])[0]}")
         print(f"# check {label} rate {rate}: K17 bit-equal to K5 (output, "
@@ -1886,6 +1933,31 @@ def fwd_flops(N, S, D, F, Tn):
             + layer_flops(N, N * S, S, D, F))
 
 
+def hmma_counts(_build) -> dict:
+    """HMMA (tensor-core) instructions in the SASS of each library's wide
+    recompute backward kernel (``cuobjdump -sass`` of the built library),
+    by library and instantiation; fails where one holds none."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    counts = {}
+    for name in ("recompute_bwd", "encoder_layer"):
+        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        func = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                func = line.split("Function :")[1].strip()
+                if "wd_recompute_bwd_kernel" in func:
+                    counts[(name, func)] = 0
+            elif (name, func) in counts and "HMMA" in line:
+                counts[(name, func)] += 1
+    if not counts or not all(counts.values()):
+        fail(f"wd_recompute_bwd_kernel without HMMA instructions: {counts}")
+    for (name, func), n in counts.items():
+        print(f"# SASS {name}: {n} HMMA instructions in {func}", flush=True)
+    return counts
+
+
 def main() -> int:
     import dataclasses
 
@@ -1927,6 +1999,7 @@ def main() -> int:
     build_s = _build.build_all(verbose=True)
     print(f"# build: {build_s:.1f} s for {len(_build.SOURCES)} sources",
           flush=True)
+    hmma_counts(_build)
 
     # ---- main-path objects (bench workload, bench.py:65-105)
     ds = synthetic_powerlaw_dataset("REDDITMULTI5K-like", num_graphs=64,
@@ -2606,12 +2679,22 @@ def main() -> int:
                      "wd_wgrad_kernel", "gt_reduce_partials_kernel",
                      "gt_mega_reduce_kernel"),
             "K15": ("gt_encoder_fwd_kernel",), "K16": ("gt_encoder_fwd_kernel",),
-            "K17": ("wd_encoder_fwd_kernel",)}
+            "K17": ("gt_encoder_fwd_kernel", "wd_encoder_fwd_kernel")}
         timings = {
             key: (device_ms(kern, 10, device_kernels[key]), time_ms(kern, 10),
                   time_ms(plain, 3),
                   None if lib_call is None else time_ms(lib_call, 10))
             for key, (kern, plain, lib_call) in calls.items()}
+        # the wide recompute backwards split into the row kernel and the
+        # split-K weight products with their partial sums
+        split = {key: (device_ms(calls[key][0], 10,
+                                 ("wd_recompute_bwd_kernel",)),
+                       device_ms(calls[key][0], 10, k8w_kernels[1:]))
+                 for key in ("K8w", "K8ws", "K10w")}
+        for key, (row_ms, prod_ms) in split.items():
+            print(f"# {key}: row kernel {row_ms:.4f} ms, split-K weight "
+                  f"products and partial sums {prod_ms:.4f} ms a launch",
+                  flush=True)
     src = "graph_transformer_tpu_torch/ops/csrc/"
     bf, f32 = BF16_FLOP_PER_S, F32_FLOP_PER_S
     meta = {
@@ -2713,7 +2796,9 @@ def main() -> int:
             "ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
             "bytes": b, "flops": f,
-            "excess_ms": launches[key] * (ms - bms)})
+            "excess_ms": launches[key] * (ms - bms),
+            **({"row_ms": split[key][0], "products_ms": split[key][1]}
+               if key in split else {})})
         print(f"# {key} {name}: {ms:.4f} ms/launch on the device (wrapper "
               f"{wrapper_ms:.4f}, plain {plain_ms:.4f}, "
               f"bound {bms:.5f} by {by}"

@@ -109,7 +109,8 @@ SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
             "gt_k8s_smem_bytes", "gt_k9_smem_bytes", "gt_k10_smem_bytes",
             "gt_k8w_smem_bytes", "gt_k8ws_smem_bytes", "gt_k9w_smem_bytes",
             "gt_k10w_smem_bytes", "gt_k13_smem_bytes", "gt_k13w_smem_bytes",
-            "gt_k14_smem_bytes", "gt_k14w_smem_bytes", "gt_k15_smem_bytes")
+            "gt_k14_smem_bytes", "gt_k14w_smem_bytes", "gt_k15_smem_bytes",
+            "gt_k17_smem_bytes")
 
 _libs: dict = {}
 

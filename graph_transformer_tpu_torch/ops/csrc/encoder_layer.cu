@@ -29,7 +29,12 @@
 //
 // K9w is the wide forward layer (wd_fwd_layer, wide.cuh) run as a full
 // layer that writes every row in the rows' dtype; K10w is K8w's recompute
-// backward (wide_recompute.cuh) over one layer's tensors.
+// backward (wide_recompute.cuh) over one layer's tensors, replacing
+// pallas_encoder.py:_bwd_kernel past D=32.  Bound at the quickstart's ACT
+// rows (5,760 float32 rows, D=68, F=1024): the operations, ~0.08 ms at
+// 67 TFLOP/s.  Its row kernel's products run on the tensor cores
+// (wide_mma.cuh: mma.sync, 3xTF32 in float32); the split-K weight products
+// stay on the CUDA cores.
 #include "recompute.cuh"
 #include "wide_recompute.cuh"
 
@@ -127,7 +132,7 @@ extern "C" size_t gt_k9w_smem_bytes(int G, int S, int D) {
 }
 
 extern "C" size_t gt_k10w_smem_bytes(int G, int S, int D) {
-  return wd_recompute_smem_bytes(G, S, D, false);
+  return wd_recompute_mma_smem_bytes(G, S, D, false);
 }
 
 extern "C" size_t gt_k10w_work_bytes(int N, int S, int D, int F, int G,

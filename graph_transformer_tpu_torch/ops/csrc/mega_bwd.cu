@@ -47,7 +47,9 @@
 // them on the CUDA cores (a thread per row, weights staged in shared
 // memory chunk by chunk, as K8) and is bound by those instructions; the
 // recomputed residuals round-trip device memory (mostly L2).  Tensor-core
-// products are later work.
+// products are later work for K14.  K14w's row products run on the tensor
+// cores through K8w's routine (WdMmaGemm, wide_mma.cuh), so that it
+// repeats the K8w chain bit for bit as it did on the CUDA cores.
 #include "recompute.cuh"
 #include "wide_recompute.cuh"
 
@@ -99,7 +101,7 @@ gt_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
 #pragma unroll
     for (int d = 0; d < DM; ++d) xr[d] = 0.f;
     if (valid) gt_load_row<DM>(xt, x_bf16, (size_t)n * S + i, D, xr);
-    GtLayerOut lo;
+    GtLayerOut lo = {};
     lo.qkv = sc.qkv;
     lo.attn = last ? sc.attn_last : sc.attn_full;
     lo.strip = last ? sc.strip_last : sc.strip_full;
@@ -202,10 +204,16 @@ extern "C" int gt_k14_mega_bwd(const void* x, const void* xs, int x_bf16,
 }
 
 // ------------------------------------------------------------------ K14w
-extern "C" size_t gt_k14w_smem_bytes(int G, int S, int D) {
-  const size_t a = wd_recompute_smem_bytes(G, S, D, false);
-  const size_t b = wd_recompute_smem_bytes(G, S, D, true);
+// floats before the tensor-core products' staging region: the row bodies'
+// shared memory for either kind of layer, to a 16-byte boundary
+__host__ __device__ inline size_t wd_mega_stage_offset(int G, int S, int D) {
+  const size_t a = wd_mma_stage_offset(G, S, D, false);
+  const size_t b = wd_mma_stage_offset(G, S, D, true);
   return a > b ? a : b;
+}
+
+extern "C" size_t gt_k14w_smem_bytes(int G, int S, int D) {
+  return sizeof(float) * (wd_mega_stage_offset(G, S, D) + WM_STAGE_FLOATS);
 }
 
 // The device memory of K14w: T per-layer regions, each laid out by
@@ -251,8 +259,9 @@ __host__ __device__ inline WdBwdWork wd_shift(WdBwdWork w, size_t bytes) {
 
 // The row launch: per layer, last first, K8w's recompute and row body
 // into the layer's region (wfull shifted by t * stride for a full layer,
-// wlast for the slot-0 layer).
-__global__ void __launch_bounds__(WD_THREADS)
+// wlast for the slot-0 layer), with K8w's tensor-core products, so that it
+// repeats the K8w chain bit for bit.
+__global__ void __launch_bounds__(WD_THREADS, 2)
 wd_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
                    const float* dout, GtStack st, GtDrop dr, float* dx,
                    WdBwdWork wfull, size_t stride, WdBwdWork wlast, int N,
@@ -263,6 +272,7 @@ wd_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
   const size_t row0 = (size_t)n0 * S;
   const size_t NS = (size_t)N * S;
   const size_t es = x_bf16 ? 2 : 4;
+  const WdMmaGemm mma{smem + wd_mega_stage_offset(G, S, D)};
   for (int t = T - 1; t >= 0; --t) {
     const bool last = t == T - 1;
     const WdBwdWork wk = last ? wlast : wd_shift(wfull, (size_t)t * stride);
@@ -278,16 +288,17 @@ wd_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
     res.h = (char*)wk.h + q0 * F * es;
     res.h_bf16 = x_bf16;
     res.out = nullptr;
-    wd_fwd_layer(smem, w, dr, t, last, res, N, S, D, F, G, scale, x_bf16);
+    wd_fwd_layer(smem, w, dr, t, last, res, N, S, D, F, G, scale, x_bf16,
+                 mma);
     // the residuals are the block's own rows; the body begins with a
     // barrier, after which every thread of the block sees them
     __threadfence_block();
     if (last)
       wd_bwd_body<true>(smem, wk.qkv, wk.attn, wk.strip, wk.h, dout, w, dr,
-                        t, dx, wk, N, S, D, F, G, scale, x_bf16);
+                        t, dx, wk, N, S, D, F, G, scale, x_bf16, mma);
     else
       wd_bwd_body<false>(smem, wk.qkv, wk.attn, wk.strip, wk.h, dx, w, dr, t,
-                         dx, wk, N, S, D, F, G, scale, x_bf16);
+                         dx, wk, N, S, D, F, G, scale, x_bf16, mma);
   }
 }
 

@@ -36,7 +36,7 @@ gt_recompute_bwd_kernel(const void* x, int x_bf16, const float* dout,
 #pragma unroll
   for (int d = 0; d < DM; ++d) xr[d] = 0.f;
   if (valid) gt_load_row<DM>(x, x_bf16, (size_t)n * S + i, D, xr);
-  GtLayerOut lo;
+  GtLayerOut lo = {};
   lo.qkv = qkv;
   lo.attn = attn;
   lo.strip = strip;

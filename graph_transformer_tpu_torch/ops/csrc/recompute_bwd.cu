@@ -31,9 +31,14 @@
 // factors and every product operand in float32, as the TPU kernel keeps
 // them (pallas_u2gnn.py:331-339).  Bound on the H100 at the quickstart's
 // shapes (N=640, S=9, D=68, F=1024, float32): ~10*D*F product operations a
-// row against ~12*D bytes of x, g and dx, so the operations (~0.02 ms at
+// row against ~12*D bytes of x, g and dx, so the operations (~0.08 ms at
 // 67 TFLOP/s); the [rows, F] hidden and its cotangent round-trip device
-// memory (~47 MB at 5,760 float32 rows).
+// memory (~47 MB at 5,760 float32 rows).  The row kernel's eight products
+// (q/k/v, w_out, w1, w2 and their transposes) run on the tensor cores
+// (WdMmaGemm, wide_mma.cuh: mma.sync, 3xTF32 for float32 rows, bf16 for
+// bf16 ones, the weights staged by cp.async); on the CUDA cores they had
+// been bound by shared-memory loads at ~1 FMA each.  The split-K weight
+// products stay on the CUDA cores (wd_wgrad, shared with K6, K12, K14w).
 #include "recompute.cuh"
 #include "wide_recompute.cuh"
 
@@ -76,11 +81,11 @@ extern "C" int gt_k8s_slot0_bwd(const void* x, int x_bf16, const float* dout,
 }
 
 extern "C" size_t gt_k8w_smem_bytes(int G, int S, int D) {
-  return wd_recompute_smem_bytes(G, S, D, false);
+  return wd_recompute_mma_smem_bytes(G, S, D, false);
 }
 
 extern "C" size_t gt_k8ws_smem_bytes(int G, int S, int D) {
-  return wd_recompute_smem_bytes(G, S, D, true);
+  return wd_recompute_mma_smem_bytes(G, S, D, true);
 }
 
 // scratch of K8w (slot0 0) or K8ws (slot0 1) for rows in bf16 (x_bf16) or

@@ -29,7 +29,7 @@ extern "C" int gt_k1_sampled_fwd(
     float* attn_full, float* attn_last, float* strip_full, float* strip_last,
     int N, int S, int D, int F, int T, int G, float scale, unsigned int seed,
     unsigned int keep24, float keep, int drop_on, void* stream) {
-  GtFwdIO io;
+  GtFwdIO io = {};
   io.tag_rows = tag_rows;
   io.deg = deg;
   io.self_tag = self_tag;

@@ -72,15 +72,47 @@ extern "C" int gt_k5_stored_fwd(
 //
 // Bound on the H100 at the A/B workload (79,488 rows, S=9, D=4, F=1024,
 // T=4, bf16): the stored hidden, ~0.5 GB of bf16 writes, bounds it
-// (~0.16 ms at 3.35 TB/s) against ~4 GFLOP of products.  This first
-// version is K5's layer loop (a warp per row, products on the CUDA cores);
-// at D=4 the row-wise work leaves 28 of a warp's 32 lanes idle.
+// (~0.16 ms at 3.35 TB/s) against ~4 GFLOP of products.  For D <= 32 K17
+// runs K1's layer (common.cuh: gt_fwd_layer, a thread per row, G
+// neighborhoods of up to 128 rows a block), as K15 does, and writes the
+// hidden through a staging tile in shared memory, GT_HC columns at a time,
+// row-contiguous and 16 bytes a thread; a warp per 4-wide row (K5's layer)
+// left 28 of its 32 lanes idle in every row-wise step.  Its products stay
+// on the CUDA cores.  Past D = 32 it runs K5's layer loop (wide.cuh).
+extern "C" size_t gt_k17_smem_bytes(int G, int S, int D) {
+  return D <= 32 ? gt_fwd_smem_bytes(G, S, D, /*h=*/true)
+                 : wd_fwd_smem_bytes(G, S, D);
+}
+
 extern "C" int gt_k17_stored_rows_fwd(
     const void* x_rows, int x_bf16, const float* const* params, int stored,
     float* out, void* xs, float* qkv, float* attn_full, float* attn_last,
     float* strip_full, float* strip_last, void* h_full, void* h_last, int N,
     int S, int D, int F, int T, int G, float scale, unsigned int seed,
     unsigned int keep24, float keep, int drop_on, void* stream) {
+  const GtStack st = gt_make_stack(params, stored);
+  GtDrop dr{seed, keep24, keep, drop_on};
+  if (D <= 32) {
+    GtFwdIO io = {};
+    io.x_rows = x_rows;
+    io.x_bf16 = x_bf16;
+    io.out = out;
+    io.xs = xs;
+    io.xs_bf16 = x_bf16;
+    io.xs_first = 1;
+    io.qkv = qkv;
+    io.attn_full = attn_full;
+    io.attn_last = attn_last;
+    io.strip_full = strip_full;
+    io.strip_last = strip_last;
+    io.h_full = h_full;
+    io.h_last = h_last;
+    io.h_bf16 = x_bf16;
+    return (int)gt_dispatch_fwd</*H=*/true>(io, st, dr, N, S, D, F, T, G,
+                                              scale, /*mmbf=*/x_bf16,
+                                              /*sampled=*/0,
+                                              (cudaStream_t)stream);
+  }
   WdFwdIO io = {};
   io.x_rows = x_rows;
   io.x_bf16 = x_bf16;
@@ -96,8 +128,7 @@ extern "C" int gt_k17_stored_rows_fwd(
   io.h_full = h_full;
   io.h_last = h_last;
   io.h_bf16 = x_bf16;
-  GtDrop dr{seed, keep24, keep, drop_on};
-  return (int)wd_launch_fwd(io, gt_make_stack(params, stored), dr, N, S, D, F,
-                            T, G, scale, /*mmbf=*/x_bf16, /*sampled=*/0,
+  return (int)wd_launch_fwd(io, st, dr, N, S, D, F, T, G, scale,
+                            /*mmbf=*/x_bf16, /*sampled=*/0,
                             (cudaStream_t)stream);
 }

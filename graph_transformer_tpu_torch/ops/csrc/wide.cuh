@@ -74,6 +74,19 @@ __device__ __forceinline__ void wd_gemm(const float* A, int lda, int M, int K,
   }
 }
 
+// wd_gemm as the product routine of wd_fwd_layer and wd_bwd_body (their
+// default; the tensor-core routine is WdMmaGemm, wide_mma.cuh)
+struct WdCoreGemm {
+  template <class Epi>
+  __device__ __forceinline__ void operator()(const float* A, int lda, int M,
+                                             int K,
+                                             const float* __restrict__ w,
+                                             int wk, int wc, int Nc, int bf,
+                                             Epi epi) const {
+    wd_gemm(A, lda, M, K, w, wk, wc, Nc, bf, epi);
+  }
+};
+
 // LayerNorm statistics of one row held by a warp (u: the lane's columns, 0
 // beyond D); u becomes uhat; returns rstd
 __device__ __forceinline__ float wd_ln(float* u, int D, int lane) {
@@ -150,7 +163,7 @@ struct WdLayerRes {
   float* out;    // [G, D] slot-0 output of the last layer
 };
 
-static inline size_t wd_fwd_smem_bytes(int G, int S, int D) {
+__host__ __device__ inline size_t wd_fwd_smem_bytes(int G, int S, int D) {
   const size_t MP = (size_t)wd_pad(G * S);
   return sizeof(float) * MP * (4 * (size_t)D + wd_ldq(D) + WD_FC) +
          sizeof(int) * MP;
@@ -161,12 +174,15 @@ static inline size_t wd_fwd_smem_bytes(int G, int S, int D) {
 // first [wd_pad(G*S), D] floats of smem).  In the last layer (`last`) only
 // slot 0 of a neighborhood is a query row and its output goes to res.out;
 // otherwise every row is a query row and its output replaces its input in
-// sX.  Begins with a barrier.
+// sX.  Begins with a barrier.  Its products go through `gemm` (wd_gemm's
+// contract).
+template <class Gemm = WdCoreGemm>
 __device__ __forceinline__ void wd_fwd_layer(float* smem, const GtLayer& w,
                                              const GtDrop& dr, int layer,
                                              bool last, const WdLayerRes& res,
                                              int N, int S, int D, int F,
-                                             int G, float scale, int mmbf) {
+                                             int G, float scale, int mmbf,
+                                             const Gemm& gemm = Gemm()) {
   const int MP = wd_pad(G * S);
   const int D3 = 3 * D, LQ = wd_ldq(D), SW = 4 * D + 2;
   float* sX = smem;             // [MP, D] layer input (f32)
@@ -200,7 +216,7 @@ __device__ __forceinline__ void wd_fwd_layer(float* smem, const GtLayer& w,
   __syncthreads();
 
   // ---- q, k, v of every row
-  wd_gemm(sOp, D, Rv, D, w.w_in, D3, 1, D3, mmbf, [&](int r, int c, float acc) {
+  gemm(sOp, D, Rv, D, w.w_in, D3, 1, D3, mmbf, [&](int r, int c, float acc) {
     const float v = acc + w.b_in[c];
     if (res.qkv) res.qkv[(size_t)r * D3 + c] = v;
     sQKV[r * LQ + c] = gt_rn(v, mmbf);
@@ -244,7 +260,7 @@ __device__ __forceinline__ void wd_fwd_layer(float* smem, const GtLayer& w,
   __syncthreads();
 
   // ---- attention output, its dropout and the residual
-  wd_gemm(sOp, D, QR, D, w.w_out, D, 1, D, mmbf, [&](int q, int c, float acc) {
+  gemm(sOp, D, QR, D, w.w_out, D, 1, D, mmbf, [&](int q, int c, float acc) {
     sZ[q * D + c] = sX[qr(q) * D + c] + gt_drop(dr, kO, qi(q) * D + c, acc + w.b_out[c]);
   });
   __syncthreads();
@@ -279,14 +295,14 @@ __device__ __forceinline__ void wd_fwd_layer(float* smem, const GtLayer& w,
   for (int f0 = 0; f0 < F; f0 += WD_FC) {
     const int nf = min(WD_FC, F - f0);
     __syncthreads();
-    wd_gemm(sOp, D, QR, D, w.w1 + f0, F, 1, nf, mmbf, [&](int q, int c, float acc) {
+    gemm(sOp, D, QR, D, w.w1 + f0, F, 1, nf, mmbf, [&](int q, int c, float acc) {
       const float hv = gt_drop(dr, kH, qi(q) * (uint32_t)F + f0 + c,
                                fmaxf(acc + w.b1[f0 + c], 0.f));
       sH[q * WD_FC + c] = gt_rn(hv, mmbf);
       if (res.h) wd_store(res.h, (size_t)q * F + f0 + c, hv, res.h_bf16);
     });
     __syncthreads();
-    wd_gemm(sH, WD_FC, QR, nf, w.w2 + (size_t)f0 * D, D, 1, D, mmbf,
+    gemm(sH, WD_FC, QR, nf, w.w2 + (size_t)f0 * D, D, 1, D, mmbf,
             [&](int q, int c, float acc) { sZ[q * D + c] += acc; });
   }
   __syncthreads();

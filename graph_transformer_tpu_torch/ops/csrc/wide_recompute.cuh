@@ -27,21 +27,31 @@
 //   3. a second pass sums the partials in block / split order.
 // No float atomics, so runs repeat bit for bit.
 //
-// The recompute kernel (wd_recompute_bwd_kernel) first runs the forward
-// layer (wd_fwd_layer) over its block's rows, writing q/k/v, the
-// probabilities, the strip and h to a scratch in device memory that only
-// this block touches (they do not fit in shared memory beside the
-// backward's buffers: ~131 KB for the forward and ~160 KB for the backward
-// at D=128, 32 rows), then the body.
+// The recompute kernel (wd_recompute_bwd_kernel: K8w, K8ws, K10w; replaces
+// pallas_u2gnn.py:_bwd1_kernel and pallas_encoder.py:_bwd_kernel past D=32)
+// first runs the forward layer (wd_fwd_layer) over its block's rows,
+// writing q/k/v, the probabilities, the strip and h to a scratch in device
+// memory that only this block touches (they do not fit in shared memory
+// beside the backward's buffers: ~131 KB for the forward and ~160 KB for
+// the backward at D=128, 32 rows), then the body.  Its bound is the
+// operations (~10*D*F a row; 0.08 ms at the quickstart's 5,760 float32
+// rows at 67 TFLOP/s).  On the CUDA cores its eight products were bound by
+// shared-memory loads (a thread per column and 8-row tile, one load a
+// FMA, ~4 TFLOP/s); this kernel runs them on the tensor cores instead
+// (WdMmaGemm, wide_mma.cuh), through the product template parameter of
+// wd_fwd_layer and wd_bwd_body; K14w (mega_bwd.cu) takes the same routine,
+// so that it repeats this kernel bit for bit.  K6 and the forward kernels
+// keep wd_gemm.
 #pragma once
 
 #include "wide.cuh"
+#include "wide_mma.cuh"
 
 // floats of shared memory: per query row dz/da, dy1/du1, dctx (3 x [QP, D]),
 // the probabilities, their dropped copies and ds (3 x [QP, S]), and one
 // region used in turn by the hidden chunk (2 x [QP, WD_FC]), by q/k/v and
 // dqkv ([MP, LQ + 3D]) and by the per-warp column sums ([8, 6, D])
-static inline size_t wd_bwd_smem_floats(int G, int S, int D, bool slot0) {
+__host__ __device__ inline size_t wd_bwd_smem_floats(int G, int S, int D, bool slot0) {
   const size_t MP = (size_t)wd_pad(G * S);
   const size_t QP = (size_t)wd_pad(slot0 ? G : G * S);
   size_t U = 2 * QP * WD_FC;
@@ -52,11 +62,23 @@ static inline size_t wd_bwd_smem_floats(int G, int S, int D, bool slot0) {
   return 3 * QP * D + 3 * QP * S + U;
 }
 
-static inline size_t wd_recompute_smem_bytes(int G, int S, int D,
+__host__ __device__ inline size_t wd_recompute_smem_bytes(int G, int S, int D,
                                              bool slot0) {
   const size_t f = wd_fwd_smem_bytes(G, S, D);
   const size_t b = sizeof(float) * wd_bwd_smem_floats(G, S, D, slot0);
   return f > b ? f : b;
+}
+
+// The recompute kernel's: the forward's and the body's shared memory, then
+// the tensor-core products' staging region at the next 16-byte boundary.
+__host__ __device__ inline size_t wd_mma_stage_offset(int G, int S, int D, bool slot0) {
+  return (wd_recompute_smem_bytes(G, S, D, slot0) / sizeof(float) + 3) / 4 * 4;
+}
+
+static inline size_t wd_recompute_mma_smem_bytes(int G, int S, int D,
+                                                 bool slot0) {
+  return sizeof(float) *
+         (wd_mma_stage_offset(G, S, D, slot0) + WM_STAGE_FLOATS);
 }
 
 // per-block partial sums of the small gradients, in this order:
@@ -117,13 +139,13 @@ static size_t wd_bwd_work(int N, int S, int D, int F, int G, bool slot0,
 // [Q, D] with Q = N (SLOT0) or N*S.  Writes dx [N*S, D], the four factors
 // and the block's small partials.  Begins with a barrier; reads the
 // residuals through plain pointers, since the recompute kernel writes them
-// in the same launch.
-template <bool SLOT0>
+// in the same launch.  Its products go through `gemm` (wd_gemm's contract).
+template <bool SLOT0, class Gemm = WdCoreGemm>
 __device__ __forceinline__ void wd_bwd_body(
     float* smem, const float* qkv, const float* attn, const float* strip,
     const void* h, const float* dout, const GtLayer& w, const GtDrop& dr,
     int layer, float* dx, const WdBwdWork& wk, int N, int S, int D, int F,
-    int G, float scale, int bf) {
+    int G, float scale, int bf, const Gemm& gemm = Gemm()) {
   const int MP = wd_pad(G * S);
   const int QP = wd_pad(SLOT0 ? G : G * S);
   const int D3 = 3 * D, LQ = wd_ldq(D), SW = 4 * D + 2, FC = WD_FC;
@@ -203,7 +225,7 @@ __device__ __forceinline__ void wd_bwd_body(
   for (int f0 = 0; f0 < F; f0 += FC) {
     const int nf = min(FC, F - f0);
     __syncthreads();
-    wd_gemm(sDZ, D, QR, D, w.w2 + (size_t)f0 * D, 1, D, nf, bf,
+    gemm(sDZ, D, QR, D, w.w2 + (size_t)f0 * D, 1, D, nf, bf,
             [&](int q, int c, float acc) {
               const size_t e = (q0 + q) * F + f0 + c;
               const float dhp = wd_ld(h, e, bf) > 0.f ? acc * ikeep : 0.f;
@@ -217,7 +239,7 @@ __device__ __forceinline__ void wd_bwd_body(
       for (int q = 0; q < QR; ++q) s += sDHf[q * FC + c];
       part[6 * D + f0 + c] = s;
     }
-    wd_gemm(sDH, FC, QR, nf, w.w1 + f0, 1, F, D, bf,
+    gemm(sDH, FC, QR, nf, w.w1 + f0, 1, F, D, bf,
             [&](int q, int c, float acc) { sDY1[q * D + c] += acc; });
   }
   __syncthreads();
@@ -262,7 +284,7 @@ __device__ __forceinline__ void wd_bwd_body(
 
   // dctx = da @ w_out^T; meanwhile load q/k/v (all rows) and the
   // probabilities (query rows)
-  wd_gemm(sDZ, D, QR, D, w.w_out, 1, D, D, bf,
+  gemm(sDZ, D, QR, D, w.w_out, 1, D, D, bf,
           [&](int q, int c, float acc) { sDCTX[q * D + c] = gt_rn(acc, bf); });
   for (int e = tid; e < Rv * D3; e += blockDim.x) {
     const int r = e / D3;
@@ -338,7 +360,7 @@ __device__ __forceinline__ void wd_bwd_body(
     wd_store(wk.dqkv, row0 * D3 + e, b, bf);
   }
   __syncthreads();
-  wd_gemm(sDQKV, D3, Rv, D3, w.w_in, 1, D3, D, bf, [&](int r, int c, float acc) {
+  gemm(sDQKV, D3, Rv, D3, w.w_in, 1, D3, D, bf, [&](int r, int c, float acc) {
     float v = acc;
     if (!SLOT0) v += sDY1[r * D + c];
     else if (r % S == 0) v += sDY1[(r / S) * D + c];
@@ -412,8 +434,10 @@ static cudaError_t wd_bwd_products(const void* xs, const float* strip,
 }
 
 // ------------------------------------------------------- recompute kernel
+// Its products run on the tensor cores (WdMmaGemm); two blocks an SM at the
+// README quickstart's G = 3, S = 9, D = 68 (110 KB of shared memory each).
 template <bool SLOT0>
-__global__ void __launch_bounds__(WD_THREADS)
+__global__ void __launch_bounds__(WD_THREADS, 2)
 wd_recompute_bwd_kernel(const void* x, int x_bf16, const float* dout,
                         GtLayer w, GtDrop dr, int layer, float* dx,
                         WdBwdWork wk, int N, int S, int D, int F, int G,
@@ -431,12 +455,14 @@ wd_recompute_bwd_kernel(const void* x, int x_bf16, const float* dout,
   res.h = (char*)wk.h + q0 * F * (x_bf16 ? 2 : 4);
   res.h_bf16 = x_bf16;
   res.out = nullptr;
-  wd_fwd_layer(smem, w, dr, layer, SLOT0, res, N, S, D, F, G, scale, x_bf16);
+  const WdMmaGemm mma{smem + wd_mma_stage_offset(G, S, D, SLOT0)};
+  wd_fwd_layer(smem, w, dr, layer, SLOT0, res, N, S, D, F, G, scale, x_bf16,
+               mma);
   // the residuals are the block's own rows; the body begins with a barrier,
   // after which every thread of the block sees them
   __threadfence_block();
   wd_bwd_body<SLOT0>(smem, wk.qkv, wk.attn, wk.strip, wk.h, dout, w, dr,
-                     layer, dx, wk, N, S, D, F, G, scale, x_bf16);
+                     layer, dx, wk, N, S, D, F, G, scale, x_bf16, mma);
 }
 
 // Layer `layer` of a stack of `stored` layers (slice layer % stored; its
@@ -456,7 +482,7 @@ static int wd_recompute_bwd(const void* x, int x_bf16, const float* dout,
   cudaStream_t s = (cudaStream_t)stream;
   WdBwdWork wk;
   wd_bwd_work(N, S, D, F, G, SLOT0, x_bf16, true, (char*)work, &wk);
-  const size_t smem = wd_recompute_smem_bytes(G, S, D, SLOT0);
+  const size_t smem = wd_recompute_mma_smem_bytes(G, S, D, SLOT0);
   cudaError_t e = cudaFuncSetAttribute(
       wd_recompute_bwd_kernel<SLOT0>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -213,8 +213,9 @@ def stored_rows_forward(x2d, params, seq_len: int, num_timesteps: int,
     h_last = torch.empty(N, F, **rows)
     if N:
         lib = _build.load("stored_fwd")
-        G = _build.pick_groups("stored_fwd", "gt_k5_smem_bytes", S, D,
-                               WIDE_ROWS)
+        # a thread per row up to D = 32 (K1's layer), a warp per row past it
+        G = _build.pick_groups("stored_fwd", "gt_k17_smem_bytes", S, D,
+                               128 if D <= 32 else WIDE_ROWS)
 
         def opt(t):
             return t.data_ptr() if T > 1 else None

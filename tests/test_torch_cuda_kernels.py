@@ -294,31 +294,36 @@ def test_train_steps_launch_the_per_layer_kernels(cuda, kw, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [40, 68, 128])
-def test_wide_two_pass_kernels_match_plain_versions(cuda, D, dtype):
+@pytest.mark.parametrize("S,D", [(9, 40), (9, 65), (9, 68), (9, 128),
+                                 (32, 68)])
+def test_wide_two_pass_kernels_match_plain_versions(cuda, S, D, dtype):
     """K4tw, K8w and K8ws against their plain versions at rate 0 and 0.5, in
     float32 and bf16 (the rules of the narrow ones), with a ragged last
-    block."""
+    block; at S=32 a block holds one neighborhood (32 rows, two full m16
+    tiles of the tensor-core products); D=65 takes their 4-byte weight
+    copies."""
     import chip_smoke
 
     _, params, x2d = chip_smoke.random_case(
-        N=301, S=9, D=D, C=D, F=256, Tn=3, stored=3, seed=1, dev=cuda)
-    errs = chip_smoke.check_two_pass(f"D{D}", params,
-                                     x2d.to(getattr(torch, dtype)), 9, 3, cuda)
+        N=301, S=S, D=D, C=D, F=256, Tn=3, stored=3, seed=1, dev=cuda)
+    errs = chip_smoke.check_two_pass(f"S{S} D{D}", params,
+                                     x2d.to(getattr(torch, dtype)), S, 3, cuda)
     assert {k[0] for k in errs} == {"K4tw", "K8w", "K8ws"}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [40, 68, 128])
-def test_wide_encoder_layer_kernels_match_plain_versions(cuda, D, dtype):
+@pytest.mark.parametrize("S,D", [(9, 40), (9, 65), (9, 68), (9, 128),
+                                 (32, 68)])
+def test_wide_encoder_layer_kernels_match_plain_versions(cuda, S, D, dtype):
     """K9w and K10w against their plain versions at rate 0 and 0.5, in
-    float32 and bf16, with a ragged last block."""
+    float32 and bf16, with a ragged last block (one neighborhood a block at
+    S=32; D=65 takes the products' 4-byte weight copies)."""
     import chip_smoke
 
     _, params, x2d = chip_smoke.random_case(
-        N=301, S=9, D=D, C=D, F=256, Tn=1, stored=1, seed=1, dev=cuda)
+        N=301, S=S, D=D, C=D, F=256, Tn=1, stored=1, seed=1, dev=cuda)
     errs = chip_smoke.check_encoder_layer(
-        f"D{D}", params, x2d.to(getattr(torch, dtype)), 9, cuda)
+        f"S{S} D{D}", params, x2d.to(getattr(torch, dtype)), S, cuda)
     assert {k[0] for k in errs} == {"K9w", "K10w"}
 
 
@@ -427,15 +432,20 @@ def test_folded_kernels_match_k1(cuda, D, C):
     chip_smoke.check_folded(f"D{D}", si, params, 9, 3, cuda)
 
 
-@pytest.mark.parametrize("D,one_hot", [(7, False), (68, True)])
-def test_stored_rows_kernel_matches_k5_and_plain(cuda, D, one_hot):
-    """K17 fed K5's x0 rows: K5's output, residuals and (with K6) gradients
-    bit for bit; with float32 rows, its output and residuals against the
-    plain forward's and, with K6, the plain backward on its residuals."""
+@pytest.mark.parametrize("D,one_hot,F", [
+    (4, False, 256), (7, False, 256), (7, False, 100), (19, False, 256),
+    (32, False, 256), (68, True, 256)])
+def test_stored_rows_kernel_matches_k5_and_plain(cuda, D, one_hot, F):
+    """K17 fed K5's x0 rows, by ``chip_smoke.check_stored_rows`` (past D=32
+    K5's output, residuals and, with K6, gradients bit for bit; up to it
+    K15's bit for bit and K5's within the bf16 spread); with float32 rows,
+    its output and residuals against the plain forward's and, with K6, the
+    plain backward on its residuals.  F=100 takes the hidden's 4-byte
+    stores."""
     import chip_smoke
 
     si, params, x2d = chip_smoke.random_case(
-        N=301, S=9, D=D, C=D, F=256, Tn=3, stored=3, seed=5, dev=cuda,
+        N=301, S=9, D=D, C=D, F=F, Tn=3, stored=3, seed=5, dev=cuda,
         one_hot=one_hot)
     chip_smoke.check_stored_rows(f"D{D}", si, params, 9, 3, cuda)
     chip_smoke.check_stored_rows_f32(f"D{D} float32", params, x2d.float(), 9,
