@@ -1933,13 +1933,26 @@ def fwd_flops(N, S, D, F, Tn):
             + layer_flops(N, N * S, S, D, F))
 
 
+# the kernels whose products run on the tensor cores, by library: the wide
+# recompute backward's row kernel, K11/K12 and the split-K weight products,
+# and the thread-per-row backwards (K2/K3, K8/K8s/K10, K14) with their FFN
+MMA_KERNELS = {
+    "recompute_bwd": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel",
+                      "wd_wgrad_mma_kernel"),
+    "encoder_layer": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel"),
+    "ffn": ("ff_fwd_kernel", "ff_bwd_kernel", "wd_wgrad_mma_kernel"),
+    "layer_bwd": ("gt_layer_bwd_kernel",),
+    "mega_bwd": ("gt_mega_bwd_kernel", "wd_mega_bwd_kernel"),
+}
+
+
 def hmma_counts(_build) -> dict:
-    """HMMA (tensor-core) instructions in the SASS of each library's wide
-    recompute backward kernel (``cuobjdump -sass`` of the built library),
-    by library and instantiation; fails where one holds none."""
+    """HMMA (tensor-core) instructions in the SASS of each kernel of
+    MMA_KERNELS (``cuobjdump -sass`` of the built library), by library and
+    instantiation; fails where one holds none or a kernel is missing."""
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     counts = {}
-    for name in ("recompute_bwd", "encoder_layer"):
+    for name, kernels in MMA_KERNELS.items():
         sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -1947,12 +1960,16 @@ def hmma_counts(_build) -> dict:
         for line in sass.splitlines():
             if "Function :" in line:
                 func = line.split("Function :")[1].strip()
-                if "wd_recompute_bwd_kernel" in func:
+                if any(k in func for k in kernels):
                     counts[(name, func)] = 0
             elif (name, func) in counts and "HMMA" in line:
                 counts[(name, func)] += 1
-    if not counts or not all(counts.values()):
-        fail(f"wd_recompute_bwd_kernel without HMMA instructions: {counts}")
+        missing = [k for k in kernels
+                   if not any(k in f for (n, f) in counts if n == name)]
+        if missing:
+            fail(f"{name}: no SASS function of {missing}")
+    if not all(counts.values()):
+        fail(f"tensor-core kernels without HMMA instructions: {counts}")
     for (name, func), n in counts.items():
         print(f"# SASS {name}: {n} HMMA instructions in {func}", flush=True)
     return counts
@@ -2654,10 +2671,11 @@ def main() -> int:
         # each wrapper's kernels: the backward kernels include their
         # partial sums (and K6 its split-K weight products)
         k6_kernels = ("wd_stored_bwd_kernel", "wd_reduce_small_kernel",
-                      "wd_wgrad_kernel", "gt_reduce_partials_kernel")
-        k8_kernels = ("gt_recompute_bwd_kernel", "gt_reduce_partials_kernel")
+                      "wd_wgrad_mma_kernel", "gt_reduce_partials_kernel")
+        k8_kernels = ("gt_recompute_fwd_kernel", "gt_layer_bwd_kernel",
+                      "gt_reduce_partials_kernel")
         k8w_kernels = ("wd_recompute_bwd_kernel", "wd_reduce_small_kernel",
-                       "wd_wgrad_kernel", "gt_reduce_partials_kernel")
+                       "wd_wgrad_mma_kernel", "gt_reduce_partials_kernel")
         device_kernels = {
             "K1": ("gt_encoder_fwd_kernel",), "K4": ("gt_encoder_fwd_kernel",),
             "K2": ("gt_layer_bwd_kernel", "gt_reduce_partials_kernel"),
@@ -2669,14 +2687,14 @@ def main() -> int:
             "K9": ("gt_layer_fwd_kernel",), "K10": k8_kernels,
             "K11": ("ff_fwd_kernel",),
             "K12": ("ff_bwd_kernel", "gt_reduce_partials_kernel",
-                    "wd_wgrad_kernel"),
+                    "wd_wgrad_mma_kernel"),
             "K4tw": ("wd_encoder_fwd_kernel",), "K8w": k8w_kernels,
             "K8ws": k8w_kernels, "K9w": ("wd_encoder_fwd_kernel",),
             "K10w": k8w_kernels, "K13": ("gt_encoder_fwd_kernel",),
             "K13w": ("wd_encoder_fwd_kernel",),
             "K14": ("gt_mega_bwd_kernel", "gt_mega_reduce_kernel"),
             "K14w": ("wd_mega_bwd_kernel", "wd_reduce_small_kernel",
-                     "wd_wgrad_kernel", "gt_reduce_partials_kernel",
+                     "wd_wgrad_mma_kernel", "gt_reduce_partials_kernel",
                      "gt_mega_reduce_kernel"),
             "K15": ("gt_encoder_fwd_kernel",), "K16": ("gt_encoder_fwd_kernel",),
             "K17": ("gt_encoder_fwd_kernel", "wd_encoder_fwd_kernel")}
@@ -2685,12 +2703,14 @@ def main() -> int:
                   time_ms(plain, 3),
                   None if lib_call is None else time_ms(lib_call, 10))
             for key, (kern, plain, lib_call) in calls.items()}
-        # the wide recompute backwards split into the row kernel and the
-        # split-K weight products with their partial sums
-        split = {key: (device_ms(calls[key][0], 10,
-                                 ("wd_recompute_bwd_kernel",)),
-                       device_ms(calls[key][0], 10, k8w_kernels[1:]))
+        # the wide recompute backwards and K12 split into the row kernel and
+        # the split-K weight products with their partial sums
+        parts = {key: (("wd_recompute_bwd_kernel",), k8w_kernels[1:])
                  for key in ("K8w", "K8ws", "K10w")}
+        parts["K12"] = (("ff_bwd_kernel",), device_kernels["K12"][1:])
+        split = {key: (device_ms(calls[key][0], 10, row),
+                       device_ms(calls[key][0], 10, prod))
+                 for key, (row, prod) in parts.items()}
         for key, (row_ms, prod_ms) in split.items():
             print(f"# {key}: row kernel {row_ms:.4f} ms, split-K weight "
                   f"products and partial sums {prod_ms:.4f} ms a launch",

@@ -83,6 +83,7 @@ SIGNATURES = {
                        _I, _P],
     "gt_k12_ffn_bwd": [_P, _I, _P, _FFN_PARAMS, _I, _P, _P, _P, _I, _I, _I,
                        _U, _U, _F, _I, _P],
+    "gt_wgrad": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "gt_k14_mega_bwd": [_P, _P, _I, _P, _PARAMS, _I, _P, _P, _P, _P, _P, _P,
                         _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I,
                         _P],
@@ -98,10 +99,11 @@ SIGNATURES = {
                                _U, _F, _I, _P],
 }
 # scratch bytes: K6, K8w/K10w (N, S, D, F, G, slot0, bf16), K12 (M, D, F,
-# bf16), K14w (N, S, D, F, G, T, bf16) -> bytes
+# bf16), K14w (N, S, D, F, G, T, bf16) -> bytes; the split-K products'
+# scratch (rows, M1, N1) -> floats
 WORK_FNS = {"gt_k6_work_bytes": 7, "gt_k8w_work_bytes": 7,
             "gt_k10w_work_bytes": 7, "gt_k12_work_bytes": 4,
-            "gt_k14w_work_bytes": 7}
+            "gt_k14w_work_bytes": 7, "gt_wgrad_split_floats": 3}
 # each kernel's shared memory per block, (G, S, D) -> bytes
 SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
             "gt_k4_smem_bytes", "gt_k4w_smem_bytes", "gt_k5_smem_bytes",
@@ -215,13 +217,20 @@ def params_array(tensors) -> ctypes.Array:
     return kind(*[t.data_ptr() for t in tensors])
 
 
+# blocks that fill the H100: two on each of its 132 SMs
+FILL_BLOCKS = 264
+
+
 def pick_groups(name: str, smem_fn: str, S: int, D: int, rows: int = 128,
-                limit: int = 200 * 1024) -> int:
+                limit: int = 200 * 1024, n: int = 0) -> int:
     """Neighborhoods per block of the kernel whose shared memory ``smem_fn``
     of source ``name`` gives: up to ``rows`` rows, fewer if shared memory
-    asks."""
+    asks; with ``n`` neighborhoods given, few enough that the blocks number
+    at least FILL_BLOCKS where ``n`` allows."""
     smem = getattr(load(name), smem_fn)
     G = max(1, rows // S)
+    if n:
+        G = max(1, min(G, -(-n // FILL_BLOCKS)))
     while G > 1 and smem(G, S, D) > limit:
         G -= 1
     if smem(G, S, D) > limit:

@@ -24,8 +24,8 @@
 // forward (~12*D*F backward) against ~4*D bytes of x and out; at the ACT
 // workload's shapes (N = 512 padded nodes, S = 9, D = 7, F = 1024, float32)
 // the forward's ~0.27 GFLOP of float32 products take ~4 us at 67 TFLOP/s.
-// This version runs them on the CUDA cores; the small grid at such batches
-// (K8's problem, PERF.md) is later work.
+// K9 runs them on the CUDA cores; K10, K8's kernels, on the tensor cores
+// (recompute.cuh).
 //
 // K9w is the wide forward layer (wd_fwd_layer, wide.cuh) run as a full
 // layer that writes every row in the rows' dtype; K10w is K8w's recompute
@@ -33,8 +33,8 @@
 // pallas_encoder.py:_bwd_kernel past D=32.  Bound at the quickstart's ACT
 // rows (5,760 float32 rows, D=68, F=1024): the operations, ~0.08 ms at
 // 67 TFLOP/s.  Its row kernel's products run on the tensor cores
-// (wide_mma.cuh: mma.sync, 3xTF32 in float32); the split-K weight products
-// stay on the CUDA cores.
+// (wide_mma.cuh: mma.sync, 3xTF32 in float32), and so do the split-K weight
+// products (wd_wgrad).
 #include "recompute.cuh"
 #include "wide_recompute.cuh"
 

@@ -15,71 +15,47 @@
 //
 // What the TPU kernel keeps out of device memory is the [M, F] hidden: a
 // block here holds FF_ROWS rows in shared memory and walks the hidden FF_FC
-// columns at a time, staging that chunk of W1 and W2 in shared memory, so the
-// forward never writes it.  The TPU kernel accumulates dW1/dW2 across its
-// sequential grid; blocks here run in any order, and per-block [D, F]
-// partials would be 2*D*F*4 bytes a block (~100 MB at the quickstart's node
-// axis), so K12 writes the products' row operands instead (the hidden h and
-// its cotangent dh, rounded to the compute dtype, [M, F] each, and dy
-// [M, D]) and computes dW1 = x^T dh and dW2 = h^T dy in the split-K pass of
-// K6 (wide.cuh), summing partials in block and split order (no float
-// atomics: runs repeat bit for bit).  Row-wise work (LayerNorm, its
-// backward) takes a warp per row, lanes over columns (D <= 128).
+// columns at a time, so the forward never writes it.  The TPU kernel
+// accumulates dW1/dW2 across its sequential grid; blocks here run in any
+// order, and per-block [D, F] partials would be 2*D*F*4 bytes a block
+// (~100 MB at the quickstart's node axis), so K12 writes the products' row
+// operands instead (the hidden h and its cotangent dh, rounded to the
+// compute dtype, [M, F] each, and dy [M, D]) and computes dW1 = x^T dh and
+// dW2 = h^T dy in the split-K products of K6 (wd_wgrad, wide_mma.cuh),
+// summing partials in block and split order (no float atomics: runs repeat
+// bit for bit).  Row-wise work (LayerNorm, its backward) takes a warp per
+// row, lanes over columns (D <= 128).
 //
 // Bound on the H100: at the quickstart's node axis (M = 5,760 rows, D = 68,
 // F = 1,024, float32) K11 does 1.6 GFLOP of float32 products on 3 MB of rows,
 // so the operations bound it (~0.024 ms at 67 TFLOP/s); K12's 4.8 GFLOP
-// likewise.  This version runs the products on the CUDA cores from shared
-// memory (a thread owns one output column and WD_RT rows); tensor-core
-// products are later work.
-#include "wide.cuh"
+// likewise.  Every product runs on the tensor cores: the row products
+// (x W1 and h W2 forward, dy W2^T and dh W1^T backward) through WdMmaGemm
+// (wide_mma.cuh: mma.sync, bf16 m16n8k16 for bf16 rows, 3xTF32 for float32
+// ones, the weights read by cp.async, so nothing stages rounded copies of
+// W1 and W2), the weight products through wd_wgrad's tensor-core kernel.
+// The hidden chunk is FF_FC = 128 columns, one pass of WdMmaGemm's output
+// columns: its per-tile overhead (a barrier and the A tile's conversion per
+// 16 of K), not its mma.sync, is what it costs (PERF.md), and the K = D
+// products take as many tiles per chunk whatever the chunk, so a wider
+// chunk only costs shared memory: 98 KB a block at D = 68, two blocks an SM.
+#include "wide_mma.cuh"
 
 #define FF_ROWS 32          // rows a block
-#define FF_FC 64            // hidden columns a chunk
-#define FF_THREADS 256
-#define FF_LD1 (FF_FC + 1)  // W1 chunk [D][FC+1]: columns read across d hit distinct banks
-
-// W2 chunk [FC][D|1]: odd, so rows read across hidden columns hit distinct banks
-__host__ __device__ inline int ff_ld2(int D) { return D | 1; }
+#define FF_FC WM_NB         // hidden columns a chunk
+#define FF_THREADS WD_THREADS  // WdMmaGemm's 8 warps
 
 struct FfParams {
   const float *w1, *b1, *w2, *b2, *g, *beta;  // [D,F] [F] [F,D] [D] [D] [D]
 };
 
-// K11: x, xb, z (3 x [R, D]), h [R, FC], W1/W2 chunks and b1; K12 adds du
+// the tensor-core products' staging region first (16-byte aligned), then
+// K11: x, xb, z (3 x [R, D]) and the hidden chunk h [R, FC]; K12 adds du
 // [R, D] and the unrounded dh chunk [R, FC]
 static inline size_t ff_smem_floats(int D, bool bwd) {
   const size_t R = FF_ROWS;
-  return R * D * (bwd ? 4 : 3) + R * FF_FC * (bwd ? 2 : 1) +
-         (size_t)D * FF_LD1 + (size_t)FF_FC * ff_ld2(D) + FF_FC;
-}
-
-// C[r][c] = sum_k A[r*lda + k] * B[k*bk + c*bc] for r < M, c < Nc, operands
-// in shared memory; a thread owns one column c and a tile of WD_RT rows, so a
-// warp reads neighbouring B values and broadcasts A; calls epi(r, c, C[r][c]).
-// A holds whole tiles of rows (FF_ROWS).
-template <class Epi>
-__device__ __forceinline__ void ff_gemm(const float* A, int lda, int M, int K,
-                                        const float* B, int bk, int bc, int Nc,
-                                        Epi epi) {
-  const int tiles = (M + WD_RT - 1) / WD_RT;
-  for (int item = threadIdx.x; item < Nc * tiles; item += blockDim.x) {
-    const int c = item % Nc;
-    const int r0 = (item / Nc) * WD_RT;
-    float acc[WD_RT];
-#pragma unroll
-    for (int i = 0; i < WD_RT; ++i) acc[i] = 0.f;
-    const float* bp = B + c * bc;
-    const float* ap = A + r0 * lda;
-    for (int k = 0; k < K; ++k) {
-      const float b = bp[k * bk];
-#pragma unroll
-      for (int i = 0; i < WD_RT; ++i) acc[i] = fmaf(ap[i * lda + k], b, acc[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < WD_RT; ++i)
-      if (r0 + i < M) epi(r0 + i, c, acc[i]);
-  }
+  return WM_STAGE_FLOATS + R * D * (bwd ? 4 : 3) +
+         R * FF_FC * (bwd ? 2 : 1);
 }
 
 __device__ __forceinline__ float ff_ld(const void* p, int bf, size_t e) {
@@ -107,48 +83,40 @@ __device__ __forceinline__ void ff_load_rows(const void* x, int bf, size_t r0,
   }
 }
 
-// Chunk f0 of W1 (columns) and W2 (rows), rounded to the compute dtype, and
-// of b1.
-__device__ __forceinline__ void ff_stage(const FfParams& p, int D, int F,
-                                         int f0, int nf, int bf, float* sW1,
-                                         float* sW2, float* sB1) {
-  const int L2 = ff_ld2(D);
-  for (int e = threadIdx.x; e < D * nf; e += blockDim.x) {
-    const int d = e / nf, c = e - d * nf;
-    sW1[d * FF_LD1 + c] = gt_rn(__ldg(p.w1 + (size_t)d * F + f0 + c), bf);
-  }
-  for (int e = threadIdx.x; e < nf * D; e += blockDim.x) {
-    const int c = e / D, d = e - c * D;
-    sW2[c * L2 + d] = gt_rn(__ldg(p.w2 + (size_t)(f0 + c) * D + d), bf);
-  }
-  for (int c = threadIdx.x; c < nf; c += blockDim.x) sB1[c] = __ldg(p.b1 + f0 + c);
+// Rows [R, nf] of sH (leading dimension FF_FC) to columns f0.. of the
+// block's rows of t [M, F], a warp per row.
+__device__ __forceinline__ void ff_store_chunk(void* t, int bf, size_t r0,
+                                               int R, int F, int f0, int nf,
+                                               const float* sH) {
+  for (int r = threadIdx.x >> 5; r < R; r += blockDim.x >> 5)
+    for (int c = threadIdx.x & 31; c < nf; c += 32)
+      ff_st(t, bf, (r0 + r) * F + f0 + c, sH[r * FF_FC + c]);
 }
 
 // z += drop(relu(xb @ W1 + b1)) @ W2 over the block's R rows, the hidden
 // chunk by chunk (rounded to the compute dtype in sH; also stored to h
-// [M, F] when given).  Ends with a barrier.
+// [M, F] when given).  Begins and ends with a barrier.
 __device__ __forceinline__ void ff_hidden_pass(const FfParams& p,
                                                const GtDrop& dr, uint32_t kH,
                                                size_t r0, int R, int D, int F,
                                                int bf, const float* sXb,
                                                float* sZ, float* sH,
-                                               float* sW1, float* sW2,
-                                               float* sB1, void* h) {
-  const int L2 = ff_ld2(D);
+                                               const WdMmaGemm& mma, void* h) {
+  __syncthreads();  // xb and z are in place
   for (int f0 = 0; f0 < F; f0 += FF_FC) {
     const int nf = min(FF_FC, F - f0);
-    __syncthreads();
-    ff_stage(p, D, F, f0, nf, bf, sW1, sW2, sB1);
-    __syncthreads();
-    ff_gemm(sXb, D, R, D, sW1, FF_LD1, 1, nf, [&](int r, int c, float acc) {
+    // every thread has passed the previous chunk's last barrier, so sH is
+    // free; each (r, c) of sZ is summed by one thread, chunk after chunk
+    mma(sXb, D, R, D, p.w1 + f0, F, 1, nf, bf, [&](int r, int c, float acc) {
       const size_t e = (r0 + r) * F + f0 + c;
-      const float hv = gt_rn(gt_drop(dr, kH, (uint32_t)e, fmaxf(acc + sB1[c], 0.f)), bf);
-      sH[r * FF_FC + c] = hv;
-      if (h) ff_st(h, bf, e, hv);
+      sH[r * FF_FC + c] = gt_rn(
+          gt_drop(dr, kH, (uint32_t)e, fmaxf(acc + __ldg(p.b1 + f0 + c), 0.f)),
+          bf);
     });
     __syncthreads();
-    ff_gemm(sH, FF_FC, R, nf, sW2, L2, 1, D,
-            [&](int r, int c, float acc) { sZ[r * D + c] += acc; });
+    if (h) ff_store_chunk(h, bf, r0, R, F, f0, nf, sH);
+    mma(sH, FF_FC, R, nf, p.w2 + (size_t)f0 * D, D, 1, D, bf,
+        [&](int r, int c, float acc) { sZ[r * D + c] += acc; });
   }
   __syncthreads();
 }
@@ -170,17 +138,15 @@ __device__ __forceinline__ float ff_ln_row(const FfParams& p, const GtDrop& dr,
   return wd_ln(u, D, lane);
 }
 
-__global__ void __launch_bounds__(FF_THREADS)
+__global__ void __launch_bounds__(FF_THREADS, 2)
 ff_fwd_kernel(const void* x, int x_bf16, void* out, FfParams p, GtDrop dr,
               int layer, int M, int D, int F) {
   extern __shared__ float smem[];
-  float* sX = smem;                   // [R, D] input rows
+  const WdMmaGemm mma{smem};          // [WM_STAGE_FLOATS] staging
+  float* sX = smem + WM_STAGE_FLOATS; // [R, D] input rows
   float* sXb = sX + FF_ROWS * D;      // [R, D] rounded rows
   float* sZ = sXb + FF_ROWS * D;      // [R, D] FFN output
   float* sH = sZ + FF_ROWS * D;       // [R, FC] hidden chunk (rounded)
-  float* sW1 = sH + FF_ROWS * FF_FC;  // [D, LD1]
-  float* sW2 = sW1 + D * FF_LD1;      // [FC, LD2]
-  float* sB1 = sW2 + FF_FC * ff_ld2(D);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const size_t r0 = (size_t)blockIdx.x * FF_ROWS;
@@ -189,8 +155,7 @@ ff_fwd_kernel(const void* x, int x_bf16, void* out, FfParams p, GtDrop dr,
   const uint32_t kH = gt_stream_key(dr.seed, 4 * layer + 2);
   const uint32_t kZ = gt_stream_key(dr.seed, 4 * layer + 3);
   ff_load_rows(x, bf, r0, R, D, sX, sXb, sZ);
-  ff_hidden_pass(p, dr, kH, r0, R, D, F, bf, sXb, sZ, sH, sW1, sW2, sB1,
-                 nullptr);
+  ff_hidden_pass(p, dr, kH, r0, R, D, F, bf, sXb, sZ, sH, mma, nullptr);
   for (int q = warp; q < R; q += nw) {
     float u[WD_CPL];
     ff_ln_row(p, dr, kZ, r0, q, D, sX, sZ, u, lane);
@@ -231,20 +196,17 @@ static size_t ff_work(int M, int D, int F, int bf, char* base, FfWork* w) {
   return off;
 }
 
-__global__ void __launch_bounds__(FF_THREADS)
+__global__ void __launch_bounds__(FF_THREADS, 2)
 ff_bwd_kernel(const void* x, int x_bf16, const float* dout, FfParams p,
               GtDrop dr, int layer, int M, int D, int F, void* dx, FfWork w) {
   extern __shared__ float smem[];
-  const int L2 = ff_ld2(D);
-  float* sX = smem;                   // [R, D] input rows
+  const WdMmaGemm mma{smem};          // [WM_STAGE_FLOATS] staging
+  float* sX = smem + WM_STAGE_FLOATS; // [R, D] input rows
   float* sXb = sX + FF_ROWS * D;      // [R, D] rounded rows
   float* sZ = sXb + FF_ROWS * D;      // [R, D] FFN output, then rounded dy
   float* sDU = sZ + FF_ROWS * D;      // [R, D] du, then dx
   float* sH = sDU + FF_ROWS * D;      // [R, FC] hidden chunk, then rounded dh
   float* sDHf = sH + FF_ROWS * FF_FC; // [R, FC] dh chunk
-  float* sW1 = sDHf + FF_ROWS * FF_FC;
-  float* sW2 = sW1 + D * FF_LD1;
-  float* sB1 = sW2 + FF_FC * L2;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   const size_t r0 = (size_t)blockIdx.x * FF_ROWS;
@@ -257,7 +219,7 @@ ff_bwd_kernel(const void* x, int x_bf16, const float* dout, FfParams p,
 
   // ---- 1. the forward again, storing the rounded hidden
   ff_load_rows(x, bf, r0, R, D, sX, sXb, sZ);
-  ff_hidden_pass(p, dr, kH, r0, R, D, F, bf, sXb, sZ, sH, sW1, sW2, sB1, w.h);
+  ff_hidden_pass(p, dr, kH, r0, R, D, F, bf, sXb, sZ, sH, mma, w.h);
 
   // ---- 2. LayerNorm backward and the FFN-output dropout, a warp per row;
   // this warp's column sums of db2, dgamma, dbeta
@@ -303,30 +265,27 @@ ff_bwd_kernel(const void* x, int x_bf16, const float* dout, FfParams p,
   // ---- 3. the hidden's cotangent dh = (dy @ W2^T) * relu' * dropout,
   // chunk by chunk from the stored hidden (relu' times the dropout factor is
   // (h > 0) / keep), and dx = du + dh @ W1^T
+  __syncthreads();  // rounded dy and du are in place
   for (int f0 = 0; f0 < F; f0 += FF_FC) {
     const int nf = min(FF_FC, F - f0);
+    // every thread has passed the previous chunk's last barrier, so sH and
+    // sDHf are free; the hidden this block stored in step 1 is visible
+    mma(sZ, D, R, D, p.w2 + (size_t)f0 * D, 1, D, nf, bf,
+        [&](int r, int c, float acc) {
+          const float hv = ff_ld(w.h, bf, (r0 + r) * F + f0 + c);
+          const float dh = hv > 0.f ? acc * ikeep : 0.f;
+          sDHf[r * FF_FC + c] = dh;
+          sH[r * FF_FC + c] = gt_rn(dh, bf);
+        });
     __syncthreads();
-    ff_stage(p, D, F, f0, nf, bf, sW1, sW2, sB1);
-    for (int e = threadIdx.x; e < R * nf; e += blockDim.x) {
-      const int r = e / nf, c = e - r * nf;
-      sH[r * FF_FC + c] = ff_ld(w.h, bf, (r0 + r) * F + f0 + c);
-    }
-    __syncthreads();
-    ff_gemm(sZ, D, R, D, sW2, 1, L2, nf, [&](int r, int c, float acc) {
-      const float dh = sH[r * FF_FC + c] > 0.f ? acc * ikeep : 0.f;
-      const float dhb = gt_rn(dh, bf);
-      sDHf[r * FF_FC + c] = dh;
-      sH[r * FF_FC + c] = dhb;
-      ff_st(w.dh, bf, (r0 + r) * F + f0 + c, dhb);
-    });
-    __syncthreads();
+    ff_store_chunk(w.dh, bf, r0, R, F, f0, nf, sH);
     for (int c = threadIdx.x; c < nf; c += blockDim.x) {
       float s = 0.f;
       for (int r = 0; r < R; ++r) s += sDHf[r * FF_FC + c];
       part[f0 + c] = s;
     }
-    ff_gemm(sH, FF_FC, R, nf, sW1, 1, FF_LD1, D,
-            [&](int r, int c, float acc) { sDU[r * D + c] += acc; });
+    mma(sH, FF_FC, R, nf, p.w1 + f0, 1, F, D, bf,
+        [&](int r, int c, float acc) { sDU[r * D + c] += acc; });
   }
   __syncthreads();
   for (int e = threadIdx.x; e < R * D; e += blockDim.x)
@@ -413,4 +372,20 @@ extern "C" int gt_k12_ffn_bwd(const void* x, int x_bf16, const float* dout,
     return (int)e;
   return (int)wd_wgrad({w.h, x_bf16, F, 0, ex}, {w.dy, x_bf16, D, 0, ex}, M,
                        F, D, w.split, grads + PS + (size_t)D * F, s);
+}
+
+// The split-K weight products alone (wd_wgrad: K6, K8w, K10w, K12, K14w):
+// out [M1, N1] = a^T b over `rows` rows of a [rows, M1] and b [rows, N1],
+// both bf16 (bf16 products) or both f32 (3xTF32); split:
+// gt_wgrad_split_floats floats of scratch.
+extern "C" size_t gt_wgrad_split_floats(int rows, int M1, int N1) {
+  return (size_t)wd_splits(rows, M1, N1) * M1 * N1;
+}
+
+extern "C" int gt_wgrad(const void* a, const void* b, int bf16, int rows,
+                        int M1, int N1, float* split, float* out,
+                        void* stream) {
+  if (rows < 1 || M1 < 1 || N1 < 1) return (int)cudaErrorInvalidValue;
+  return (int)wd_wgrad({a, bf16, M1, 0, !bf16}, {b, bf16, N1, 0, !bf16}, rows,
+                       M1, N1, split, out, (cudaStream_t)stream);
 }

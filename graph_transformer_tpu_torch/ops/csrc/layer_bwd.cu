@@ -13,10 +13,9 @@
 //
 // Bound on the H100 at the bench shapes: K2 reads ~13 MB of residuals and its
 // FFN recompute plus gradients are ~3.3 GFLOP of bf16 products; K3 reads ~4
-// MB for ~0.4 GFLOP.  The bytes bound both (a few us).  This version does the
-// products on the CUDA cores and writes one partial row per block (~22 MB at
-// bench shapes), which the second pass reads back; larger blocks or
-// tensor-core products are later work.
+// MB for ~0.4 GFLOP.  The bytes bound both (a few us).  The body runs its
+// FFN products on the tensor cores (layer_bwd.cuh) and writes one partial
+// row per block (~22 MB at bench shapes), which the second pass reads back.
 #include "layer_bwd.cuh"
 
 extern "C" size_t gt_k2_smem_bytes(int G, int S, int D) {
@@ -25,45 +24,6 @@ extern "C" size_t gt_k2_smem_bytes(int G, int S, int D) {
 
 extern "C" size_t gt_k3_smem_bytes(int G, int S, int D) {
   return sizeof(float) * gt_bwd_smem_floats(G, S, D, true);
-}
-
-template <int DM, bool SLOT0>
-__global__ void __launch_bounds__(128)
-gt_layer_bwd_kernel(const __nv_bfloat16* xs, const float* qkv,
-                    const float* attn, const float* strip, const float* dout,
-                    GtLayer w, GtDrop dr, int layer, float* dx, float* partial,
-                    int N, int S, int D, int F, int G, float scale) {
-  extern __shared__ float smem[];
-  float* part = partial + (size_t)blockIdx.x * gt_grad_offsets(D, F).P;
-  gt_layer_bwd_body<DM, SLOT0>(smem, xs, /*x_bf16=*/1, qkv, attn, strip, dout,
-                               w, dr, layer, dx, part, N, S, D, F, G, scale,
-                               /*mmbf=*/1);
-}
-
-template <int DM, bool SLOT0>
-static cudaError_t launch_bwd(const void* xs, const float* qkv,
-                              const float* attn, const float* strip,
-                              const float* dout, const GtLayer& w,
-                              const GtDrop& dr, int layer, float* dx,
-                              float* partial, float* grads, int N, int S,
-                              int D, int F, int G, float scale,
-                              cudaStream_t stream) {
-  const size_t smem = sizeof(float) * gt_bwd_smem_floats(G, S, D, SLOT0);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(gt_layer_bwd_kernel<DM, SLOT0>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int threads = ((G * S + 31) / 32) * 32;
-  const int blocks = (N + G - 1) / G;
-  gt_layer_bwd_kernel<DM, SLOT0><<<blocks, threads, smem, stream>>>(
-      (const __nv_bfloat16*)xs, qkv, attn, strip, dout, w, dr, layer, dx,
-      partial, N, S, D, F, G, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return gt_reduce_partials(partial, blocks, gt_grad_offsets(D, F).P, grads,
-                            stream);
 }
 
 template <bool SLOT0>
@@ -77,10 +37,10 @@ static int dispatch_bwd(const void* xs, const float* qkv, const float* attn,
   const GtLayer w = gt_layer_at(gt_make_stack(params, stored), layer, D, F);
   GtDrop dr{seed, keep24, keep, drop_on};
   cudaStream_t s = (cudaStream_t)stream;
-  if (D <= 4) return (int)launch_bwd<4, SLOT0>(xs, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
-  if (D <= 8) return (int)launch_bwd<8, SLOT0>(xs, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
-  if (D <= 16) return (int)launch_bwd<16, SLOT0>(xs, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
-  if (D <= 32) return (int)launch_bwd<32, SLOT0>(xs, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
+  if (D <= 4) return (int)gt_launch_layer_bwd<4, SLOT0>(xs, 1, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
+  if (D <= 8) return (int)gt_launch_layer_bwd<8, SLOT0>(xs, 1, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
+  if (D <= 16) return (int)gt_launch_layer_bwd<16, SLOT0>(xs, 1, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
+  if (D <= 32) return (int)gt_launch_layer_bwd<32, SLOT0>(xs, 1, qkv, attn, strip, dout, w, dr, layer, dx, partial, grads, N, S, D, F, G, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
 // The backward of one encoder layer over a block's rows, shared by K2/K3
-// (layer_bwd.cu: residuals stored by K1's forward) and K8/K8s
-// (recompute_bwd.cu: residuals recomputed by the same block from the layer's
-// input).  Products take operands in the compute dtype (mmbf: bf16, else
-// f32) and accumulate in f32.
+// (layer_bwd.cu: residuals stored by K1's forward), K8/K8s and K10
+// (recompute_bwd.cu, encoder_layer.cu: residuals recomputed from the
+// layer's input by a forward launch just before, recompute.cuh) and K14
+// (mega_bwd.cu).  Products take operands in the compute dtype (mmbf: bf16,
+// else f32) and accumulate in f32.
 //
 // Inputs: the layer's input rows x [N*S, D] (bf16 or f32), q/k/v
 // [N*S, 3D], the attention probabilities, the LayerNorm strip and the output
@@ -10,67 +11,43 @@
 // (SLOT0) only slot 0 of a neighborhood is, while its keys and values span
 // all S slots, so attn, strip and dout are per neighborhood ([N, S],
 // [N, 4D+2], [N, D]).  The FFN hidden of the query rows is recomputed chunk
-// by chunk from y1 (in the last layer the S threads of a neighborhood split
-// the columns of its slot-0 row) and the four dropout masks are regenerated
-// from the same counters as the forward, so nothing of size [rows, F] is
-// stored.  Outputs: dx [N*S, D] and the block's row of partial weight
-// gradients (KERNEL_ORDER), which gt_reduce_partials sums in block order.
+// by chunk from y1 and the four dropout masks are regenerated from the same
+// counters as the forward, so nothing of size [rows, F] is stored.
+// Outputs: dx [N*S, D] and the block's row of partial weight gradients
+// (KERNEL_ORDER), which gt_reduce_partials sums in block order.
+//
+// Layout: a thread per row for the row-wise work (LayerNorm, attention, the
+// small gradients), as the forward; the FFN, ~5*D*F of the ~6*D*F product
+// operations a row, runs on the tensor cores over all the block's query
+// rows (gt_mma_tile: bf16 m16n8k16 or 3xTF32 from shared memory), every
+// warp of the block taking 16 x 8 tiles, so the idle threads past the
+// block's rows (GT_BWD_THREADS) work there too.  On the CUDA cores, a thread
+// per row walking F with one shared-memory load a product, the FFN bound
+// these kernels at 2 blocks (8 warps) an SM.
 #pragma once
 
 #include "common.cuh"
 
+// hidden columns a chunk of the body's FFN: enough 16 x 8 tiles of the
+// [QR, FC] chunk for the block's warps where the query rows are few (the
+// last layer's G); past 32 query rows 64, which measured faster than 32
+// (fewer chunks and barriers; PERF.md, PR 8) and keeps the body at two
+// blocks an SM at S=9, D=4, G=14
+__host__ __device__ inline int gt_bwd_fc(int QR) {
+  return QR <= 32 ? 128 : 64;
+}
+
 // floats of dynamic shared memory: the R = G*S rows of a block hold x, q/k/v
 // and dq/dk/dv; its QR query rows (R, or G in the last layer) hold the
-// per-query vectors, attention rows and hidden chunks
+// per-query vectors, attention rows, hidden chunks and their index in the
+// layer; the FFN's column sums of dh, one row per 16 query rows
 static inline size_t gt_bwd_smem_floats(int G, int S, int D, bool slot0) {
   const size_t R = (size_t)G * S;
   const size_t QR = slot0 ? (size_t)G : R;
-  const size_t FC = GT_BWD_FC;
+  const size_t FC = gt_bwd_fc((int)QR);
   return (size_t)D * 3 * D + D * D + 2 * D + R * 7 * D +
-         QR * (9 * D + 3 * S) + (slot0 ? R * D : 0) + FC * (2 * D + 1) +
-         2 * QR * FC;
-}
-
-// dW1 / db1 / dW2 of one hidden chunk from the rows' h (rounded to the
-// compute dtype) and dhpre; yb = rounded y1 [rows, D], dz [rows, D]
-template <int DM>
-__device__ __forceinline__ void gt_ffn_chunk_grads(
-    const float* sY1b, const float* sDZ, const float* sH, const float* sDH,
-    int rows, int D, int F, int f0, int nfc, int FC, const GtGradOff& o,
-    float* part, int mmbf) {
-  for (int p = threadIdx.x; p < 2 * nfc; p += blockDim.x) {
-    const int which = p / nfc;
-    const int fc = p - which * nfc;
-    const int f = f0 + fc;
-    float acc[DM];
-#pragma unroll
-    for (int d = 0; d < DM; ++d) acc[d] = 0.f;
-    if (which == 0) {
-      float accb = 0.f;
-      for (int rr = 0; rr < rows; ++rr) {
-        const float dh = sDH[rr * FC + fc];
-        const float dhb = gt_rn(dh, mmbf);
-        accb += dh;
-#pragma unroll
-        for (int d = 0; d < DM; ++d)
-          if (d < D) acc[d] += sY1b[rr * D + d] * dhb;
-      }
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) part[o.w1 + d * F + f] = acc[d];
-      part[o.b1 + f] = accb;
-    } else {
-      for (int rr = 0; rr < rows; ++rr) {
-        const float hb = sH[rr * FC + fc];
-#pragma unroll
-        for (int d = 0; d < DM; ++d)
-          if (d < D) acc[d] += hb * gt_rn(sDZ[rr * D + d], mmbf);
-      }
-#pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) part[o.w2 + f * D + d] = acc[d];
-    }
-  }
+         QR * (9 * D + 3 * S + 1) + FC * (2 * D + 1) + 2 * QR * FC +
+         (QR + 15) / 16 * FC;
 }
 
 // the small weight gradients: w_in/b_in over rq rows of (x, dqkv); the rest
@@ -138,7 +115,7 @@ __device__ __forceinline__ void gt_layer_bwd_body(
   const int NQ = SLOT0 ? 1 : S;  // query rows per neighborhood
   const int D3 = 3 * D;
   const int SW = 4 * D + 2;
-  const int FC = GT_BWD_FC;
+  const int FC = gt_bwd_fc(QR);
   const GtGradOff o = gt_grad_offsets(D, F);
   float* sWin = smem;
   float* sWout = sWin + D * D3;
@@ -161,13 +138,14 @@ __device__ __forceinline__ void gt_layer_bwd_body(
   float* sA = sDCTX + QR * D;
   float* sAD = sA + QR * S;
   float* sDS = sAD + QR * S;
-  // last layer: each thread's partial dy1 of its neighborhood's slot-0 row
-  float* sDY1P = sDS + QR * S;
-  float* sW1c = sDY1P + (SLOT0 ? R * D : 0);
+  float* sW1c = sDS + QR * S;
   float* sW2c = sW1c + D * FC;
   float* sB1c = sW2c + FC * D;
   float* sH = sB1c + FC;
   float* sDH = sH + QR * FC;
+  float* sDB1 = sDH + QR * FC;  // [ceil(QR / 16), FC]
+  // query row q's index in the layer, -1 past the N neighborhoods
+  int* sQI = (int*)(sDB1 + (QR + 15) / 16 * FC);
 
   const int tid = threadIdx.x;
   const int r = tid;
@@ -227,23 +205,21 @@ __device__ __forceinline__ void gt_layer_bwd_body(
         sDZ[qr * D + d] = dz[d];
         sY1b[qr * D + d] = gt_rn(y1[d], mmbf);
       }
+    sQI[qr] = qown ? (int)qidx : -1;
   }
   __syncthreads();
 
-  // ---- FFN: recompute the query rows' hidden chunk by chunk.  A full layer's
-  // thread walks every column of its own row; in the last layer the S threads
-  // of a neighborhood split the columns of its slot-0 row.
-  float yb[DM], dzb[DM], dyp[DM];
-#pragma unroll
-  for (int d = 0; d < DM; ++d) {
-    yb[d] = dzb[d] = dyp[d] = 0.f;
-    if (inb && d < D) {
-      yb[d] = sY1b[qr * D + d];
-      dzb[d] = gt_rn(sDZ[qr * D + d], mmbf);
-    }
-  }
-  const int fstart = SLOT0 ? i : 0;
-  const int fstep = SLOT0 ? S : 1;
+  // ---- FFN on the tensor cores (gt_mma_tile), a chunk of FC hidden
+  // columns at a time over the QR query rows: the hidden recomputed from
+  // the rounded y1, its cotangent dh = (dz W2^T) * relu' * dropout, dy1's
+  // FFN term dh W1^T summed into sDY1 (each (q, d) by one thread, chunk
+  // after chunk), and the chunk's dW1 = y1^T dh, db1 and dW2 = h^T dz over
+  // the block's query rows.  Products round dz and dh to the compute dtype
+  // as they load them; rows past the N neighborhoods hold zeros.
+  const int warp = tid >> 5, nwarp = blockDim.x >> 5;
+  const int mt = (QR + 15) >> 4, ntd = (D + 7) >> 3, mtd = (D + 15) >> 4;
+  const float ikeep = dr.on ? 1.f / dr.keep : 1.f;
+  for (int e = tid; e < QR * D; e += blockDim.x) sDY1[e] = 0.f;
   for (int f0 = 0; f0 < F; f0 += FC) {
     const int nfc = min(FC, F - f0);
     __syncthreads();
@@ -255,52 +231,107 @@ __device__ __forceinline__ void gt_layer_bwd_body(
       sW2c[e] = gt_rn(w.w2[(size_t)f0 * D + e], mmbf);
     for (int e = tid; e < nfc; e += blockDim.x) sB1c[e] = w.b1[f0 + e];
     __syncthreads();
-    if (inb) {
-      for (int fc = fstart; fc < nfc; fc += fstep) {
-        float hb = 0.f, dhp = 0.f;
-        if (valid) {
-          float acc = 0.f;
+    // h and dh of each 16 x 8 tile of [QR, nfc], and the tile's column sums
+    // of dh (summed over its 16 rows across the lanes of one column pair);
+    // a warp takes a column of tiles, its weights' fragments loaded once
+    const int nt = (nfc + 7) >> 3;
+    const int lane = tid & 31;
+    for (int cn = warp; cn < nt; cn += nwarp) {
+      const int tn = cn * 8;
+      GtBFrag fw1, fw2;
+      gt_bfrag(fw1, sW1c, FC, 1, nfc, D, tn, mmbf);
+      gt_bfrag(fw2, sW2c, 1, D, nfc, D, tn, mmbf);
+      const int c0 = gt_frag_col(tn, 0);
+      const float b1c[2] = {c0 < nfc ? sB1c[c0] : 0.f,
+                            c0 + 1 < nfc ? sB1c[c0 + 1] : 0.f};
+      for (int tm = 0; tm < QR; tm += 16) {
+        float hp[4] = {0.f, 0.f, 0.f, 0.f}, dh[4] = {0.f, 0.f, 0.f, 0.f};
+        gt_mma_tile_pre(hp, sY1b, D, 1, QR, fw1, D, tm, mmbf);
+        gt_mma_tile_pre(dh, sDZ, D, 1, QR, fw2, D, tm, mmbf);
+        const int qa = gt_frag_row(tm, 0), qb = qa + 8;
+        const int qi[2] = {qa < QR ? sQI[qa] : -1, qb < QR ? sQI[qb] : -1};
+        float cs[2] = {0.f, 0.f};
 #pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < D) acc += yb[d] * sW1c[d * FC + fc];
-          const float hp = acc + sB1c[fc];
-          float fac = hp > 0.f ? 1.f : 0.f;
-          if (dr.on) fac = gt_keep(dr, kH, qidx * (uint32_t)F + f0 + fc) ? fac / dr.keep : 0.f;
-          hb = gt_rn(hp * fac, mmbf);
-          float dh = 0.f;
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < D) dh += dzb[d] * sW2c[fc * D + d];
-          dhp = dh * fac;
-          const float dhb = gt_rn(dhp, mmbf);
-#pragma unroll
-          for (int d = 0; d < DM; ++d)
-            if (d < D) dyp[d] += dhb * sW1c[d * FC + fc];
+        for (int j = 0; j < 4; ++j) {
+          const int q = j < 2 ? qa : qb, c = c0 + (j & 1);
+          if (q >= QR || c >= nfc) continue;
+          float hb = 0.f, dhp = 0.f;
+          if (qi[j >> 1] >= 0) {
+            const float hpv = hp[j] + b1c[j & 1];
+            // relu' times the dropout factor (1/keep as the forward divides)
+            float fac = hpv > 0.f ? 1.f : 0.f;
+            if (dr.on &&
+                !gt_keep(dr, kH, (uint32_t)qi[j >> 1] * F + f0 + c))
+              fac = 0.f;
+            fac *= ikeep;
+            hb = gt_rn(hpv * fac, mmbf);
+            dhp = dh[j] * fac;
+          }
+          sH[q * FC + c] = hb;
+          sDH[q * FC + c] = dhp;
+          cs[j & 1] += dhp;
         }
-        sH[qr * FC + fc] = hb;
-        sDH[qr * FC + fc] = dhp;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          cs[0] += __shfl_xor_sync(0xffffffffu, cs[0], off);
+          cs[1] += __shfl_xor_sync(0xffffffffu, cs[1], off);
+        }
+        if (lane < 4) {
+          sDB1[(tm >> 4) * FC + tn + 2 * lane] = cs[0];
+          sDB1[(tm >> 4) * FC + tn + 2 * lane + 1] = cs[1];
+        }
       }
     }
     __syncthreads();
-    gt_ffn_chunk_grads<DM>(sY1b, sDZ, sH, sDH, QR, D, F, f0, nfc, FC, o, part,
-                           mmbf);
+    // db1: the tiles' column sums in tile order
+    for (int c = tid; c < nfc; c += blockDim.x) {
+      float s = 0.f;
+      for (int m = 0; m < mt; ++m) s += sDB1[m * FC + c];
+      part[o.b1 + f0 + c] = s;
+    }
+    // dy1 [QR, D] += dh W1^T
+    for (int tile = warp; tile < mt * ntd; tile += nwarp) {
+      const int tm = (tile / ntd) * 16, tn = (tile % ntd) * 8;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      gt_mma_tile(acc, sDH, FC, 1, QR, sW1c, 1, FC, D, nfc, tm, tn, mmbf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int q = gt_frag_row(tm, j), d = gt_frag_col(tn, j);
+        if (q < QR && d < D) sDY1[q * D + d] += acc[j];
+      }
+    }
+    // dW1 [D, nfc] = y1^T dh
+    for (int tile = warp; tile < mtd * nt; tile += nwarp) {
+      const int tm = (tile / nt) * 16, tn = (tile % nt) * 8;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      gt_mma_tile(acc, sY1b, 1, D, D, sDH, FC, 1, nfc, QR, tm, tn, mmbf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int d = gt_frag_row(tm, j), c = gt_frag_col(tn, j);
+        if (d < D && c < nfc) part[o.w1 + d * F + f0 + c] = acc[j];
+      }
+    }
+    // dW2 [nfc, D] = h^T dz
+    const int mtc = (nfc + 15) >> 4;
+    for (int tile = warp; tile < mtc * ntd; tile += nwarp) {
+      const int tm = (tile / ntd) * 16, tn = (tile % ntd) * 8;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      gt_mma_tile(acc, sH, 1, FC, nfc, sDZ, D, 1, D, QR, tm, tn, mmbf);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = gt_frag_row(tm, j), d = gt_frag_col(tn, j);
+        if (c < nfc && d < D) part[o.w2 + (f0 + c) * D + d] = acc[j];
+      }
+    }
   }
-  if (SLOT0) {  // sum the S threads' partial products of the slot-0 row
-    if (inb) {
+  __syncthreads();
+  float dyp[DM];
 #pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) sDY1P[r * D + d] = dyp[d];
-    }
-    __syncthreads();
-    if (qown) {
+  for (int d = 0; d < DM; ++d) dyp[d] = 0.f;
+  if (qown) {
 #pragma unroll
-      for (int d = 0; d < DM; ++d)
-        if (d < D) {
-          float s = 0.f;
-          for (int ii = 0; ii < S; ++ii) s += sDY1P[(g * S + ii) * D + d];
-          dyp[d] = s;
-        }
-    }
+    for (int d = 0; d < DM; ++d)
+      if (d < D) dyp[d] = sDY1[qr * D + d];
   }
 
   // ---- LayerNorm 1, attention-output dropout and projection
@@ -413,4 +444,45 @@ __device__ __forceinline__ void gt_layer_bwd_body(
   __syncthreads();
   gt_small_grads(sX, sDQKV, R, sCTX, sDA, sDY1U, sDY1, sDZ, sGU2, sG, QR, D, o,
                  part, mmbf);
+}
+
+template <int DM, bool SLOT0>
+__global__ void __launch_bounds__(GT_BWD_THREADS)
+gt_layer_bwd_kernel(const void* xs, int x_bf16, const float* qkv,
+                    const float* attn, const float* strip, const float* dout,
+                    GtLayer w, GtDrop dr, int layer, float* dx, float* partial,
+                    int N, int S, int D, int F, int G, float scale) {
+  extern __shared__ float smem[];
+  float* part = partial + (size_t)blockIdx.x * gt_grad_offsets(D, F).P;
+  gt_layer_bwd_body<DM, SLOT0>(smem, xs, x_bf16, qkv, attn, strip, dout, w,
+                               dr, layer, dx, part, N, S, D, F, G, scale,
+                               x_bf16);
+}
+
+// The body over ceil(N/G) blocks, then the partial gradients summed in block
+// order into grads.  Products in the rows' dtype (bf16 when x_bf16).
+template <int DM, bool SLOT0>
+static cudaError_t gt_launch_layer_bwd(const void* xs, int x_bf16,
+                                       const float* qkv, const float* attn,
+                                       const float* strip, const float* dout,
+                                       const GtLayer& w, const GtDrop& dr,
+                                       int layer, float* dx, float* partial,
+                                       float* grads, int N, int S, int D,
+                                       int F, int G, float scale,
+                                       cudaStream_t stream) {
+  const size_t smem = sizeof(float) * gt_bwd_smem_floats(G, S, D, SLOT0);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(gt_layer_bwd_kernel<DM, SLOT0>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (N + G - 1) / G;
+  gt_layer_bwd_kernel<DM, SLOT0><<<blocks, GT_BWD_THREADS, smem, stream>>>(
+      xs, x_bf16, qkv, attn, strip, dout, w, dr, layer, dx, partial, N, S, D,
+      F, G, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return gt_reduce_partials(partial, blocks, gt_grad_offsets(D, F).P, grads,
+                            stream);
 }

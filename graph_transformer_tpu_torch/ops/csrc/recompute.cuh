@@ -1,31 +1,49 @@
 // The recompute backward of one encoder layer, shared by K8/K8s
 // (recompute_bwd.cu, a layer of the whole encoder's [T, ...] stack) and K10
-// (encoder_layer.cu, one layer's own tensors): each block of G neighborhoods
-// recomputes its rows' q/k/v, attention probabilities and LayerNorm strip
-// with the forward's layer code (gt_fwd_layer, common.cuh), writing them to a
-// scratch in device memory that only this block touches, then runs the
-// backward body K2/K3 run on K1's stored residuals (gt_layer_bwd_body,
-// layer_bwd.cuh), which replays the four dropout masks from the forward's
-// counters (stream 4*layer+site).  Per-block partial weight gradients are
-// summed in block order by gt_reduce_partials (no float atomics: runs repeat
-// bit for bit).  Shared memory is the larger of the forward's and the
-// backward's needs, and sets G.
+// (encoder_layer.cu, one layer's own tensors), in two launches:
+//   1. the layer's forward again (gt_recompute_fwd_kernel), with the
+//      forward's layer code (gt_fwd_layer, common.cuh), writing q/k/v, the
+//      attention probabilities and the LayerNorm strip to scratch.  Its FFN
+//      runs as the forward kernels run it, a thread per row on the CUDA
+//      cores, where the rows are many (>= GT_FWD_MMA_ROWS), and on the
+//      tensor cores over all the block's warps where they are few (MMA);
+//   2. the backward body K2/K3 run on K1's stored residuals
+//      (gt_layer_bwd_kernel, layer_bwd.cuh), which replays the four dropout
+//      masks from the forward's counters (stream 4*layer+site), and the
+//      partial weight gradients summed in block order by gt_reduce_partials
+//      (no float atomics: runs repeat bit for bit).
+// One launch holding both halves ran the forward at the body's shared memory
+// and registers (~113 KB at S=9, D=4, G=14: 2 blocks an SM) and cost more
+// than the two apart (PERF.md, PR 8); apart, each takes what it needs.  Both
+// launches take the same G; K14 (mega_bwd.cu) runs both halves in one launch
+// at that G and repeats this chain bit for bit.
 #pragma once
 
 #include "layer_bwd.cuh"
 
+// Rows below which the recompute forward runs its FFN on the tensor cores:
+// a thread per row on the CUDA cores needs ~8 warps an SM of them to hide
+// its latency (132 SMs x 256 threads); at the HPO arm's 8,704 rows it took
+// 0.44 ms a launch, on the tensor cores 0.16, and at the A/B scripts'
+// 79,488 rows 0.48 against 0.83 (PERF.md, PR 8).
+#define GT_FWD_MMA_ROWS 32768
+
+static inline bool gt_fwd_mma(int N, int S) {
+  return (size_t)N * S < GT_FWD_MMA_ROWS;
+}
+
+// shared memory of a block of the pair: the larger of the two launches'
 static inline size_t gt_recompute_smem_bytes(int G, int S, int D, bool slot0) {
-  const size_t f = gt_fwd_smem_floats(G, S, D);
+  const size_t f = gt_fwd_smem_floats(G, S, D, false, /*mma=*/true);
   const size_t b = gt_bwd_smem_floats(G, S, D, slot0);
   return sizeof(float) * (f > b ? f : b);
 }
 
-template <int DM, bool SLOT0>
-__global__ void __launch_bounds__(128)
-gt_recompute_bwd_kernel(const void* x, int x_bf16, const float* dout,
-                        GtLayer w, GtDrop dr, int layer, float* dx, float* qkv,
-                        float* attn, float* strip, float* partial, int N,
-                        int S, int D, int F, int G, float scale) {
+template <int DM, bool SLOT0, bool MMA>
+__global__ void __launch_bounds__(GT_BWD_THREADS)
+gt_recompute_fwd_kernel(const void* x, int x_bf16, GtLayer w, GtDrop dr,
+                        int layer, float* qkv, float* attn, float* strip,
+                        int N, int S, int D, int F, int G, float scale) {
   extern __shared__ float smem[];
   const int r = threadIdx.x;
   const int g = r / S;
@@ -41,14 +59,31 @@ gt_recompute_bwd_kernel(const void* x, int x_bf16, const float* dout,
   lo.attn = attn;
   lo.strip = strip;
   lo.out = nullptr;
-  gt_fwd_layer<DM>(smem, w, dr, layer, SLOT0, lo, xr, N, S, D, F, G, scale,
-                   x_bf16);
-  // the residuals are the block's own rows; the body begins with a barrier,
-  // after which every thread of the block sees them
-  __threadfence_block();
-  float* part = partial + (size_t)blockIdx.x * gt_grad_offsets(D, F).P;
-  gt_layer_bwd_body<DM, SLOT0>(smem, x, x_bf16, qkv, attn, strip, dout, w, dr,
-                               layer, dx, part, N, S, D, F, G, scale, x_bf16);
+  gt_fwd_layer<DM, false, MMA>(smem, w, dr, layer, SLOT0, lo, xr, N, S, D, F,
+                               G, scale, x_bf16);
+}
+
+template <int DM, bool SLOT0, bool MMA>
+static cudaError_t gt_launch_recompute_fwd(const void* x, int x_bf16,
+                                           const GtLayer& w, const GtDrop& dr,
+                                           int layer, float* qkv, float* attn,
+                                           float* strip, int N, int S, int D,
+                                           int F, int G, float scale,
+                                           cudaStream_t stream) {
+  const size_t smem = sizeof(float) * gt_fwd_smem_floats(G, S, D, false, MMA);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gt_recompute_fwd_kernel<DM, SLOT0, MMA>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  // the tensor-core FFN takes every warp of GT_BWD_THREADS; the CUDA-core
+  // one a thread per row
+  const int threads = MMA ? GT_BWD_THREADS : ((G * S + 31) / 32) * 32;
+  const int blocks = (N + G - 1) / G;
+  gt_recompute_fwd_kernel<DM, SLOT0, MMA><<<blocks, threads, smem, stream>>>(
+      x, x_bf16, w, dr, layer, qkv, attn, strip, N, S, D, F, G, scale);
+  return cudaGetLastError();
 }
 
 template <int DM, bool SLOT0>
@@ -59,22 +94,18 @@ static cudaError_t gt_launch_recompute(const void* x, int x_bf16,
                                        float* partial, float* grads, int N,
                                        int S, int D, int F, int G, float scale,
                                        cudaStream_t stream) {
-  const size_t smem = gt_recompute_smem_bytes(G, S, D, SLOT0);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(gt_recompute_bwd_kernel<DM, SLOT0>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int threads = ((G * S + 31) / 32) * 32;
-  const int blocks = (N + G - 1) / G;
-  gt_recompute_bwd_kernel<DM, SLOT0><<<blocks, threads, smem, stream>>>(
-      x, x_bf16, dout, w, dr, layer, dx, qkv, attn, strip, partial, N, S, D,
-      F, G, scale);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e =
+      gt_fwd_mma(N, S)
+          ? gt_launch_recompute_fwd<DM, SLOT0, true>(
+                x, x_bf16, w, dr, layer, qkv, attn, strip, N, S, D, F, G,
+                scale, stream)
+          : gt_launch_recompute_fwd<DM, SLOT0, false>(
+                x, x_bf16, w, dr, layer, qkv, attn, strip, N, S, D, F, G,
+                scale, stream);
   if (e != cudaSuccess) return e;
-  return gt_reduce_partials(partial, blocks, gt_grad_offsets(D, F).P, grads,
-                            stream);
+  return gt_launch_layer_bwd<DM, SLOT0>(x, x_bf16, qkv, attn, strip, dout, w,
+                                        dr, layer, dx, partial, grads, N, S, D,
+                                        F, G, scale, stream);
 }
 
 // Layer `layer` of a stack of `stored` layers (slice layer % stored); its

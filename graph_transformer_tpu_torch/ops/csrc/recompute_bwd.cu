@@ -1,8 +1,8 @@
 // K8 — backward of one full encoder layer (t < T-1) recomputed from its
-// input, and K8s — the same for the slot-0 last layer: one kernel, templated
-// on SLOT0 (recompute.cuh, shared with K10); K8w and K8ws — the same for
-// rows of 32 < D <= 128, a warp per row (wide_recompute.cuh, shared with
-// K10w).
+// input, and K8s — the same for the slot-0 last layer: a forward launch and
+// the backward body, templated on SLOT0 (recompute.cuh, shared with K10);
+// K8w and K8ws — the same for rows of 32 < D <= 128, a warp per row
+// (wide_recompute.cuh, shared with K10w).
 //
 // Replaces graph_transformer_tpu/ops/pallas_u2gnn.py:_bwd1_kernel (entry
 // _bwd1_call, driven layer by layer, last first, by _bwd_rule_hybrid).
@@ -10,18 +10,18 @@
 // parameters, the output cotangent g, seed, layer) -> (dx [N*S, D] f32, the
 // 12 weight gradients f32).  Products take operands in the rows' dtype and
 // accumulate in f32, as the TPU kernel does.  Nothing of the forward is kept
-// but x: each block recomputes its residuals and then back-propagates
-// through them (recompute.cuh).
+// but x: a forward launch recomputes the layer's residuals and the backward
+// body (K2's) back-propagates through them (recompute.cuh).
 //
 // Bound on the H100: operations.  At the two-pass training shapes (D <= 32,
 // F = 1024) a row costs ~12*D*F product operations (the FFN recompute, its
 // two weight-gradient products and the cotangent's) against ~12*D bytes of
-// x, g and dx.  This version runs the products on the CUDA cores, one thread
-// per row, with the FFN weights staged in shared memory chunk by chunk; the
-// scratch round trip (~(7*D + S) floats a row) stays mostly in L2.  At S = 32,
-// D = 32 shared memory allows one neighborhood (32 threads) a block.
-// Tensor-core products and keeping the recomputed residuals in shared memory
-// are later work.
+// x, g and dx.  The body's FFN products run on the tensor cores over every
+// warp of a block (layer_bwd.cuh), the forward's too where the rows are few
+// (recompute.cuh), the row-wise work a thread per row; the scratch round
+// trip (~(7*D + S) floats a row) stays mostly in L2.  Blocks hold few
+// enough neighborhoods that a launch has >= 264 of them where N allows (the
+// HPO arm's 512 neighborhoods: 2 a block).
 //
 // K8w/K8ws: each block of G neighborhoods (<= 32 rows) recomputes its layer
 // with the wide forward row code (wd_fwd_layer, the layer of K5/K4w/K4tw),
@@ -38,7 +38,8 @@
 // (WdMmaGemm, wide_mma.cuh: mma.sync, 3xTF32 for float32 rows, bf16 for
 // bf16 ones, the weights staged by cp.async); on the CUDA cores they had
 // been bound by shared-memory loads at ~1 FMA each.  The split-K weight
-// products stay on the CUDA cores (wd_wgrad, shared with K6, K12, K14w).
+// products run on the tensor cores too (wd_wgrad, wide_mma.cuh, shared
+// with K6, K12, K14w).
 #include "recompute.cuh"
 #include "wide_recompute.cuh"
 

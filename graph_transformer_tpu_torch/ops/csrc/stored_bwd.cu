@@ -18,9 +18,10 @@
 // (3.35 TB/s, 989 TFLOP/s bf16): a full layer reads its 75 MB hidden and
 // ~15 MB of other residuals for ~27 GFLOP of bf16 products, so the bytes
 // bound it (~0.03 ms).  This version also writes and reads back the 75 MB
-// dhpre, and runs the products on the CUDA cores in f32 with bf16-rounded
-// operands; tensor-core products and fusing the dW1 product into the row
-// kernel are later work.
+// dhpre, and runs the row kernel's products on the CUDA cores in f32 with
+// bf16-rounded operands (the split-K weight products on the tensor cores,
+// wd_wgrad); tensor-core row products and fusing the dW1 product into the
+// row kernel are later work.
 #include "wide_recompute.cuh"
 
 extern "C" size_t gt_k6_smem_bytes(int G, int S, int D) {

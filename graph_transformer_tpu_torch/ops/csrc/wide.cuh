@@ -2,8 +2,7 @@
 // stores its residuals, FFN hidden included), K17 (the same on given rows,
 // in their dtype), the wide K4 (eval forward) and
 // K6 (per-layer backward from K5's residuals); K11/K12 (ffn.cu) share the
-// warp helpers and the split-K weight products.  Rows hold up to 128
-// features.
+// warp helpers.  Rows hold up to 128 features.
 //
 // Layout: a block of 256 threads holds G whole neighborhoods (R = G*S <= 32
 // rows) in shared memory.  Row-wise work (attention, LayerNorm, dropout) takes
@@ -430,96 +429,6 @@ wd_encoder_fwd_kernel(WdFwdIO io, GtStack st, GtDrop dr, int N, int S, int D,
     for (int e = tid; e < Rv * D; e += blockDim.x)
       wd_store(io.rows_out, row0 * D + e, sX[e], io.x_bf16);
   }
-}
-
-// ------------------------------------------------ split-K weight products
-// Of K6 and K12: part[split][m][n] = sum over the split's rows of
-// A[row][m] * B[row][n], each split writing its own partial tile, then the
-// partials summed in split order (no float atomics).  Operands stored in bf16
-// are used as they are; f32 operands are rounded to bf16 unless `exact`.
-#define WD_SPLIT_BLOCKS 264  // target blocks of a split-K product: 2 per SM
-
-struct WdOperand {
-  const void* p;
-  int bf16;
-  int ld;     // elements per row
-  int off;    // first column
-  int exact;  // f32 values as they are (float32 products)
-};
-
-__device__ __forceinline__ float wd_load(const WdOperand& o, int r, int c) {
-  const size_t e = (size_t)r * o.ld + o.off + c;
-  if (o.bf16) return __bfloat162float(((const __nv_bfloat16*)o.p)[e]);
-  const float v = ((const float*)o.p)[e];
-  return o.exact ? v : gt_bfr(v);
-}
-
-__global__ void __launch_bounds__(256)
-wd_wgrad_kernel(WdOperand A, WdOperand B, int rows, int M1, int N1,
-                int rows_per_split, float* part) {
-  __shared__ float sa[16][64];
-  __shared__ float sb[16][64];
-  const int tilesN = (N1 + 63) / 64;
-  const int m0 = (blockIdx.x / tilesN) * 64;
-  const int nn0 = (blockIdx.x % tilesN) * 64;
-  const int rbeg = blockIdx.y * rows_per_split;
-  const int rend = min(rows, rbeg + rows_per_split);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int r0 = rbeg; r0 < rend; r0 += 16) {
-    for (int e = tid; e < 16 * 64; e += 256) {
-      const int k = e / 64, c = e % 64, r = r0 + k;
-      sa[k][c] = (r < rend && m0 + c < M1) ? wd_load(A, r, m0 + c) : 0.f;
-      sb[k][c] = (r < rend && nn0 + c < N1) ? wd_load(B, r, nn0 + c) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = sa[k][ty * 4 + i];
-        b[i] = sb[k][tx * 4 + i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = part + (size_t)blockIdx.y * M1 * N1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + ty * 4 + i, n = nn0 + tx * 4 + j;
-      if (m < M1 && n < N1) out[(size_t)m * N1 + n] = acc[i][j];
-    }
-}
-
-static inline int wd_splits(int rows, int M1, int N1) {
-  const int tiles = ((M1 + 63) / 64) * ((N1 + 63) / 64);
-  int s = (WD_SPLIT_BLOCKS + tiles - 1) / tiles;
-  const int most = (rows + 63) / 64;
-  if (s > most) s = most;
-  return s < 1 ? 1 : s;
-}
-
-static cudaError_t wd_wgrad(WdOperand A, WdOperand B, int rows, int M1,
-                            int N1, float* split, float* out,
-                            cudaStream_t stream) {
-  const int s = wd_splits(rows, M1, N1);
-  const int per = (rows + s - 1) / s;
-  const dim3 grid(((M1 + 63) / 64) * ((N1 + 63) / 64), s);
-  wd_wgrad_kernel<<<grid, 256, 0, stream>>>(A, B, rows, M1, N1, per, split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return gt_reduce_partials(split, s, M1 * N1, out, stream);
 }
 
 static inline cudaError_t wd_launch_fwd(const WdFwdIO& io, const GtStack& st,

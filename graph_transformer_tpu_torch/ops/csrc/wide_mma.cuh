@@ -73,38 +73,12 @@ __device__ __forceinline__ void wm_cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ uint32_t wm_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
 __device__ __forceinline__ void wm_ldmatrix_x4(uint32_t (&r)[4],
                                                const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(wm_smem_addr(p)));
-}
-
-__device__ __forceinline__ void wm_mma_bf16(float (&c)[4],
-                                            const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void wm_mma_tf32(float (&c)[4],
-                                            const uint32_t (&a)[4],
-                                            uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The product routine; `stage` is WM_STAGE_FLOATS floats of shared memory,
@@ -283,3 +257,171 @@ struct WdMmaGemm {
     }
   }
 };
+
+// ------------------------------------------------ split-K weight products
+// Of K6, K8w/K8ws, K10w, K12 and K14w: out[m][n] = sum over rows of
+// A[row][m] * B[row][n] (m < M1, n < N1), the rows cut into splits.  Each
+// block takes one 64 x 64 output tile over one split's rows and writes its
+// own partial tile; a second pass sums the partials in split order (no float
+// atomics: runs repeat bit for bit).  The products run on the tensor cores:
+// with bf16 operands (stored in bf16, or f32 rounded to bf16 unless `exact`)
+// mma.sync m16n8k16, with exact f32 operands 3xTF32 m16n8k8, as WdMmaGemm.
+// A block of 8 warps stages WG_BK rows of both operands in f32, each warp
+// taking 16 x 32 of the tile from the staged rows, while the next rows are
+// read into registers.  The products are bound by the operands' bytes and
+// the loads' latency, not by the tensor cores, so what counts is loads in
+// flight: at most 80 registers (3 blocks an SM) and splits of ~WG_SPLIT_ROWS
+// rows.  (A 4-warp block prefetching 32 rows, 253 registers and 2 blocks an
+// SM, ran K12's products 2.7x slower than the CUDA-core kernel; PERF.md,
+// PR 8.)
+#define WD_SPLIT_BLOCKS 264  // blocks of a split-K product: 2 per SM
+#define WG_SPLIT_ROWS 160    // rows a split, where that gives more blocks
+#define WG_TILE 64           // output tile edge
+#define WG_BK 16             // rows a staged chunk
+#define WG_PER (WG_BK * WG_TILE / 256)  // values a thread stages per operand
+
+struct WdOperand {
+  const void* p;
+  int bf16;
+  int ld;     // elements per row
+  int off;    // first column
+  int exact;  // f32 values as they are (float32 products)
+};
+
+__device__ __forceinline__ float wd_load(const WdOperand& o, int r, int c) {
+  const size_t e = (size_t)r * o.ld + o.off + c;
+  if (o.bf16) return __bfloat162float(((const __nv_bfloat16*)o.p)[e]);
+  const float v = ((const float*)o.p)[e];
+  return o.exact ? v : gt_bfr(v);
+}
+
+template <bool BF>
+__global__ void __launch_bounds__(256, 3)
+wd_wgrad_mma_kernel(WdOperand A, WdOperand B, int rows, int M1, int N1,
+                    int rows_per_split, float* part) {
+  // staged rows [WG_BK][LD]: fragment reads free of bank conflicts (rows 2t
+  // apart for bf16, t apart for TF32)
+  constexpr int LD = BF ? WG_TILE + 4 : WG_TILE + 8;
+  __shared__ __align__(16) float sA[WG_BK * LD];
+  __shared__ __align__(16) float sB[WG_BK * LD];
+  const int tilesM = (M1 + WG_TILE - 1) / WG_TILE;
+  const int m0 = (blockIdx.x % tilesM) * WG_TILE;
+  const int n0 = (blockIdx.x / tilesM) * WG_TILE;
+  const int rbeg = blockIdx.y * rows_per_split;
+  const int rend = min(rows, rbeg + rows_per_split);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tg = lane & 3;
+  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32;  // the warp's part
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float ra[WG_PER], rb[WG_PER];
+  auto fetch = [&](int r0) {
+#pragma unroll
+    for (int i = 0; i < WG_PER; ++i) {
+      const int e = tid + 256 * i, k = e / WG_TILE, c = e % WG_TILE;
+      const int r = r0 + k;
+      ra[i] = (r < rend && m0 + c < M1) ? wd_load(A, r, m0 + c) : 0.f;
+      rb[i] = (r < rend && n0 + c < N1) ? wd_load(B, r, n0 + c) : 0.f;
+    }
+  };
+  if (rbeg < rend) fetch(rbeg);
+  for (int r0 = rbeg; r0 < rend; r0 += WG_BK) {
+#pragma unroll
+    for (int i = 0; i < WG_PER; ++i) {
+      const int e = tid + 256 * i, k = e / WG_TILE, c = e % WG_TILE;
+      sA[k * LD + c] = ra[i];
+      sB[k * LD + c] = rb[i];
+    }
+    __syncthreads();
+    if (r0 + WG_BK < rend) fetch(r0 + WG_BK);
+    if (BF) {
+      // A(m, k) = sA[k][m], B(k, n) = sB[k][n]
+      const float* pa = sA + 2 * tg * LD + wm + g;
+      const uint32_t a[4] = {gt_bf16x2(pa[0], pa[LD]),
+                             gt_bf16x2(pa[8], pa[LD + 8]),
+                             gt_bf16x2(pa[8 * LD], pa[9 * LD]),
+                             gt_bf16x2(pa[8 * LD + 8], pa[9 * LD + 8])};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* pb = sB + 2 * tg * LD + wn + nt * 8 + g;
+        wm_mma_bf16(acc[nt], a, gt_bf16x2(pb[0], pb[LD]),
+                    gt_bf16x2(pb[8 * LD], pb[9 * LD]));
+      }
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < WG_BK; ks += 8) {
+        const float* pa = sA + (ks + tg) * LD + wm + g;
+        uint32_t ah[4], al[4];
+        wm_split(pa[0], ah[0], al[0]);
+        wm_split(pa[8], ah[1], al[1]);
+        wm_split(pa[4 * LD], ah[2], al[2]);
+        wm_split(pa[4 * LD + 8], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* pb = sB + (ks + tg) * LD + wn + nt * 8 + g;
+          uint32_t bh0, bl0, bh1, bl1;
+          wm_split(pb[0], bh0, bl0);
+          wm_split(pb[4 * LD], bh1, bl1);
+          wm_mma_tf32(acc[nt], al, bh0, bh1);
+          wm_mma_tf32(acc[nt], ah, bl0, bl1);
+          wm_mma_tf32(acc[nt], ah, bh0, bh1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* out = part + (size_t)blockIdx.y * M1 * N1;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + wm + g + (e >> 1) * 8;
+      const int n = n0 + wn + nt * 8 + 2 * tg + (e & 1);
+      if (m < M1 && n < N1) out[(size_t)m * N1 + n] = acc[nt][e];
+    }
+}
+
+// splits of `rows`: ~WG_SPLIT_ROWS rows each, but enough for
+// WD_SPLIT_BLOCKS blocks and no more than 4 * WD_SPLIT_BLOCKS (the partial
+// tiles stay a few MB); at least 64 rows each
+static inline int wd_splits(int rows, int M1, int N1) {
+  const int tiles = ((M1 + WG_TILE - 1) / WG_TILE) *
+                    ((N1 + WG_TILE - 1) / WG_TILE);
+  int s = (rows + WG_SPLIT_ROWS - 1) / WG_SPLIT_ROWS;
+  const int least = (WD_SPLIT_BLOCKS + tiles - 1) / tiles;
+  const int cap = (4 * WD_SPLIT_BLOCKS + tiles - 1) / tiles;
+  s = s < least ? least : (s > cap ? cap : s);
+  const int most = (rows + 63) / 64;
+  if (s > most) s = most;
+  return s < 1 ? 1 : s;
+}
+
+// an operand whose values bf16 holds exactly
+static inline bool wd_bf16_valued(const WdOperand& o) {
+  return o.bf16 || !o.exact;
+}
+
+// out [M1, N1] = A^T B over `rows` rows; split: wd_splits(...) * M1 * N1
+// floats of scratch.  bf16 products when both operands are bf16 values,
+// else 3xTF32.
+static cudaError_t wd_wgrad(WdOperand A, WdOperand B, int rows, int M1,
+                            int N1, float* split, float* out,
+                            cudaStream_t stream) {
+  const int s = wd_splits(rows, M1, N1);
+  const int per = (rows + s - 1) / s;
+  const dim3 grid(((M1 + WG_TILE - 1) / WG_TILE) *
+                      ((N1 + WG_TILE - 1) / WG_TILE),
+                  s);
+  if (wd_bf16_valued(A) && wd_bf16_valued(B))
+    wd_wgrad_mma_kernel<true><<<grid, 256, 0, stream>>>(A, B, rows, M1, N1,
+                                                         per, split);
+  else
+    wd_wgrad_mma_kernel<false><<<grid, 256, 0, stream>>>(A, B, rows, M1, N1,
+                                                          per, split);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return gt_reduce_partials(split, s, M1 * N1, out, stream);
+}

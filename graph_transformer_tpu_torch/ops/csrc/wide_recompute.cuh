@@ -23,7 +23,7 @@
 //      partial sums of the eight bias and LayerNorm gradients;
 //   2. the four weight products (x^T dqkv, ctx^T da, y1^T dhpre, h^T dz) run
 //      as split-K products over the rows, each split writing its own
-//      partial tile (wd_wgrad, wide.cuh);
+//      partial tile (wd_wgrad, wide_mma.cuh: on the tensor cores);
 //   3. a second pass sums the partials in block / split order.
 // No float atomics, so runs repeat bit for bit.
 //

@@ -188,7 +188,7 @@ def _backward(x2d, dout, params, S, rate, seed, layer, wide):
         else:
             fn = "gt_k10_layer_bwd"
             G = _build.pick_groups("encoder_layer", "gt_k10_smem_bytes", S,
-                                   D)
+                                   D, n=N)
             scratch = [torch.empty(*shape, **f32) for shape in (
                 (N * S, 3 * D), (N * S, S), (N * S, 4 * D + 2),
                 ((N + G - 1) // G, P))]

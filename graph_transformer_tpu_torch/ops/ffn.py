@@ -150,6 +150,44 @@ def ffn_backward(x, dout, w1, b1, w2, b2, gamma, beta, rate: float = 0.0,
 ffn_backward.launches = 0
 
 
+def weight_product_plain(a, b):
+    """Plain version of the split-K weight products: ``a^T b`` in float32
+    over the rows of a [rows, M1] and b [rows, N1]."""
+    return a.to(torch.float32).T @ b.to(torch.float32)
+
+
+def weight_product(a, b):
+    """The split-K weight products of K6, K8w, K10w, K12 and K14w
+    (``wd_wgrad``, ``ops/csrc/wide_mma.cuh``) alone on CUDA tensors, the
+    plain version on CPU tensors: ``a^T b`` [M1, N1] float32, with a, b
+    both bfloat16 (bf16 products) or both float32 (3xTF32)."""
+    if not a.is_cuda:
+        return weight_product_plain(a, b)
+    _build.check_rows_dtype(a)
+    if b.dtype != a.dtype or a.shape[0] != b.shape[0]:
+        raise ValueError("a [rows, M1] and b [rows, N1] of one dtype")
+    rows, M1 = a.shape
+    N1 = b.shape[1]
+    out = torch.empty(M1, N1, dtype=torch.float32, device=a.device)
+    if rows:
+        lib = _build.load("ffn")
+        split = torch.empty(lib.gt_wgrad_split_floats(rows, M1, N1),
+                            dtype=torch.float32, device=a.device)
+        a, b = a.contiguous(), b.contiguous()
+        err = lib.gt_wgrad(a.data_ptr(), b.data_ptr(),
+                           int(a.dtype == torch.bfloat16), rows, M1, N1,
+                           split.data_ptr(), out.data_ptr(),
+                           _build.stream_ptr(a.device))
+        _build.check(err, "wd_wgrad")
+        weight_product.launches += 1
+    else:
+        out.zero_()
+    return out
+
+
+weight_product.launches = 0
+
+
 class FFNResidualLNFn(torch.autograd.Function):
     """Differentiable in ``x`` and the six tensors; the seed gets none."""
 

@@ -301,7 +301,7 @@ def _bwd_kernel(fn_name, smem_fn, x, qkv, attn, strip, g, params, layer,
     dx = torch.empty(N, S, D, dtype=torch.float32, device=dev)
     P = sum(math.prod(p.shape[1:]) for p in ps)
     lib = _build.load("layer_bwd")
-    G = _build.pick_groups("layer_bwd", smem_fn, S, D)
+    G = _build.pick_groups("layer_bwd", smem_fn, S, D, n=N)
     blocks = (N + G - 1) // G
     partial = torch.empty(max(blocks, 1), P, dtype=torch.float32, device=dev)
     grads = torch.zeros(P, dtype=torch.float32, device=dev)

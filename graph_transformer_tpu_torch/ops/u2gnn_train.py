@@ -103,7 +103,7 @@ def _recompute_kernel(fn_name, smem_fn, x, g, params, layer, rate, seed,
                                dtype=torch.uint8, device=dev)]
     else:
         qrows = N if slot0 else N * S  # query rows of the recomputed layer
-        G = _build.pick_groups("recompute_bwd", smem_fn, S, D)
+        G = _build.pick_groups("recompute_bwd", smem_fn, S, D, n=N)
         scratch = [torch.empty(*shape, **f32) for shape in (
             (N * S, 3 * D), (qrows, S), (qrows, 4 * D + 2),
             ((N + G - 1) // G, P))]
@@ -240,7 +240,8 @@ def _mega_kernel(x2d, xs, dout, params, S, T, rate, seed, wide):
                 1.0 / math.sqrt(D), *drop_args(rate, seed),
                 _build.stream_ptr(dev))
         else:
-            G = _build.pick_groups("mega_bwd", "gt_k14_smem_bytes", S, D)
+            G = _build.pick_groups("mega_bwd", "gt_k14_smem_bytes", S, D,
+                                   n=N)
             scratch = [torch.empty(*shape, **f32) for shape in (
                 (N * S, 3 * D), (N * S, S), (N * S, 4 * D + 2), (N, S),
                 (N, 4 * D + 2), ((N + G - 1) // G, T, P))]

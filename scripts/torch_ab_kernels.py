@@ -6,11 +6,23 @@ card):
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
-Both are built first, in parallel, each into its own ``build/kernels/``.
-Then, for each ROOT in the order given, a fresh process imports that
-checkout's package and times, by torch.profiler device time a launch (10
-launches after one warm-up, ``chip_smoke.device_ms``):
+Both are built first, in parallel, each into its own ``build/kernels/``,
+with ``nvcc -Xptxas -v``; each build's compiler log goes to
+``chiprun_out/ptxas-<n>.log`` (``n``: the ROOT's place among the distinct
+ones).  Then, for each ROOT in the order given, a fresh process imports
+that checkout's package and times, by torch.profiler device time a launch
+(10 launches after one warm-up, ``chip_smoke.device_ms``):
 
+- K12 and K11 at the node axis's rows (5,760 float32 rows, D=68, F=1024,
+  rate 0.5): K12 whole, its row kernel (``ff_bwd_kernel``) and its split-K
+  weight products with their partial sums;
+- K8, K8s, K9 (the forward layer K8 recomputes), K2 and K3 (K8's and
+  K8s's body on stored residuals, bf16) at the MUTAG HPO arm's 16-graph batch (512
+  neighborhoods x S=17, D=6, float32, F=1024, rate 0.5) and at the A/B
+  scripts' rows (79,488 bf16 rows, S=9, D=4), K8 also split into its row
+  kernels (before this slice one fused launch; since, the forward launch,
+  also apart, and the body) and its partial sums; K10 at the ACT run's rows
+  (512 x S=9, D=7, float32);
 - K8w, K8ws and K10w at the README quickstart's two-pass batch (640
   neighborhoods x S=9 = 5,760 float32 one-hot rows, D=68, F=1024, T=4,
   rate 0.5): the whole launch, the row kernel (``wd_recompute_bwd_kernel``)
@@ -18,8 +30,13 @@ launches after one warm-up, ``chip_smoke.device_ms``):
 - K17 and K15 at the A/B scripts' workload (79,488 bf16 rows, S=9, D=4,
   F=1024, T=4, rate 0.5) and ``torch.nn.TransformerEncoder`` in training on
   the same rows (host clock with CUDA events, ``chip_smoke.time_ms``);
-- K14w on the same rows at the quickstart's width (one-hot D=68, bf16),
-  3 launches.
+- K14 on those rows and K14w on the same rows at the quickstart's width
+  (one-hot D=68, bf16), 3 launches;
+- the float32 accuracy of K12 at the node axis's rows and of K8w at D=40
+  and D=68 (rate 0.5): the worst
+  gradient leaf's max |k - ref| and relative L2 distance against the
+  float64 function (autograd of the plain layer in float64), beside the
+  plain float32 version's.
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -34,10 +51,62 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# device kernels by part; a name absent from a checkout adds nothing
 ROW = ("wd_recompute_bwd_kernel",)
-PRODUCTS = ("wd_reduce_small_kernel", "wd_wgrad_kernel",
+PRODUCTS = ("wd_reduce_small_kernel", "wd_wgrad_kernel", "wd_wgrad_mma_kernel",
             "gt_reduce_partials_kernel")
 FWD = ("gt_encoder_fwd_kernel", "wd_encoder_fwd_kernel")
+# K8: one fused row kernel (gt_recompute_bwd_kernel) before this slice, a
+# forward launch and the body (gt_layer_bwd_kernel) since
+K8_ROW = ("gt_recompute_bwd_kernel", "gt_recompute_fwd_kernel",
+          "gt_layer_bwd_kernel")
+K8_FWD = ("gt_recompute_fwd_kernel",)
+REDUCE = ("gt_reduce_partials_kernel",)
+K12_ROW = ("ff_bwd_kernel",)
+K12_PRODUCTS = ("wd_wgrad_kernel", "wd_wgrad_mma_kernel",
+                "gt_reduce_partials_kernel")
+
+
+def part_ms(fn, kernels, reps=10):
+    """Device ms a call of ``fn`` spends in ``kernels`` (torch.profiler), 0.0
+    where the checkout launches none of them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.name for k in kernels))
+    return us / reps / 1e3
+
+
+def f64_worst(fwd, x, g, p, grads_k, grads_p):
+    """The kernel's and the plain version's float32 gradients (dx, then the
+    12 leaves) against the float64 autograd of the plain layer ``fwd``: the
+    largest max |a - ref| over the leaves, and the largest relative L2
+    distance |a - ref| / |ref| (a relu that float32 rounding flips moves
+    both versions' max alike; the L2 distance shows the sums' order)."""
+    import torch
+
+    x64 = x.double().requires_grad_(True)
+    p64 = [a.double().requires_grad_(True) for a in p]
+    out = fwd(x64, p64)
+    ref = torch.autograd.grad((out * g.double()).sum(), [x64] + p64)
+    worst = {}
+    for who, gr in (("kernel", grads_k), ("plain", grads_p)):
+        d = [(a.double().reshape(-1) - b.reshape(-1)) for a, b in
+             zip(gr, ref)]
+        worst[who] = max(float(e.abs().max()) for e in d)
+        worst[who + "_l2"] = max(float(e.norm() / max(b.norm(), 1e-300))
+                                 for e, b in zip(d, ref))
+    worst["ref_max"] = max(float(b.abs().max()) for b in ref)
+    return worst
 
 
 def worker(root: str) -> dict:
@@ -51,9 +120,12 @@ def worker(root: str) -> dict:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import ffn
     from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+    from graph_transformer_tpu_torch.ops.attention import layer_forward
     from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
         u2gnn_encoder_train)
 
@@ -62,16 +134,99 @@ def worker(root: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     seed, rate, out = 2024, 0.5, {}
+    F = 1024
+
+    def gen(s):
+        return torch.Generator(device=dev).manual_seed(s)
+
+    # K12 and K11 at the node axis's rows
+    M, D = 5760, 68
+    rng = np.random.default_rng(3)
+    pf = [torch.tensor(rng.standard_normal(s) * 0.3, dtype=torch.float32,
+                       device=dev) for s in ((D, F), (F,), (F, D), (D,),
+                                             (D,), (D,))]
+    pf[4] = pf[4] + 1.0
+    x = torch.randn(M, D, device=dev, generator=gen(3))
+    g = torch.randn(M, D, device=dev, generator=gen(4))
+    k12 = lambda: ffn.ffn_backward(x, g, *pf, rate, seed, 1)  # noqa: E731
+    out["K12"] = {"ms": cs.device_ms(k12, 10, K12_ROW + K12_PRODUCTS),
+                  "row_ms": cs.device_ms(k12, 10, K12_ROW),
+                  "products_ms": cs.device_ms(k12, 10, K12_PRODUCTS)}
+    out["K11"] = {"ms": cs.device_ms(
+        lambda: ffn.ffn_forward(x, *pf, rate, seed, 1), 10,
+        ("ff_fwd_kernel",))}
+
+    def ffn64(xx, pp):
+        """K11's function in float64, unrounded (chip_smoke.check_ffn)."""
+        h = ffn.dropout(torch.relu(xx @ pp[0] + pp[1]), rate, seed, 1,
+                        ffn.HIDDEN_SITE)
+        u = xx + ffn.dropout(h @ pp[2] + pp[3], rate, seed, 1, ffn.OUT_SITE)
+        mu = u.mean(-1, keepdim=True)
+        var = ((u - mu) ** 2).mean(-1, keepdim=True)
+        return (u - mu) / torch.sqrt(var + 1e-5) * pp[4] + pp[5]
+
+    dxk, gk = k12()
+    dxp, gp = ffn.ffn_backward_plain(x, g, *pf, rate, seed, 1)
+    out["K12_f64"] = f64_worst(ffn64, x, g, pf, (dxk,) + tuple(gk),
+                               (dxp,) + tuple(gp))
+
+    # K8, K8s, K9, K2 at the HPO arm's batch and at the A/B rows
+    for tag, (N, S, D, dt) in {"hpo": (512, 17, 6, torch.float32),
+                               "ab": (8832, 9, 4, torch.bfloat16)}.items():
+        _, params, _ = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=4,
+                                      stored=4, seed=11, dev=dev)
+        x = torch.randn(N, S, D, device=dev, generator=gen(5)).to(dt)
+        g = torch.randn(N, S, D, device=dev, generator=gen(6))
+        p0 = [a[0] for a in params]
+        p3 = [a[3] for a in params]
+        k8 = lambda: ut.layer_recompute_backward(  # noqa: E731
+            x, g, params, 0, rate, seed)
+        k8s = lambda: ut.slot0_recompute_backward(  # noqa: E731
+            x, g[:, 0], params, 3, rate, seed)
+        _, res = layer_forward(x.float(), p0, layer=0, rate=rate, seed=seed,
+                               mm=torch.bfloat16, slot0=False)
+        xb = x.to(torch.bfloat16)
+        k2 = lambda: se.layer_backward(  # noqa: E731
+            xb, res["qkv"], res["attn"], res["strip"], g, params, 0, rate,
+            seed)
+        x2 = x.reshape(N * S, D)
+        k9 = lambda: el.encoder_layer_forward(x2, p0, S, rate, seed, 0)  # noqa
+        out[f"K8_{tag}"] = {"ms": cs.device_ms(k8, 10, K8_ROW + REDUCE),
+                            "row_ms": cs.device_ms(k8, 10, K8_ROW),
+                            "fwd_ms": part_ms(k8, K8_FWD),
+                            "reduce_ms": cs.device_ms(k8, 10, REDUCE)}
+        out[f"K8s_{tag}"] = {"ms": cs.device_ms(k8s, 10, K8_ROW + REDUCE)}
+        _, res0 = layer_forward(x.float(), p3, layer=3, rate=rate, seed=seed,
+                                mm=torch.bfloat16, slot0=True)
+        out[f"K3_{tag}"] = {"ms": cs.device_ms(
+            lambda: se.slot0_backward(xb, res0["qkv"], res0["attn"],
+                                      res0["strip"], g[:, 0], params, 3, rate,
+                                      seed),
+            10, ("gt_layer_bwd_kernel",) + REDUCE)}
+        out[f"K9_{tag}"] = {"ms": cs.device_ms(k9, 10,
+                                               ("gt_layer_fwd_kernel",))}
+        out[f"K2_{tag}"] = {"ms": cs.device_ms(
+            k2, 10, ("gt_layer_bwd_kernel",) + REDUCE),
+            "row_ms": cs.device_ms(k2, 10, ("gt_layer_bwd_kernel",))}
+    # K10 at the ACT run's rows
+    N, S, D = 512, 9, 7
+    _, params, _ = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=1, stored=1,
+                                  seed=12, dev=dev)
+    x = torch.randn(N * S, D, device=dev, generator=gen(7))
+    g = torch.randn(N * S, D, device=dev, generator=gen(8))
+    p0 = [a[0] for a in params]
+    out["K10"] = {"ms": cs.device_ms(
+        lambda: el.encoder_layer_backward(x, g, p0, S, rate, seed, 1), 10,
+        K8_ROW + REDUCE)}
 
     # the quickstart's two-pass batch
-    N, S, D, F, T = 640, 9, 68, 1024, 4
+    N, S, D, T = 640, 9, 68, 4
     _, params, _ = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=T, stored=T,
                                   seed=7, dev=dev, one_hot=True)
     rng = np.random.default_rng(7)
     x = torch.eye(D, device=dev)[torch.tensor(rng.integers(0, D, N * S),
                                               device=dev)].view(N, S, D)
-    g = torch.randn(N, S, D, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(7))
+    g = torch.randn(N, S, D, device=dev, generator=gen(7))
     p0 = [a[0] for a in params]
     calls = {
         "K8w": lambda: ut.wide_layer_recompute_backward(x, g, params, 0, rate,
@@ -86,6 +241,25 @@ def worker(root: str) -> dict:
                     "row_ms": cs.device_ms(fn, 10, ROW),
                     "products_ms": cs.device_ms(fn, 10, PRODUCTS)}
 
+    # the float32 accuracy of K8w against the float64 function
+    for D in (40, 68):
+        N, S = 256, 9
+        _, params, _ = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=1,
+                                      stored=1, seed=13, dev=dev)
+        x = torch.randn(N, S, D, device=dev, generator=gen(9))
+        g = torch.randn(N, S, D, device=dev, generator=gen(10))
+        p0 = [a[0] for a in params]
+        dxk, gk = ut.wide_layer_recompute_backward(x, g, params, 0, rate,
+                                                   seed)
+        dxp, gp = ut.layer_recompute_backward_plain(
+            x, g, p0, layer=0, rate=rate, seed=seed, mm=torch.float32,
+            slot0=False)
+        out[f"K8w_f64_D{D}"] = f64_worst(
+            lambda xx, pp: layer_forward(xx, pp, layer=0, rate=rate,
+                                         seed=seed, mm=torch.float32,
+                                         slot0=False)[0],
+            x, g, p0, (dxk,) + tuple(gk), (dxp,) + tuple(gp))
+
     # the A/B scripts' rows
     N, S, D = 8832, 9, 4
     _, params, x2d = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=T, stored=T,
@@ -99,6 +273,12 @@ def worker(root: str) -> dict:
         lambda: fe.folded_stored_forward(x2d, params, S, T, rate, seed), 10,
         FWD)}
     out["library"] = {"ms": cs.time_ms(lambda: lib(x3), 10)}
+    _, xs = u2gnn_encoder_train(x2d, params, S, T, rate, seed)
+    g = torch.randn(N, D, device=dev, generator=gen(9))
+    out["K14"] = {"ms": cs.device_ms(
+        lambda: ut.mega_recompute_backward(x2d, xs, g, params, S, T, rate,
+                                           seed), 3,
+        ("gt_mega_bwd_kernel", "gt_mega_reduce_kernel"))}
 
     # the same rows at the quickstart's width
     D = 68
@@ -107,8 +287,7 @@ def worker(root: str) -> dict:
     x2d = torch.eye(D, device=dev)[torch.tensor(
         rng.integers(0, D, N * S), device=dev)].to(torch.bfloat16)
     _, xs = u2gnn_encoder_train(x2d, params, S, T, rate, seed)
-    g = torch.randn(N, D, device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(9))
+    g = torch.randn(N, D, device=dev, generator=gen(9))
     out["K14w"] = {"ms": cs.device_ms(
         lambda: ut.mega_recompute_backward(x2d, xs, g, params, S, T, rate,
                                            seed), 3,
@@ -129,18 +308,29 @@ def main() -> int:
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "from graph_transformer_tpu_torch.ops import "
-         "_build; print(_build.build_all())"], cwd=r)
-        for r in dict.fromkeys(roots)]
+    logs = os.path.join(HERE, "chiprun_out")
+    os.makedirs(logs, exist_ok=True)
+    builds = []
+    for n, r in enumerate(dict.fromkeys(roots)):
+        log = open(os.path.join(logs, f"ptxas-{n}.log"), "w")
+        log.write(f"# {r}\n")
+        log.flush()
+        builds.append(subprocess.Popen(
+            [sys.executable, "-c", "from graph_transformer_tpu_torch.ops "
+             "import _build; print(_build.build_all(verbose=True))"], cwd=r,
+            stdout=log, stderr=subprocess.STDOUT))
     if any(b.wait() for b in builds):
-        print("torch_ab_kernels: a build failed", file=sys.stderr)
+        print("torch_ab_kernels: a build failed (chiprun_out/ptxas-*.log)",
+              file=sys.stderr)
         return 1
     runs = []
     for r in roots:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--worker", r], capture_output=True, text=True,
-                             cwd=r, check=True)
+                             cwd=r)
+        if res.returncode:
+            print(res.stdout[-3000:], res.stderr[-6000:], file=sys.stderr)
+            return 1
         t = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append({"root": r, **t})
         print(f"# {r}: " + "; ".join(

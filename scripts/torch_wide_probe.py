@@ -59,7 +59,7 @@ def main() -> int:
     k5 = k1 + ("h",)
     bwd = ("gt_layer_bwd_kernel", "gt_reduce_partials_kernel")
     wbwd = ("wd_stored_bwd_kernel", "wd_reduce_small_kernel",
-            "wd_wgrad_kernel", "gt_reduce_partials_kernel")
+            "wd_wgrad_mma_kernel", "gt_reduce_partials_kernel")
     for label, N, D, C in (("mutag-like", 1000, 7, 7), ("bench", 8832, 4, 1)):
         si, params, _ = cs.random_case(N=N, S=S, D=D, C=C, F=F, Tn=T,
                                        stored=1, seed=3, dev=dev)

@@ -247,6 +247,89 @@ def test_ffn_kernels_match_plain_versions(cuda, D, dtype):
     chip_smoke.check_ffn(f"D{D}", 1000, D, 256, getattr(torch, dtype), cuda)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [40, 65, 68, 128])
+@pytest.mark.parametrize("F", [100, 1024])
+def test_ffn_kernels_at_tile_edges(cuda, F, D, dtype):
+    """K11 and K12 (tensor-core row products, FF_FC = 128 hidden columns a
+    chunk) against their plain versions over 1,000 rows (not a multiple of
+    the block's 32) at an FFN width within one chunk or past it, a ragged
+    last chunk at F = 100, at rate 0 and 0.5 (chip_smoke.check_ffn)."""
+    import chip_smoke
+
+    chip_smoke.check_ffn(f"D{D} F{F}", 1000, D, F, getattr(torch, dtype),
+                         cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,M1,N1", [(1000, 68, 1024), (999, 1024, 68),
+                                        (333, 37, 100), (70, 130, 3)])
+def test_weight_product_matches_float64(cuda, rows, M1, N1, dtype):
+    """The split-K weight products alone (``wd_wgrad``: bf16 mma.sync for
+    bf16 operands, 3xTF32 for float32 ones) against the float64 product of
+    the same values: rows not a multiple of a split's, M1 and N1 not
+    multiples of the 64 x 64 tile.  Each entry within 1e-4 of sum |a||b|,
+    above float32 accumulation's worst case over 1,000 rows (~6e-5; bf16
+    products of bf16 values are exact, 3xTF32 keeps ~22 bits a product) and
+    far below a lost or misplaced tile; runs repeat bit for bit."""
+    from graph_transformer_tpu_torch.ops import ffn
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + M1)
+    dt = getattr(torch, dtype)
+    a = torch.randn(rows, M1, device=cuda, generator=gen).to(dt)
+    b = torch.randn(rows, N1, device=cuda, generator=gen).to(dt)
+    launches = ffn.weight_product.launches
+    got = ffn.weight_product(a, b)
+    again = ffn.weight_product(a, b)
+    torch.cuda.synchronize()
+    assert ffn.weight_product.launches == launches + 2
+    want = a.double().T @ b.double()
+    scale = a.double().abs().T @ b.double().abs()
+    assert got.shape == (M1, N1) and torch.equal(got, again)
+    assert bool(((got.double() - want).abs() <= 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("N", [512, 8832])
+@pytest.mark.parametrize("S,D", [(9, 4), (17, 6), (17, 19), (32, 32)])
+def test_two_pass_kernels_at_main_path_batches(cuda, S, D, N):
+    """K4t, K8 and K8s against their plain versions at the MUTAG HPO arm's
+    512 neighborhoods in float32 (the card filled with blocks of fewer
+    neighborhoods) and at the A/B scripts' 8,832 in bf16, F = 1024, at
+    rate 0 and 0.5 (chip_smoke.check_two_pass)."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=N, S=S, D=D, C=D, F=1024, Tn=2, stored=2, seed=4, dev=cuda)
+    dt = torch.float32 if N == 512 else torch.bfloat16
+    chip_smoke.check_two_pass(f"N{N}S{S}D{D}", params, x2d.to(dt), S, 2,
+                              cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,D,Tn", [(9, 4, 4), (17, 19, 4)])
+def test_mega_kernel_repeats_the_chain_bit_for_bit(cuda, S, D, Tn, dtype):
+    """K14 gives the K8 chain's dx and gradients bit for bit (its blocks
+    hold as many neighborhoods as K8's and K8s's, its sums in the chain's
+    order), at rate 0.5, at 301 and 512 neighborhoods."""
+    from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+    import chip_smoke
+
+    for N in (301, 512):
+        _, params, x2d = chip_smoke.random_case(
+            N=N, S=S, D=D, C=D, F=256, Tn=Tn, stored=Tn, seed=6, dev=cuda)
+        x2d = x2d.to(getattr(torch, dtype))
+        _, xs = ue.u2gnn_encoder_train(x2d, params, S, Tn, 0.5, 97)
+        g = torch.randn(N, D, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(N))
+        dx_k, gk = ut.mega_recompute_backward(x2d, xs, g, params, S, Tn, 0.5,
+                                              97)
+        dx_c, gc = ut.chain_backward(x2d, xs, g, params, S, Tn, 0.5, 97)
+        torch.cuda.synchronize()
+        assert torch.equal(dx_k, dx_c)
+        assert all(torch.equal(a, b) for a, b in zip(gk, gc))
+
+
 def test_per_layer_kernels_match_whole_encoder(cuda):
     """T launches of K9 at rate 0 give K4's slot-0 output in float32."""
     import chip_smoke

@@ -165,16 +165,17 @@ def test_encoder_layer_shapes():
 
 # ---------------------------------------------------------- K11/K12 (plain)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D_", [8, 37])
-def test_ffn_matches_jax_kernel16_17(dtype, D_):
+@pytest.mark.parametrize("D_,M,F_", [(8, 70, F), (37, 70, F), (65, 37, 100)],
+                         ids=["8", "37", "65-M37-F100"])
+def test_ffn_matches_jax_kernel16_17(dtype, D_, M, F_):
     """The plain K11 and K12 through ``ffn_residual_ln`` against the JAX
-    ``ffn_residual_ln`` (interpret mode, rate 0, 70 rows: a ragged last
-    tile) and its ``jax.grad``: out, dx and the six gradients."""
+    ``ffn_residual_ln`` (interpret mode, rate 0, 70 or 37 rows: a ragged
+    last tile) and its ``jax.grad``: out, dx and the six gradients; also at
+    the shapes where K12's tiles have ragged edges (D = 65, F = 100)."""
     rng = np.random.default_rng(D_)
-    M = 70
     x = rng.standard_normal((M, D_)).astype(np.float32)
     ps = [(rng.standard_normal(s) * 0.3).astype(np.float32)
-          for s in ((D_, F), (F,), (F, D_), (D_,), (D_,), (D_,))]
+          for s in ((D_, F_), (F_,), (F_, D_), (D_,), (D_,), (D_,))]
     ps[4] += 1.0
     w = rng.standard_normal((M, D_)).astype(np.float32)
     jdt = jnp.dtype(dtype)

@@ -66,7 +66,7 @@ S, D, F, T, N = 5, 6, 32, 3, 24
 TILE = 40  # three JAX tiles of 8 neighborhoods: the grads add across tiles
 
 
-def make(stored, seed=0, D_=D):
+def make(stored, seed=0, D_=D, S_=S):
     """Weights at the scale of tests/test_torch_encoder.py (LayerNorm scales
     near 1) and rows [N·S, D]."""
     rng = np.random.default_rng(seed)
@@ -78,7 +78,7 @@ def make(stored, seed=0, D_=D):
               for s in shapes]
     params[4] += 1.0
     params[10] += 1.0
-    x = rng.standard_normal((N * S, D_)).astype(np.float32)
+    x = rng.standard_normal((N * S_, D_)).astype(np.float32)
     w = rng.standard_normal((N, D_)).astype(np.float32)
     return params, x, w
 
@@ -88,26 +88,28 @@ def cosine(a, b):
     return float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b), 1e-300))
 
 
-@pytest.mark.parametrize("stored", [T, 1])
+@pytest.mark.parametrize("stored,S_", [(T, S), (1, S), (T, 17)],
+                         ids=["3", "1", "3-S17"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_recompute_backward_matches_jax_kernel5(dtype, stored):
+def test_recompute_backward_matches_jax_kernel5(dtype, stored, S_):
     """The plain K4t and K8/K8s through ``U2GNNTrainFn`` against ``jax.grad``
     of ``fused_u2gnn_encoder`` (interpret mode, rate 0), weight-tied
-    (``stored`` = 1) or not.  float32: out and dx to 1e-4, each parameter
-    gradient to 1e-4 of its own max; bfloat16: out to 2e-2, dx and each
-    gradient at cosine > 0.999."""
-    params, x, w = make(stored, seed=stored)
+    (``stored`` = 1) or not, also at the MUTAG HPO arm's S = 17 (D = 6).
+    float32: out and dx to 1e-4, each parameter gradient to 1e-4 of its own
+    max; bfloat16: out to 2e-2, dx and each gradient at cosine > 0.999."""
+    params, x, w = make(stored, seed=stored, S_=S_)
     jdt = jnp.dtype(dtype)
+    tile = TILE // S * S_  # three JAX tiles of 8 neighborhoods
 
     def loss(p, xx):
-        out = fused_u2gnn_encoder(xx, p, None, S, T, 0.0, TILE, True)
+        out = fused_u2gnn_encoder(xx, p, None, S_, T, 0.0, tile, True)
         return jnp.sum(out * jnp.asarray(w)), out
 
     (_, ref), (gj, gxj) = jax.value_and_grad(loss, (0, 1), has_aux=True)(
         tuple(jnp.asarray(p) for p in params), jnp.asarray(x, jdt))
     pt = [torch.tensor(p, requires_grad=True) for p in params]
     xt = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
-    out = u2gnn_train_encoder(xt, pt, S, T, 0.0, None)
+    out = u2gnn_train_encoder(xt, pt, S_, T, 0.0, None)
     gt = torch.autograd.grad((out * torch.from_numpy(w)).sum(), [xt] + pt)
     assert out.shape == (N, D) and gt[0].dtype == xt.dtype
     got = [g.float().numpy() for g in gt]
