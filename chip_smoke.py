@@ -42,7 +42,9 @@
      within the bf16 spread of K5) and, with float32 rows, with K6 against
      the plain forward and backward
      (``check_stored_rows``, ``check_stored_rows_f32``), K13 with K14 or
-     K14w against K13 with its chain (``check_fused_mega``).
+     K14w against K13 with its chain (``check_fused_mega``);
+   - at D = 40, 68, 128 in float32 and bf16, K4tw's saved layer inputs
+     against K9w's layers bit for bit (``check_saved_inputs_are_layers``).
 3. Drives slice 1's main path: ``SupTrainer(device="cuda")`` on the
    benchmark workload of ``bench.py`` (synthetic REDDITMULTI5K-like, batch
    16, K=8, T=4, ff 1024, bf16): warm-up steps, timed ``train_steps`` on a
@@ -548,6 +550,34 @@ def check_two_pass(label, params, x2d, S, Tn, dev):
                      f"({errs[('K8', rate)][1]:.1e}, cos {c8:.6f})")
         print(line, flush=True)
     return wide_names(errs, D)
+
+
+def check_saved_inputs_are_layers(label, params, x2d, S, Tn, dev):
+    """K4tw's saved layer inputs against K9w, at rate 0 and 0.5: xs[t], the
+    input of layer t + 1, equals K9w applied at timestep t to layer t's
+    input, bit for bit (the same layer code on the same dropout streams,
+    whatever the block's rows).  With bf16 rows for t = 0 only: K4tw carries
+    a layer's output on to the next in float32 and saves it rounded, while
+    K9w starts from the rounded copy."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
+
+    for rate in (0.0, 0.5):
+        seed = 20240917
+        _, xs = ue.u2gnn_encoder_train(x2d, params, S, Tn, rate, seed)
+        steps = Tn - 1 if x2d.dtype == torch.float32 else min(1, Tn - 1)
+        for t in range(steps):
+            p = [a[t % a.shape[0]] for a in params]
+            got = el.encoder_layer_forward(x2d if t == 0 else xs[t - 1], p, S,
+                                           rate, seed, t)
+            if not torch.equal(got, xs[t]):
+                fail(f"{label} rate {rate}: K4tw's saved input of layer "
+                     f"{t + 1} differs from K9w at timestep {t}: max|diff| "
+                     f"{max_err([got.float()], [xs[t].float()])[0]}")
+        print(f"# check {label} rate {rate}: K4tw's saved inputs of layers "
+              f"1..{steps} equal K9w's layers bit for bit", flush=True)
 
 
 def wide_names(errs, D):
@@ -1933,13 +1963,21 @@ def fwd_flops(N, S, D, F, Tn):
             + layer_flops(N, N * S, S, D, F))
 
 
+# the wide forward's tensor-core instantiations, bf16 rows of 32 < D <= 80
+# (mangled names: KT = 4, 5; KT = 0, float32 rows and the other D, runs on
+# the CUDA cores)
+WIDE_FWD = tuple(f"wd_encoder_fwd_kernelILi{kt}E" for kt in (4, 5))
 # the kernels whose products run on the tensor cores, by library: the wide
+# forward (the wide K4, K4tw, K9w, K5, K13w, K17 with bf16 rows), the wide
 # recompute backward's row kernel, K11/K12 and the split-K weight products,
 # and the thread-per-row backwards (K2/K3, K8/K8s/K10, K14) with their FFN
 MMA_KERNELS = {
     "recompute_bwd": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel",
                       "wd_wgrad_mma_kernel"),
-    "encoder_layer": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel"),
+    "encoder_layer": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel")
+    + WIDE_FWD,
+    "wide_fwd": WIDE_FWD, "stored_fwd": WIDE_FWD,
+    "fused_sampled_fwd": WIDE_FWD,
     "ffn": ("ff_fwd_kernel", "ff_bwd_kernel", "wd_wgrad_mma_kernel"),
     "layer_bwd": ("gt_layer_bwd_kernel",),
     "mega_bwd": ("gt_mega_bwd_kernel", "wd_mega_bwd_kernel"),
@@ -2110,7 +2148,8 @@ def main() -> int:
     errs[("K9", 0.0, "vs-K4")] = check_per_layer_vs_whole(
         "mutag-like", params_v, x2d_v, S, T)
     # slice 5: K4tw, K8w/K8ws (T=3) and K9w/K10w at D = 40, 68 and 128,
-    # N=4096, in float32 and bf16; K13 against its plain version and bit for
+    # N=4096, in float32 and bf16, K4tw's saved inputs against K9w; K13
+    # against its plain version and bit for
     # bit against K1 (the MUTAG-like case, D=7) and K5 (one-hot D=68)
     for D_ in (40, 68, 128):
         _, params_w, x2d_w = random_case(N=4096, S=S, D=D_, C=D_, F=FF, Tn=3,
@@ -2122,6 +2161,8 @@ def main() -> int:
             errs.update({(k, r, label): v for (k, r), v in
                          check_encoder_layer(label, params_w, x2d_w.to(dt), S,
                                              dev).items()})
+            check_saved_inputs_are_layers(label, params_w, x2d_w.to(dt), S, 3,
+                                          dev)
     errs.update({(k, r, "m"): v for (k, r), v in check_fused_sampled(
         "mutag-like", si_m, params_m, S, T, dev).items()})
     si_68, params_68, _ = random_case(N=4096, S=S, D=68, C=68, F=FF, Tn=T,

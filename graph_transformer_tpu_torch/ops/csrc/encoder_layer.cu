@@ -27,16 +27,21 @@
 // K9 runs them on the CUDA cores; K10, K8's kernels, on the tensor cores
 // (recompute.cuh).
 //
-// K9w is the wide forward layer (wd_fwd_layer, wide.cuh) run as a full
-// layer that writes every row in the rows' dtype; K10w is K8w's recompute
-// backward (wide_recompute.cuh) over one layer's tensors, replacing
-// pallas_encoder.py:_bwd_kernel past D=32.  Bound at the quickstart's ACT
-// rows (5,760 float32 rows, D=68, F=1024): the operations, ~0.08 ms at
-// 67 TFLOP/s.  Its row kernel's products run on the tensor cores
-// (wide_mma.cuh: mma.sync, 3xTF32 in float32), and so do the split-K weight
-// products (wd_wgrad).
+// K9w is the wide forward layer (wide_tc_fwd.cuh) run as a full layer that
+// writes every row in the rows' dtype; K10w is K8w's
+// recompute backward (wide_recompute.cuh) over one layer's tensors,
+// replacing pallas_encoder.py:_bwd_kernel past D=32.  Bound on an H100 SXM
+// (NVIDIA H100 80GB HBM3, 700 W) at the quickstart's ACT rows (5,760
+// float32 rows, D=68, F=1024): the operations, 1.83 GFLOP forward, 0.027 ms
+// at the 67 TFLOP/s of float32 outside the tensor cores (K10w ~0.08 ms).
+// With bf16 rows of D <= 80 K9w's four products run on the tensor cores
+// (mma.sync m16n8k16), with float32 rows as FMAs in K order on the CUDA
+// cores (wide_tc_fwd.cuh); K10w's row kernel's products and the split-K weight
+// products (wd_wgrad, wide_mma.cuh) run on the tensor cores, as 3xTF32 for
+// float32 rows.
 #include "recompute.cuh"
 #include "wide_recompute.cuh"
+#include "wide_tc_fwd.cuh"
 
 extern "C" size_t gt_k9_smem_bytes(int G, int S, int D) {
   return gt_fwd_smem_bytes(G, S, D);
@@ -128,7 +133,7 @@ extern "C" int gt_k10_layer_bwd(const void* x, int x_bf16, const float* dout,
 }
 
 extern "C" size_t gt_k9w_smem_bytes(int G, int S, int D) {
-  return wd_fwd_smem_bytes(G, S, D);
+  return wt_fwd_smem_bytes_any(G, S, D);
 }
 
 extern "C" size_t gt_k10w_smem_bytes(int G, int S, int D) {

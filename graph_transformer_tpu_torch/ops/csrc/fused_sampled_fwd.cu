@@ -17,21 +17,24 @@
 // with K1's counters (GT_SAMPLER_STREAM, element n*(S-1)+k) and its dropout
 // from sites 4t..4t+3, so for one seed its neighborhoods and its output are
 // K1's (D <= 32, one thread per row: gt_encoder_fwd_kernel, common.cuh) and
-// K5's (32 < D <= 128, a warp per row: wd_encoder_fwd_kernel, wide.cuh),
+// K5's (32 < D <= 128, a warp per row: wd_encoder_fwd_kernel,
+// wide_tc_fwd.cuh),
 // bit for bit: the same code runs, minus the residual writes.
 //
 // Bound on the H100 at the bench shapes (N=8,832, S=9, D=4, F=1024, T=4):
 // ~3.8 GFLOP of bf16 products against ~2.6 MB of saved rows, so the
 // operations (~4 us at 989 TFLOP/s); at the quickstart's (N=640, S=9, D=68)
-// likewise.  The products run on the CUDA cores and bound this version.
-#include "wide.cuh"
+// likewise.  Up to D = 32 the products run on the CUDA cores (K1's layer);
+// for 32 < D <= 80 on the tensor cores (K5's layer, mma.sync m16n8k16 with
+// bf16 operands).
+#include "wide_tc_fwd.cuh"
 
 extern "C" size_t gt_k13_smem_bytes(int G, int S, int D) {
   return gt_fwd_smem_bytes(G, S, D);
 }
 
 extern "C" size_t gt_k13w_smem_bytes(int G, int S, int D) {
-  return wd_fwd_smem_bytes(G, S, D);
+  return wt_fwd_smem_bytes_any(G, S, D);
 }
 
 // K13.  tag_rows [N, table_w], deg [N], self_tag [N] int32, codebook [C, D]

@@ -17,13 +17,14 @@
 // Bound at N=4096, S=9, D=65, F=1024, T=4, from the H100 SXM data sheet's
 // rates (3.35 TB/s, 989 TFLOP/s bf16): the stored hidden is 3 x 75 MB + 8 MB
 // of writes, so the bytes bound it (~0.08 ms) against ~36 GFLOP of bf16
-// products (~0.036 ms).  This first version runs the products on the CUDA
-// cores in f32 (bf16-rounded operands, wide.cuh) and is bound by those
-// instructions; tensor-core products are later work.
-#include "wide.cuh"
+// products (~0.036 ms).  For 32 < D <= 80 the layer (wt_fwd_layer,
+// wide_tc_fwd.cuh) runs its products on the tensor cores (mma.sync
+// m16n8k16, bf16 operands, f32 accumulation) and stores the hidden from
+// the accumulators; elsewhere on the CUDA cores (wd_fwd_layer).
+#include "wide_tc_fwd.cuh"
 
 extern "C" size_t gt_k5_smem_bytes(int G, int S, int D) {
-  return wd_fwd_smem_bytes(G, S, D);
+  return wt_fwd_smem_bytes_any(G, S, D);
 }
 
 extern "C" int gt_k5_stored_fwd(
@@ -78,10 +79,12 @@ extern "C" int gt_k5_stored_fwd(
 // hidden through a staging tile in shared memory, GT_HC columns at a time,
 // row-contiguous and 16 bytes a thread; a warp per 4-wide row (K5's layer)
 // left 28 of its 32 lanes idle in every row-wise step.  Its products stay
-// on the CUDA cores.  Past D = 32 it runs K5's layer loop (wide.cuh).
+// on the CUDA cores.  Past D = 32 it runs K5's layer loop (wide_tc_fwd.cuh:
+// with bf16 rows of D <= 80 the products on the tensor cores, mma.sync
+// m16n8k16; with float32 rows on the CUDA cores).
 extern "C" size_t gt_k17_smem_bytes(int G, int S, int D) {
   return D <= 32 ? gt_fwd_smem_bytes(G, S, D, /*h=*/true)
-                 : wd_fwd_smem_bytes(G, S, D);
+                 : wt_fwd_smem_bytes_any(G, S, D);
 }
 
 extern "C" int gt_k17_stored_rows_fwd(

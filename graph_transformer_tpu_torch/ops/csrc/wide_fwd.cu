@@ -6,21 +6,25 @@
 // row with D floats in registers and all weights in shared memory) cannot
 // take.  T post-norm encoder layers over rows x [N*S, D] in bf16 or f32
 // (product operands take that dtype), the last layer for slot 0 only, output
-// [N, D] f32.  It is K5's layer loop (wide.cuh) without the sampler and
-// without residual writes.  K4tw draws its dropout from the seed and writes
-// the inputs of layers 1..T-1 in the rows' dtype (the kernel's saved_refs,
-// pallas_u2gnn.py:271-281), which the wide recompute backward K8w reads back;
-// float32 rows keep float32 products, as the TPU kernel chooses at :271.
+// [N, D] f32.  It is K5's layer loop (wide_tc_fwd.cuh) without the sampler
+// and without residual writes.  K4tw draws its dropout from the seed and
+// writes the inputs of layers 1..T-1 in the rows' dtype (the kernel's
+// saved_refs, pallas_u2gnn.py:271-281), which the wide recompute backward
+// K8w reads back; float32 rows keep float32 products, as the TPU kernel
+// chooses at :271.
 //
-// Bound at N=4096, S=9, D=65, F=1024, T=4, from the H100 SXM data sheet's
-// rates: ~36 GFLOP of bf16 products against 4.8 MB of bf16 rows, so the
-// operations bound it (~0.036 ms at 989 TFLOP/s).  The products run on the
-// CUDA cores (wide.cuh) and bound this version; tensor-core products are
-// later work.
-#include "wide.cuh"
+// Bound on an H100 SXM (NVIDIA H100 80GB HBM3, 700 W) at the README
+// quickstart's two-pass batch (N=640, S=9, D=68, F=1024, T=4, float32):
+// ~5.8 GFLOP of products against ~1.6 MB of rows, so the operations
+// (0.087 ms at the 67 TFLOP/s of float32 outside the tensor cores).
+// With bf16 rows of D <= 80 the products run on the tensor cores
+// (wt_fwd_layer, mma.sync m16n8k16); float32 rows keep float32 FMAs in K
+// order on the CUDA cores (wd_fwd_layer, 4 x 4 register tiles), the only
+// order found that holds the float32 checks (both in wide_tc_fwd.cuh).
+#include "wide_tc_fwd.cuh"
 
 extern "C" size_t gt_k4w_smem_bytes(int G, int S, int D) {
-  return wd_fwd_smem_bytes(G, S, D);
+  return wt_fwd_smem_bytes_any(G, S, D);
 }
 
 extern "C" int gt_k4w_encoder_fwd(const void* x_rows, int x_bf16,

@@ -2,7 +2,7 @@
 """A/B of two checkouts of the port's kernels on one NVIDIA H100 (run on the
 card):
 
-    python3 scripts/torch_ab_kernels.py ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 scripts/torch_ab_kernels.py [--only wide_fwd] ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -36,7 +36,22 @@ that checkout's package and times, by torch.profiler device time a launch
   and D=68 (rate 0.5): the worst
   gradient leaf's max |k - ref| and relative L2 distance against the
   float64 function (autograd of the plain layer in float64), beside the
-  plain float32 version's.
+  plain float32 version's;
+- the wide forward family (``wd_encoder_fwd_kernel``; ``--only wide_fwd``
+  times nothing else): K4tw, the wide K4 and K9w at the README quickstart's
+  two-pass batch (640 neighborhoods x S=9 = 5,760 float32 rows, D=68,
+  F=1024, T=4, rate 0.5), K5 and K13w on 640 sampled neighborhoods of a
+  one-hot D=68 codebook, K17 at the A/B rows with D=68 (79,488 bf16 rows),
+  K4tw and K9w again with bf16 rows;
+  K4tw and K9w with float32 rows at D=65 (the quickstart's real width);
+  each whole and with the FFN skipped (the same call with F=0: the
+  attention part; the FFN is the difference), and the float32 distance of
+  K4tw's and K9w's outputs from the float64 function beside the plain
+  version's, K4tw's also on the float32 card test's random rows
+  (``test_wide_forward_kernels_at_quickstart_batch``, case seeds 3-7);
+  then whether float32 K4tw, K4w and K9w (D=68, 65) and K6/K6s on the
+  plain forward's residuals give the first two checkouts' outputs bit for
+  bit.
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -65,6 +80,9 @@ REDUCE = ("gt_reduce_partials_kernel",)
 K12_ROW = ("ff_bwd_kernel",)
 K12_PRODUCTS = ("wd_wgrad_kernel", "wd_wgrad_mma_kernel",
                 "gt_reduce_partials_kernel")
+# the sources a family needs (``--only``); all of them otherwise
+ONLY_SOURCES = {"wide_fwd": ("wide_fwd", "encoder_layer", "stored_fwd",
+                             "fused_sampled_fwd")}
 
 
 def part_ms(fn, kernels, reps=10):
@@ -109,8 +127,134 @@ def f64_worst(fwd, x, g, p, grads_k, grads_p):
     return worst
 
 
-def worker(root: str) -> dict:
-    """The timings of the checkout at ``root``."""
+def no_ffn(params):
+    """The same parameters with F=0: the layer without its FFN."""
+    p = list(params)
+    p[6], p[7], p[8] = p[6][..., :0], p[7][..., :0], p[8][..., :0, :]
+    return p
+
+
+def f64_forward(out_k, out_p, ref):
+    """max |a - ref| and the relative L2 distance of the kernel's and the
+    plain version's float32 outputs from the float64 function."""
+    res = {}
+    for who, a in (("kernel", out_k), ("plain", out_p)):
+        d = a.double().reshape(-1) - ref.reshape(-1)
+        res[who] = float(d.abs().max())
+        res[who + "_l2"] = float(d.norm() / ref.norm())
+    res["ref_max"] = float(ref.abs().max())
+    return res
+
+
+def tensors(*xs):
+    """The tensors in ``xs`` and its (nested) lists and tuples, in order."""
+    out = []
+    for x in xs:
+        out += tensors(*x) if isinstance(x, (list, tuple)) else [x]
+    return out
+
+
+def wide_fwd(cs, dev, seed, rate, keep_path=None):
+    """The wide forward family's timings and float32 accuracy; with
+    ``keep_path``, saves there the outputs that keep their sums across
+    checkouts (float32 K4tw, K4w and K9w at D=68 and 65; K6/K6s on the
+    plain forward's residuals) for :func:`bit_equal`."""
+    import numpy as np
+    import torch
+
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops.attention import layer_forward
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+        u2gnn_encoder, u2gnn_encoder_plain, u2gnn_encoder_train,
+        u2gnn_encoder_train_plain)
+
+    out = {}
+    N, S, D, T, F = 640, 9, 68, 4, 1024
+    si, params, _ = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=T, stored=T,
+                                   seed=21, dev=dev, one_hot=True)
+    rng = np.random.default_rng(21)
+    x = torch.eye(D, device=dev)[torch.tensor(rng.integers(0, D, N * S),
+                                              device=dev)]
+    xd = torch.randn(N * S, D, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(21))
+    xb, xdb = x.to(torch.bfloat16), xd.to(torch.bfloat16)
+    p0 = [a[0] for a in params]
+    Nab = 8832
+    xab = torch.eye(D, device=dev)[torch.tensor(
+        rng.integers(0, D, Nab * S), device=dev)].to(torch.bfloat16)
+    calls = {
+        "K4tw": lambda p: u2gnn_encoder_train(x, p, S, T, rate, seed),
+        "K4w": lambda p: u2gnn_encoder(x, p, S, T),
+        "K9w": lambda p: el.encoder_layer_forward(xd, [a[0] for a in p], S,
+                                                  rate, seed, 0),
+        "K5": lambda p: st.stored_forward(*si, p, S, T, rate, seed),
+        "K13w": lambda p: fs.fused_sampled_forward(*si, p, S, T, rate, seed),
+        "K17_d68": lambda p: st.stored_rows_forward(xab, p, S, T, rate, seed),
+        "K4tw_bf16": lambda p: u2gnn_encoder_train(xb, p, S, T, rate, seed),
+        "K9w_bf16": lambda p: el.encoder_layer_forward(
+            xdb, [a[0] for a in p], S, rate, seed, 0),
+    }
+    # float32 K4tw and K9w at D=65, the README quickstart's real width
+    _, p65, _ = cs.random_case(N=N, S=S, D=65, C=65, F=F, Tn=T, stored=T,
+                               seed=22, dev=dev)
+    x65 = torch.randn(N * S, 65, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(22))
+    calls = {k: (fn, params) for k, fn in calls.items()}
+    calls["K4tw_d65"] = (
+        lambda p: u2gnn_encoder_train(x65, p, S, T, rate, seed), p65)
+    calls["K9w_d65"] = (lambda p: el.encoder_layer_forward(
+        x65, [a[0] for a in p], S, rate, seed, 0), p65)
+    for key, (fn, pk) in calls.items():
+        out[key] = {"ms": cs.device_ms(lambda: fn(pk), 10, FWD),
+                    "attn_ms": cs.device_ms(lambda: fn(no_ffn(pk)), 10, FWD)}
+        out[key]["ffn_ms"] = out[key]["ms"] - out[key]["attn_ms"]
+    out["K4tw_f64"] = f64_forward(
+        u2gnn_encoder_train(x, params, S, T, rate, seed)[0],
+        u2gnn_encoder_train_plain(x, params, S, T, rate, seed)[0],
+        cs.plain_f64(x, params, S, T, rate, seed))
+    # the float32 card test's case (random rows, case seed 3, the dropout
+    # seed of check_two_pass) and four more case seeds
+    for cseed in (3, 4, 5, 6, 7):
+        _, pq, xq = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=T, stored=T,
+                                   seed=cseed, dev=dev)
+        xq = xq.float()
+        for r in (0.0, 0.5):
+            out[f"K4tw_f64_case{cseed}_rate{r}"] = f64_forward(
+                u2gnn_encoder_train(xq, pq, S, T, r, 97531)[0],
+                u2gnn_encoder_train_plain(xq, pq, S, T, r, 97531)[0],
+                cs.plain_f64(xq, pq, S, T, r, 97531))
+    if keep_path:
+        _, res = st.stored_forward_plain(*si, params, S, T, rate, seed)
+        g = torch.randn(N, D, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(23))
+        torch.save({
+            "K4tw": tensors(u2gnn_encoder_train(x, params, S, T, rate, seed)),
+            "K4tw_d65": tensors(
+                u2gnn_encoder_train(x65, p65, S, T, rate, seed)),
+            "K4w": tensors(u2gnn_encoder(x, params, S, T)),
+            "K9w": tensors(el.encoder_layer_forward(xd, p0, S, rate, seed,
+                                                    0)),
+            "K9w_d65": tensors(el.encoder_layer_forward(
+                x65, [a[0] for a in p65], S, rate, seed, 0)),
+            "K6_K6s": tensors(st.stored_encoder_backward(res, g, params, T,
+                                                         rate, seed)),
+        }, keep_path)
+    out["K4w_f64"] = f64_forward(u2gnn_encoder(x, params, S, T),
+                                 u2gnn_encoder_plain(x, params, S, T),
+                                 cs.plain_f64(x, params, S, T, 0.0, None))
+    out["K9w_f64"] = f64_forward(
+        el.encoder_layer_forward(xd, p0, S, rate, seed, 0),
+        el.encoder_layer_forward_plain(xd, p0, S, rate, seed, 0),
+        layer_forward(xd.double().view(N, S, D), [a.double() for a in p0],
+                      layer=0, rate=rate, seed=seed, mm=torch.float32,
+                      slot0=False)[0])
+    return out
+
+
+def worker(root: str, only: str = "") -> dict:
+    """The timings of the checkout at ``root`` (``only``: one family)."""
     import numpy as np
     import torch
 
@@ -139,6 +283,10 @@ def worker(root: str) -> dict:
     def gen(s):
         return torch.Generator(device=dev).manual_seed(s)
 
+    out.update(wide_fwd(cs, dev, seed, rate,
+                        os.path.join(root, "build", "ab_keep.pt")))
+    if only == "wide_fwd":
+        return out
     # K12 and K11 at the node axis's rows
     M, D = 5760, 68
     rng = np.random.default_rng(3)
@@ -295,16 +443,31 @@ def worker(root: str) -> dict:
     return out
 
 
+def bit_equal(root_a: str, root_b: str) -> dict:
+    """Whether the outputs :func:`wide_fwd` kept at two checkouts are equal
+    bit for bit, by kernel."""
+    import torch
+
+    a, b = (torch.load(os.path.join(r, "build", "ab_keep.pt"))
+            for r in (root_a, root_b))
+    return {k: len(a[k]) == len(b[k]) and all(
+        torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+
+
 def main() -> int:
     import torch
 
-    if len(sys.argv) > 2 and sys.argv[1] == "--worker":
-        print(json.dumps(worker(sys.argv[2])))
+    args = sys.argv[1:]
+    only = ""
+    if args[:1] == ["--only"]:
+        only, args = args[1], args[2:]
+    if len(args) > 1 and args[0] == "--worker":
+        print(json.dumps(worker(args[1], only)))
         return 0
     if not torch.cuda.is_available():
         print("torch_ab_kernels: no CUDA device", file=sys.stderr)
         return 2
-    roots = [os.path.abspath(r) for r in sys.argv[1:]]
+    roots = [os.path.abspath(r) for r in args]
     if not roots:
         print(__doc__, file=sys.stderr)
         return 2
@@ -315,9 +478,11 @@ def main() -> int:
         log = open(os.path.join(logs, f"ptxas-{n}.log"), "w")
         log.write(f"# {r}\n")
         log.flush()
+        names = ONLY_SOURCES.get(only)
         builds.append(subprocess.Popen(
             [sys.executable, "-c", "from graph_transformer_tpu_torch.ops "
-             "import _build; print(_build.build_all(verbose=True))"], cwd=r,
+             "import _build; print(_build.build_all("
+             + (f"{names!r}, " if names else "") + "verbose=True))"], cwd=r,
             stdout=log, stderr=subprocess.STDOUT))
     if any(b.wait() for b in builds):
         print("torch_ab_kernels: a build failed (chiprun_out/ptxas-*.log)",
@@ -326,6 +491,7 @@ def main() -> int:
     runs = []
     for r in roots:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              *(["--only", only] if only else []),
                               "--worker", r], capture_output=True, text=True,
                              cwd=r)
         if res.returncode:
@@ -334,8 +500,14 @@ def main() -> int:
         t = json.loads(res.stdout.strip().splitlines()[-1])
         runs.append({"root": r, **t})
         print(f"# {r}: " + "; ".join(
-            f"{k} " + ", ".join(f"{n} {v:.4f}" for n, v in d.items())
+            f"{k} " + ", ".join(f"{n} {v:.4g}" for n, v in d.items())
             for k, d in t.items()), flush=True)
+    if len(roots) > 1 and roots[1] != roots[0]:
+        eq = bit_equal(roots[0], roots[1])
+        print(f"# bit for bit, {roots[1]} against {roots[0]}: " + ", ".join(
+            f"{k} {'equal' if v else 'differ'}" for k, v in eq.items()),
+            flush=True)
+        runs.append({"bit_equal": eq})
     print(json.dumps({"runs": runs}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

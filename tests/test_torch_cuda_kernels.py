@@ -410,6 +410,38 @@ def test_wide_encoder_layer_kernels_match_plain_versions(cuda, S, D, dtype):
     assert {k[0] for k in errs} == {"K9w", "K10w"}
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [40, 68, 128])
+def test_wide_forward_kernels_at_quickstart_batch(cuda, D, dtype):
+    """K4tw (with K8w/K8ws on its saved inputs) and K9w (with K10w) against
+    their plain versions at rate 0 and 0.5 at the README quickstart's
+    two-pass batch (N=640, S=9, F=1024, T=4): 214 blocks of 3
+    neighborhoods; with bf16 rows at D = 40, 68 the products run on the
+    tensor cores, otherwise on the CUDA cores."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=640, S=9, D=D, C=D, F=1024, Tn=4, stored=4, seed=3, dev=cuda)
+    x = x2d.to(getattr(torch, dtype))
+    errs = chip_smoke.check_two_pass(f"D{D}", params, x, 9, 4, cuda)
+    errs.update(chip_smoke.check_encoder_layer(f"D{D}", params, x, 9, cuda))
+    assert {k[0] for k in errs} == {"K4tw", "K8w", "K8ws", "K9w", "K10w"}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [40, 68, 128])
+def test_saved_inputs_are_k9w_layers(cuda, D, dtype):
+    """K4tw's saved input of layer t + 1 equals K9w applied to layer t's
+    input at timestep t, bit for bit, at rate 0 and 0.5 (every t in
+    float32; t = 0 in bf16, where K4tw carries the unrounded output on)."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=640, S=9, D=D, C=D, F=1024, Tn=4, stored=4, seed=4, dev=cuda)
+    chip_smoke.check_saved_inputs_are_layers(
+        f"D{D}", params, x2d.to(getattr(torch, dtype)), 9, 4, cuda)
+
+
 @pytest.mark.parametrize("D", [7, 68])
 def test_fused_sampled_kernel_matches_plain_and_fused_paths(cuda, D):
     """K13 against its plain version (draws equal, forward, every gradient
