@@ -44,7 +44,12 @@
      (``check_stored_rows``, ``check_stored_rows_f32``), K13 with K14 or
      K14w against K13 with its chain (``check_fused_mega``);
    - at D = 40, 68, 128 in float32 and bf16, K4tw's saved layer inputs
-     against K9w's layers bit for bit (``check_saved_inputs_are_layers``).
+     against K9w's layers bit for bit (``check_saved_inputs_are_layers``);
+   - K4t, K8 and K8s at the MUTAG HPO arm's own rows (512 x S=17, D=6,
+     T=5) and K9/K10 at ACT's (512 x S=9, D=7), F=1024, float32 and bf16,
+     where the forward layer's FFN runs on the tensor cores; then both
+     branches of that FFN timed at 8,704 to 79,488 rows (``gate_sweep``,
+     the rows the gate FWD_MMA_ROWS is set from).
 3. Drives slice 1's main path: ``SupTrainer(device="cuda")`` on the
    benchmark workload of ``bench.py`` (synthetic REDDITMULTI5K-like, batch
    16, K=8, T=4, ff 1024, bf16): warm-up steps, timed ``train_steps`` on a
@@ -785,6 +790,62 @@ def check_ffn(label, M, D, F, dtype, dev, layer=1):
     return errs
 
 
+# rows at which both branches of the thread-per-row forward layer's FFN are
+# timed (the HPO arm's 512 x S=17 to the bench's 8,832 x S=9)
+GATE_ROWS = (8704, 16384, 32768, 49152, 79488)
+# FWD_MMA_ROWS values that send every launch to one branch
+BRANCH_GATES = (("mma", 2 ** 31 - 1), ("cuda", 1))
+
+
+def gate_sweep(dev) -> dict:
+    """Both branches of the thread-per-row forward layer's FFN (the tensor
+    cores, "mma"; a thread per row on the CUDA cores, "cuda") at each of
+    GATE_ROWS rows: device ms a launch of K4t with float32 rows at the HPO
+    arm's shape (S=17, D=6, T=5), of K4t with bf16 rows at the bench's (S=9,
+    D=4, T=4) and of K9 with float32 rows at ACT's (S=9, D=7), F=1024, rate
+    0.5, the gate moved (``_build.set_fwd_mma_rows``) so that every launch
+    takes the one branch, and put back.  The rows FWD_MMA_ROWS is set from."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import _build
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+        u2gnn_encoder_train)
+
+    shapes = {"K4t f32 S17 D6": (17, 6, 5, torch.float32),
+              "K4t bf16 S9 D4": (9, 4, 4, torch.bfloat16),
+              "K9 f32 S9 D7": (9, 7, 1, torch.float32)}
+    libs = ("encoder_fwd", "encoder_layer")
+    out = {}
+    try:
+        for key, (S, D, Tn, dt) in shapes.items():
+            for rows in GATE_ROWS:
+                N = -(-rows // S)
+                _, p, x = random_case(N=N, S=S, D=D, C=D, F=FF, Tn=Tn,
+                                      stored=Tn, seed=18, dev=dev)
+                x = x.to(dt)
+                if key.startswith("K9"):
+                    p0 = [a[0] for a in p]
+                    fn = (lambda: el.encoder_layer_forward(
+                        x, p0, S, 0.5, 5, 0))
+                    kern = ("gt_layer_fwd_kernel",)
+                else:
+                    fn = (lambda: u2gnn_encoder_train(x, p, S, Tn, 0.5, 5))
+                    kern = ("gt_encoder_fwd_kernel",)
+                res = {}
+                for branch, gate in BRANCH_GATES:
+                    _build.set_fwd_mma_rows(gate, libs)
+                    res[branch] = device_ms(fn, 10, kern)
+                out[f"{key} rows {N * S}"] = res
+                gated = "tensor" if N * S < _build.FWD_MMA_ROWS else "CUDA"
+                print(f"# gate sweep {key} at {N * S} rows: tensor cores "
+                      f"{res['mma']:.4f} ms, CUDA cores {res['cuda']:.4f} ms"
+                      f" a launch ({gated} cores by the gate)", flush=True)
+    finally:
+        _build.set_fwd_mma_rows(0, libs)
+    return out
+
+
 def check_per_layer_vs_whole(label, params, x2d, S, Tn):
     """T launches of K9 at rate 0 (slot 0 of the last layer's output)
     against K4 on the same float32 rows and stacked parameters, within 1e-4
@@ -990,6 +1051,65 @@ def check_mega(label, params, x2d, S, Tn, dev):
               + f"; vs plain worst leaf {errs[(name, rate)][0]:.3e} "
               f"({errs[(name, rate)][1]:.1e}, cos {low:.6f})", flush=True)
     return errs
+
+
+def check_bit_equal_paths(label, si, params, S, Tn, dev):
+    """The bit-for-bit relations of the thread-per-row forward layer (D <=
+    32) at rate 0 and 0.5, with one seed: K13 against K1 (draws, output,
+    saved layer inputs), K13 with its K8 chain against the two-pass path
+    (K4t and the K8 chain) on the bf16 codebook rows of K13's draws (output
+    and every gradient leaf), K15 fed K1's x0 rows against K1 (output,
+    residuals) and K16 against K15.  What :func:`check_fused_sampled` and
+    :func:`check_folded` hold bit for bit, without their comparisons with
+    the plain versions, for row counts where those run long."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops.u2gnn_train import (
+        u2gnn_train_encoder)
+
+    N, D = si[0].shape[0], si[3].shape[1]
+    w = torch.randn(N, D, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(20))
+    for rate in (0.0, 0.5):
+        seed = 1357911
+        out13, xs13, draws13 = fs.fused_sampled_forward(*si, params, S, Tn,
+                                                        rate, seed)
+        out1, res1 = se.sampled_forward(*si, params, S, Tn, rate, seed)
+        xs1 = torch.stack(res1["xs"]).reshape(Tn, N * S, D)
+        if not (torch.equal(draws13, res1["draws"])
+                and torch.equal(out13, out1) and torch.equal(xs13, xs1)):
+            fail(f"{label} rate {rate}: K13 is not bit-equal to K1 (output "
+                 f"max|diff| {max_err([out13], [out1])[0]})")
+        tags = torch.cat([si[2].long()[:, None],
+                          si[0].long().gather(1, draws13)], 1)
+        rows = si[3][tags].to(torch.bfloat16).reshape(N * S, D)
+        outs, grads = [], []
+        for two_pass in (False, True):
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            out = (u2gnn_train_encoder(rows, ps, S, Tn, rate, seed) if two_pass
+                   else fs.fused_sampled_encoder(*si, ps, S, Tn, rate, seed))
+            grads.append(torch.autograd.grad((out * w).sum(), ps))
+            outs.append(out.detach())
+        if not (torch.equal(outs[0], outs[1])
+                and all(torch.equal(a, b) for a, b in zip(*grads))):
+            fail(f"{label} rate {rate}: K13 differs from the two-pass path: "
+                 f"output max|diff| {max_err([outs[0]], [outs[1]])[0]}, "
+                 f"gradients {max_err(grads[0], grads[1])[0]}")
+        x0 = res1["xs"][0].reshape(N * S, D)
+        out15, res15 = fe.folded_stored_forward(x0, params, S, Tn, rate, seed)
+        out16 = fe.folded_forward(x0, params, S, Tn, rate, seed)
+        if not (torch.equal(out15, out1) and all(
+                torch.equal(a, b) for k in ("xs", "qkv", "attn", "strip")
+                for a, b in zip(res15[k], res1[k]))):
+            fail(f"{label} rate {rate}: K15 is not bit-equal to K1 (output "
+                 f"max|diff| {max_err([out15], [out1])[0]})")
+        if not torch.equal(out16, out15):
+            fail(f"{label} rate {rate}: K16 is not bit-equal to K15")
+        print(f"# check {label} rate {rate}: K13 bit-equal to K1 and to the "
+              f"two-pass path, K15 to K1, K16 to K15", flush=True)
 
 
 def check_folded(label, si, params, S, Tn, dev):
@@ -1967,17 +2087,30 @@ def fwd_flops(N, S, D, F, Tn):
 # (mangled names: KT = 4, 5; KT = 0, float32 rows and the other D, runs on
 # the CUDA cores)
 WIDE_FWD = tuple(f"wd_encoder_fwd_kernelILi{kt}E" for kt in (4, 5))
+# the thread-per-row forward layer's tensor-core instantiations (MMA = true,
+# below FWD_MMA_ROWS rows), D <= 4, 8, 16, 32: the forward kernel of K1, K4,
+# K4t, K13, K15, K16 (H = false) and K17 (H = true), K9's and K8/K8s/K10's
+# recompute forward (mangled template arguments)
+DMS = (4, 8, 16, 32)
+NARROW_FWD = tuple(f"gt_encoder_fwd_kernelILi{dm}ELb0ELb1E" for dm in DMS)
+NARROW_FWD_H = tuple(f"gt_encoder_fwd_kernelILi{dm}ELb1ELb1E" for dm in DMS)
+K9_FWD = tuple(f"gt_layer_fwd_kernelILi{dm}ELb1E" for dm in DMS)
+RECOMPUTE_FWD = tuple(f"gt_recompute_fwd_kernelILi{dm}ELb{s}ELb1E"
+                      for dm in DMS for s in (0, 1))
 # the kernels whose products run on the tensor cores, by library: the wide
-# forward (the wide K4, K4tw, K9w, K5, K13w, K17 with bf16 rows), the wide
-# recompute backward's row kernel, K11/K12 and the split-K weight products,
-# and the thread-per-row backwards (K2/K3, K8/K8s/K10, K14) with their FFN
+# forward (the wide K4, K4tw, K9w, K5, K13w, K17 with bf16 rows), the
+# thread-per-row forward layer at few rows, the wide recompute backward's
+# row kernel, K11/K12 and the split-K weight products, and the
+# thread-per-row backwards (K2/K3, K8/K8s/K10, K14) with their FFN
 MMA_KERNELS = {
     "recompute_bwd": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel",
-                      "wd_wgrad_mma_kernel"),
+                      "wd_wgrad_mma_kernel") + RECOMPUTE_FWD,
     "encoder_layer": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel")
-    + WIDE_FWD,
-    "wide_fwd": WIDE_FWD, "stored_fwd": WIDE_FWD,
-    "fused_sampled_fwd": WIDE_FWD,
+    + WIDE_FWD + K9_FWD + RECOMPUTE_FWD[::2],
+    "wide_fwd": WIDE_FWD, "stored_fwd": WIDE_FWD + NARROW_FWD_H,
+    "fused_sampled_fwd": WIDE_FWD + NARROW_FWD,
+    "encoder_fwd": NARROW_FWD, "sampled_fwd": NARROW_FWD,
+    "folded_fwd": NARROW_FWD,
     "ffn": ("ff_fwd_kernel", "ff_bwd_kernel", "wd_wgrad_mma_kernel"),
     "layer_bwd": ("gt_layer_bwd_kernel",),
     "mega_bwd": ("gt_mega_bwd_kernel", "wd_mega_bwd_kernel"),
@@ -2128,6 +2261,20 @@ def main() -> int:
                          check_two_pass(f"{label} {dt}", params_t,
                                         x2d_t.to(dt), S_, T_, dev).items()})
     check_two_pass_vs_fused("mutag-like", si_m, params_m, S, T, dev)
+    # K4t, K8, K8s at the HPO arm's own rows (512 x S=17, D=6, T=5) and K9,
+    # K10 at ACT's (512 x S=9, D=7), float32 and bf16: below FWD_MMA_ROWS,
+    # the forward layer's FFN on the tensor cores
+    _, params_t, x2d_t = random_case(N=512, S=17, D=6, C=6, F=FF, Tn=5,
+                                     stored=5, seed=15, dev=dev)
+    _, params_l, x2d_l = random_case(N=512, S=9, D=7, C=7, F=FF, Tn=1,
+                                     stored=1, seed=16, dev=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        errs.update({(k, r, "hpo-arm rows", str(dt)): v for (k, r), v in
+                     check_two_pass(f"hpo-arm rows {dt}", params_t,
+                                    x2d_t.to(dt), 17, 5, dev).items()})
+        errs.update({(k, r, "act rows", str(dt)): v for (k, r), v in
+                     check_encoder_layer(f"act rows {dt}", params_l,
+                                         x2d_l.to(dt), 9, dev).items()})
     # slice 4: K9/K10 at (S, D) = (9, 7), (17, 19), (32, 32), N=4096; K11/K12
     # at D = 4, 68 and 128 over 36,864 rows; in float32 and bf16; then T
     # launches of K9 against K4
@@ -2200,6 +2347,9 @@ def main() -> int:
     check_fused_mega("mutag-like", si_m, params_m, S, T, dev)
     check_fused_mega("imdb-width-68", si_68, params_68, S, T, dev)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    sweep = gate_sweep(dev)
+    print(f"# gate sweep: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. the main path of slice 1: the bench workload on K1-K4
     trainer.train_steps(batch, WARMUP)
@@ -2891,6 +3041,7 @@ def main() -> int:
                       "quickstart_profile": prof_q,
                       "hpo_arm_edges_per_s": eps_h,
                       "hpo_arm_ms_per_step": step_ms_h, **cells,
+                      "gate_sweep": sweep,
                       "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -185,6 +185,9 @@ def load(name: str) -> ctypes.CDLL:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = [_I, _I, _I]
                 getattr(lib, fn).restype = ctypes.c_size_t
+        if hasattr(lib, "gt_set_fwd_mma_rows"):
+            lib.gt_set_fwd_mma_rows.argtypes = [_I]
+            lib.gt_set_fwd_mma_rows.restype = None
         for fn, nargs in WORK_FNS.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = [_I] * nargs
@@ -219,24 +222,45 @@ def params_array(tensors) -> ctypes.Array:
 
 # blocks that fill the H100: two on each of its 132 SMs
 FILL_BLOCKS = 264
+# rows (N*S) below which the thread-per-row forward layer runs its FFN on
+# the tensor cores: GT_FWD_MMA_ROWS of csrc/common.cuh, which decides
+FWD_MMA_ROWS = 49152
+
+
+def fill_groups(S: int, rows: int = 128, n: int = 0) -> int:
+    """Neighborhoods per block before shared memory has its say: up to
+    ``rows`` rows; with ``n`` neighborhoods given, ceil(n / FILL_BLOCKS)
+    at most, so that the grid has about FILL_BLOCKS blocks or more."""
+    G = max(1, rows // S)
+    if n:
+        G = max(1, min(G, -(-n // FILL_BLOCKS)))
+    return G
 
 
 def pick_groups(name: str, smem_fn: str, S: int, D: int, rows: int = 128,
                 limit: int = 200 * 1024, n: int = 0) -> int:
     """Neighborhoods per block of the kernel whose shared memory ``smem_fn``
-    of source ``name`` gives: up to ``rows`` rows, fewer if shared memory
-    asks; with ``n`` neighborhoods given, few enough that the blocks number
-    at least FILL_BLOCKS where ``n`` allows."""
+    of source ``name`` gives: :func:`fill_groups`, fewer if shared memory
+    asks."""
     smem = getattr(load(name), smem_fn)
-    G = max(1, rows // S)
-    if n:
-        G = max(1, min(G, -(-n // FILL_BLOCKS)))
+    G = fill_groups(S, rows, n)
     while G > 1 and smem(G, S, D) > limit:
         G -= 1
     if smem(G, S, D) > limit:
         raise NotImplementedError(
             f"{smem_fn}: S={S}, D={D} needs more shared memory than a block has")
     return G
+
+
+def set_fwd_mma_rows(rows: int, names=SOURCES) -> None:
+    """Moves the forward layer's gate (FWD_MMA_ROWS) of the libraries of
+    ``names`` to ``rows`` (0: back to FWD_MMA_ROWS), so that a measurement
+    can time both branches at one row count (1: the CUDA cores at any rows;
+    2**31 - 1: the tensor cores)."""
+    for name in names:
+        lib = load(name)
+        if hasattr(lib, "gt_set_fwd_mma_rows"):
+            lib.gt_set_fwd_mma_rows(int(rows))
 
 
 def stream_ptr(device) -> int:

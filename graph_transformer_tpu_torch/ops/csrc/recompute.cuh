@@ -2,11 +2,13 @@
 // (recompute_bwd.cu, a layer of the whole encoder's [T, ...] stack) and K10
 // (encoder_layer.cu, one layer's own tensors), in two launches:
 //   1. the layer's forward again (gt_recompute_fwd_kernel), with the
-//      forward's layer code (gt_fwd_layer, common.cuh), writing q/k/v, the
-//      attention probabilities and the LayerNorm strip to scratch.  Its FFN
-//      runs as the forward kernels run it, a thread per row on the CUDA
-//      cores, where the rows are many (>= GT_FWD_MMA_ROWS), and on the
-//      tensor cores over all the block's warps where they are few (MMA);
+//      forward kernels' layer code (gt_fwd_layer, common.cuh), writing q/k/v,
+//      the attention probabilities and the LayerNorm strip to scratch.  Its
+//      FFN takes the branch every forward takes at the same rows
+//      (gt_fwd_mma): on the tensor cores over all the block's warps below
+//      GT_FWD_MMA_ROWS (gt_ffn_tc), a thread per row on the CUDA cores from
+//      it on.  So at the same rows it recomputes bit for bit the forward that
+//      K4t ran and saved the layer inputs of;
 //   2. the backward body K2/K3 run on K1's stored residuals
 //      (gt_layer_bwd_kernel, layer_bwd.cuh), which replays the four dropout
 //      masks from the forward's counters (stream 4*layer+site), and the
@@ -21,26 +23,16 @@
 
 #include "layer_bwd.cuh"
 
-// Rows below which the recompute forward runs its FFN on the tensor cores:
-// a thread per row on the CUDA cores needs ~8 warps an SM of them to hide
-// its latency (132 SMs x 256 threads); at the HPO arm's 8,704 rows it took
-// 0.44 ms a launch, on the tensor cores 0.16, and at the A/B scripts'
-// 79,488 rows 0.48 against 0.83 (PERF.md, PR 8).
-#define GT_FWD_MMA_ROWS 32768
-
-static inline bool gt_fwd_mma(int N, int S) {
-  return (size_t)N * S < GT_FWD_MMA_ROWS;
-}
-
-// shared memory of a block of the pair: the larger of the two launches'
+// shared memory of a block of the pair: the largest of the two launches'
+// (the forward in either branch)
 static inline size_t gt_recompute_smem_bytes(int G, int S, int D, bool slot0) {
-  const size_t f = gt_fwd_smem_floats(G, S, D, false, /*mma=*/true);
-  const size_t b = gt_bwd_smem_floats(G, S, D, slot0);
-  return sizeof(float) * (f > b ? f : b);
+  const size_t f = gt_fwd_smem_bytes(G, S, D);
+  const size_t b = sizeof(float) * gt_bwd_smem_floats(G, S, D, slot0);
+  return f > b ? f : b;
 }
 
 template <int DM, bool SLOT0, bool MMA>
-__global__ void __launch_bounds__(GT_BWD_THREADS)
+__global__ void __launch_bounds__(GT_BWD_THREADS, GT_FWD_MIN_BLOCKS(DM, MMA))
 gt_recompute_fwd_kernel(const void* x, int x_bf16, GtLayer w, GtDrop dr,
                         int layer, float* qkv, float* attn, float* strip,
                         int N, int S, int D, int F, int G, float scale) {

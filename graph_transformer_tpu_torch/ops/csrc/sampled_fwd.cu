@@ -10,12 +10,13 @@
 //
 // Bound on the H100: at the bench shapes (N=8.2K, S=9, D=4, F=1024, T=4) the
 // FFN is ~3.8 GFLOP of bf16 products against ~20 MB of residual writes, so the
-// bound is the bytes (~6 us at 3.35 TB/s).  This first version does the
-// products on the CUDA cores in f32 (bf16-rounded operands), one thread per
-// row with the FFN weights staged in shared memory chunk by chunk, and
-// generates the dropout bits with an integer hash per element; it is bound by
-// those instructions, not by memory.  Tensor-core products and fewer hash
-// evaluations are later work.
+// bound is the bytes (~6 us at 3.35 TB/s).  It runs the forward layer of
+// common.cuh (gt_fwd_layer): at those rows (79,488, from GT_FWD_MMA_ROWS on)
+// the products on the CUDA cores in f32 (bf16-rounded operands), one thread
+// per row with the FFN weights staged in shared memory chunk by chunk; below
+// them the FFN on the tensor cores over all the block's warps.  The dropout
+// bits are an integer hash per element; it is bound by those instructions,
+// not by memory.
 #include "common.cuh"
 
 extern "C" size_t gt_k1_smem_bytes(int G, int S, int D) {

@@ -78,8 +78,10 @@ extern "C" int gt_k5_stored_fwd(
 // neighborhoods of up to 128 rows a block), as K15 does, and writes the
 // hidden through a staging tile in shared memory, GT_HC columns at a time,
 // row-contiguous and 16 bytes a thread; a warp per 4-wide row (K5's layer)
-// left 28 of its 32 lanes idle in every row-wise step.  Its products stay
-// on the CUDA cores.  Past D = 32 it runs K5's layer loop (wide_tc_fwd.cuh:
+// left 28 of its 32 lanes idle in every row-wise step.  Below
+// GT_FWD_MMA_ROWS rows its FFN runs on the tensor cores as K1's does and the
+// hidden goes to device memory from the mma accumulators, two columns a
+// lane; from them on, on the CUDA cores.  Past D = 32 it runs K5's layer loop (wide_tc_fwd.cuh:
 // with bf16 rows of D <= 80 the products on the tensor cores, mma.sync
 // m16n8k16; with float32 rows on the CUDA cores).
 extern "C" size_t gt_k17_smem_bytes(int G, int S, int D) {

@@ -121,7 +121,8 @@ def _forward(x2d, params, S, rate, seed, layer, wide):
         fn = "gt_k9w_layer_fwd" if wide else "gt_k9_layer_fwd"
         G = _build.pick_groups(
             "encoder_layer", "gt_k9w_smem_bytes" if wide else
-            "gt_k9_smem_bytes", S, D, WIDE_ROWS if wide else 128)
+            "gt_k9_smem_bytes", S, D, WIDE_ROWS if wide else 128,
+            n=0 if wide else N)
         err = getattr(_build.load("encoder_layer"), fn)(
             x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), out.data_ptr(),
             _build.params_array(ps), layer, N, S, D, ps[6].shape[1], G,

@@ -94,7 +94,7 @@ def fused_sampled_forward(tag_rows, deg, self_tag, codebook, params,
         G = _build.pick_groups(
             "fused_sampled_fwd",
             "gt_k13w_smem_bytes" if wide else "gt_k13_smem_bytes", S, D,
-            WIDE_ROWS if wide else 128)
+            WIDE_ROWS if wide else 128, n=0 if wide else N)
         err = _build.load("fused_sampled_fwd").gt_k13_sampled_fwd(
             tag_rows.data_ptr(), W, deg.data_ptr(), self_tag.data_ptr(),
             codebook.data_ptr(),

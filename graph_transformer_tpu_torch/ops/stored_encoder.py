@@ -215,7 +215,8 @@ def stored_rows_forward(x2d, params, seq_len: int, num_timesteps: int,
         lib = _build.load("stored_fwd")
         # a thread per row up to D = 32 (K1's layer), a warp per row past it
         G = _build.pick_groups("stored_fwd", "gt_k17_smem_bytes", S, D,
-                               128 if D <= 32 else WIDE_ROWS)
+                               128 if D <= 32 else WIDE_ROWS,
+                               n=N if D <= 32 else 0)
 
         def opt(t):
             return t.data_ptr() if T > 1 else None

@@ -163,7 +163,9 @@ def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
     else:
         src, smem_fn, rows = "encoder_fwd", "gt_k4_smem_bytes", 128
         fn = "gt_k4_encoder_fwd" if xs is None else "gt_k4t_encoder_fwd"
-    G = _build.pick_groups(src, smem_fn, S, D, rows)
+    # a thread per row up to D = 32: as many blocks as fill the card at few
+    # rows, where the FFN runs on the tensor cores (FWD_MMA_ROWS)
+    G = _build.pick_groups(src, smem_fn, S, D, rows, n=0 if wide else N)
     saved = () if xs is None else (xs.data_ptr() if T > 1 else None,)
     err = getattr(_build.load(src), fn)(
         x2d.data_ptr(), int(x2d.dtype == torch.bfloat16),

@@ -2,7 +2,7 @@
 """A/B of two checkouts of the port's kernels on one NVIDIA H100 (run on the
 card):
 
-    python3 scripts/torch_ab_kernels.py [--only wide_fwd] ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 scripts/torch_ab_kernels.py [--only wide_fwd|narrow_fwd] ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -51,7 +51,16 @@ that checkout's package and times, by torch.profiler device time a launch
   (``test_wide_forward_kernels_at_quickstart_batch``, case seeds 3-7);
   then whether float32 K4tw, K4w and K9w (D=68, 65) and K6/K6s on the
   plain forward's residuals give the first two checkouts' outputs bit for
-  bit.
+  bit;
+- the thread-per-row forward layer's family (``--only narrow_fwd`` builds
+  eight sources and times nothing else, :func:`narrow_fwd`): K4t at the MUTAG
+  HPO arm's batch (512 x S=17, D=6, T=5, float32), K9 at ACT's (512 x S=9,
+  D=7, float32), K4t with bf16 rows at 8,832 x S=9, D=4, K1 and K13 at the
+  bench's rows, K4 at eval, K15-K17 on the A/B rows, K8 and K14 at the HPO
+  arm's batch; K4t's and
+  K9's float32 distance from float64; and, in a checkout that can move the
+  gate, both branches of the layer's FFN at 8,704 to 79,488 rows
+  (``chip_smoke.gate_sweep``).
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -82,7 +91,11 @@ K12_PRODUCTS = ("wd_wgrad_kernel", "wd_wgrad_mma_kernel",
                 "gt_reduce_partials_kernel")
 # the sources a family needs (``--only``); all of them otherwise
 ONLY_SOURCES = {"wide_fwd": ("wide_fwd", "encoder_layer", "stored_fwd",
-                             "fused_sampled_fwd")}
+                             "fused_sampled_fwd"),
+                "narrow_fwd": ("encoder_fwd", "encoder_layer", "sampled_fwd",
+                               "fused_sampled_fwd", "folded_fwd",
+                               "stored_fwd", "recompute_bwd", "mega_bwd")}
+NARROW = ("gt_encoder_fwd_kernel",)
 
 
 def part_ms(fn, kernels, reps=10):
@@ -253,6 +266,87 @@ def wide_fwd(cs, dev, seed, rate, keep_path=None):
     return out
 
 
+def narrow_fwd(cs, dev, seed, rate):
+    """The thread-per-row forward layer's family: device ms a launch of K4t
+    at the MUTAG HPO arm's batch (512 x S=17, D=6, T=5, float32), K9 at
+    ACT's (512 x S=9, D=7, float32), K4t with bf16 rows at 8,832 x S=9, D=4,
+    T=4, K1 and K13 at the bench's rows (8,832 sampled neighborhoods, S=9,
+    D=4, T=4), K4 at eval on such rows (rate 0), K15, K16 and K17 on them,
+    K8 (whole, and its forward launch) and K14 at the HPO arm's batch;
+    F=1024, ``rate`` elsewhere.
+    The float32 distance of K4t's and K9's outputs from the float64
+    function beside the plain version's.  Where the checkout can move its
+    gate (``_build.set_fwd_mma_rows``), both branches at the rows
+    ``chip_smoke.gate_sweep`` takes."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import _build
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+    from graph_transformer_tpu_torch.ops.attention import layer_forward
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+        u2gnn_encoder, u2gnn_encoder_train, u2gnn_encoder_train_plain)
+
+    out, F = {}, 1024
+    gen = torch.Generator(device=dev).manual_seed(31)
+    _, ph, xh = cs.random_case(N=512, S=17, D=6, C=6, F=F, Tn=5, stored=5,
+                               seed=31, dev=dev)
+    xh = xh.float()
+    _, pa, xa = cs.random_case(N=512, S=9, D=7, C=7, F=F, Tn=1, stored=1,
+                               seed=32, dev=dev)
+    xa, pa0 = xa.float(), [a[0] for a in pa]
+    sib, pb, xb = cs.random_case(N=8832, S=9, D=4, C=4, F=F, Tn=4, stored=4,
+                                 seed=33, dev=dev)
+    _, xsh = u2gnn_encoder_train(xh, ph, 17, 5, rate, seed)
+    gh = torch.randn(512, 17, 6, device=dev, generator=gen)
+    gh0 = torch.randn(512, 6, device=dev, generator=gen)
+    calls = {
+        "K4t_hpo": (lambda: u2gnn_encoder_train(xh, ph, 17, 5, rate, seed),
+                    NARROW),
+        "K9_act": (lambda: el.encoder_layer_forward(xa, pa0, 9, rate, seed,
+                                                    0),
+                   ("gt_layer_fwd_kernel",)),
+        "K4t_bf16_ab": (lambda: u2gnn_encoder_train(xb, pb, 9, 4, rate, seed),
+                        NARROW),
+        "K1_bench": (lambda: se.sampled_forward(*sib, pb, 9, 4, rate, seed),
+                     NARROW),
+        "K13_bench": (lambda: fs.fused_sampled_forward(*sib, pb, 9, 4, rate,
+                                                       seed), NARROW),
+        "K4_eval": (lambda: u2gnn_encoder(xb, pb, 9, 4), NARROW),
+        "K15_ab": (lambda: fe.folded_stored_forward(xb, pb, 9, 4, rate, seed),
+                   NARROW),
+        "K16_ab": (lambda: fe.folded_forward(xb, pb, 9, 4, rate, seed),
+                   NARROW),
+        "K17_ab": (lambda: st.stored_rows_forward(xb, pb, 9, 4, rate, seed),
+                   NARROW),
+        "K8_hpo": (lambda: ut.layer_recompute_backward(
+            xh.view(512, 17, 6), gh, ph, 0, rate, seed), K8_ROW + REDUCE),
+        "K14_hpo": (lambda: ut.mega_recompute_backward(
+            xh, xsh, gh0, ph, 17, 5, rate, seed),
+            ("gt_mega_bwd_kernel", "gt_mega_reduce_kernel")),
+    }
+    for key, (fn, kern) in calls.items():
+        out[key] = {"ms": cs.device_ms(fn, 10, kern)}
+    out["K8_hpo"]["fwd_ms"] = part_ms(calls["K8_hpo"][0], K8_FWD)
+    out["K4t_hpo_f64"] = f64_forward(
+        u2gnn_encoder_train(xh, ph, 17, 5, rate, seed)[0],
+        u2gnn_encoder_train_plain(xh, ph, 17, 5, rate, seed)[0],
+        cs.plain_f64(xh, ph, 17, 5, rate, seed))
+    out["K9_act_f64"] = f64_forward(
+        el.encoder_layer_forward(xa, pa0, 9, rate, seed, 0),
+        el.encoder_layer_forward_plain(xa, pa0, 9, rate, seed, 0),
+        layer_forward(xa.double().view(512, 9, 7), [a.double() for a in pa0],
+                      layer=0, rate=rate, seed=seed, mm=torch.float32,
+                      slot0=False)[0])
+    if hasattr(_build, "set_fwd_mma_rows"):
+        out.update({f"gate {k}": v for k, v in cs.gate_sweep(dev).items()})
+    return out
+
+
 def worker(root: str, only: str = "") -> dict:
     """The timings of the checkout at ``root`` (``only``: one family)."""
     import numpy as np
@@ -283,10 +377,13 @@ def worker(root: str, only: str = "") -> dict:
     def gen(s):
         return torch.Generator(device=dev).manual_seed(s)
 
+    if only == "narrow_fwd":
+        return narrow_fwd(cs, dev, seed, rate)
     out.update(wide_fwd(cs, dev, seed, rate,
                         os.path.join(root, "build", "ab_keep.pt")))
     if only == "wide_fwd":
         return out
+    out.update(narrow_fwd(cs, dev, seed, rate))
     # K12 and K11 at the node axis's rows
     M, D = 5760, 68
     rng = np.random.default_rng(3)
@@ -502,7 +599,7 @@ def main() -> int:
         print(f"# {r}: " + "; ".join(
             f"{k} " + ", ".join(f"{n} {v:.4g}" for n, v in d.items())
             for k, d in t.items()), flush=True)
-    if len(roots) > 1 and roots[1] != roots[0]:
+    if len(roots) > 1 and roots[1] != roots[0] and only != "narrow_fwd":
         eq = bit_equal(roots[0], roots[1])
         print(f"# bit for bit, {roots[1]} against {roots[0]}: " + ", ".join(
             f"{k} {'equal' if v else 'differ'}" for k, v in eq.items()),

@@ -330,6 +330,87 @@ def test_mega_kernel_repeats_the_chain_bit_for_bit(cuda, S, D, Tn, dtype):
         assert all(torch.equal(a, b) for a, b in zip(gk, gc))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_layer_kernels_at_act_batch(cuda, dtype):
+    """K9 and K10 against their plain versions at ACT's batch (512 x S=9 =
+    4,608 rows, D=7, F=1024: K9's FFN on the tensor cores, the card filled
+    with blocks of two neighborhoods), rate 0 and 0.5."""
+    import chip_smoke
+
+    _, params, x2d = chip_smoke.random_case(
+        N=512, S=9, D=7, C=7, F=1024, Tn=1, stored=1, seed=16, dev=cuda)
+    chip_smoke.check_encoder_layer("act", params,
+                                   x2d.to(getattr(torch, dtype)), 9, cuda)
+
+
+def _gate_side(S, side):
+    """Neighborhoods whose N*S rows lie just under or just over the forward
+    layer's gate (FWD_MMA_ROWS)."""
+    from graph_transformer_tpu_torch.ops import _build
+
+    under = (_build.FWD_MMA_ROWS - 1) // S
+    return under if side == "under" else under + 1
+
+
+@pytest.mark.parametrize("side", ["under", "over"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_layer_kernels_at_the_gate(cuda, dtype, side):
+    """K4t, K8, K8s (S=17, D=6, T=2) and K9, K10 (S=9, D=7) against their
+    plain versions with rows just under the gate (the FFN on the tensor
+    cores) and just over it (on the CUDA cores), F=1024, rate 0 and 0.5."""
+    import chip_smoke
+
+    dt = getattr(torch, dtype)
+    N = _gate_side(17, side)
+    _, params, x2d = chip_smoke.random_case(
+        N=N, S=17, D=6, C=6, F=1024, Tn=2, stored=2, seed=17, dev=cuda)
+    chip_smoke.check_two_pass(f"{side} N{N}", params, x2d.to(dt), 17, 2, cuda)
+    N = _gate_side(9, side)
+    _, params, x2d = chip_smoke.random_case(
+        N=N, S=9, D=7, C=7, F=1024, Tn=1, stored=1, seed=18, dev=cuda)
+    chip_smoke.check_encoder_layer(f"{side} N{N}", params, x2d.to(dt), 9,
+                                   cuda)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_forward_layer_sums_do_not_depend_on_the_blocks(cuda, dtype):
+    """K4t and K9 on the first 100 of 512 neighborhoods (one a block) give
+    those neighborhoods' outputs, saved inputs and rows of the run on all
+    512 (two a block) bit for bit, at rate 0.5: the forward layer's sums
+    run in an order that neither G nor the rows sharing a block change."""
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+        u2gnn_encoder_train)
+    import chip_smoke
+
+    dt = getattr(torch, dtype)
+    _, params, x2d = chip_smoke.random_case(
+        N=512, S=17, D=6, C=6, F=1024, Tn=3, stored=3, seed=21, dev=cuda)
+    x2d = x2d.to(dt)
+    out, xs = u2gnn_encoder_train(x2d, params, 17, 3, 0.5, 11)
+    out_s, xs_s = u2gnn_encoder_train(x2d[:100 * 17], params, 17, 3, 0.5, 11)
+    p0 = [a[0] for a in params]
+    rows = el.encoder_layer_forward(x2d, p0, 17, 0.5, 11, 1)
+    rows_s = el.encoder_layer_forward(x2d[:100 * 17], p0, 17, 0.5, 11, 1)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:100], out_s)
+    assert torch.equal(xs[:, :100 * 17], xs_s)
+    assert torch.equal(rows[:100 * 17], rows_s)
+
+
+@pytest.mark.parametrize("side", ["under", "over"])
+def test_fused_and_folded_kernels_bit_equal_at_the_gate(cuda, side):
+    """At rows just under and just over the gate (S=9, D=7): K13 bit for bit
+    against K1 and the two-pass path, K15 against K1 and K16 against K15
+    (``chip_smoke.check_bit_equal_paths``)."""
+    import chip_smoke
+
+    N = _gate_side(9, side)
+    si, params, _ = chip_smoke.random_case(
+        N=N, S=9, D=7, C=7, F=256, Tn=3, stored=1, seed=19, dev=cuda)
+    chip_smoke.check_bit_equal_paths(f"{side} N{N}", si, params, 9, 3, cuda)
+
+
 def test_per_layer_kernels_match_whole_encoder(cuda):
     """T launches of K9 at rate 0 give K4's slot-0 output in float32."""
     import chip_smoke
