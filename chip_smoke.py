@@ -1294,7 +1294,7 @@ def residuals_f64(x2d, params, S, Tn, rate, seed):
         residuals=("qkv", "attn", "strip", "h"))[1]
 
 
-def check_stored_rows_f32(label, params, x2d, S, Tn, dev):
+def check_stored_rows_f32(label, params, x2d, S, Tn, dev, forward=True):
     """K17 with float32 rows at rate 0 and 0.5: the output by
     :func:`check_forward` (1e-4 or the float64 rule of :func:`check_k4_f32`)
     and each kind of residual against the plain forward's — within 1e-4 of
@@ -1304,8 +1304,8 @@ def check_stored_rows_f32(label, params, x2d, S, Tn, dev):
     and each gradient leaf within 1e-4 of its own max of the plain backward
     on K17's residuals.  The plain backward is not run on the plain
     forward's residuals: float32 gradients amplify the two forwards'
-    rounding far past 1e-4 at D=68.  Returns the errors by (kernel,
-    rate)."""
+    rounding far past 1e-4 at D=68.  With ``forward`` False only the K6
+    part.  Returns the errors by (kernel, rate)."""
     import torch
 
     from graph_transformer_tpu_torch.ops import stored_encoder as st
@@ -1317,13 +1317,14 @@ def check_stored_rows_f32(label, params, x2d, S, Tn, dev):
     for rate in (0.0, 0.5):
         seed = 24680
         out_k, res_k = st.stored_rows_forward(x2d, params, S, Tn, rate, seed)
-        out_p, res_p = st.stored_rows_forward_plain(x2d, params, S, Tn, rate,
-                                                    seed)
-        errs[("K17", rate)] = check_forward(
-            f"{label} rate {rate}: K17", out_k, out_p,
-            lambda: plain_f64(x2d, params, S, Tn, rate, seed), bf16=False)
+        if forward:
+            out_p, res_p = st.stored_rows_forward_plain(x2d, params, S, Tn,
+                                                        rate, seed)
+            errs[("K17", rate)] = check_forward(
+                f"{label} rate {rate}: K17", out_k, out_p,
+                lambda: plain_f64(x2d, params, S, Tn, rate, seed), bf16=False)
         res64, ratio, own = None, 0.0, 0.0
-        for k in res_k:
+        for k in res_k if forward else ():
             a, b = cat_leaves(res_k[k]), cat_leaves(res_p[k])
             if float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()):
                 continue
@@ -1347,14 +1348,16 @@ def check_stored_rows_f32(label, params, x2d, S, Tn, dev):
         worst = max(leaf_close(f"{label} rate {rate}: K17 + K6 {leaf}", a, b)
                     for leaf, a, b in zip(LEAVES, gk, (dx_p.reshape(N * S, D),)
                                           + tuple(gp)))
-        print(f"# check {label} rate {rate}: K17 max|err| "
-              f"{errs[('K17', rate)][0]:.3e} ({errs[('K17', rate)][1]:.1e}), "
-              f"residuals within 1e-4 of their max"
-              + (f" or the float64 rule (worst kernel/plain {ratio:.2f}; "
-                 f"plain float32 vs float64 up to {own:.1e} of the max)"
-                 if ratio else "")
-              + f"; with K6 against the plain backward on its residuals: "
-              f"worst leaf {worst:.2e} of its max", flush=True)
+        line = f"# check {label} rate {rate}: "
+        if forward:
+            line += (f"K17 max|err| {errs[('K17', rate)][0]:.3e} "
+                     f"({errs[('K17', rate)][1]:.1e}), residuals within 1e-4 "
+                     f"of their max"
+                     + (f" or the float64 rule (worst kernel/plain "
+                        f"{ratio:.2f}; plain float32 vs float64 up to "
+                        f"{own:.1e} of the max)" if ratio else "") + "; ")
+        print(line + f"K17 with K6 against the plain backward on its "
+              f"residuals: worst leaf {worst:.2e} of its max", flush=True)
     return errs
 
 
@@ -2100,7 +2103,7 @@ RECOMPUTE_FWD = tuple(f"gt_recompute_fwd_kernelILi{dm}ELb{s}ELb1E"
 # the kernels whose products run on the tensor cores, by library: the wide
 # forward (the wide K4, K4tw, K9w, K5, K13w, K17 with bf16 rows), the
 # thread-per-row forward layer at few rows, the wide recompute backward's
-# row kernel, K11/K12 and the split-K weight products, and the
+# row kernel and K6's, K11/K12 and the split-K weight products, and the
 # thread-per-row backwards (K2/K3, K8/K8s/K10, K14) with their FFN
 MMA_KERNELS = {
     "recompute_bwd": ("wd_recompute_bwd_kernel", "gt_layer_bwd_kernel",
@@ -2112,6 +2115,7 @@ MMA_KERNELS = {
     "encoder_fwd": NARROW_FWD, "sampled_fwd": NARROW_FWD,
     "folded_fwd": NARROW_FWD,
     "ffn": ("ff_fwd_kernel", "ff_bwd_kernel", "wd_wgrad_mma_kernel"),
+    "stored_bwd": ("wd_stored_bwd_kernel", "wd_wgrad_mma_kernel"),
     "layer_bwd": ("gt_layer_bwd_kernel",),
     "mega_bwd": ("gt_mega_bwd_kernel", "wd_mega_bwd_kernel"),
 }
@@ -2711,6 +2715,7 @@ def main() -> int:
 
     lib = library_encoder(params, S, T, D, F, dev)
     x3d = x2d_eval.view(Ne, S, D)
+    x0_k1 = res_k["xs"][0].view(N, S, D)  # K1's gathered rows
     lib_q = library_encoder(params_q, S, T, Dq, F, dev)
     x3d_q = x2d_q.to(torch.bfloat16).view(Neq, S, Dq)
     x0_q = res5["xs"][0]
@@ -2725,7 +2730,7 @@ def main() -> int:
         calls = {
             "K1": (lambda: se.sampled_forward(*si, params, S, T, 0.5, seed),
                    lambda: se.sampled_forward_plain(*si, params, S, T, 0.5, seed),
-                   None),
+                   lambda: lib(x0_k1)),
             "K2": (lambda: se.layer_backward(*a2, params, 0, 0.5, seed),
                    lambda: se.layer_backward_plain(*a2, p_0, layer=0, rate=0.5,
                                                    seed=seed),
@@ -2860,13 +2865,12 @@ def main() -> int:
                     lambda: lib_ab(x3_ab)),
         }
         # each wrapper's kernels: the backward kernels include their
-        # partial sums (and K6 its split-K weight products)
-        k6_kernels = ("wd_stored_bwd_kernel", "wd_reduce_small_kernel",
-                      "wd_wgrad_mma_kernel", "gt_reduce_partials_kernel")
+        # partial sums (and K6, K8w ... their split-K weight products)
+        wgrad = ("wd_wgrad_mma_kernel", "wd_wgrad_reduce_kernel")
+        k6_kernels = ("wd_stored_bwd_kernel",) + wgrad
         k8_kernels = ("gt_recompute_fwd_kernel", "gt_layer_bwd_kernel",
                       "gt_reduce_partials_kernel")
-        k8w_kernels = ("wd_recompute_bwd_kernel", "wd_reduce_small_kernel",
-                       "wd_wgrad_mma_kernel", "gt_reduce_partials_kernel")
+        k8w_kernels = ("wd_recompute_bwd_kernel",) + wgrad
         device_kernels = {
             "K1": ("gt_encoder_fwd_kernel",), "K4": ("gt_encoder_fwd_kernel",),
             "K2": ("gt_layer_bwd_kernel", "gt_reduce_partials_kernel"),
@@ -2877,16 +2881,14 @@ def main() -> int:
             "K8": k8_kernels, "K8s": k8_kernels,
             "K9": ("gt_layer_fwd_kernel",), "K10": k8_kernels,
             "K11": ("ff_fwd_kernel",),
-            "K12": ("ff_bwd_kernel", "gt_reduce_partials_kernel",
-                    "wd_wgrad_mma_kernel"),
+            "K12": ("ff_bwd_kernel", "gt_reduce_partials_kernel") + wgrad,
             "K4tw": ("wd_encoder_fwd_kernel",), "K8w": k8w_kernels,
             "K8ws": k8w_kernels, "K9w": ("wd_encoder_fwd_kernel",),
             "K10w": k8w_kernels, "K13": ("gt_encoder_fwd_kernel",),
             "K13w": ("wd_encoder_fwd_kernel",),
             "K14": ("gt_mega_bwd_kernel", "gt_mega_reduce_kernel"),
-            "K14w": ("wd_mega_bwd_kernel", "wd_reduce_small_kernel",
-                     "wd_wgrad_mma_kernel", "gt_reduce_partials_kernel",
-                     "gt_mega_reduce_kernel"),
+            "K14w": ("wd_mega_bwd_kernel",) + wgrad
+            + ("gt_mega_reduce_kernel",),
             "K15": ("gt_encoder_fwd_kernel",), "K16": ("gt_encoder_fwd_kernel",),
             "K17": ("gt_encoder_fwd_kernel", "wd_encoder_fwd_kernel")}
         timings = {
@@ -2894,10 +2896,12 @@ def main() -> int:
                   time_ms(plain, 3),
                   None if lib_call is None else time_ms(lib_call, 10))
             for key, (kern, plain, lib_call) in calls.items()}
-        # the wide recompute backwards and K12 split into the row kernel and
-        # the split-K weight products with their partial sums
-        parts = {key: (("wd_recompute_bwd_kernel",), k8w_kernels[1:])
+        # the wide backwards and K12 split into the row kernel and the
+        # split-K weight products with their partial sums
+        parts = {key: (("wd_recompute_bwd_kernel",), wgrad)
                  for key in ("K8w", "K8ws", "K10w")}
+        parts.update({key: (("wd_stored_bwd_kernel",), wgrad)
+                      for key in ("K6", "K6s")})
         parts["K12"] = (("ff_bwd_kernel",), device_kernels["K12"][1:])
         split = {key: (device_ms(calls[key][0], 10, row),
                        device_ms(calls[key][0], 10, prod))

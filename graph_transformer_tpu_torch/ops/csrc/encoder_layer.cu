@@ -39,7 +39,7 @@
 // With bf16 rows of D <= 80 K9w's four products run on the tensor cores
 // (mma.sync m16n8k16), with float32 rows as FMAs in K order on the CUDA
 // cores (wide_tc_fwd.cuh); K10w's row kernel's products and the split-K weight
-// products (wd_wgrad, wide_mma.cuh) run on the tensor cores, as 3xTF32 for
+// products (wd_products, wide_mma.cuh) run on the tensor cores, as 3xTF32 for
 // float32 rows.
 #include "recompute.cuh"
 #include "wide_recompute.cuh"

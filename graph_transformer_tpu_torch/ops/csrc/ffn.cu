@@ -21,10 +21,10 @@
 // (~100 MB at the quickstart's node axis), so K12 writes the products' row
 // operands instead (the hidden h and its cotangent dh, rounded to the
 // compute dtype, [M, F] each, and dy [M, D]) and computes dW1 = x^T dh and
-// dW2 = h^T dy in the split-K products of K6 (wd_wgrad, wide_mma.cuh),
-// summing partials in block and split order (no float atomics: runs repeat
-// bit for bit).  Row-wise work (LayerNorm, its backward) takes a warp per
-// row, lanes over columns (D <= 128).
+// dW2 = h^T dy in the split-K products of K6 (wd_products, wide_mma.cuh:
+// both in one launch), summing partials in block and split order (no float
+// atomics: runs repeat bit for bit).  Row-wise work (LayerNorm, its
+// backward) takes a warp per row, lanes over columns (D <= 128).
 //
 // Bound on the H100: at the quickstart's node axis (M = 5,760 rows, D = 68,
 // F = 1,024, float32) K11 does 1.6 GFLOP of float32 products on 3 MB of rows,
@@ -33,7 +33,7 @@
 // (x W1 and h W2 forward, dy W2^T and dh W1^T backward) through WdMmaGemm
 // (wide_mma.cuh: mma.sync, bf16 m16n8k16 for bf16 rows, 3xTF32 for float32
 // ones, the weights read by cp.async, so nothing stages rounded copies of
-// W1 and W2), the weight products through wd_wgrad's tensor-core kernel.
+// W1 and W2), the weight products through wd_products' tensor-core kernel.
 // The hidden chunk is FF_FC = 128 columns, one pass of WdMmaGemm's output
 // columns: its per-tile overhead (a barrier and the A tile's conversion per
 // 16 of K), not its mma.sync, is what it costs (PERF.md), and the K = D
@@ -176,12 +176,22 @@ struct FfWork {
 
 __host__ __device__ inline int ff_small_width(int D, int F) { return F + 3 * D; }
 
+// dW1 = x^T dh and dW2 = h^T dy over the M rows, operands as the products
+// take them (bf16, or f32 exact), into grads [D*F | F*D] (null: sizes only)
+static void ff_specs(const void* x, int bf, const FfWork& w, float* grads,
+                     int M, int D, int F, WdProductSpec (&ps)[2]) {
+  const int ex = !bf;
+  ps[0] = {{x, bf, D, 0, ex}, {w.dh, bf, F, 0, ex}, M, D, F, grads};
+  ps[1] = {{w.h, bf, F, 0, ex}, {w.dy, bf, D, 0, ex}, M, F, D,
+           grads ? grads + (size_t)D * F : nullptr};
+}
+
 static size_t ff_work(int M, int D, int F, int bf, char* base, FfWork* w) {
   const size_t es = bf ? 2 : 4;
   const size_t blocks = (size_t)(M + FF_ROWS - 1) / FF_ROWS;
-  size_t split = (size_t)wd_splits(M, D, F) * D * F;
-  const size_t s2 = (size_t)wd_splits(M, F, D) * F * D;
-  if (s2 > split) split = s2;
+  WdProductSpec ps[2];
+  ff_specs(nullptr, bf, FfWork{}, nullptr, M, D, F, ps);
+  const size_t split = wd_products_split_floats(ps, 2);
   size_t off = 0;
   auto take = [&](size_t bytes) -> char* {
     char* q = base ? base + off : nullptr;
@@ -364,22 +374,18 @@ extern "C" int gt_k12_ffn_bwd(const void* x, int x_bf16, const float* dout,
   const int PS = ff_small_width(D, F);
   if ((e = gt_reduce_partials(w.small, blocks, PS, grads, s)) != cudaSuccess)
     return (int)e;
-  // dW1 = x^T dh and dW2 = h^T dy over the M rows, operands as the products
-  // take them (bf16, or f32 exact)
-  const int ex = !x_bf16;
-  if ((e = wd_wgrad({x, x_bf16, D, 0, ex}, {w.dh, x_bf16, F, 0, ex}, M, D, F,
-                    w.split, grads + PS, s)) != cudaSuccess)
-    return (int)e;
-  return (int)wd_wgrad({w.h, x_bf16, F, 0, ex}, {w.dy, x_bf16, D, 0, ex}, M,
-                       F, D, w.split, grads + PS + (size_t)D * F, s);
+  WdProductSpec ps[2];
+  ff_specs(x, x_bf16, w, grads + PS, M, D, F, ps);
+  return (int)wd_products(ps, 2, w.split, WgSmall{}, s);
 }
 
-// The split-K weight products alone (wd_wgrad: K6, K8w, K10w, K12, K14w):
+// The split-K weight products alone (wd_products: K6, K8w, K10w, K12, K14w):
 // out [M1, N1] = a^T b over `rows` rows of a [rows, M1] and b [rows, N1],
 // both bf16 (bf16 products) or both f32 (3xTF32); split:
 // gt_wgrad_split_floats floats of scratch.
 extern "C" size_t gt_wgrad_split_floats(int rows, int M1, int N1) {
-  return (size_t)wd_splits(rows, M1, N1) * M1 * N1;
+  const WdProductSpec p{{}, {}, rows, M1, N1, nullptr};
+  return wd_products_split_floats(&p, 1);
 }
 
 extern "C" int gt_wgrad(const void* a, const void* b, int bf16, int rows,

@@ -49,7 +49,7 @@
 // at the body's shared memory; the recomputed residuals round-trip device
 // memory (mostly L2).  K14w's row products run on the tensor cores through
 // K8w's routine (WdMmaGemm, wide_mma.cuh), so that it repeats the K8w
-// chain bit for bit, and so do its split-K products (wd_wgrad).
+// chain bit for bit, and so do its split-K products (wd_products).
 #include "recompute.cuh"
 #include "wide_recompute.cuh"
 

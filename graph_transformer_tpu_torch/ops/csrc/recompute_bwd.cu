@@ -38,7 +38,7 @@
 // (WdMmaGemm, wide_mma.cuh: mma.sync, 3xTF32 for float32 rows, bf16 for
 // bf16 ones, the weights staged by cp.async); on the CUDA cores they had
 // been bound by shared-memory loads at ~1 FMA each.  The split-K weight
-// products run on the tensor cores too (wd_wgrad, wide_mma.cuh, shared
+// products run on the tensor cores too (wd_products, wide_mma.cuh, shared
 // with K6, K12, K14w).
 #include "recompute.cuh"
 #include "wide_recompute.cuh"

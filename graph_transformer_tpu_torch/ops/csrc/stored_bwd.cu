@@ -1,7 +1,8 @@
 // K6 — backward of one wide-row encoder layer from K5's residuals: one
 // kernel templated on SLOT0 (the slot-0 last layer), two entry points.  The
 // row body, the split-K weight products and their partial sums live in
-// wide_recompute.cuh, shared with the wide recompute backward (K8w).
+// wide_recompute.cuh and wide_mma.cuh, shared with the wide recompute
+// backward (K8w).
 //
 // Replaces graph_transformer_tpu/ops/pallas_stored_bwd.py:_stored_bwd1_kernel
 // (entry _stored_bwd1_call, slot0 flag; walked by _stored_bwd_core).  Inputs:
@@ -17,23 +18,36 @@
 // Bound at N=4096, S=9, D=65, F=1024, from the H100 SXM data sheet's rates
 // (3.35 TB/s, 989 TFLOP/s bf16): a full layer reads its 75 MB hidden and
 // ~15 MB of other residuals for ~27 GFLOP of bf16 products, so the bytes
-// bound it (~0.03 ms).  This version also writes and reads back the 75 MB
-// dhpre, and runs the row kernel's products on the CUDA cores in f32 with
-// bf16-rounded operands (the split-K weight products on the tensor cores,
-// wd_wgrad); tensor-core row products and fusing the dW1 product into the
-// row kernel are later work.
+// bound it (~0.03 ms).  The row kernel runs its eight products on the
+// tensor cores (WdMmaGemm: bf16 m16n8k16 for bf16 rows, 3xTF32 for K17's
+// float32 ones, the routine of K8w), two blocks an SM; the four weight
+// products then run in one launch of the pipelined split-K kernel
+// (wd_products) and one reduction.  This version still writes and reads
+// back the dhpre [Q, F] (2 x 11.8 MB at the quickstart's bf16 rows).
 #include "wide_recompute.cuh"
 
+// the body's shared memory, then the tensor-core products' staging region
+// at the next 16-byte boundary
+__host__ __device__ inline size_t wd_k6_stage_offset(int G, int S, int D,
+                                                     bool slot0) {
+  return (wd_bwd_smem_floats(G, S, D, slot0) + 3) / 4 * 4;
+}
+
+static inline size_t wd_k6_smem_bytes(int G, int S, int D, bool slot0) {
+  return sizeof(float) *
+         (wd_k6_stage_offset(G, S, D, slot0) + WM_STAGE_FLOATS);
+}
+
 extern "C" size_t gt_k6_smem_bytes(int G, int S, int D) {
-  return sizeof(float) * wd_bwd_smem_floats(G, S, D, false);
+  return wd_k6_smem_bytes(G, S, D, false);
 }
 
 extern "C" size_t gt_k6s_smem_bytes(int G, int S, int D) {
-  return sizeof(float) * wd_bwd_smem_floats(G, S, D, true);
+  return wd_k6_smem_bytes(G, S, D, true);
 }
 
 template <bool SLOT0>
-__global__ void __launch_bounds__(WD_THREADS)
+__global__ void __launch_bounds__(WD_THREADS, 2)
 wd_stored_bwd_kernel(const float* __restrict__ qkv,
                      const float* __restrict__ attn,
                      const float* __restrict__ strip,
@@ -42,8 +56,9 @@ wd_stored_bwd_kernel(const float* __restrict__ qkv,
                      int layer, float* dx, WdBwdWork wk, int N, int S, int D,
                      int F, int G, float scale, int bf) {
   extern __shared__ float smem[];
+  const WdMmaGemm mma{smem + wd_k6_stage_offset(G, S, D, SLOT0)};
   wd_bwd_body<SLOT0>(smem, qkv, attn, strip, h, dout, w, dr, layer, dx, wk, N,
-                     S, D, F, G, scale, bf);
+                     S, D, F, G, scale, bf, mma);
 }
 
 // scratch of a full layer (slot0 0) or the slot-0 layer, for rows and
@@ -69,7 +84,7 @@ static int wd_bwd(const void* xs, int x_bf16, const float* qkv,
   cudaStream_t s = (cudaStream_t)stream;
   WdBwdWork wk;
   wd_bwd_work(N, S, D, F, G, SLOT0, x_bf16, false, (char*)work, &wk);
-  const size_t smem = sizeof(float) * wd_bwd_smem_floats(G, S, D, SLOT0);
+  const size_t smem = wd_k6_smem_bytes(G, S, D, SLOT0);
   cudaError_t e = cudaFuncSetAttribute(
       wd_stored_bwd_kernel<SLOT0>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -27,7 +27,8 @@
 // weight tiles with one barrier a tile and the TF32 split of A in each warp
 // measured slower on the H100.)  At <= 32 rows a block mma.sync is the
 // instruction: wgmma takes 64-row tiles, and raising the row tile to 64 is
-// later work.
+// later work.  The second half of this file is the split-K weight
+// products' kernel (wd_products), with its own notes.
 #pragma once
 
 #include "wide.cuh"
@@ -259,26 +260,44 @@ struct WdMmaGemm {
 };
 
 // ------------------------------------------------ split-K weight products
-// Of K6, K8w/K8ws, K10w, K12 and K14w: out[m][n] = sum over rows of
-// A[row][m] * B[row][n] (m < M1, n < N1), the rows cut into splits.  Each
-// block takes one 64 x 64 output tile over one split's rows and writes its
-// own partial tile; a second pass sums the partials in split order (no float
-// atomics: runs repeat bit for bit).  The products run on the tensor cores:
-// with bf16 operands (stored in bf16, or f32 rounded to bf16 unless `exact`)
-// mma.sync m16n8k16, with exact f32 operands 3xTF32 m16n8k8, as WdMmaGemm.
-// A block of 8 warps stages WG_BK rows of both operands in f32, each warp
-// taking 16 x 32 of the tile from the staged rows, while the next rows are
-// read into registers.  The products are bound by the operands' bytes and
-// the loads' latency, not by the tensor cores, so what counts is loads in
-// flight: at most 80 registers (3 blocks an SM) and splits of ~WG_SPLIT_ROWS
-// rows.  (A 4-warp block prefetching 32 rows, 253 registers and 2 blocks an
-// SM, ran K12's products 2.7x slower than the CUDA-core kernel; PERF.md,
-// PR 8.)
-#define WD_SPLIT_BLOCKS 264  // blocks of a split-K product: 2 per SM
-#define WG_SPLIT_ROWS 160    // rows a split, where that gives more blocks
-#define WG_TILE 64           // output tile edge
-#define WG_BK 16             // rows a staged chunk
-#define WG_PER (WG_BK * WG_TILE / 256)  // values a thread stages per operand
+// Of K6, K8w/K8ws, K10w, K12 and K14w: out[m1][n1] = sum over rows of
+// A[row][m1] * B[row][n1], several such products in one launch (a batch:
+// the wide backward's four, K12's two).  Each product is oriented so that
+// its wider operand `a` gives the output tile's 64 rows (M) and the other,
+// `b`, up to 128 columns (N: D <= 128, the whole of it in one tile), and
+// its rows are cut into splits.  A block takes one output tile over one
+// split's rows and writes its own partial tile; a second launch sums every
+// product's partials in split order and writes them in place (transposed
+// where the orientation swapped the operands).  No float atomics: runs
+// repeat bit for bit, and the splits depend on the shapes alone, so K14w
+// repeats the K8w chain.
+//
+// Their bound is their operands' bytes (the hidden h and dhpre are
+// [rows, F]).  A block stages a ring of WG_STAGES chunks of WG_BK rows of
+// both operands, copied raw (bf16 or f32, as they are stored) into shared
+// memory by cp.async (16, 8 or 4 bytes a copy, as the operand's alignment
+// allows; element by element for bf16 rows of odd width), one barrier a
+// chunk, while 8 warps run the chunk that has landed on the tensor cores:
+// bf16 operands through ldmatrix.trans into mma.sync m16n8k16 (f32 values
+// rounded to bf16 when they are not `exact`), exact f32 operands as 3xTF32
+// m16n8k8 (WdMmaGemm's split).  Warp w takes the tile's rows 16 (w % 4) ..
+// +16 and every other n8 column tile from w / 4.  Splits: at most
+// WG_BLOCKS blocks a batch (one wave, 2 an SM), each over about as many
+// rows, at least WG_MIN_ROWS.  Blocks an SM, not the ring's depth, set the
+// speed on the H100: 3 stages run as fast as 4, one block an SM (6 stages,
+// or 64-row chunks) up to 1.7x slower (scripts/torch_wgrad_variants.py).
+#define WG_BM 64          // output tile rows (the `a` side)
+#define WG_BN 128         // most output tile columns (the `b` side)
+#define WG_BK 32          // rows of the sum a staged chunk
+#define WG_STAGES 4       // chunks in the ring
+#define WG_LDA (WG_BM + 8)   // elements a staged `a` row
+#define WG_LDB (WG_BN + 8)   // elements a staged `b` row
+#define WG_B_OFF (4 * WG_BK * WG_LDA)             // bytes: `b` in a stage
+#define WG_STAGE_BYTES (WG_B_OFF + 4 * WG_BK * WG_LDB)
+#define WG_SMEM_BYTES (WG_STAGES * WG_STAGE_BYTES)  // 104 KB
+#define WG_BLOCKS 264     // blocks a batch aims at: 2 an SM
+#define WG_MIN_ROWS 128   // fewest rows a split
+#define WG_MAX 4          // products a batch
 
 struct WdOperand {
   const void* p;
@@ -288,115 +307,293 @@ struct WdOperand {
   int exact;  // f32 values as they are (float32 products)
 };
 
-__device__ __forceinline__ float wd_load(const WdOperand& o, int r, int c) {
-  const size_t e = (size_t)r * o.ld + o.off + c;
-  if (o.bf16) return __bfloat162float(((const __nv_bfloat16*)o.p)[e]);
-  const float v = ((const float*)o.p)[e];
+// an operand as the product kernel reads it
+struct WgSide {
+  const char* p;  // first column of row 0
+  int bf16, ld, exact;
+  int vec;        // bytes a copy: 16, 8, 4, or 2 (element by element)
+};
+
+struct WgProduct {
+  WgSide a, b;    // a [rows, M], b [rows, N]
+  int rows, M, N, tilesM, tilesN, splits, per, trans;
+  int blk0;       // the product's first block in the launch
+  float* part;    // [splits, M, N] partial tiles
+  float* out;     // [M, N], or [N, M] where trans
+};
+
+struct WgBatch {
+  WgProduct p[WG_MAX];
+  int n, blocks, outs;  // products, blocks, output values
+};
+
+// the small per-block partials of the wide backward (wd_bwd_body), summed
+// in block order into their places in the flat gradient vector by the
+// products' reduction launch (none where part is null)
+// per-block partial sums of the wide backward's small gradients, in this
+// order: [b_in 3D | b_out g1 c1 3D | b1 F | b2 g2 c2 3D]
+__host__ __device__ inline int wd_small_width(int D, int F) {
+  return 9 * D + F;
+}
+
+struct WgSmall {
+  const float* part;
+  int nblk, D, F;
+  GtGradOff o;
+  float* grads;
+};
+
+__device__ __forceinline__ void wm_ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                     const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(wm_smem_addr(p)));
+}
+
+// asynchronous copy of `bytes` <= V bytes from src, zero-filling the rest
+template <int V>
+__device__ __forceinline__ void wg_cp_async(void* dst, const void* src,
+                                            int bytes) {
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     wm_smem_addr(dst)),
+                 "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     wm_smem_addr(dst)),
+                 "l"(src), "n"(V), "r"(bytes));
+}
+
+// One thread's share of the copies of an operand's staged tile: one
+// vector of `vec` bytes (column c0 + cv*vec/es) of rows k0, k0 + step, ...
+// of each chunk; set once a block, as the columns are the same in every
+// chunk.  Columns past the operand's are zero-filled (bytes < vec).
+struct WgCopy {
+  const char* src;  // the vector's first byte in row 0
+  size_t ldb;       // bytes a row
+  int bytes, vec, k0, step, dst;  // dst: the vector's byte in a staged row
+};
+
+__device__ __forceinline__ WgCopy wg_copy_plan(const WgSide& o, int c0,
+                                               int cols, int width) {
+  const int es = o.bf16 ? 2 : 4;
+  const int per_row = width * es / o.vec;  // <= 256
+  const int cv = threadIdx.x % per_row, col = c0 + cv * (o.vec / es);
+  WgCopy c;
+  c.src = o.p + (size_t)col * es;
+  c.ldb = (size_t)o.ld * es;
+  c.bytes = col < cols ? min(o.vec, (cols - col) * es) : 0;
+  c.vec = o.vec;
+  c.step = blockDim.x / per_row;
+  c.k0 = threadIdx.x / per_row;  // >= step: no share
+  c.dst = cv * o.vec;
+  return c;
+}
+
+// Copies rows r0 .. r0 + WG_BK of the thread's vector (zero from rend on)
+// into a staged tile of `lds` bytes a row.
+template <int V>
+__device__ __forceinline__ void wg_copy_v(char* dst, const WgCopy& c,
+                                          const char* base, int r0, int rend,
+                                          int lds) {
+  if (c.k0 >= c.step) return;
+  for (int k = c.k0; k < WG_BK; k += c.step) {
+    const int r = r0 + k;
+    const int bytes = r < rend ? c.bytes : 0;
+    const char* src = bytes ? c.src + (size_t)r * c.ldb : base;
+    char* d = dst + k * lds + c.dst;
+    if constexpr (V == 2)
+      *(uint16_t*)d = bytes ? *(const uint16_t*)src : (uint16_t)0;
+    else
+      wg_cp_async<V>(d, src, bytes);
+  }
+}
+
+__device__ __forceinline__ void wg_copy(char* dst, const WgCopy& c,
+                                        const char* base, int r0, int rend,
+                                        int lds) {
+  switch (c.vec) {
+    case 16: wg_copy_v<16>(dst, c, base, r0, rend, lds); break;
+    case 8: wg_copy_v<8>(dst, c, base, r0, rend, lds); break;
+    case 4: wg_copy_v<4>(dst, c, base, r0, rend, lds); break;
+    default: wg_copy_v<2>(dst, c, base, r0, rend, lds);
+  }
+}
+
+// staged value (k, c) of an operand as the 3xTF32 products take it
+__device__ __forceinline__ float wg_val(const WgSide& o, const char* s, int k,
+                                        int c, int ld) {
+  const size_t e = (size_t)k * ld + c;
+  if (o.bf16) return __bfloat162float(((const __nv_bfloat16*)s)[e]);
+  const float v = ((const float*)s)[e];
   return o.exact ? v : gt_bfr(v);
 }
 
+// two staged f32 values (k, c), (k + 1, c) as one bf16 pair
+__device__ __forceinline__ uint32_t wg_pair(const char* s, int k, int c,
+                                            int ld) {
+  const float* f = (const float*)s + (size_t)k * ld + c;
+  return gt_bf16x2(f[0], f[ld]);
+}
+
+// BF: bf16 products (both operands hold bf16 values), else 3xTF32
 template <bool BF>
-__global__ void __launch_bounds__(256, 3)
-wd_wgrad_mma_kernel(WdOperand A, WdOperand B, int rows, int M1, int N1,
-                    int rows_per_split, float* part) {
-  // staged rows [WG_BK][LD]: fragment reads free of bank conflicts (rows 2t
-  // apart for bf16, t apart for TF32)
-  constexpr int LD = BF ? WG_TILE + 4 : WG_TILE + 8;
-  __shared__ __align__(16) float sA[WG_BK * LD];
-  __shared__ __align__(16) float sB[WG_BK * LD];
-  const int tilesM = (M1 + WG_TILE - 1) / WG_TILE;
-  const int m0 = (blockIdx.x % tilesM) * WG_TILE;
-  const int n0 = (blockIdx.x / tilesM) * WG_TILE;
-  const int rbeg = blockIdx.y * rows_per_split;
-  const int rend = min(rows, rbeg + rows_per_split);
+__global__ void __launch_bounds__(256, 2) wd_wgrad_mma_kernel(WgBatch bt) {
+  extern __shared__ __align__(16) char wg_smem[];
+  WgProduct P = bt.p[0];
+#pragma unroll
+  for (int i = 1; i < WG_MAX; ++i)
+    if (i < bt.n && (int)blockIdx.x >= bt.p[i].blk0) P = bt.p[i];
+  const int local = blockIdx.x - P.blk0;
+  const int tiles = P.tilesM * P.tilesN;
+  const int split = local / tiles, t = local - split * tiles;
+  const int m0 = (t % P.tilesM) * WG_BM, n0 = (t / P.tilesM) * WG_BN;
+  const int rbeg = split * P.per, rend = min(P.rows, rbeg + P.per);
+  const int nch = rend > rbeg ? (rend - rbeg + WG_BK - 1) / WG_BK : 0;
+  const int ntn = (min(WG_BN, P.N - n0) + 7) / 8;  // n8 tiles
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tg = lane & 3;
-  const int wm = (warp & 3) * 16, wn = (warp >> 2) * 32;  // the warp's part
-  float acc[4][4];
+  const int wm = (warp & 3) * 16, h = warp >> 2;
+  const bool live = m0 + wm < P.M;  // the warp's rows hold outputs
+  float acc[8][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float ra[WG_PER], rb[WG_PER];
-  auto fetch = [&](int r0) {
-#pragma unroll
-    for (int i = 0; i < WG_PER; ++i) {
-      const int e = tid + 256 * i, k = e / WG_TILE, c = e % WG_TILE;
-      const int r = r0 + k;
-      ra[i] = (r < rend && m0 + c < M1) ? wd_load(A, r, m0 + c) : 0.f;
-      rb[i] = (r < rend && n0 + c < N1) ? wd_load(B, r, n0 + c) : 0.f;
-    }
+
+  const WgCopy ca = wg_copy_plan(P.a, m0, P.M, WG_BM);
+  const WgCopy cb = wg_copy_plan(P.b, n0, P.N, ntn * 8);
+  const int lda_b = WG_LDA * (P.a.bf16 ? 2 : 4);  // bytes a staged row
+  const int ldb_b = WG_LDB * (P.b.bf16 ? 2 : 4);
+  auto load = [&](int c) {
+    char* sa = wg_smem + (c % WG_STAGES) * WG_STAGE_BYTES;
+    const int r0 = rbeg + c * WG_BK;
+    wg_copy(sa, ca, P.a.p, r0, rend, lda_b);
+    wg_copy(sa + WG_B_OFF, cb, P.b.p, r0, rend, ldb_b);
   };
-  if (rbeg < rend) fetch(rbeg);
-  for (int r0 = rbeg; r0 < rend; r0 += WG_BK) {
 #pragma unroll
-    for (int i = 0; i < WG_PER; ++i) {
-      const int e = tid + 256 * i, k = e / WG_TILE, c = e % WG_TILE;
-      sA[k * LD + c] = ra[i];
-      sB[k * LD + c] = rb[i];
-    }
-    __syncthreads();
-    if (r0 + WG_BK < rend) fetch(r0 + WG_BK);
-    if (BF) {
-      // A(m, k) = sA[k][m], B(k, n) = sB[k][n]
-      const float* pa = sA + 2 * tg * LD + wm + g;
-      const uint32_t a[4] = {gt_bf16x2(pa[0], pa[LD]),
-                             gt_bf16x2(pa[8], pa[LD + 8]),
-                             gt_bf16x2(pa[8 * LD], pa[9 * LD]),
-                             gt_bf16x2(pa[8 * LD + 8], pa[9 * LD + 8])};
+  for (int c = 0; c < WG_STAGES - 1; ++c) {
+    if (c < nch) load(c);
+    wm_cp_commit();
+  }
+  for (int c = 0; c < nch; ++c) {
+    wm_cp_wait<WG_STAGES - 2>();
+    __syncthreads();  // chunk c is in place; chunk c - 1's buffer is free
+    if (c + WG_STAGES - 1 < nch) load(c + WG_STAGES - 1);
+    wm_cp_commit();
+    if (!live) continue;
+    const char* sa = wg_smem + (c % WG_STAGES) * WG_STAGE_BYTES;
+    const char* sb = sa + WG_B_OFF;
+    if constexpr (BF) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* pb = sB + 2 * tg * LD + wn + nt * 8 + g;
-        wm_mma_bf16(acc[nt], a, gt_bf16x2(pb[0], pb[LD]),
-                    gt_bf16x2(pb[8 * LD], pb[9 * LD]));
+      for (int ks = 0; ks < WG_BK; ks += 16) {
+        uint32_t a[4];
+        if (P.a.bf16) {
+          // matrices (k lo, m), (k lo, m + 8), (k hi, m), (k hi, m + 8)
+          wm_ldmatrix_x4_trans(
+              a, (const __nv_bfloat16*)sa +
+                     (ks + (lane & 7) + ((lane >> 4) << 3)) * WG_LDA + wm +
+                     (((lane >> 3) & 1) << 3));
+        } else {
+          const int k = ks + 2 * tg, m = wm + g;
+          a[0] = wg_pair(sa, k, m, WG_LDA);
+          a[1] = wg_pair(sa, k, m + 8, WG_LDA);
+          a[2] = wg_pair(sa, k + 8, m, WG_LDA);
+          a[3] = wg_pair(sa, k + 8, m + 8, WG_LDA);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          const int t0 = 2 * j + h;  // n8 tile of slot j; t0 + 2 of j + 1
+          if (t0 >= ntn) break;
+          uint32_t b[4];
+          if (P.b.bf16) {
+            // matrices (k lo, t0), (k hi, t0), (k lo, t0 + 2), (k hi, t0 + 2)
+            const int mi = lane >> 3;
+            wm_ldmatrix_x4_trans(
+                b, (const __nv_bfloat16*)sb +
+                       (ks + (lane & 7) + ((mi & 1) << 3)) * WG_LDB +
+                       (t0 + ((mi >> 1) << 1)) * 8);
+          } else {
+            const int k = ks + 2 * tg, n = t0 * 8 + g;
+            b[0] = wg_pair(sb, k, n, WG_LDB);
+            b[1] = wg_pair(sb, k + 8, n, WG_LDB);
+            b[2] = wg_pair(sb, k, n + 16, WG_LDB);
+            b[3] = wg_pair(sb, k + 8, n + 16, WG_LDB);
+          }
+          wm_mma_bf16(acc[j], a, b[0], b[1]);
+          if (t0 + 2 < ntn) wm_mma_bf16(acc[j + 1], a, b[2], b[3]);
+        }
       }
     } else {
 #pragma unroll
       for (int ks = 0; ks < WG_BK; ks += 8) {
-        const float* pa = sA + (ks + tg) * LD + wm + g;
+        const int k = ks + tg, m = wm + g;
         uint32_t ah[4], al[4];
-        wm_split(pa[0], ah[0], al[0]);
-        wm_split(pa[8], ah[1], al[1]);
-        wm_split(pa[4 * LD], ah[2], al[2]);
-        wm_split(pa[4 * LD + 8], ah[3], al[3]);
+        wm_split(wg_val(P.a, sa, k, m, WG_LDA), ah[0], al[0]);
+        wm_split(wg_val(P.a, sa, k, m + 8, WG_LDA), ah[1], al[1]);
+        wm_split(wg_val(P.a, sa, k + 4, m, WG_LDA), ah[2], al[2]);
+        wm_split(wg_val(P.a, sa, k + 4, m + 8, WG_LDA), ah[3], al[3]);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const float* pb = sB + (ks + tg) * LD + wn + nt * 8 + g;
+        for (int j = 0; j < 8; ++j) {
+          const int tn = 2 * j + h;
+          if (tn >= ntn) break;
           uint32_t bh0, bl0, bh1, bl1;
-          wm_split(pb[0], bh0, bl0);
-          wm_split(pb[4 * LD], bh1, bl1);
-          wm_mma_tf32(acc[nt], al, bh0, bh1);
-          wm_mma_tf32(acc[nt], ah, bl0, bl1);
-          wm_mma_tf32(acc[nt], ah, bh0, bh1);
+          wm_split(wg_val(P.b, sb, k, tn * 8 + g, WG_LDB), bh0, bl0);
+          wm_split(wg_val(P.b, sb, k + 4, tn * 8 + g, WG_LDB), bh1, bl1);
+          wm_mma_tf32(acc[j], al, bh0, bh1);
+          wm_mma_tf32(acc[j], ah, bl0, bl1);
+          wm_mma_tf32(acc[j], ah, bh0, bh1);
         }
       }
     }
-    __syncthreads();
   }
-  float* out = part + (size_t)blockIdx.y * M1 * N1;
+  if (!live) return;
+  float* out = P.part + (size_t)split * P.M * P.N;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
+  for (int j = 0; j < 8; ++j) {
+    const int tn = 2 * j + h;
+    if (tn >= ntn) break;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int m = m0 + wm + g + (e >> 1) * 8;
-      const int n = n0 + wn + nt * 8 + 2 * tg + (e & 1);
-      if (m < M1 && n < N1) out[(size_t)m * N1 + n] = acc[nt][e];
+      const int n = n0 + tn * 8 + 2 * tg + (e & 1);
+      if (m < P.M && n < P.N) out[(size_t)m * P.N + n] = acc[j][e];
     }
+  }
 }
 
-// splits of `rows`: ~WG_SPLIT_ROWS rows each, but enough for
-// WD_SPLIT_BLOCKS blocks and no more than 4 * WD_SPLIT_BLOCKS (the partial
-// tiles stay a few MB); at least 64 rows each
-static inline int wd_splits(int rows, int M1, int N1) {
-  const int tiles = ((M1 + WG_TILE - 1) / WG_TILE) *
-                    ((N1 + WG_TILE - 1) / WG_TILE);
-  int s = (rows + WG_SPLIT_ROWS - 1) / WG_SPLIT_ROWS;
-  const int least = (WD_SPLIT_BLOCKS + tiles - 1) / tiles;
-  const int cap = (4 * WD_SPLIT_BLOCKS + tiles - 1) / tiles;
-  s = s < least ? least : (s > cap ? cap : s);
-  const int most = (rows + 63) / 64;
-  if (s > most) s = most;
-  return s < 1 ? 1 : s;
+// The second launch: each product's partial tiles summed in split order
+// into its output, then the small partials (if any) in block order.
+__global__ void wd_wgrad_reduce_kernel(WgBatch bt, WgSmall sm) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int q = 0; q < WG_MAX; ++q) {
+    if (q >= bt.n) break;
+    const WgProduct& P = bt.p[q];
+    const int MN = P.M * P.N;
+    if (i < MN) {
+      float s = 0.f;
+      for (int k = 0; k < P.splits; ++k) s += P.part[(size_t)k * MN + i];
+      const int m = i / P.N, n = i - m * P.N;
+      P.out[P.trans ? (size_t)n * P.M + m : (size_t)i] = s;
+      return;
+    }
+    i -= MN;
+  }
+  if (!sm.part) return;
+  const int PS = wd_small_width(sm.D, sm.F);
+  if (i >= PS) return;
+  float s = 0.f;
+  for (int b = 0; b < sm.nblk; ++b) s += sm.part[(size_t)b * PS + i];
+  const int D = sm.D, F = sm.F;
+  int off;
+  if (i < 3 * D) off = sm.o.b_in + i;
+  else if (i < 6 * D) off = sm.o.b_out + (i - 3 * D);
+  else if (i < 6 * D + F) off = sm.o.b1 + (i - 6 * D);
+  else off = sm.o.b2 + (i - 6 * D - F);
+  sm.grads[off] = s;
 }
 
 // an operand whose values bf16 holds exactly
@@ -404,24 +601,106 @@ static inline bool wd_bf16_valued(const WdOperand& o) {
   return o.bf16 || !o.exact;
 }
 
-// out [M1, N1] = A^T B over `rows` rows; split: wd_splits(...) * M1 * N1
-// floats of scratch.  bf16 products when both operands are bf16 values,
-// else 3xTF32.
+// one product of a batch: out [M1, N1] = A^T B over `rows` rows
+struct WdProductSpec {
+  WdOperand A, B;
+  int rows, M1, N1;
+  float* out;
+};
+
+static inline WgSide wg_side(const WdOperand& o) {
+  const int es = o.bf16 ? 2 : 4;
+  WgSide s{(const char*)o.p + (size_t)o.off * es, o.bf16, o.ld, o.exact, 2};
+  for (int v = 16; v >= 4; v /= 2)
+    if ((uintptr_t)s.p % v == 0 && ((size_t)o.ld * es) % v == 0) {
+      s.vec = v;
+      break;
+    }
+  return s;
+}
+
+// Orients the products, sets their splits and places their partial tiles
+// in `split` (null: sizes only); returns the floats of scratch they need.
+// The splits depend on the shapes alone.
+static size_t wd_plan(const WdProductSpec* ps, int n, float* split,
+                      WgBatch* bt) {
+  // rows a block: the batch's tile-rows over WG_BLOCKS, so that products
+  // over fewer rows (the slot-0 layer's) take fewer splits
+  double work = 0.0;
+  for (int q = 0; q < n; ++q) {
+    const int M = ps[q].M1 >= ps[q].N1 ? ps[q].M1 : ps[q].N1;
+    const int N = ps[q].M1 >= ps[q].N1 ? ps[q].N1 : ps[q].M1;
+    work += (double)ps[q].rows * ((M + WG_BM - 1) / WG_BM) *
+            ((N + WG_BN - 1) / WG_BN);
+  }
+  const double per_block = work / WG_BLOCKS;
+  size_t floats = 0;
+  bt->n = n;
+  bt->blocks = bt->outs = 0;
+  for (int q = 0; q < n; ++q) {
+    const WdProductSpec& s = ps[q];
+    WgProduct& P = bt->p[q];
+    P.trans = s.M1 < s.N1;
+    P.a = wg_side(P.trans ? s.B : s.A);
+    P.b = wg_side(P.trans ? s.A : s.B);
+    P.M = P.trans ? s.N1 : s.M1;
+    P.N = P.trans ? s.M1 : s.N1;
+    P.rows = s.rows;
+    P.tilesM = (P.M + WG_BM - 1) / WG_BM;
+    P.tilesN = (P.N + WG_BN - 1) / WG_BN;
+    const int most = (s.rows + WG_MIN_ROWS - 1) / WG_MIN_ROWS;
+    const int want = per_block > 0.0 ? (int)(s.rows / per_block) : 1;
+    P.splits = want < most ? want : most;
+    if (P.splits < 1) P.splits = 1;
+    P.per = (s.rows + P.splits - 1) / P.splits;
+    P.blk0 = bt->blocks;
+    bt->blocks += P.splits * P.tilesM * P.tilesN;
+    bt->outs += P.M * P.N;
+    P.part = split ? split + floats : nullptr;
+    P.out = s.out;
+    floats += (size_t)P.splits * P.M * P.N;
+  }
+  return floats;
+}
+
+static inline size_t wd_products_split_floats(const WdProductSpec* ps,
+                                              int n) {
+  WgBatch bt;
+  return wd_plan(ps, n, nullptr, &bt);
+}
+
+// The batch's products (bf16 products where every operand holds bf16
+// values, else 3xTF32), then one reduction of their partials and of the
+// small partials `sm` (sm.part null: none).  split: wd_products_split_floats
+// floats of scratch.
+static cudaError_t wd_products(const WdProductSpec* ps, int n, float* split,
+                               const WgSmall& sm, cudaStream_t stream) {
+  if (n < 1 || n > WG_MAX) return cudaErrorInvalidValue;
+  WgBatch bt;
+  wd_plan(ps, n, split, &bt);
+  bool bf = true;
+  for (int q = 0; q < n; ++q)
+    bf = bf && wd_bf16_valued(ps[q].A) && wd_bf16_valued(ps[q].B);
+  const void* k = bf ? (const void*)wd_wgrad_mma_kernel<true>
+                     : (const void*)wd_wgrad_mma_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, WG_SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  if (bf)
+    wd_wgrad_mma_kernel<true><<<bt.blocks, 256, WG_SMEM_BYTES, stream>>>(bt);
+  else
+    wd_wgrad_mma_kernel<false><<<bt.blocks, 256, WG_SMEM_BYTES, stream>>>(bt);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int total =
+      bt.outs + (sm.part ? wd_small_width(sm.D, sm.F) : 0);
+  wd_wgrad_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(bt, sm);
+  return cudaGetLastError();
+}
+
+// one product alone: out [M1, N1] = A^T B over `rows` rows
 static cudaError_t wd_wgrad(WdOperand A, WdOperand B, int rows, int M1,
                             int N1, float* split, float* out,
                             cudaStream_t stream) {
-  const int s = wd_splits(rows, M1, N1);
-  const int per = (rows + s - 1) / s;
-  const dim3 grid(((M1 + WG_TILE - 1) / WG_TILE) *
-                      ((N1 + WG_TILE - 1) / WG_TILE),
-                  s);
-  if (wd_bf16_valued(A) && wd_bf16_valued(B))
-    wd_wgrad_mma_kernel<true><<<grid, 256, 0, stream>>>(A, B, rows, M1, N1,
-                                                         per, split);
-  else
-    wd_wgrad_mma_kernel<false><<<grid, 256, 0, stream>>>(A, B, rows, M1, N1,
-                                                          per, split);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  return gt_reduce_partials(split, s, M1 * N1, out, stream);
+  const WdProductSpec p{A, B, rows, M1, N1, out};
+  return wd_products(&p, 1, split, WgSmall{}, stream);
 }

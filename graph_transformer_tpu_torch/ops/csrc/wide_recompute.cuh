@@ -22,9 +22,11 @@
 //      exactly the rounded operands the products take), plus per-block
 //      partial sums of the eight bias and LayerNorm gradients;
 //   2. the four weight products (x^T dqkv, ctx^T da, y1^T dhpre, h^T dz) run
-//      as split-K products over the rows, each split writing its own
-//      partial tile (wd_wgrad, wide_mma.cuh: on the tensor cores);
-//   3. a second pass sums the partials in block / split order.
+//      in one launch as split-K products over the rows, each split writing
+//      its own partial tile (wd_products, wide_mma.cuh: a cp.async ring on
+//      the tensor cores);
+//   3. a second launch sums the partials in split order and the small
+//      partials in block order.
 // No float atomics, so runs repeat bit for bit.
 //
 // The recompute kernel (wd_recompute_bwd_kernel: K8w, K8ws, K10w; replaces
@@ -40,8 +42,8 @@
 // FMA, ~4 TFLOP/s); this kernel runs them on the tensor cores instead
 // (WdMmaGemm, wide_mma.cuh), through the product template parameter of
 // wd_fwd_layer and wd_bwd_body; K14w (mega_bwd.cu) takes the same routine,
-// so that it repeats this kernel bit for bit.  K6 and the forward kernels
-// keep wd_gemm.
+// so that it repeats this kernel bit for bit, and K6 (stored_bwd.cu) runs
+// the body on it too.  The forward kernels keep wd_gemm for float32 rows.
 #pragma once
 
 #include "wide.cuh"
@@ -81,12 +83,6 @@ static inline size_t wd_recompute_mma_smem_bytes(int G, int S, int D,
          (wd_mma_stage_offset(G, S, D, slot0) + WM_STAGE_FLOATS);
 }
 
-// per-block partial sums of the small gradients, in this order:
-// [b_in 3D | b_out g1 c1 3D | b1 F | b2 g2 c2 3D]
-__host__ __device__ inline int wd_small_width(int D, int F) {
-  return 9 * D + F;
-}
-
 // Device memory of one backward: the four per-row factors (in the compute
 // dtype), the small partials, the split-K partial tiles and, for the
 // recompute kernels, the recomputed residuals.
@@ -97,20 +93,34 @@ struct WdBwdWork {
   void* h;                    // recompute only: [Q, F]
 };
 
+// The four weight products of one layer's backward: dW_in = x^T dqkv over
+// all rows, dW_out = ctx^T da, dW1 = y1^T dhpre and dW2 = h^T dz over the
+// query rows.  xs: the layer input [N*S, D] and h [Q, F], both in the
+// compute dtype; strip [Q, 4D+2] f32; grads null for the sizes alone.
+static void wd_bwd_specs(const void* xs, const float* strip, const void* h,
+                         const WdBwdWork& wk, float* grads, int N, int S,
+                         int D, int F, bool slot0, int bf,
+                         WdProductSpec (&ps)[4]) {
+  const GtGradOff o = gt_grad_offsets(D, F);
+  const int NS = N * S, Q = slot0 ? N : N * S, SW = 4 * D + 2, ex = !bf;
+  auto at = [&](int off) { return grads ? grads + off : nullptr; };
+  ps[0] = {{xs, bf, D, 0, ex}, {wk.dqkv, bf, 3 * D, 0, 1}, NS, D, 3 * D,
+           at(o.w_in)};
+  ps[1] = {{strip, 0, SW, 0, ex}, {wk.da, bf, D, 0, 1}, Q, D, D, at(o.w_out)};
+  ps[2] = {{strip, 0, SW, D, ex}, {wk.dh, bf, F, 0, 1}, Q, D, F, at(o.w1)};
+  ps[3] = {{h, bf, F, 0, 1}, {wk.dz, bf, D, 0, 1}, Q, F, D, at(o.w2)};
+}
+
 static size_t wd_bwd_work(int N, int S, int D, int F, int G, bool slot0,
                           int bf, bool recompute, char* base, WdBwdWork* w) {
   const size_t NS = (size_t)N * S;
   const size_t Q = slot0 ? (size_t)N : NS;
   const size_t es = bf ? 2 : 4;
-  const int QI = (int)Q;
   const size_t blocks = (size_t)(N + G - 1) / G;
-  size_t split = 0;
-  const int dims[4][3] = {{(int)NS, D, 3 * D}, {QI, D, D}, {QI, D, F}, {QI, F, D}};
-  for (int k = 0; k < 4; ++k) {
-    const size_t f = (size_t)wd_splits(dims[k][0], dims[k][1], dims[k][2]) *
-                     dims[k][1] * dims[k][2];
-    if (f > split) split = f;
-  }
+  WdProductSpec ps[4];
+  wd_bwd_specs(nullptr, nullptr, nullptr, WdBwdWork{}, nullptr, N, S, D, F,
+               slot0, bf, ps);
+  const size_t split = wd_products_split_floats(ps, 4);
   size_t off = 0;
   auto take = [&](size_t bytes) -> char* {
     char* p = base ? base + off : nullptr;
@@ -386,51 +396,19 @@ __device__ __forceinline__ void wd_bwd_body(
   }
 }
 
-// the block partials of the small gradients, summed in block order into
-// their places in the flat gradient vector
-__global__ void wd_reduce_small_kernel(const float* part, int nblk, int D,
-                                       int F, GtGradOff o, float* grads) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const int PS = wd_small_width(D, F);
-  if (p >= PS) return;
-  float s = 0.f;
-  for (int b = 0; b < nblk; ++b) s += part[(size_t)b * PS + p];
-  int off;
-  if (p < 3 * D) off = o.b_in + p;
-  else if (p < 6 * D) off = o.b_out + (p - 3 * D);
-  else if (p < 6 * D + F) off = o.b1 + (p - 6 * D);
-  else off = o.b2 + (p - 6 * D - F);
-  grads[off] = s;
-}
-
-// Steps 2 and 3 after the row kernel: the small partials, then dW_in =
-// x^T dqkv over all rows and dW_out = ctx^T da, dW1 = y1^T dhpre, dW2 =
-// h^T dz over the query rows.  xs: the layer input [N*S, D] and h [Q, F],
-// both in the compute dtype; strip [Q, 4D+2] f32.
+// Steps 2 and 3 after the row kernel: the four weight products in one
+// launch, then one launch that sums their partial tiles in split order and
+// the small partials in block order.
 static cudaError_t wd_bwd_products(const void* xs, const float* strip,
                                    const void* h, const WdBwdWork& wk,
                                    float* grads, int N, int S, int D, int F,
                                    int G, bool slot0, int bf,
                                    cudaStream_t s) {
-  const GtGradOff o = gt_grad_offsets(D, F);
-  const int blocks = (N + G - 1) / G;
-  const int PS = wd_small_width(D, F);
-  wd_reduce_small_kernel<<<(PS + 255) / 256, 256, 0, s>>>(wk.small, blocks, D,
-                                                          F, o, grads);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  const int NS = N * S, Q = slot0 ? N : N * S, SW = 4 * D + 2, ex = !bf;
-  if ((e = wd_wgrad({xs, bf, D, 0, ex}, {wk.dqkv, bf, 3 * D, 0, 1}, NS, D,
-                    3 * D, wk.split, grads + o.w_in, s)) != cudaSuccess)
-    return e;
-  if ((e = wd_wgrad({strip, 0, SW, 0, ex}, {wk.da, bf, D, 0, 1}, Q, D, D,
-                    wk.split, grads + o.w_out, s)) != cudaSuccess)
-    return e;
-  if ((e = wd_wgrad({strip, 0, SW, D, ex}, {wk.dh, bf, F, 0, 1}, Q, D, F,
-                    wk.split, grads + o.w1, s)) != cudaSuccess)
-    return e;
-  return wd_wgrad({h, bf, F, 0, 1}, {wk.dz, bf, D, 0, 1}, Q, F, D, wk.split,
-                  grads + o.w2, s);
+  WdProductSpec ps[4];
+  wd_bwd_specs(xs, strip, h, wk, grads, N, S, D, F, slot0, bf, ps);
+  const WgSmall sm{wk.small, (N + G - 1) / G, D, F, gt_grad_offsets(D, F),
+                   grads};
+  return wd_products(ps, 4, wk.split, sm, s);
 }
 
 // ------------------------------------------------------- recompute kernel

@@ -2,7 +2,7 @@
 """A/B of two checkouts of the port's kernels on one NVIDIA H100 (run on the
 card):
 
-    python3 scripts/torch_ab_kernels.py [--only wide_fwd|narrow_fwd] ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 scripts/torch_ab_kernels.py [--only wide_fwd|narrow_fwd|stored_bwd] ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -60,7 +60,19 @@ that checkout's package and times, by torch.profiler device time a launch
   arm's batch; K4t's and
   K9's float32 distance from float64; and, in a checkout that can move the
   gate, both branches of the layer's FFN at 8,704 to 79,488 rows
-  (``chip_smoke.gate_sweep``).
+  (``chip_smoke.gate_sweep``);
+- the stored backward and the split-K weight products (``--only
+  stored_bwd`` builds seven sources and times nothing else,
+  :func:`stored_bwd`): K6 and K6s at the README quickstart's batch (640
+  neighborhoods x S=9, one-hot D=68, F=1024, T=4, rate 0.5) on K5's bf16
+  residuals and on K17's float32 ones, each whole, its row kernel
+  (``wd_stored_bwd_kernel``), its weight products with their partial sums,
+  and the products' kernel alone; the same four parts of K8w, K8ws and
+  K10w at the quickstart's float32 two-pass batch and of K12 at the node
+  axis's 5,760 float32 rows; K14w on the A/B rows at the quickstart's
+  width (8,832 x S=9 one-hot bf16 rows, D=68), whole and its products;
+  single products (``ffn.weight_product``) of 5,760 rows at h^T dz's and
+  x^T dqkv's shapes (1,024 x 68, 68 x 204) in float32 and bf16.
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -78,7 +90,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # device kernels by part; a name absent from a checkout adds nothing
 ROW = ("wd_recompute_bwd_kernel",)
 PRODUCTS = ("wd_reduce_small_kernel", "wd_wgrad_kernel", "wd_wgrad_mma_kernel",
-            "gt_reduce_partials_kernel")
+            "gt_reduce_partials_kernel", "wd_wgrad_reduce_kernel")
+K6_ROW = ("wd_stored_bwd_kernel",)
+WGRAD = ("wd_wgrad_kernel", "wd_wgrad_mma_kernel")  # the products alone
 FWD = ("gt_encoder_fwd_kernel", "wd_encoder_fwd_kernel")
 # K8: one fused row kernel (gt_recompute_bwd_kernel) before this slice, a
 # forward launch and the body (gt_layer_bwd_kernel) since
@@ -88,13 +102,16 @@ K8_FWD = ("gt_recompute_fwd_kernel",)
 REDUCE = ("gt_reduce_partials_kernel",)
 K12_ROW = ("ff_bwd_kernel",)
 K12_PRODUCTS = ("wd_wgrad_kernel", "wd_wgrad_mma_kernel",
-                "gt_reduce_partials_kernel")
+                "gt_reduce_partials_kernel", "wd_wgrad_reduce_kernel")
 # the sources a family needs (``--only``); all of them otherwise
 ONLY_SOURCES = {"wide_fwd": ("wide_fwd", "encoder_layer", "stored_fwd",
                              "fused_sampled_fwd"),
                 "narrow_fwd": ("encoder_fwd", "encoder_layer", "sampled_fwd",
                                "fused_sampled_fwd", "folded_fwd",
-                               "stored_fwd", "recompute_bwd", "mega_bwd")}
+                               "stored_fwd", "recompute_bwd", "mega_bwd"),
+                "stored_bwd": ("stored_fwd", "stored_bwd", "recompute_bwd",
+                               "encoder_layer", "ffn", "wide_fwd",
+                               "mega_bwd")}
 NARROW = ("gt_encoder_fwd_kernel",)
 
 
@@ -347,6 +364,109 @@ def narrow_fwd(cs, dev, seed, rate):
     return out
 
 
+def parts(cs, fn, row):
+    """Device ms a launch of ``fn`` whole, in its row kernel ``row``, in its
+    split-K weight products with their partial sums and in the products'
+    kernel alone."""
+    return {"ms": cs.device_ms(fn, 10, row + PRODUCTS),
+            "row_ms": cs.device_ms(fn, 10, row),
+            "products_ms": cs.device_ms(fn, 10, PRODUCTS),
+            "mma_ms": cs.device_ms(fn, 10, WGRAD)}
+
+
+def stored_bwd(cs, dev, seed, rate):
+    """K6 and K6s at the quickstart's batch on K5's bf16 and K17's float32
+    residuals; K8w, K8ws, K10w and K12, each whole, its row kernel, its
+    weight products with their partial sums and the products' kernel alone;
+    K14w."""
+    import numpy as np
+    import torch
+
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import ffn
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+
+    out = {}
+    N, S, D, T, F = 640, 9, 68, 4, 1024
+    gen = torch.Generator(device=dev).manual_seed(41)
+    si, params, _ = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=T, stored=T,
+                                   seed=41, dev=dev, one_hot=True)
+    x32 = torch.randn(N * S, D, device=dev, generator=gen)
+    g = torch.randn(N, S, D, device=dev, generator=gen)
+    g0 = torch.randn(N, D, device=dev, generator=gen)
+    _, res_b = st.stored_forward(*si, params, S, T, rate, seed)
+    _, res_f = st.stored_rows_forward(x32, params, S, T, rate, seed)
+    kinds = ("xs", "qkv", "attn", "strip", "h")
+    for tag, res in (("bf16", res_b), ("f32", res_f)):
+        a0 = [res[k][0] for k in kinds]
+        a0[0] = a0[0].reshape(N, S, D)
+        al = [res[k][T - 1] for k in kinds]
+        al[0] = al[0].reshape(N, S, D)
+        out[f"K6_{tag}"] = parts(cs, lambda: st.stored_layer_backward(
+            *a0, g, params, 0, rate, seed), K6_ROW)
+        out[f"K6s_{tag}"] = parts(cs, lambda: st.stored_slot0_backward(
+            *al, g0, params, T - 1, rate, seed), K6_ROW)
+    # the quickstart's float32 two-pass batch (one-hot rows)
+    rng = np.random.default_rng(42)
+    x = torch.eye(D, device=dev)[torch.tensor(rng.integers(0, D, N * S),
+                                              device=dev)].view(N, S, D)
+    p0 = [a[0] for a in params]
+    out["K8w"] = parts(cs, lambda: ut.wide_layer_recompute_backward(
+        x, g, params, 0, rate, seed), ROW)
+    out["K8ws"] = parts(cs, lambda: ut.wide_slot0_recompute_backward(
+        x, g0, params, T - 1, rate, seed), ROW)
+    out["K10w"] = parts(cs, lambda: el.wide_encoder_layer_backward(
+        x.view(N * S, D), g.view(N * S, D), p0, S, rate, seed), ROW)
+    # K12 at the node axis's rows
+    M = N * S
+    pf = [torch.tensor(rng.standard_normal(sh) * 0.3, dtype=torch.float32,
+                       device=dev) for sh in ((D, F), (F,), (F, D), (D,),
+                                              (D,), (D,))]
+    pf[4] = pf[4] + 1.0
+    k12 = lambda: ffn.ffn_backward(  # noqa: E731
+        x32, g.view(M, D), *pf, rate, seed, 1)
+    out["K12"] = {"ms": cs.device_ms(k12, 10, K12_ROW + K12_PRODUCTS),
+                  "row_ms": cs.device_ms(k12, 10, K12_ROW),
+                  "products_ms": cs.device_ms(k12, 10, K12_PRODUCTS),
+                  "mma_ms": cs.device_ms(k12, 10, WGRAD)}
+    out["K14w"] = k14w(cs, dev, rng, seed, rate)
+    # single products (ffn.weight_product) at the wide backward's shapes
+    for M1, N1 in ((1024, 68), (68, 204)):
+        for dt in (torch.float32, torch.bfloat16):
+            a = torch.randn(M, M1, device=dev, generator=gen).to(dt)
+            b = torch.randn(M, N1, device=dev, generator=gen).to(dt)
+            fn = lambda: ffn.weight_product(a, b)  # noqa: E731
+            out[f"wgrad_{M1}x{N1}_{str(dt)[6:]}"] = {
+                "ms": cs.device_ms(fn, 10, PRODUCTS),
+                "mma_ms": cs.device_ms(fn, 10, WGRAD)}
+    return out
+
+
+def k14w(cs, dev, rng, seed, rate):
+    """K14w on the A/B rows at the quickstart's width (one-hot D=68, bf16),
+    whole (3 launches) and its split-K weight products."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+        u2gnn_encoder_train)
+
+    N, S, D, T, F = 8832, 9, 68, 4, 1024
+    _, params, _ = cs.random_case(N=N, S=S, D=D, C=D, F=F, Tn=T, stored=T,
+                                  seed=9, dev=dev, one_hot=True)
+    x2d = torch.eye(D, device=dev)[torch.tensor(
+        rng.integers(0, D, N * S), device=dev)].to(torch.bfloat16)
+    _, xs = u2gnn_encoder_train(x2d, params, S, T, rate, seed)
+    g = torch.randn(N, D, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(9))
+    fn = lambda: ut.mega_recompute_backward(  # noqa: E731
+        x2d, xs, g, params, S, T, rate, seed)
+    return {"ms": cs.device_ms(fn, 3, ("wd_mega_bwd_kernel",) + PRODUCTS
+                               + ("gt_mega_reduce_kernel",)),
+            "products_ms": cs.device_ms(fn, 3, PRODUCTS)}
+
+
 def worker(root: str, only: str = "") -> dict:
     """The timings of the checkout at ``root`` (``only``: one family)."""
     import numpy as np
@@ -379,6 +499,8 @@ def worker(root: str, only: str = "") -> dict:
 
     if only == "narrow_fwd":
         return narrow_fwd(cs, dev, seed, rate)
+    if only == "stored_bwd":
+        return stored_bwd(cs, dev, seed, rate)
     out.update(wide_fwd(cs, dev, seed, rate,
                         os.path.join(root, "build", "ab_keep.pt")))
     if only == "wide_fwd":
@@ -599,7 +721,7 @@ def main() -> int:
         print(f"# {r}: " + "; ".join(
             f"{k} " + ", ".join(f"{n} {v:.4g}" for n, v in d.items())
             for k, d in t.items()), flush=True)
-    if len(roots) > 1 and roots[1] != roots[0] and only != "narrow_fwd":
+    if len(roots) > 1 and roots[1] != roots[0] and only in ("", "wide_fwd"):
         eq = bit_equal(roots[0], roots[1])
         print(f"# bit for bit, {roots[1]} against {roots[0]}: " + ", ".join(
             f"{k} {'equal' if v else 'differ'}" for k, v in eq.items()),

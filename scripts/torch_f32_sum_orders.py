@@ -2,7 +2,7 @@
 """How far each float32 sum order of the wide forward's products moves the
 encoder's output from the float64 function, on the CPU:
 
-    python3 scripts/torch_f32_sum_orders.py [N S D F T CASE DROP ONE_HOT ...]
+    python3 scripts/torch_f32_sum_orders.py [--orders a,b,...] [N S D F T CASE DROP ONE_HOT ...]
 
 Runs the plain post-norm layer stack (the port's ``layer_forward`` steps,
 float32 rows from ``chip_smoke.random_case(seed=CASE, one_hot=ONE_HOT)``,
@@ -12,8 +12,15 @@ max |out - float64| of the plain float32 version and each order's multiple
 of it, the quantity the float32 forward checks hold within 2
 (``chip_smoke.check_forward``):
 
-- ``fma``: FMAs in K order (the CUDA-core product ``wd_gemm``);
+- ``fma``: FMAs in K order over the whole of K;
+- ``u128``, ``u32``, ``u16``: FMAs in K order over each unit of 128, 32 or
+  16 K values from zero, the units' partials added in K order by float32
+  adds (``u128`` is the CUDA-core layer's order, ``wd_gemm``: one chain
+  over each 128-column hidden chunk of h W2, one over all of K = D for the
+  other products);
 - ``exact``: each product's exact sum rounded once to float32;
+- ``exact_w2``: h W2 exact, the K = D products FMAs in K order;
+- ``exact_kd``: the K = D products exact, h W2 as ``u128``;
 - ``x3chain``: 3xTF32 (hi = tf32(x), lo = tf32(x - hi); lo*hi, hi*lo, hi*hi)
   in one accumulator over K, each k8 ``mma`` rounding C plus its 8 exact
   products toward zero (the tensor cores' accumulation);
@@ -72,6 +79,14 @@ def mm_fma(a, b):
     return acc
 
 
+def mm_units(a, b, unit):
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], unit):
+        part = mm_fma(a[:, k0:k0 + unit], b[k0:k0 + unit])
+        acc = acc + part if k0 else part
+    return acc
+
+
 def mm_exact(a, b):
     return (a.double() @ b.double()).float()
 
@@ -93,6 +108,13 @@ def mm_x3(a, b, fresh, exact_b=False):
 
 
 ORDERS = {"fma": mm_fma, "exact": mm_exact,
+          "u128": lambda a, b: mm_units(a, b, 128),
+          "u32": lambda a, b: mm_units(a, b, 32),
+          "u16": lambda a, b: mm_units(a, b, 16),
+          "exact_w2": lambda a, b: mm_fma(a, b) if a.shape[1] <= 128
+          else mm_exact(a, b),
+          "exact_kd": lambda a, b: mm_exact(a, b) if a.shape[1] <= 128
+          else mm_units(a, b, 128),
           "x3chain": lambda a, b: mm_x3(a, b, False),
           "x3fresh": lambda a, b: mm_x3(a, b, True),
           "x4fresh": lambda a, b: mm_x3(a, b, True, exact_b=True)}
@@ -125,7 +147,7 @@ def layer(x, p, t, rate, seed, mm, slot0):
     return layer_norm(y1 + z, g2, c2)[0]
 
 
-def run_case(N, S, D, F, T, case_seed, drop_seed, one_hot):
+def run_case(N, S, D, F, T, case_seed, drop_seed, one_hot, orders=ORDERS):
     _, params, x2d = chip_smoke.random_case(
         N=N, S=S, D=D, C=D, F=F, Tn=T, stored=T, seed=case_seed, dev="cpu",
         one_hot=bool(one_hot))
@@ -143,18 +165,23 @@ def run_case(N, S, D, F, T, case_seed, drop_seed, one_hot):
         line = (f"N={N} S={S} D={D} F={F} T={T} case {case_seed}"
                 f"{' one-hot' if one_hot else ''} rate {rate}: plain "
                 f"{plain:.3e}")
-        for name, mm in ORDERS.items():
+        for name, mm in orders.items():
             e = float((fwd(mm).double() - ref).abs().max())
             line += f"; {name} {e:.3e} ({e / plain:.2f}x)"
         print(line, flush=True)
 
 
 def main() -> int:
-    args = [int(a) for a in sys.argv[1:]]
+    args = sys.argv[1:]
+    orders = ORDERS
+    if args[:1] == ["--orders"]:
+        orders = {k: ORDERS[k] for k in args[1].split(",")}
+        args = args[2:]
+    args = [int(a) for a in args]
     cases = ([tuple(args[i:i + 8]) for i in range(0, len(args), 8)]
              if args else DEFAULT_CASES)
     for case in cases:
-        run_case(*case)
+        run_case(*case, orders=orders)
     return 0
 
 
