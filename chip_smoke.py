@@ -46,10 +46,10 @@
    - at D = 40, 68, 128 in float32 and bf16, K4tw's saved layer inputs
      against K9w's layers bit for bit (``check_saved_inputs_are_layers``);
    - K4t, K8 and K8s at the MUTAG HPO arm's own rows (512 x S=17, D=6,
-     T=5) and K9/K10 at ACT's (512 x S=9, D=7), F=1024, float32 and bf16,
-     where the forward layer's FFN runs on the tensor cores; then both
-     branches of that FFN timed at 8,704 to 79,488 rows (``gate_sweep``,
-     the rows the gate FWD_MMA_ROWS is set from).
+     T=5) and K9/K10 at ACT's (512 x S=9, D=7), F=1024, float32 and bf16;
+     then K1 and K13 at the bench's rows timed at rate 0.5 and 0, with the
+     integer floor of their dropout words from the SASS of the layer's FFN
+     loop and the card's SM clock (``hash_floor``).
 3. Drives slice 1's main path: ``SupTrainer(device="cuda")`` on the
    benchmark workload of ``bench.py`` (synthetic REDDITMULTI5K-like, batch
    16, K=8, T=4, ff 1024, bf16): warm-up steps, timed ``train_steps`` on a
@@ -790,59 +790,176 @@ def check_ffn(label, M, D, F, dtype, dev, layer=1):
     return errs
 
 
-# rows at which both branches of the thread-per-row forward layer's FFN are
-# timed (the HPO arm's 512 x S=17 to the bench's 8,832 x S=9)
-GATE_ROWS = (8704, 16384, 32768, 49152, 79488)
-# FWD_MMA_ROWS values that send every launch to one branch
-BRANCH_GATES = (("mma", 2 ** 31 - 1), ("cuda", 1))
+# SASS opcodes by the unit that runs them (cuobjdump -sass of the built
+# libraries): 32-bit integer instructions (the ALU and IMAD), float32 ones,
+# shared-memory loads
+INT32_OPS = {"IADD3", "IADD", "IADD32I", "LOP3", "LOP", "LOP32I", "SHF", "SHL",
+             "SHR", "ISETP", "IMAD", "IMUL", "IMUL32I", "IMAD32I", "LEA",
+             "PRMT", "SEL", "IABS", "IMNMX", "ICMP", "BFE", "BFI", "POPC",
+             "FLO", "BREV", "IDP", "SGXT", "BMSK", "VIADD", "VIMNMX"}
+FP32_OPS = {"FADD", "FMUL", "FFMA", "FMNMX", "FSEL", "FSETP", "FSET", "FCHK",
+            "MUFU", "F2F", "F2FP", "F2I", "I2F", "FRND", "FADD32I", "FMUL32I",
+            "FFMA32I"}
+LDS_OPS = {"LDS", "LDSM"}
+# the multipliers of gt_mix32 (common.cuh), the second also as the signed
+# immediate SASS may print: one of each a mix, two mixes a dropout word
+HASH_CONSTANTS = ("0x7feb352d", "0x846ca68b", "-0x7b935975")
 
 
-def gate_sweep(dev) -> dict:
-    """Both branches of the thread-per-row forward layer's FFN (the tensor
-    cores, "mma"; a thread per row on the CUDA cores, "cuda") at each of
-    GATE_ROWS rows: device ms a launch of K4t with float32 rows at the HPO
-    arm's shape (S=17, D=6, T=5), of K4t with bf16 rows at the bench's (S=9,
-    D=4, T=4) and of K9 with float32 rows at ACT's (S=9, D=7), F=1024, rate
-    0.5, the gate moved (``_build.set_fwd_mma_rows``) so that every launch
-    takes the one branch, and put back.  The rows FWD_MMA_ROWS is set from."""
-    import torch
+def sass_functions(lib_path: str) -> dict:
+    """{mangled name: [(address, opcode, text, branch target)]} of a built
+    library, from ``cuobjdump -sass``: the target an address (None but for
+    a branch)."""
+    import re
 
     from graph_transformer_tpu_torch.ops import _build
-    from graph_transformer_tpu_torch.ops import encoder_layer as el
-    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
-        u2gnn_encoder_train)
 
-    shapes = {"K4t f32 S17 D6": (17, 6, 5, torch.float32),
-              "K4t bf16 S9 D4": (9, 4, 4, torch.bfloat16),
-              "K9 f32 S9 D7": (9, 7, 1, torch.float32)}
-    libs = ("encoder_fwd", "encoder_layer")
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, cur, labels, pending = {}, None, {}, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = funcs.setdefault(line.split("Function :")[1].strip(), [])
+            labels, pending = {}, []
+            continue
+        if cur is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if not m:
+            continue
+        addr, text = int(m.group(1), 16), m.group(2)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        words = [w for w in text.split() if not w.startswith("@")]
+        cur.append((addr, words[0] if words else "", text, labels))
     out = {}
-    try:
-        for key, (S, D, Tn, dt) in shapes.items():
-            for rows in GATE_ROWS:
-                N = -(-rows // S)
-                _, p, x = random_case(N=N, S=S, D=D, C=D, F=FF, Tn=Tn,
-                                      stored=Tn, seed=18, dev=dev)
-                x = x.to(dt)
-                if key.startswith("K9"):
-                    p0 = [a[0] for a in p]
-                    fn = (lambda: el.encoder_layer_forward(
-                        x, p0, S, 0.5, 5, 0))
-                    kern = ("gt_layer_fwd_kernel",)
+    for name, insts in funcs.items():
+        rows = []
+        for addr, op, text, labels in insts:
+            target = None
+            if op.startswith("BRA"):
+                m = re.search(r"\(\s*(\.L_x_\d+)\s*\)", text)
+                if m and m.group(1) in labels:
+                    target = labels[m.group(1)]
                 else:
-                    fn = (lambda: u2gnn_encoder_train(x, p, S, Tn, 0.5, 5))
-                    kern = ("gt_encoder_fwd_kernel",)
-                res = {}
-                for branch, gate in BRANCH_GATES:
-                    _build.set_fwd_mma_rows(gate, libs)
-                    res[branch] = device_ms(fn, 10, kern)
-                out[f"{key} rows {N * S}"] = res
-                gated = "tensor" if N * S < _build.FWD_MMA_ROWS else "CUDA"
-                print(f"# gate sweep {key} at {N * S} rows: tensor cores "
-                      f"{res['mma']:.4f} ms, CUDA cores {res['cuda']:.4f} ms"
-                      f" a launch ({gated} cores by the gate)", flush=True)
+                    m = re.search(r"BRA\S*\s+(?:`\()?(0x[0-9a-f]+)", text)
+                    target = int(m.group(1), 16) if m else None
+            rows.append((addr, op, text, target))
+        out[name] = rows
+    return out
+
+
+def hash_loops(insts) -> list:
+    """The innermost loops (a branch back to an earlier address) of one
+    function that draw dropout words: for each, its instructions by unit
+    and per word (elements: the loop's gt_mix32 multipliers / 4)."""
+    loops = [(t, a) for a, op, _, t in insts
+             if op.startswith("BRA") and t is not None and t <= a]
+    body = {}
+    for lo, hi in loops:
+        body[(lo, hi)] = [(op, text) for a, op, text, _ in insts
+                          if lo <= a <= hi]
+    hashed = {k: v for k, v in body.items()
+              if any(c in t.lower() for _, t in v for c in HASH_CONSTANTS)}
+    inner = [k for k in hashed if not any(
+        o != k and k[0] <= o[0] and o[1] <= k[1] for o in hashed)]
+    out = []
+    for k in sorted(inner):
+        v = hashed[k]
+        words = sum(t.lower().count(c) for _, t in v
+                    for c in HASH_CONSTANTS) / 4
+        base = [op.split(".")[0] for op, _ in v]
+        n = {"int32": sum(b in INT32_OPS for b in base),
+             "fp32": sum(b in FP32_OPS for b in base),
+             "lds": sum(b in LDS_OPS for b in base),
+             "hmma": sum(b == "HMMA" for b in base)}
+        n["other"] = len(base) - sum(n.values())
+        out.append({"span": [hex(k[0]), hex(k[1])], "words": words,
+                    "instructions": len(base), **n,
+                    "bf16_mma": any("HMMA.16816" in t for _, t in v),
+                    "divides": any(b == "MUFU" and "RCP" in t
+                                   for b, (_, t) in zip(base, v)),
+                    "per_word": {u: n[u] / words for u in n} if words
+                    else {}})
+    return out
+
+
+def sm_clock_mhz(fn, seconds: float = 1.5) -> float:
+    """The SM clock ``nvidia-smi`` reads while ``fn`` runs back to back on
+    the card (the median of its readings every 50 ms)."""
+    import torch
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+         "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            fn()
+            torch.cuda.synchronize()
     finally:
-        _build.set_fwd_mma_rows(0, libs)
+        smi.terminate()
+        out = smi.communicate(timeout=30)[0]
+    mhz = sorted(float(x) for x in out.split() if x.strip().isdigit())
+    if not mhz:
+        fail("nvidia-smi read no SM clock")
+    return mhz[len(mhz) // 2]
+
+
+def hash_floor(si, params, S, Tn, seed, dev) -> dict:
+    """K1 and K13 at the bench's rows (its training batch ``si``): device ms
+    a launch at rate 0.5 and at rate 0, the SASS of the layer's FFN loop on
+    that path per dropout word (rate 0.5 takes GT_HID_SCALED, of the
+    innermost loops of gt_encoder_fwd_kernel<4, false> that draw words with
+    bf16 mma.sync the one of the fewest instructions a word), and the
+    integer floor:
+    INT32 instructions a word x the launch's words (one a hidden element:
+    ((T-1) N S + N) F) / (64 lanes x 132 SMs x the SM clock ``nvidia-smi``
+    reads while the kernel runs), with the share of it the kernel reaches."""
+    from graph_transformer_tpu_torch.ops import _build
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+
+    N, F = si[0].shape[0], params[6].shape[2]
+    words = ((Tn - 1) * N * S + N) * F
+    fwd = ("gt_encoder_fwd_kernel",)
+    out = {}
+    for key, src, call in (
+            ("K1", "sampled_fwd", lambda r: se.sampled_forward(
+                *si, params, S, Tn, r, seed)),
+            ("K13", "fused_sampled_fwd", lambda r: fs.fused_sampled_forward(
+                *si, params, S, Tn, r, seed))):
+        funcs = sass_functions(_build.lib_path(src))
+        name = next(f for f in funcs if "gt_encoder_fwd_kernelILi4ELb0EE" in f)
+        loops = [lp for lp in hash_loops(funcs[name]) if lp["bf16_mma"]]
+        if not loops:
+            fail(f"{key}: no bf16 dropout loop in the SASS of {name}")
+        lp = min(loops, key=lambda lp: lp["instructions"] / lp["words"])
+        ms = {r: device_ms(lambda: call(r), 10, fwd) for r in (0.5, 0.0)}
+        mhz = sm_clock_mhz(lambda: call(0.5))
+        floor_ms = lp["per_word"]["int32"] * words / (64 * 132 * mhz * 1e6) \
+            * 1e3
+        out[key] = dict(ms_rate_05=ms[0.5], ms_rate_0=ms[0.0],
+                        mask_share=1.0 - ms[0.0] / ms[0.5], words=words,
+                        sass_loop=lp, sm_clock_mhz=mhz, int32_floor_ms=floor_ms,
+                        share_of_floor=floor_ms / ms[0.5])
+        pw = lp["per_word"]
+        print(f"# hash floor {key} at {N} x S={S}, D={si[3].shape[1]}, F={F},"
+              f" T={Tn}: {ms[0.5]:.4f} ms a launch at rate 0.5, "
+              f"{ms[0.0]:.4f} at rate 0 (the mask {out[key]['mask_share']:.3f}"
+              f" of it); the FFN loop's SASS a word: {pw['int32']:.2f} INT32, "
+              f"{pw['fp32']:.2f} FP32, {pw['lds']:.2f} LDS, {pw['hmma']:.3f} "
+              f"HMMA, {pw['other']:.2f} other ({lp['instructions']} "
+              f"instructions, {lp['words']:g} words an iteration); {words:,} "
+              f"words at {mhz:.0f} MHz: integer floor {floor_ms:.4f} ms, "
+              f"reached {out[key]['share_of_floor']:.3f}", flush=True)
     return out
 
 
@@ -1703,15 +1820,18 @@ def write_imdb_like_tu(root, name="IMDBBINARY", num_graphs=1000, seed=0):
 def device_ms(fn, reps: int, kernels) -> float:
     """Device time per call of ``fn`` spent in the CUDA kernels whose names
     hold one of ``kernels``, from torch.profiler (the wrapper's own
-    allocations, fills and casts are left out).  A profiler session that
-    records none of these kernels (CUPTI now and then drops a session's
-    records) is run again, up to three sessions."""
+    allocations, fills and casts are left out): for each kernel name, its
+    mean time a launch times its launches a call.  CUPTI now and then drops
+    some of a session's records (9 of 10 launches seen on an H100):
+    a sum over the records kept would read low, the mean a launch does not.
+    A session that records none of these kernels is run again, up to five
+    sessions (three lost in a row have been seen)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -1719,13 +1839,17 @@ def device_ms(fn, reps: int, kernels) -> float:
             torch.cuda.synchronize()
         device = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        us = sum(e.time_range.end - e.time_range.start for e in device
-                 if any(k in e.name for k in kernels))
-        if us > 0:
-            return us / reps / 1e3
-        print(f"# the profiler saw no device time in {kernels} ({len(device)}"
-              f" device events); profiling again", flush=True)
-    fail(f"the profiler saw no device time in {kernels} in three sessions")
+        by_name = {}
+        for e in device:
+            if any(k in e.name for k in kernels):
+                by_name.setdefault(e.name, []).append(
+                    e.time_range.end - e.time_range.start)
+        if by_name:
+            return sum(sum(us) / len(us) * max(1, round(len(us) / reps))
+                       for us in by_name.values()) / 1e3
+        print(f"# the profiler saw no launch of {kernels} in {reps} calls "
+              f"({len(device)} device events); profiling again", flush=True)
+    fail(f"the profiler saw no device time in {kernels} in five sessions")
 
 
 def profile_steps(trainer, batch, n_steps: int) -> None:
@@ -2090,15 +2214,15 @@ def fwd_flops(N, S, D, F, Tn):
 # (mangled names: KT = 4, 5; KT = 0, float32 rows and the other D, runs on
 # the CUDA cores)
 WIDE_FWD = tuple(f"wd_encoder_fwd_kernelILi{kt}E" for kt in (4, 5))
-# the thread-per-row forward layer's tensor-core instantiations (MMA = true,
-# below FWD_MMA_ROWS rows), D <= 4, 8, 16, 32: the forward kernel of K1, K4,
-# K4t, K13, K15, K16 (H = false) and K17 (H = true), K9's and K8/K8s/K10's
-# recompute forward (mangled template arguments)
+# the thread-per-row forward layer's instantiations, D <= 4, 8, 16, 32: the
+# forward kernel of K1, K4, K4t, K13, K15, K16 (H = false) and K17 (H =
+# true), K9's and K8/K8s/K10's recompute forward (mangled template
+# arguments)
 DMS = (4, 8, 16, 32)
-NARROW_FWD = tuple(f"gt_encoder_fwd_kernelILi{dm}ELb0ELb1E" for dm in DMS)
-NARROW_FWD_H = tuple(f"gt_encoder_fwd_kernelILi{dm}ELb1ELb1E" for dm in DMS)
-K9_FWD = tuple(f"gt_layer_fwd_kernelILi{dm}ELb1E" for dm in DMS)
-RECOMPUTE_FWD = tuple(f"gt_recompute_fwd_kernelILi{dm}ELb{s}ELb1E"
+NARROW_FWD = tuple(f"gt_encoder_fwd_kernelILi{dm}ELb0EE" for dm in DMS)
+NARROW_FWD_H = tuple(f"gt_encoder_fwd_kernelILi{dm}ELb1EE" for dm in DMS)
+K9_FWD = tuple(f"gt_layer_fwd_kernelILi{dm}EE" for dm in DMS)
+RECOMPUTE_FWD = tuple(f"gt_recompute_fwd_kernelILi{dm}ELb{s}EE"
                       for dm in DMS for s in (0, 1))
 # the kernels whose products run on the tensor cores, by library: the wide
 # forward (the wide K4, K4tw, K9w, K5, K13w, K17 with bf16 rows), the
@@ -2125,20 +2249,12 @@ def hmma_counts(_build) -> dict:
     """HMMA (tensor-core) instructions in the SASS of each kernel of
     MMA_KERNELS (``cuobjdump -sass`` of the built library), by library and
     instantiation; fails where one holds none or a kernel is missing."""
-    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     counts = {}
     for name, kernels in MMA_KERNELS.items():
-        sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        func = None
-        for line in sass.splitlines():
-            if "Function :" in line:
-                func = line.split("Function :")[1].strip()
-                if any(k in func for k in kernels):
-                    counts[(name, func)] = 0
-            elif (name, func) in counts and "HMMA" in line:
-                counts[(name, func)] += 1
+        funcs = sass_functions(_build.lib_path(name))
+        for func, insts in funcs.items():
+            if any(k in func for k in kernels):
+                counts[(name, func)] = sum("HMMA" in op for _, op, _, _ in insts)
         missing = [k for k in kernels
                    if not any(k in f for (n, f) in counts if n == name)]
         if missing:
@@ -2266,8 +2382,8 @@ def main() -> int:
                                         x2d_t.to(dt), S_, T_, dev).items()})
     check_two_pass_vs_fused("mutag-like", si_m, params_m, S, T, dev)
     # K4t, K8, K8s at the HPO arm's own rows (512 x S=17, D=6, T=5) and K9,
-    # K10 at ACT's (512 x S=9, D=7), float32 and bf16: below FWD_MMA_ROWS,
-    # the forward layer's FFN on the tensor cores
+    # K10 at ACT's (512 x S=9, D=7), float32 and bf16: blocks of two
+    # neighborhoods that fill the card
     _, params_t, x2d_t = random_case(N=512, S=17, D=6, C=6, F=FF, Tn=5,
                                      stored=5, seed=15, dev=dev)
     _, params_l, x2d_l = random_case(N=512, S=9, D=7, C=7, F=FF, Tn=1,
@@ -2352,8 +2468,8 @@ def main() -> int:
     check_fused_mega("imdb-width-68", si_68, params_68, S, T, dev)
     print(f"# kernel checks: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    sweep = gate_sweep(dev)
-    print(f"# gate sweep: {time.perf_counter() - t0:.1f} s", flush=True)
+    floor = hash_floor(si, params, S, T, 20260, dev)
+    print(f"# hash floor: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 3. the main path of slice 1: the bench workload on K1-K4
     trainer.train_steps(batch, WARMUP)
@@ -3045,7 +3161,7 @@ def main() -> int:
                       "quickstart_profile": prof_q,
                       "hpo_arm_edges_per_s": eps_h,
                       "hpo_arm_ms_per_step": step_ms_h, **cells,
-                      "gate_sweep": sweep,
+                      "hash_floor": floor,
                       "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

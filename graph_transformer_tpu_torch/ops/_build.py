@@ -185,9 +185,6 @@ def load(name: str) -> ctypes.CDLL:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = [_I, _I, _I]
                 getattr(lib, fn).restype = ctypes.c_size_t
-        if hasattr(lib, "gt_set_fwd_mma_rows"):
-            lib.gt_set_fwd_mma_rows.argtypes = [_I]
-            lib.gt_set_fwd_mma_rows.restype = None
         for fn, nargs in WORK_FNS.items():
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = [_I] * nargs
@@ -222,28 +219,34 @@ def params_array(tensors) -> ctypes.Array:
 
 # blocks that fill the H100: two on each of its 132 SMs
 FILL_BLOCKS = 264
-# rows (N*S) below which the thread-per-row forward layer runs its FFN on
-# the tensor cores: GT_FWD_MMA_ROWS of csrc/common.cuh, which decides
-FWD_MMA_ROWS = 49152
+# rows a block of the thread-per-row forward layer holds at most: its
+# GT_BWD_THREADS threads (csrc/common.cuh), a thread per row
+FWD_ROWS = 256
 
 
-def fill_groups(S: int, rows: int = 128, n: int = 0) -> int:
+def fill_groups(S: int, rows: int = 128, n: int = 0,
+                whole_waves: bool = False) -> int:
     """Neighborhoods per block before shared memory has its say: up to
-    ``rows`` rows; with ``n`` neighborhoods given, ceil(n / FILL_BLOCKS)
-    at most, so that the grid has about FILL_BLOCKS blocks or more."""
+    ``rows`` rows; with ``n`` neighborhoods given, ceil(n / FILL_BLOCKS) at
+    most, so that the grid has about FILL_BLOCKS blocks or more.  With
+    ``whole_waves``, the grid fills the fewest waves of FILL_BLOCKS blocks
+    that blocks of up to ``rows`` rows can, each wave as full as it can be:
+    ceil(n / (waves * FILL_BLOCKS)) neighborhoods a block."""
     G = max(1, rows // S)
     if n:
-        G = max(1, min(G, -(-n // FILL_BLOCKS)))
+        waves = -(-n // (G * FILL_BLOCKS)) if whole_waves else 1
+        G = max(1, min(G, -(-n // (waves * FILL_BLOCKS))))
     return G
 
 
 def pick_groups(name: str, smem_fn: str, S: int, D: int, rows: int = 128,
-                limit: int = 200 * 1024, n: int = 0) -> int:
+                limit: int = 200 * 1024, n: int = 0,
+                whole_waves: bool = False) -> int:
     """Neighborhoods per block of the kernel whose shared memory ``smem_fn``
     of source ``name`` gives: :func:`fill_groups`, fewer if shared memory
     asks."""
     smem = getattr(load(name), smem_fn)
-    G = fill_groups(S, rows, n)
+    G = fill_groups(S, rows, n, whole_waves)
     while G > 1 and smem(G, S, D) > limit:
         G -= 1
     if smem(G, S, D) > limit:
@@ -252,15 +255,13 @@ def pick_groups(name: str, smem_fn: str, S: int, D: int, rows: int = 128,
     return G
 
 
-def set_fwd_mma_rows(rows: int, names=SOURCES) -> None:
-    """Moves the forward layer's gate (FWD_MMA_ROWS) of the libraries of
-    ``names`` to ``rows`` (0: back to FWD_MMA_ROWS), so that a measurement
-    can time both branches at one row count (1: the CUDA cores at any rows;
-    2**31 - 1: the tensor cores)."""
-    for name in names:
-        lib = load(name)
-        if hasattr(lib, "gt_set_fwd_mma_rows"):
-            lib.gt_set_fwd_mma_rows(int(rows))
+def pick_fwd_groups(name: str, smem_fn: str, S: int, D: int, n: int) -> int:
+    """Neighborhoods per block of a launch of the thread-per-row forward
+    layer (K1, K4, K4t, K9, K13, K15-K17 up to D=32) over ``n``
+    neighborhoods: up to FWD_ROWS rows a block, in whole waves (at the
+    bench's 8,832 x S=9: 17 a block, 520 blocks in two waves of 264, where
+    128-row blocks made 631, three waves with the last 39% full)."""
+    return pick_groups(name, smem_fn, S, D, FWD_ROWS, n=n, whole_waves=True)
 
 
 def stream_ptr(device) -> int:

@@ -12,12 +12,12 @@
 // Bound on the H100: at the bench shapes the input is 0.6 MB of bf16 rows and
 // the FFN ~3.8 GFLOP of bf16 products, so the bound is the operations
 // (~4 us at 989 TFLOP/s); at the MUTAG HPO arm's K4t (8,704 float32 rows,
-// S=17, D=6, T=5) likewise, 0.013 ms at 67 TFLOP/s.  Below GT_FWD_MMA_ROWS
-// rows (the HPO arm) a block of 8 warps holds few neighborhoods, so that
-// the grid fills the card (G picked with n=N), and the FFN runs on the tensor cores (bf16 mma.sync, float32 3xTF32), each
+// S=17, D=6, T=5) likewise, 0.013 ms at 67 TFLOP/s.  A block of 8 warps
+// holds few neighborhoods at few rows (the HPO arm), so that the grid fills
+// the card, and as many as fill whole waves at many (_build.pick_fwd_groups);
+// the FFN runs on the tensor cores (bf16 mma.sync, float32 3xTF32), each
 // warp owning a slice of the hidden columns with its output partial in mma
-// accumulators (gt_ffn_tc, common.cuh).  From it on (the bench's 79,488
-// rows) a thread per row walks the FFN on the CUDA cores.
+// accumulators (gt_ffn_tc, common.cuh).
 #include "common.cuh"
 
 extern "C" size_t gt_k4_smem_bytes(int G, int S, int D) {

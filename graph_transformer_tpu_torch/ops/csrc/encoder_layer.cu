@@ -23,11 +23,10 @@
 // forward (~12*D*F backward) against ~4*D bytes of x and out; at the ACT
 // workload's shapes (N = 512 padded nodes, S = 9, D = 7, F = 1024, float32)
 // the forward's ~0.27 GFLOP of float32 products take ~4 us at 67 TFLOP/s.
-// Below GT_FWD_MMA_ROWS rows (ACT's 4,608) K9 fills the card with blocks of
-// 8 warps over few neighborhoods (G picked with n=N) and runs its FFN on the
-// tensor cores (3xTF32 for float32 rows), each warp owning a slice of the
-// hidden columns (gt_ffn_tc, common.cuh), as K10's recompute forward does;
-// from it on, a thread per row on the CUDA cores.
+// K9 fills the card with blocks of 8 warps over few neighborhoods
+// (_build.pick_fwd_groups) and runs its FFN on the tensor cores (3xTF32 for
+// float32 rows), each warp owning a slice of the hidden columns (gt_ffn_tc,
+// common.cuh), as K10's recompute forward does.
 //
 // K9w is the wide forward layer (wide_tc_fwd.cuh) run as a full layer that
 // writes every row in the rows' dtype; K10w is K8w's
@@ -53,9 +52,8 @@ extern "C" size_t gt_k10_smem_bytes(int G, int S, int D) {
   return gt_recompute_smem_bytes(G, S, D, false);
 }
 
-template <int DM, bool MMA>
-__global__ void __launch_bounds__(MMA ? GT_BWD_THREADS : 128,
-                                  GT_FWD_MIN_BLOCKS(DM, MMA))
+template <int DM>
+__global__ void __launch_bounds__(GT_BWD_THREADS, GT_FWD_MIN_BLOCKS(DM))
 gt_layer_fwd_kernel(const void* x, int x_bf16, void* out, GtLayer w, GtDrop dr,
                     int layer, int N, int S, int D, int F, int G,
                     float scale) {
@@ -71,8 +69,8 @@ gt_layer_fwd_kernel(const void* x, int x_bf16, void* out, GtLayer w, GtDrop dr,
   for (int d = 0; d < DM; ++d) xr[d] = 0.f;
   if (valid) gt_load_row<DM>(x, x_bf16, row, D, xr);
   GtLayerOut lo = {};
-  gt_fwd_layer<DM, false, MMA>(smem, w, dr, layer, /*last=*/false, lo, xr, N,
-                               S, D, F, G, scale, x_bf16);
+  gt_fwd_layer<DM>(smem, w, dr, layer, /*last=*/false, lo, xr, N, S, D, F, G,
+                   scale, x_bf16);
   if (!valid) return;
 #pragma unroll
   for (int d = 0; d < DM; ++d)
@@ -84,36 +82,24 @@ gt_layer_fwd_kernel(const void* x, int x_bf16, void* out, GtLayer w, GtDrop dr,
     }
 }
 
-template <int DM, bool MMA>
-static cudaError_t launch_k9_as(const void* x, int x_bf16, void* out,
-                                const GtLayer& w, const GtDrop& dr, int layer,
-                                int N, int S, int D, int F, int G, float scale,
-                                cudaStream_t stream) {
-  const size_t smem = sizeof(float) * gt_fwd_smem_floats(G, S, D, false, MMA);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(gt_layer_fwd_kernel<DM, MMA>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int threads = MMA ? GT_BWD_THREADS : ((G * S + 31) / 32) * 32;
-  const int blocks = (N + G - 1) / G;
-  gt_layer_fwd_kernel<DM, MMA><<<blocks, threads, smem, stream>>>(
-      x, x_bf16, out, w, dr, layer, N, S, D, F, G, scale);
-  return cudaGetLastError();
-}
-
-// the FFN's branch as every forward layer picks it (gt_fwd_mma)
+// a block of G neighborhoods, G * S <= GT_BWD_THREADS rows
 template <int DM>
 static cudaError_t launch_k9(const void* x, int x_bf16, void* out,
                              const GtLayer& w, const GtDrop& dr, int layer,
                              int N, int S, int D, int F, int G, float scale,
                              cudaStream_t stream) {
-  return gt_fwd_mma(N, S)
-             ? launch_k9_as<DM, true>(x, x_bf16, out, w, dr, layer, N, S, D,
-                                      F, G, scale, stream)
-             : launch_k9_as<DM, false>(x, x_bf16, out, w, dr, layer, N, S, D,
-                                       F, G, scale, stream);
+  if (G < 1 || G * S > GT_BWD_THREADS) return cudaErrorInvalidValue;
+  const size_t smem = gt_fwd_smem_bytes(G, S, D);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(gt_layer_fwd_kernel<DM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (N + G - 1) / G;
+  gt_layer_fwd_kernel<DM><<<blocks, GT_BWD_THREADS, smem, stream>>>(
+      x, x_bf16, out, w, dr, layer, N, S, D, F, G, scale);
+  return cudaGetLastError();
 }
 
 // K9.  x, out [N*S, D] (bf16 if x_bf16, else f32); params: one layer's 12

@@ -19,10 +19,8 @@
 // T=4): K15's ~45 MB of rows, weights and residual writes bound it (~14 us
 // at 3.35 TB/s) against ~4 GFLOP of bf16 products (~4 us at 989 TFLOP/s);
 // K16 reads ~0.8 MB and writes its 0.14 MB output, so the products bound
-// it.  At those rows (from GT_FWD_MMA_ROWS on) the products run on the CUDA
-// cores (a thread per row, the FFN weights staged in shared memory chunk by
-// chunk), bound by those instructions, as K1 is; below them K1's FFN on the
-// tensor cores.
+// it.  Both run K1's layer (the FFN on the tensor cores), bound at those
+// rows by the hidden's dropout words, as K1 is.
 #include "common.cuh"
 
 extern "C" size_t gt_k15_smem_bytes(int G, int S, int D) {

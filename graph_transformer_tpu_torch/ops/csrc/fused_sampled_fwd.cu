@@ -24,9 +24,10 @@
 // Bound on the H100 at the bench shapes (N=8,832, S=9, D=4, F=1024, T=4):
 // ~3.8 GFLOP of bf16 products against ~2.6 MB of saved rows, so the
 // operations (~4 us at 989 TFLOP/s); at the quickstart's (N=640, S=9, D=68)
-// likewise.  Up to D = 32 it runs K1's layer (the FFN on the tensor cores
-// below GT_FWD_MMA_ROWS rows, on the CUDA cores from them on); for 32 < D <=
-// 80 K5's, on the tensor cores (mma.sync m16n8k16 with bf16 operands).
+// likewise; at the bench's rows the hidden's dropout words bound it, as
+// K1.  Up to D = 32 it runs K1's layer (the FFN on the tensor cores); for
+// 32 < D <= 80 K5's, on the tensor cores (mma.sync m16n8k16 with bf16
+// operands).
 #include "wide_tc_fwd.cuh"
 
 extern "C" size_t gt_k13_smem_bytes(int G, int S, int D) {

@@ -44,7 +44,7 @@
 // D=4, F=1024, T=4, bf16) the T recomputed forwards and backwards are
 // ~12 GFLOP of bf16 products (~13 us at 989 TFLOP/s) against ~4 MB of
 // rows, saved inputs, cotangents and gradients.  K14 runs K8's forward
-// layer (its FFN on the tensor cores where K8's does, gt_fwd_mma) and K8's
+// layer (its FFN on the tensor cores, as every forward layer's) and K8's
 // body, whose FFN runs on the tensor cores (layer_bwd.cuh), in one launch
 // at the body's shared memory; the recomputed residuals round-trip device
 // memory (mostly L2).  K14w's row products run on the tensor cores through
@@ -79,7 +79,7 @@ struct GtMegaScratch {
   float *qkv, *attn_full, *strip_full, *attn_last, *strip_last;
 };
 
-template <int DM, bool MMA>
+template <int DM>
 __global__ void __launch_bounds__(GT_BWD_THREADS)
 gt_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
                    const float* dout, GtStack st, GtDrop dr, float* dx,
@@ -108,8 +108,8 @@ gt_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
     lo.out = nullptr;
     // begins with a barrier: the previous layer's body is done with shared
     // memory
-    gt_fwd_layer<DM, false, MMA>(smem, w, dr, t, last, lo, xr, N, S, D, F, G,
-                                 scale, x_bf16);
+    gt_fwd_layer<DM>(smem, w, dr, t, last, lo, xr, N, S, D, F, G, scale,
+                     x_bf16);
     // the residuals are the block's own rows; the body begins with a
     // barrier, after which every thread of the block sees them
     __threadfence_block();
@@ -152,29 +152,8 @@ static cudaError_t gt_mega_reduce(const float* part, int nblk, int T,
   return cudaGetLastError();
 }
 
-template <int DM, bool MMA>
-static cudaError_t gt_launch_mega_as(const void* x, const void* xs,
-                                     int x_bf16, const float* dout,
-                                     const GtStack& st, const GtDrop& dr,
-                                     float* dx, const GtMegaScratch& sc,
-                                     float* partial, int N, int S, int D,
-                                     int F, int T, int G, float scale,
-                                     cudaStream_t stream) {
-  const size_t smem = gt_mega_smem_bytes(G, S, D);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gt_mega_bwd_kernel<DM, MMA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int blocks = (N + G - 1) / G;
-  gt_mega_bwd_kernel<DM, MMA><<<blocks, GT_BWD_THREADS, smem, stream>>>(
-      x, xs, x_bf16, dout, st, dr, dx, sc, partial, N, S, D, F, T, G, scale);
-  return cudaGetLastError();
-}
-
-// the recompute's forward FFN as K8's chain picks it (gt_fwd_mma), so that
-// K14 repeats the chain bit for bit
+// the recompute's forward layer is K8's chain's, so that K14 repeats the
+// chain bit for bit
 template <int DM>
 static cudaError_t gt_launch_mega(const void* x, const void* xs, int x_bf16,
                                   const float* dout, const GtStack& st,
@@ -183,16 +162,20 @@ static cudaError_t gt_launch_mega(const void* x, const void* xs, int x_bf16,
                                   float* grads, int N, int S, int D, int F,
                                   int T, int G, float scale,
                                   cudaStream_t stream) {
-  cudaError_t e =
-      gt_fwd_mma(N, S)
-          ? gt_launch_mega_as<DM, true>(x, xs, x_bf16, dout, st, dr, dx, sc,
-                                        partial, N, S, D, F, T, G, scale,
-                                        stream)
-          : gt_launch_mega_as<DM, false>(x, xs, x_bf16, dout, st, dr, dx, sc,
-                                         partial, N, S, D, F, T, G, scale,
-                                         stream);
+  if (G < 1 || G * S > GT_BWD_THREADS) return cudaErrorInvalidValue;
+  const size_t smem = gt_mega_smem_bytes(G, S, D);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gt_mega_bwd_kernel<DM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (N + G - 1) / G;
+  gt_mega_bwd_kernel<DM><<<blocks, GT_BWD_THREADS, smem, stream>>>(
+      x, xs, x_bf16, dout, st, dr, dx, sc, partial, N, S, D, F, T, G, scale);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  return gt_mega_reduce(partial, (N + G - 1) / G, T, st.stored,
+  return gt_mega_reduce(partial, blocks, T, st.stored,
                         gt_grad_offsets(D, F).P, grads, stream);
 }
 

@@ -4,11 +4,9 @@
 //   1. the layer's forward again (gt_recompute_fwd_kernel), with the
 //      forward kernels' layer code (gt_fwd_layer, common.cuh), writing q/k/v,
 //      the attention probabilities and the LayerNorm strip to scratch.  Its
-//      FFN takes the branch every forward takes at the same rows
-//      (gt_fwd_mma): on the tensor cores over all the block's warps below
-//      GT_FWD_MMA_ROWS (gt_ffn_tc), a thread per row on the CUDA cores from
-//      it on.  So at the same rows it recomputes bit for bit the forward that
-//      K4t ran and saved the layer inputs of;
+//      FFN runs on the tensor cores over all the block's warps (gt_ffn_tc),
+//      whose sums do not depend on G, so it recomputes bit for bit the
+//      forward that K4t ran and saved the layer inputs of;
 //   2. the backward body K2/K3 run on K1's stored residuals
 //      (gt_layer_bwd_kernel, layer_bwd.cuh), which replays the four dropout
 //      masks from the forward's counters (stream 4*layer+site), and the
@@ -23,16 +21,15 @@
 
 #include "layer_bwd.cuh"
 
-// shared memory of a block of the pair: the largest of the two launches'
-// (the forward in either branch)
+// shared memory of a block of the pair: the larger of the two launches'
 static inline size_t gt_recompute_smem_bytes(int G, int S, int D, bool slot0) {
   const size_t f = gt_fwd_smem_bytes(G, S, D);
   const size_t b = sizeof(float) * gt_bwd_smem_floats(G, S, D, slot0);
   return f > b ? f : b;
 }
 
-template <int DM, bool SLOT0, bool MMA>
-__global__ void __launch_bounds__(GT_BWD_THREADS, GT_FWD_MIN_BLOCKS(DM, MMA))
+template <int DM, bool SLOT0>
+__global__ void __launch_bounds__(GT_BWD_THREADS, GT_FWD_MIN_BLOCKS(DM))
 gt_recompute_fwd_kernel(const void* x, int x_bf16, GtLayer w, GtDrop dr,
                         int layer, float* qkv, float* attn, float* strip,
                         int N, int S, int D, int F, int G, float scale) {
@@ -51,31 +48,8 @@ gt_recompute_fwd_kernel(const void* x, int x_bf16, GtLayer w, GtDrop dr,
   lo.attn = attn;
   lo.strip = strip;
   lo.out = nullptr;
-  gt_fwd_layer<DM, false, MMA>(smem, w, dr, layer, SLOT0, lo, xr, N, S, D, F,
-                               G, scale, x_bf16);
-}
-
-template <int DM, bool SLOT0, bool MMA>
-static cudaError_t gt_launch_recompute_fwd(const void* x, int x_bf16,
-                                           const GtLayer& w, const GtDrop& dr,
-                                           int layer, float* qkv, float* attn,
-                                           float* strip, int N, int S, int D,
-                                           int F, int G, float scale,
-                                           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * gt_fwd_smem_floats(G, S, D, false, MMA);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gt_recompute_fwd_kernel<DM, SLOT0, MMA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  // the tensor-core FFN takes every warp of GT_BWD_THREADS; the CUDA-core
-  // one a thread per row
-  const int threads = MMA ? GT_BWD_THREADS : ((G * S + 31) / 32) * 32;
-  const int blocks = (N + G - 1) / G;
-  gt_recompute_fwd_kernel<DM, SLOT0, MMA><<<blocks, threads, smem, stream>>>(
-      x, x_bf16, w, dr, layer, qkv, attn, strip, N, S, D, F, G, scale);
-  return cudaGetLastError();
+  gt_fwd_layer<DM>(smem, w, dr, layer, SLOT0, lo, xr, N, S, D, F, G, scale,
+                   x_bf16);
 }
 
 template <int DM, bool SLOT0>
@@ -86,14 +60,18 @@ static cudaError_t gt_launch_recompute(const void* x, int x_bf16,
                                        float* partial, float* grads, int N,
                                        int S, int D, int F, int G, float scale,
                                        cudaStream_t stream) {
-  cudaError_t e =
-      gt_fwd_mma(N, S)
-          ? gt_launch_recompute_fwd<DM, SLOT0, true>(
-                x, x_bf16, w, dr, layer, qkv, attn, strip, N, S, D, F, G,
-                scale, stream)
-          : gt_launch_recompute_fwd<DM, SLOT0, false>(
-                x, x_bf16, w, dr, layer, qkv, attn, strip, N, S, D, F, G,
-                scale, stream);
+  if (G < 1 || G * S > GT_BWD_THREADS) return cudaErrorInvalidValue;
+  const size_t smem = gt_fwd_smem_bytes(G, S, D);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        gt_recompute_fwd_kernel<DM, SLOT0>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (N + G - 1) / G;
+  gt_recompute_fwd_kernel<DM, SLOT0><<<blocks, GT_BWD_THREADS, smem, stream>>>(
+      x, x_bf16, w, dr, layer, qkv, attn, strip, N, S, D, F, G, scale);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   return gt_launch_layer_bwd<DM, SLOT0>(x, x_bf16, qkv, attn, strip, dout, w,
                                         dr, layer, dx, partial, grads, N, S, D,

@@ -17,8 +17,7 @@
 // F = 1024) a row costs ~12*D*F product operations (the FFN recompute, its
 // two weight-gradient products and the cotangent's) against ~12*D bytes of
 // x, g and dx.  The body's FFN products run on the tensor cores over every
-// warp of a block (layer_bwd.cuh), the forward's too where the rows are few
-// (recompute.cuh), the row-wise work a thread per row; the scratch round
+// warp of a block (layer_bwd.cuh), the forward's too (recompute.cuh), the row-wise work a thread per row; the scratch round
 // trip (~(7*D + S) floats a row) stays mostly in L2.  Blocks hold few
 // enough neighborhoods that a launch has >= 264 of them where N allows (the
 // HPO arm's 512 neighborhoods: 2 a block).

@@ -11,12 +11,12 @@
 // Bound on the H100: at the bench shapes (N=8.2K, S=9, D=4, F=1024, T=4) the
 // FFN is ~3.8 GFLOP of bf16 products against ~20 MB of residual writes, so the
 // bound is the bytes (~6 us at 3.35 TB/s).  It runs the forward layer of
-// common.cuh (gt_fwd_layer): at those rows (79,488, from GT_FWD_MMA_ROWS on)
-// the products on the CUDA cores in f32 (bf16-rounded operands), one thread
-// per row with the FFN weights staged in shared memory chunk by chunk; below
-// them the FFN on the tensor cores over all the block's warps.  The dropout
-// bits are an integer hash per element; it is bound by those instructions,
-// not by memory.
+// common.cuh (gt_fwd_layer): a thread per row for the row-wise steps, the
+// FFN on the tensor cores over all the block's warps, the blocks sized to
+// fill whole waves of the card (_build.pick_fwd_groups).  The FFN hidden's
+// dropout draws an integer hash per element (~253 M at those shapes); the
+// kernel is bound by those integer instructions, not by memory or the
+// products (PERF.md).
 #include "common.cuh"
 
 extern "C" size_t gt_k1_smem_bytes(int G, int S, int D) {

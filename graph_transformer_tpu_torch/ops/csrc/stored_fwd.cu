@@ -74,18 +74,15 @@ extern "C" int gt_k5_stored_fwd(
 // Bound on the H100 at the A/B workload (79,488 rows, S=9, D=4, F=1024,
 // T=4, bf16): the stored hidden, ~0.5 GB of bf16 writes, bounds it
 // (~0.16 ms at 3.35 TB/s) against ~4 GFLOP of products.  For D <= 32 K17
-// runs K1's layer (common.cuh: gt_fwd_layer, a thread per row, G
-// neighborhoods of up to 128 rows a block), as K15 does, and writes the
-// hidden through a staging tile in shared memory, GT_HC columns at a time,
-// row-contiguous and 16 bytes a thread; a warp per 4-wide row (K5's layer)
-// left 28 of its 32 lanes idle in every row-wise step.  Below
-// GT_FWD_MMA_ROWS rows its FFN runs on the tensor cores as K1's does and the
-// hidden goes to device memory from the mma accumulators, two columns a
-// lane; from them on, on the CUDA cores.  Past D = 32 it runs K5's layer loop (wide_tc_fwd.cuh:
-// with bf16 rows of D <= 80 the products on the tensor cores, mma.sync
-// m16n8k16; with float32 rows on the CUDA cores).
+// runs K1's layer (common.cuh: gt_fwd_layer, a thread per row for the
+// row-wise steps, the FFN on the tensor cores over the block's 8 warps), as
+// K15 does, and the hidden goes to device memory from the mma accumulators,
+// two columns a lane; a warp per 4-wide row (K5's layer) left 28 of its 32
+// lanes idle in every row-wise step.  Past D = 32 it runs K5's layer loop
+// (wide_tc_fwd.cuh: with bf16 rows of D <= 80 the products on the tensor
+// cores, mma.sync m16n8k16; with float32 rows on the CUDA cores).
 extern "C" size_t gt_k17_smem_bytes(int G, int S, int D) {
-  return D <= 32 ? gt_fwd_smem_bytes(G, S, D, /*h=*/true)
+  return D <= 32 ? gt_fwd_smem_bytes(G, S, D)
                  : wt_fwd_smem_bytes_any(G, S, D);
 }
 

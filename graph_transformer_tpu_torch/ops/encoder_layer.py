@@ -18,7 +18,7 @@ recomputes the layer from ``x2d`` and returns dx in ``x2d``'s dtype and the
 Dispatch: on CUDA tensors K9/K10 or K9w/K10w (a launch counter each), on
 CPU tensors the plain versions (``layer_forward`` and
 ``layer_recompute_backward_plain``); S <= 32 and D <= 128 either way, wider
-rows raise naming ROADMAP Queue A item 2.  The TPU kernel's dense [R, R]
+rows raise naming ROADMAP Queue A's item "Rows past D=128 or S=32".  The TPU kernel's dense [R, R]
 block-masked attention is a TPU layout and is not carried over.
 """
 
@@ -50,7 +50,7 @@ def check_layer_shapes(S: int, D: int) -> None:
         raise NotImplementedError(
             f"S={S}, D={D}: the encoder-layer kernels K9/K10 (K9w/K10w past "
             f"D={MAX_D}) take S <= {MAX_S} and D <= {WIDE_MAX_D} (ROADMAP.md "
-            "Queue A, item 2, 'Rows past D=128 or S=32')")
+            "Queue A, 'Rows past D=128 or S=32')")
 
 
 def _split(x2d, S):
@@ -119,10 +119,10 @@ def _forward(x2d, params, S, rate, seed, layer, wide):
     out = torch.empty_like(x2d)
     if N:
         fn = "gt_k9w_layer_fwd" if wide else "gt_k9_layer_fwd"
-        G = _build.pick_groups(
-            "encoder_layer", "gt_k9w_smem_bytes" if wide else
-            "gt_k9_smem_bytes", S, D, WIDE_ROWS if wide else 128,
-            n=0 if wide else N)
+        G = (_build.pick_groups("encoder_layer", "gt_k9w_smem_bytes", S, D,
+                                WIDE_ROWS) if wide else
+             _build.pick_fwd_groups("encoder_layer", "gt_k9_smem_bytes", S, D,
+                                    N))
         err = getattr(_build.load("encoder_layer"), fn)(
             x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), out.data_ptr(),
             _build.params_array(ps), layer, N, S, D, ps[6].shape[1], G,

@@ -14,8 +14,8 @@ sites 2 (hidden) and 3 (FFN output) of timestep ``layer``
 reproduce the kernels' masks.
 
 Dispatch: on CUDA tensors K11/K12 (a launch counter each), on CPU tensors the
-plain versions; D <= 128 either way, wider rows raise naming ROADMAP Queue A
-item 2.
+plain versions; D <= 128 either way, wider rows raise naming ROADMAP Queue A's
+item "Rows past D=128 or S=32".
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def check_ffn_shapes(D: int) -> None:
     if D > WIDE_MAX_D:
         raise NotImplementedError(
             f"D={D}: the FFN kernels K11/K12 take D <= {WIDE_MAX_D} "
-            "(ROADMAP.md Queue A, item 2, 'Rows past D=128 or S=32')")
+            "(ROADMAP.md Queue A, 'Rows past D=128 or S=32')")
 
 
 def _mm(dtype: torch.dtype) -> torch.dtype:

@@ -98,7 +98,8 @@ def _launch(x2d, params, S, T, rate, seed, residuals: bool):
         if residuals else None
     if N:
         lib = _build.load("folded_fwd")
-        G = _build.pick_groups("folded_fwd", "gt_k15_smem_bytes", S, D, n=N)
+        G = _build.pick_fwd_groups("folded_fwd", "gt_k15_smem_bytes", S,
+                                   D, N)
         tail = (N, S, D, F, T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
                 _build.stream_ptr(dev))
         head = (x.data_ptr(), _build.params_array(ps), ps[0].shape[0],

@@ -91,10 +91,10 @@ def fused_sampled_forward(tag_rows, deg, self_tag, codebook, params,
     xs = torch.empty(T, N * S, D, dtype=torch.bfloat16, device=dev)
     if N:
         wide = D > MAX_D
-        G = _build.pick_groups(
-            "fused_sampled_fwd",
-            "gt_k13w_smem_bytes" if wide else "gt_k13_smem_bytes", S, D,
-            WIDE_ROWS if wide else 128, n=0 if wide else N)
+        G = (_build.pick_groups("fused_sampled_fwd", "gt_k13w_smem_bytes", S,
+                                D, WIDE_ROWS) if wide else
+             _build.pick_fwd_groups("fused_sampled_fwd", "gt_k13_smem_bytes",
+                                    S, D, N))
         err = _build.load("fused_sampled_fwd").gt_k13_sampled_fwd(
             tag_rows.data_ptr(), W, deg.data_ptr(), self_tag.data_ptr(),
             codebook.data_ptr(),

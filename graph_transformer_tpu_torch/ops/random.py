@@ -23,6 +23,8 @@ hidden (``[N, S]``, ``[N, D]``, ``[N, F]`` in the slot-0 last layer), and
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 M32 = 0xFFFFFFFF
@@ -99,8 +101,17 @@ def layer_seed(seed: int, layer: int) -> int:
 
 
 def drop_args(rate: float, seed) -> tuple:
-    """(seed, keep24, keep, on) as the kernels take them."""
+    """(seed, keep24, keep, on) as the kernels take them: ``on`` 0 keeps
+    every value (rate 0, or a rate so small that every word is kept and
+    keep rounds to 1.0 in float32), 2 marks keep = 0.5 in float32 (a word is
+    then kept iff its top bit is 0, and kept values double exactly; the
+    D <= 32 forward layer draws the FFN hidden's mask so), 1 any other rate
+    (kept values divided by keep)."""
     if rate > 0.0 and seed is None:
         raise ValueError("dropout rate > 0 needs a seed")
-    return (int(seed or 0) & M32, keep_threshold(rate), 1.0 - float(rate),
-            int(rate > 0.0))
+    keep24 = keep_threshold(rate)
+    keep = struct.unpack("<f", struct.pack("<f", 1.0 - float(rate)))[0]
+    on = 0
+    if rate > 0.0 and keep24 < 1 << 24:
+        on = 2 if keep == 0.5 else 1
+    return (int(seed or 0) & M32, keep24, 1.0 - float(rate), on)

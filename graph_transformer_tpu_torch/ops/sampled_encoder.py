@@ -129,7 +129,8 @@ def sampled_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
     strip_last = torch.empty(N, 4 * D + 2, **f32)
     if N:
         lib = _build.load("sampled_fwd")
-        G = _build.pick_groups("sampled_fwd", "gt_k1_smem_bytes", S, D, n=N)
+        G = _build.pick_fwd_groups("sampled_fwd", "gt_k1_smem_bytes", S,
+                                   D, N)
         err = lib.gt_k1_sampled_fwd(
             tag_rows.data_ptr(), W, deg.data_ptr(), self_tag.data_ptr(),
             codebook.data_ptr(),

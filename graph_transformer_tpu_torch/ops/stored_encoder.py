@@ -214,9 +214,10 @@ def stored_rows_forward(x2d, params, seq_len: int, num_timesteps: int,
     if N:
         lib = _build.load("stored_fwd")
         # a thread per row up to D = 32 (K1's layer), a warp per row past it
-        G = _build.pick_groups("stored_fwd", "gt_k17_smem_bytes", S, D,
-                               128 if D <= 32 else WIDE_ROWS,
-                               n=N if D <= 32 else 0)
+        G = (_build.pick_fwd_groups("stored_fwd", "gt_k17_smem_bytes", S, D,
+                                    N) if D <= 32 else
+             _build.pick_groups("stored_fwd", "gt_k17_smem_bytes", S, D,
+                                WIDE_ROWS))
 
         def opt(t):
             return t.data_ptr() if T > 1 else None

@@ -158,14 +158,13 @@ def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
     if N == 0:
         return out
     if wide:
-        src, smem_fn, rows = "wide_fwd", "gt_k4w_smem_bytes", WIDE_ROWS
+        src = "wide_fwd"
         fn = "gt_k4w_encoder_fwd" if xs is None else "gt_k4tw_encoder_fwd"
+        G = _build.pick_groups(src, "gt_k4w_smem_bytes", S, D, WIDE_ROWS)
     else:
-        src, smem_fn, rows = "encoder_fwd", "gt_k4_smem_bytes", 128
+        src = "encoder_fwd"
         fn = "gt_k4_encoder_fwd" if xs is None else "gt_k4t_encoder_fwd"
-    # a thread per row up to D = 32: as many blocks as fill the card at few
-    # rows, where the FFN runs on the tensor cores (FWD_MMA_ROWS)
-    G = _build.pick_groups(src, smem_fn, S, D, rows, n=0 if wide else N)
+        G = _build.pick_fwd_groups(src, "gt_k4_smem_bytes", S, D, N)
     saved = () if xs is None else (xs.data_ptr() if T > 1 else None,)
     err = getattr(_build.load(src), fn)(
         x2d.data_ptr(), int(x2d.dtype == torch.bfloat16),

@@ -56,11 +56,10 @@ that checkout's package and times, by torch.profiler device time a launch
   eight sources and times nothing else, :func:`narrow_fwd`): K4t at the MUTAG
   HPO arm's batch (512 x S=17, D=6, T=5, float32), K9 at ACT's (512 x S=9,
   D=7, float32), K4t with bf16 rows at 8,832 x S=9, D=4, K1 and K13 at the
-  bench's rows, K4 at eval, K15-K17 on the A/B rows, K8 and K14 at the HPO
-  arm's batch; K4t's and
-  K9's float32 distance from float64; and, in a checkout that can move the
-  gate, both branches of the layer's FFN at 8,704 to 79,488 rows
-  (``chip_smoke.gate_sweep``);
+  bench's rows (rate 0.5 and 0, K1 also 0.3), K4 at eval, K15-K17 on the
+  A/B rows, K8 and K14 at the HPO arm's batch, K10 at ACT's; K4t's and
+  K9's float32 distance from float64; and the layer at 8,704 to 79,488
+  rows (:func:`row_sweep`: both FFN branches in a checkout that has two);
 - the stored backward and the split-K weight products (``--only
   stored_bwd`` builds seven sources and times nothing else,
   :func:`stored_bwd`): K6 and K6s at the README quickstart's batch (640
@@ -288,13 +287,12 @@ def narrow_fwd(cs, dev, seed, rate):
     at the MUTAG HPO arm's batch (512 x S=17, D=6, T=5, float32), K9 at
     ACT's (512 x S=9, D=7, float32), K4t with bf16 rows at 8,832 x S=9, D=4,
     T=4, K1 and K13 at the bench's rows (8,832 sampled neighborhoods, S=9,
-    D=4, T=4), K4 at eval on such rows (rate 0), K15, K16 and K17 on them,
-    K8 (whole, and its forward launch) and K14 at the HPO arm's batch;
-    F=1024, ``rate`` elsewhere.
+    D=4, T=4; also at rate 0, and K1 at 0.3), K4 at eval on such rows (rate
+    0), K15, K16 and K17 on them, K8 (whole, and its forward launch) and
+    K14 at the HPO arm's batch, K10 at ACT's; F=1024, ``rate`` elsewhere.
     The float32 distance of K4t's and K9's outputs from the float64
-    function beside the plain version's.  Where the checkout can move its
-    gate (``_build.set_fwd_mma_rows``), both branches at the rows
-    ``chip_smoke.gate_sweep`` takes."""
+    function beside the plain version's.  The layer at the rows of
+    :func:`row_sweep`."""
     import torch
 
     from graph_transformer_tpu_torch.ops import _build
@@ -321,6 +319,7 @@ def narrow_fwd(cs, dev, seed, rate):
     _, xsh = u2gnn_encoder_train(xh, ph, 17, 5, rate, seed)
     gh = torch.randn(512, 17, 6, device=dev, generator=gen)
     gh0 = torch.randn(512, 6, device=dev, generator=gen)
+    ga = torch.randn(512 * 9, 7, device=dev, generator=gen)
     calls = {
         "K4t_hpo": (lambda: u2gnn_encoder_train(xh, ph, 17, 5, rate, seed),
                     NARROW),
@@ -332,6 +331,12 @@ def narrow_fwd(cs, dev, seed, rate):
         "K1_bench": (lambda: se.sampled_forward(*sib, pb, 9, 4, rate, seed),
                      NARROW),
         "K13_bench": (lambda: fs.fused_sampled_forward(*sib, pb, 9, 4, rate,
+                                                       seed), NARROW),
+        "K1_bench_rate0": (lambda: se.sampled_forward(*sib, pb, 9, 4, 0.0,
+                                                      seed), NARROW),
+        "K13_bench_rate0": (lambda: fs.fused_sampled_forward(
+            *sib, pb, 9, 4, 0.0, seed), NARROW),
+        "K1_bench_rate03": (lambda: se.sampled_forward(*sib, pb, 9, 4, 0.3,
                                                        seed), NARROW),
         "K4_eval": (lambda: u2gnn_encoder(xb, pb, 9, 4), NARROW),
         "K15_ab": (lambda: fe.folded_stored_forward(xb, pb, 9, 4, rate, seed),
@@ -345,6 +350,9 @@ def narrow_fwd(cs, dev, seed, rate):
         "K14_hpo": (lambda: ut.mega_recompute_backward(
             xh, xsh, gh0, ph, 17, 5, rate, seed),
             ("gt_mega_bwd_kernel", "gt_mega_reduce_kernel")),
+        "K10_act": (lambda: el.encoder_layer_backward(xa, ga, pa0, 9, rate,
+                                                      seed, 1),
+                    K8_ROW + REDUCE),
     }
     for key, (fn, kern) in calls.items():
         out[key] = {"ms": cs.device_ms(fn, 10, kern)}
@@ -359,8 +367,61 @@ def narrow_fwd(cs, dev, seed, rate):
         layer_forward(xa.double().view(512, 9, 7), [a.double() for a in pa0],
                       layer=0, rate=rate, seed=seed, mm=torch.float32,
                       slot0=False)[0])
-    if hasattr(_build, "set_fwd_mma_rows"):
-        out.update({f"gate {k}": v for k, v in cs.gate_sweep(dev).items()})
+    out.update({f"rows {k}": v for k, v in row_sweep(cs, dev).items()})
+    return out
+
+
+# rows at which the forward layer is timed (the HPO arm's 512 x S=17 to the
+# bench's 8,832 x S=9) and the gate values that send a checkout that has
+# two branches (_build.set_fwd_mma_rows) to one of them
+SWEEP_ROWS = (8704, 16384, 32768, 49152, 79488)
+BRANCH_GATES = (("mma", 2 ** 31 - 1), ("cuda", 1))
+
+
+def row_sweep(cs, dev) -> dict:
+    """Device ms a launch of K4t with float32 rows at the HPO arm's shape
+    (S=17, D=6, T=5), of K4t with bf16 rows at the bench's (S=9, D=4, T=4)
+    and of K9 with float32 rows at ACT's (S=9, D=7), F=1024, rate 0.5, at
+    each of SWEEP_ROWS: in a checkout whose layer has two FFN branches
+    (tensor cores, "mma"; a thread per row on the CUDA cores, "cuda") each
+    branch, its gate moved and put back; else the one layer ("one")."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import _build
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+        u2gnn_encoder_train)
+
+    shapes = {"K4t f32 S17 D6": (17, 6, 5, torch.float32),
+              "K4t bf16 S9 D4": (9, 4, 4, torch.bfloat16),
+              "K9 f32 S9 D7": (9, 7, 1, torch.float32)}
+    libs = ("encoder_fwd", "encoder_layer")
+    two = hasattr(_build, "set_fwd_mma_rows")
+    out = {}
+    try:
+        for key, (S, D, Tn, dt) in shapes.items():
+            for rows in SWEEP_ROWS:
+                N = -(-rows // S)
+                _, p, x = cs.random_case(N=N, S=S, D=D, C=D, F=1024, Tn=Tn,
+                                         stored=Tn, seed=18, dev=dev)
+                x = x.to(dt)
+                if key.startswith("K9"):
+                    p0 = [a[0] for a in p]
+                    fn = (lambda: el.encoder_layer_forward(
+                        x, p0, S, 0.5, 5, 0))
+                    kern = ("gt_layer_fwd_kernel",)
+                else:
+                    fn = (lambda: u2gnn_encoder_train(x, p, S, Tn, 0.5, 5))
+                    kern = ("gt_encoder_fwd_kernel",)
+                res = {}
+                for branch, gate in (BRANCH_GATES if two else (("one", 0),)):
+                    if two:
+                        _build.set_fwd_mma_rows(gate, libs)
+                    res[branch] = cs.device_ms(fn, 10, kern)
+                out[f"{key} {N * S}"] = res
+    finally:
+        if two:
+            _build.set_fwd_mma_rows(0, libs)
     return out
 
 

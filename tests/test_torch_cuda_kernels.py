@@ -396,12 +396,15 @@ def test_encoder_layer_kernels_at_act_batch(cuda, dtype):
                                    x2d.to(getattr(torch, dtype)), 9, cuda)
 
 
-def _gate_side(S, side):
-    """Neighborhoods whose N*S rows lie just under or just over the forward
-    layer's gate (FWD_MMA_ROWS)."""
-    from graph_transformer_tpu_torch.ops import _build
+# rows where the forward layer's FFN changed branch until it had one (the
+# tensor cores at every row count): its tests keep both sides of them
+FORMER_GATE_ROWS = 49152
 
-    under = (_build.FWD_MMA_ROWS - 1) // S
+
+def _gate_side(S, side):
+    """Neighborhoods whose N*S rows lie just under or just over
+    FORMER_GATE_ROWS."""
+    under = (FORMER_GATE_ROWS - 1) // S
     return under if side == "under" else under + 1
 
 
@@ -409,8 +412,8 @@ def _gate_side(S, side):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_forward_layer_kernels_at_the_gate(cuda, dtype, side):
     """K4t, K8, K8s (S=17, D=6, T=2) and K9, K10 (S=9, D=7) against their
-    plain versions with rows just under the gate (the FFN on the tensor
-    cores) and just over it (on the CUDA cores), F=1024, rate 0 and 0.5."""
+    plain versions with rows just under and just over FORMER_GATE_ROWS (one
+    wave of the card and two), F=1024, rate 0 and 0.5."""
     import chip_smoke
 
     dt = getattr(torch, dtype)
@@ -453,15 +456,82 @@ def test_forward_layer_sums_do_not_depend_on_the_blocks(cuda, dtype):
 
 @pytest.mark.parametrize("side", ["under", "over"])
 def test_fused_and_folded_kernels_bit_equal_at_the_gate(cuda, side):
-    """At rows just under and just over the gate (S=9, D=7): K13 bit for bit
-    against K1 and the two-pass path, K15 against K1 and K16 against K15
-    (``chip_smoke.check_bit_equal_paths``)."""
+    """At rows just under and just over FORMER_GATE_ROWS (S=9, D=7): K13 bit
+    for bit against K1 and the two-pass path, K15 against K1 and K16
+    against K15 (``chip_smoke.check_bit_equal_paths``)."""
     import chip_smoke
 
     N = _gate_side(9, side)
     si, params, _ = chip_smoke.random_case(
         N=N, S=9, D=7, C=7, F=256, Tn=3, stored=1, seed=19, dev=cuda)
     chip_smoke.check_bit_equal_paths(f"{side} N{N}", si, params, 9, 3, cuda)
+
+
+# the bench's rows: 8,832 neighborhoods x S=9, D=4, F=1024, T=4, bf16
+BENCH_ROWS = dict(N=8832, S=9, D=4, C=4, F=1024, Tn=4, stored=4)
+
+
+@pytest.mark.parametrize("rate", [0.5, 0.3])
+def test_sampled_kernels_at_bench_rows(cuda, rate):
+    """K1 and K13 at the bench's shape against their plain versions: draws
+    equal, outputs within the 2e-2 rule, K13 = K1 bit for bit (draws,
+    output, saved inputs).  Rate 0.5 takes the layer's half mask (a word's
+    top bit into the value's sign, kept values doubled once), 0.3 the
+    division by keep; both hold the hidden's mask to the plain stream: K17,
+    which runs K1's layer and stores the hidden, on K1's x0 rows with b1
+    raised by 10 (the relu then passes every kept value) is nonzero exactly
+    where ``keep_mask`` keeps, every layer, so the kept counts are equal."""
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import random as rnd
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(seed=41, dev=cuda, **BENCH_ROWS)
+    N, S, T, seed = 8832, 9, 4, 24680
+    out1, res1 = se.sampled_forward(*si, params, S, T, rate, seed)
+    outp, resp = se.sampled_forward_plain(*si, params, S, T, rate, seed)
+    out13, xs13, draws13 = fs.fused_sampled_forward(*si, params, S, T, rate,
+                                                    seed)
+    torch.cuda.synchronize()
+    assert torch.equal(res1["draws"], resp["draws"])
+    err = float((out1 - outp).abs().max())
+    assert torch.allclose(out1, outp, rtol=2e-2, atol=2e-2), err
+    assert torch.equal(draws13, res1["draws"]) and torch.equal(out13, out1)
+    assert torch.equal(xs13, torch.stack(res1["xs"]).reshape(T, N * S, 4))
+    hi = [p.clone() for p in params]
+    hi[7] = hi[7] + 10.0
+    x0 = res1["xs"][0].reshape(N * S, 4)
+    _, res17 = st.stored_rows_forward(x0, hi, S, T, rate, seed)
+    for t, h in enumerate(res17["h"]):
+        keep = rnd.keep_mask(seed, rnd.dropout_stream(t, 2), h.shape, rate,
+                             cuda)
+        assert torch.equal(h != 0, keep != 0), t
+
+
+def test_fused_and_folded_kernels_bit_equal_at_bench_rows(cuda):
+    """At the bench's shape, rate 0 and 0.5: K13 bit for bit against K1 and
+    the two-pass path, K15 against K1 and K16 against K15
+    (``chip_smoke.check_bit_equal_paths``), and the gradients of K15 with
+    K3 and (T-1) x K2 against K1-K3's."""
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    import chip_smoke
+
+    si, params, _ = chip_smoke.random_case(seed=42, dev=cuda, **BENCH_ROWS)
+    chip_smoke.check_bit_equal_paths("bench rows", si, params, 9, 4, cuda)
+    w = torch.randn(8832, 4, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    for rate in (0.0, 0.5):
+        _, res1 = se.sampled_forward(*si, params, 9, 4, rate, 11)
+        x0 = res1["xs"][0].reshape(-1, 4)
+        grads = []
+        for run in ("k1", "folded"):
+            ps = [p.detach().clone().requires_grad_(True) for p in params]
+            out = (se.sampled_encoder(*si, ps, 9, 4, rate, 11) if run == "k1"
+                   else fe.folded_u2gnn_encoder_grad(x0, ps, 9, 4, rate, 11))
+            grads.append(torch.autograd.grad((out * w).sum(), ps))
+        assert all(torch.equal(a, b) for a, b in zip(*grads)), rate
 
 
 def test_per_layer_kernels_match_whole_encoder(cuda):

@@ -210,7 +210,8 @@ def test_unported_configurations_raise():
     """Models other than U2GNNSup, and rows past the kernels of each
     encoder path, raise naming their ROADMAP item: the whole-encoder
     kernels (K4tw, K8w), the encoder-layer kernels K9w/K10w and the FFN
-    kernels K11/K12 past D=128 (Queue A item 2)."""
+    kernels K11/K12 past D=128 (Queue A's item "Rows past D=128 or
+    S=32")."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         U2GNNSup(4, 2, ModelConfig(model="gcn"))
     rng = np.random.default_rng(0)
@@ -221,7 +222,8 @@ def test_unported_configurations_raise():
     for D, kw, match in ((130, {}, "Rows past D=128"),
                          (130, dict(recurrence="gru"), "K9/K10"),
                          (130, dict(attention_axis="node"), "K11/K12"),
-                         (130, dict(num_heads=2), "Queue A, item 2")):
+                         (130, dict(num_heads=2),
+                          "Queue A, 'Rows past D=128 or S=32'")):
         ds.node_feat = rng.standard_normal((ds.num_nodes, D)).astype(
             np.float32)
         cfg = small_cfg(1)

@@ -152,11 +152,12 @@ def test_encoder_layer_matches_jax_kernel14_15(dtype):
 
 def test_encoder_layer_shapes():
     """K9/K10 take S <= 32 and D <= 32, K9w/K10w D <= 128; wider rows name
-    ROADMAP Queue A item 2."""
+    ROADMAP Queue A's item "Rows past D=128 or S=32"."""
     for S_, D_ in ((32, 32), (9, 33), (32, 128)):
         check_layer_shapes(S_, D_)
     for S_, D_ in ((33, 8), (9, 129)):
-        with pytest.raises(NotImplementedError, match="Queue A, item 2"):
+        with pytest.raises(NotImplementedError,
+                           match="Queue A, 'Rows past D=128 or S=32'"):
             check_layer_shapes(S_, D_)
     x = torch.zeros(9 * 2, 130)
     with pytest.raises(NotImplementedError, match="K9/K10"):
@@ -200,9 +201,11 @@ def test_ffn_matches_jax_kernel16_17(dtype, D_, M, F_):
 
 
 def test_ffn_shapes():
-    """K11/K12 take D <= 128; wider rows name ROADMAP Queue A item 2."""
+    """K11/K12 take D <= 128; wider rows name ROADMAP Queue A's item "Rows
+    past D=128 or S=32"."""
     check_ffn_shapes(128)
-    with pytest.raises(NotImplementedError, match="Queue A, item 2"):
+    with pytest.raises(NotImplementedError,
+                       match="Queue A, 'Rows past D=128 or S=32'"):
         ffn_residual_ln(torch.zeros(4, 129), *[torch.zeros(1)] * 6)
 
 
