@@ -22,6 +22,11 @@
    - the wide K4 in float32 at D=65 and D=128 (``check_k4_f32``);
    - K7 (the two-pass sampler) on a heavy-tailed graph at K=16 and K=8:
      equal ids, every id a neighbor, hub rows drawn from their subsample;
+     its sampling stage (``sample_neighborhoods``: draws, feature rows and
+     batch slots in one launch) on batches of that graph (float32 D=6,
+     bf16 D=7) and on each two-pass path's own batch: features, slots and
+     ids equal to the plain version's bit for bit, every slot the batch row
+     of its draw (``check_neighborhoods``);
    - K4t, K8 and K8s at N=4096, F=1024 in float32 and bf16 at the MUTAG HPO
      arm's shape (S=17, D=7, T=5), the ENZYMES-attribute shape (S=9, D=18,
      T=4) and the shared-memory edge (S=32, D=32) (``check_two_pass``);
@@ -66,7 +71,9 @@
    tags) on a generated MUTAG-like file and the ENZYMES row with 18
    continuous node attributes on a generated ENZYMES-like file; asserts
    finite losses and K7/K4t/K8/K8s launches with no fused-path kernel; then
-   times and profiles the HPO arm's step at 16 graphs a batch.
+   times and profiles the HPO arm's step at 16 graphs a batch.  Every timed
+   two-pass step (quickstart, HPO arm, ACT, node axis) must launch K7 once,
+   as ``sample_neighborhoods``, whose batch slots the model re-gathers by.
 6. Drives slice 4's main paths, the per-layer encoder, through the CLI for
    2 epochs each: the MUTAG row (``RESULTS.md:20``) with ``--recurrence
    act`` on the MUTAG-like file (K7, K9, K10; nothing else) and the README
@@ -486,7 +493,84 @@ def check_sampler(label, ds, K, seed, dev):
     print(f"# check {label}: K7 ids equal to the plain version's on {n} "
           f"nodes at K={K}; all neighbors of their node, {hubs} hub rows "
           "drew from their subsample", flush=True)
+    # the sampling stage of a step on batches of the same graph: float32
+    # rows of 6 (8-byte units), bf16 rows of 7 (2-byte units)
+    from graph_transformer_tpu_torch.data.batching import BatchBuilder
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    builder = BatchBuilder(ds, 4, K, seed=seed)
+    for D, dt in ((6, torch.float32), (7, torch.bfloat16)):
+        x_global = torch.randn(n, D, device=dev, generator=gen).to(dt)
+        check_neighborhoods(f"{label} D={D} {dt}", rows, deg_t, x_global,
+                            builder.sample().to(dev), K, seed)
     return 0.0, 0.0
+
+
+def check_neighborhoods(label, table, deg, x_global, batch, K, seed):
+    """K7's sampling stage at ``batch``'s rows (``sample_neighborhoods``)
+    against its plain version: features, slots and ids equal bit for bit;
+    the ids are those K7 draws from the table rows gathered by node id
+    (``sample_neighbors``, the unchanged draws); a real row's slots are the
+    batch rows of its draws in its own graph, slot 0 itself, a padding
+    row's its own row.  Returns (0, 0)."""
+    import torch
+
+    from graph_transformer_tpu_torch.sampling.neighbor_table import (
+        sample_neighborhoods, sample_neighborhoods_plain, sample_neighbors)
+
+    gidx, mask = batch.node_gidx, batch.node_mask
+    got = sample_neighborhoods(seed, table, deg, x_global, gidx, mask, K,
+                               with_ids=True)
+    want = sample_neighborhoods_plain(seed, table, deg, x_global, gidx, mask,
+                                      K, with_ids=True)
+    g = gidx.long()
+    ids = sample_neighbors(seed, table[g], deg[g], gidx, K)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("features", "slots", "ids"), got, want):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"{label}: K7 {name} differ from its plain version")
+    if not torch.equal(got[2], ids):
+        fail(f"{label}: K7's batch draws differ from its draws on gathered "
+             "rows")
+    N = gidx.shape[0]
+    slots, real = got[1], mask > 0
+    rows = torch.arange(N, device=slots.device)[:, None].expand(N, K + 1)
+    if not (torch.equal(g[slots[real]], ids[real].long())
+            and torch.equal(batch.graph_id[slots[real]],
+                            batch.graph_id[real][:, None].expand(-1, K + 1))
+            and torch.equal(slots[real][:, 0], rows[real][:, 0])
+            and torch.equal(slots[~real], rows[~real])):
+        fail(f"{label}: K7's slots are not the batch rows of its draws")
+    print(f"# check {label}: K7 features {tuple(got[0].shape)} "
+          f"{got[0].dtype}, slots and ids equal to the plain version's on "
+          f"{int(real.sum())} real and {int((~real).sum())} padding rows at "
+          f"K={K}; every slot the batch row of its draw", flush=True)
+    return 0.0, 0.0
+
+
+def k7_bytes(table, deg, x_global, batch, K, seed, out) -> int:
+    """The bytes K7 must move at ``batch``'s rows for this run's draws: its
+    outputs ``out`` (features, slots) written once, and every 32-byte
+    sector it reads once: the node ids and the mask, the degrees and the
+    drawn table entries at the batch's node ids, and the drawn feature
+    rows."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops.random import uniform_draws
+
+    g = batch.node_gidx.long()
+    N = g.shape[0]
+    draws = uniform_draws(seed, N, K, deg[g], table.shape[1])
+    ids = out[2].long()
+    rb = x_global.shape[1] * x_global.element_size()
+    span = torch.arange(-(-rb // 32) + 1, device=g.device)
+    first, last = ids * rb // 32, (ids * rb + rb - 1) // 32
+    x_sec = (first.reshape(-1, 1) + span).clamp(max=last.reshape(-1, 1))
+    sectors = (2 * -(-N * 4 // 32) + torch.unique(g * 4 // 32).numel()
+               + torch.unique((g[:, None] * table.shape[1] + draws) * 4
+                              // 32).numel()
+               + torch.unique(x_sec).numel())
+    return nbytes(*out[:2]) + 32 * sectors
 
 
 def check_two_pass(label, params, x2d, S, Tn, dev):
@@ -1996,7 +2080,7 @@ def launch_counters():
             "K3": se.slot0_backward, "K4": ue.u2gnn_encoder,
             "K4w": ue.wide_encoder, "K5": st.stored_forward,
             "K6": st.stored_layer_backward, "K6s": st.stored_slot0_backward,
-            "K7": nt.sample_neighbors, "K4t": ue.u2gnn_encoder_train,
+            "K7": nt.sample_neighborhoods, "K4t": ue.u2gnn_encoder_train,
             "K8": ut.layer_recompute_backward,
             "K8s": ut.slot0_recompute_backward,
             "K9": el.encoder_layer_forward, "K10": el.encoder_layer_backward,
@@ -2174,18 +2258,28 @@ def short_runs(ds_act, ds_attr) -> None:
 
 def timed_steps(trainer, batch, edges: float) -> tuple:
     """(ms/step, edges/s) of ``train_steps(batch, STEPS)`` after WARMUP
-    steps, by CUDA events; fails on a loss that is not finite."""
+    steps, by CUDA events; fails on a loss that is not finite, and on the
+    two-pass path unless each step launched K7 once (its sampling stage)
+    and no other sampler."""
     import torch
+
+    from graph_transformer_tpu_torch.sampling import neighbor_table as nt
 
     trainer.train_steps(batch, WARMUP)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    k7 = (nt.sample_neighborhoods.launches, nt.sample_neighbors.launches)
     start.record()
     losses = trainer.train_steps(batch, STEPS)
     end.record()
     end.synchronize()
     if not bool(torch.isfinite(losses).all()):
         fail(f"losses not finite: {losses}")
+    k7 = (nt.sample_neighborhoods.launches - k7[0],
+          nt.sample_neighbors.launches - k7[1])
+    if trainer.two_pass and not trainer.host_sampling and k7 != (STEPS, 0):
+        fail(f"{STEPS} two-pass steps launched K7 {k7[0]} times by "
+             f"sample_neighborhoods and {k7[1]} by sample_neighbors")
     ms = start.elapsed_time(end) / STEPS
     return ms, edges * 1e3 / ms
 
@@ -2293,7 +2387,7 @@ def main() -> int:
         u2gnn_encoder, u2gnn_encoder_plain, u2gnn_encoder_train,
         u2gnn_encoder_train_plain, wide_encoder, wide_encoder_train)
     from graph_transformer_tpu_torch.sampling.neighbor_table import (
-        sample_neighbors, sample_neighbors_plain)
+        sample_neighborhoods, sample_neighborhoods_plain)
     from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2525,6 +2619,9 @@ def main() -> int:
     batch_q = batch_q.to(dev)
     if not trainer_q.two_pass:
         fail("the quickstart does not take the two-pass path")
+    errs[("K7", 0.0, "quickstart batch")] = check_neighborhoods(
+        "quickstart batch", trainer_q._nbr_table, trainer_q._deg,
+        trainer_q._x_global, batch_q, K, 77)
     step_ms_q, eps_q = timed_steps(trainer_q, batch_q, edges_q)
     print(f"# quickstart train: {step_ms_q:.3f} ms/step, {eps_q:.1f} edges/s "
           f"({edges_q:.0f} edges/step, N={batch_q.n_pad}, "
@@ -2548,6 +2645,9 @@ def main() -> int:
     batch_h = trainer_h.builder.sample()
     edges_h = float(batch_h.edge_mask.sum())
     batch_h = batch_h.to(dev)
+    errs[("K7", 0.0, "hpo-arm batch")] = check_neighborhoods(
+        "hpo-arm batch", trainer_h._nbr_table, trainer_h._deg,
+        trainer_h._x_global, batch_h, cfg_h.data.num_neighbors, 77)
     step_ms_h, eps_h = timed_steps(trainer_h, batch_h, edges_h)
     print(f"# hpo-arm train (16 graphs a batch): {step_ms_h:.3f} ms/step, "
           f"{eps_h:.1f} edges/s ({edges_h:.0f} edges/step, "
@@ -2577,6 +2677,9 @@ def main() -> int:
         batch_4 = trainer_4.builder.sample()
         edges_4 = float(batch_4.edge_mask.sum())
         batch_4 = batch_4.to(dev)
+        errs[("K7", 0.0, f"{name} batch")] = check_neighborhoods(
+            f"{name} batch", trainer_4._nbr_table, trainer_4._deg,
+            trainer_4._x_global, batch_4, cfg_4.data.num_neighbors, 77)
         ms_4, eps_4 = timed_steps(trainer_4, batch_4, edges_4)
         print(f"# {name} train: {ms_4:.3f} ms/step, {eps_4:.1f} edges/s "
               f"({edges_4:.0f} edges/step, N={batch_4.n_pad}, "
@@ -2687,10 +2790,10 @@ def main() -> int:
     # the quickstart's two-pass shapes (float32 rows, its training batch,
     # U2GNN layer 0): K4tw, K8w and K8ws; K9w and K10w (the ACT run's
     # layer) over the same rows
-    rows_q, deg_q, gidx_q = trainer_q.two_pass_inputs(batch_q)
     Nt = batch_q.n_pad
-    neigh_q = sample_neighbors(seed, rows_q, deg_q, gidx_q, K)
-    x2d_tw = trainer_q._x_global[neigh_q.long()].reshape(Nt * S, Dq)
+    x2d_tw = sample_neighborhoods(
+        seed, trainer_q._nbr_table, trainer_q._deg, trainer_q._x_global,
+        *trainer_q.two_pass_inputs(batch_q), K)[0].reshape(Nt * S, Dq)
     params_tw = [p.detach() for p in trainer_q.model.encoders[0].stacked()]
     out_tw, xs_tw = wide_encoder_train(x2d_tw, params_tw, S, T, 0.5, seed)
     x8w = x2d_tw.view(Nt, S, Dq)
@@ -2736,13 +2839,14 @@ def main() -> int:
 
     # the HPO arm's shapes (two-pass, float32 rows and products): the
     # training batch of 16 graphs, U2GNN layer 0
-    rows_h, deg_h, gidx_h = trainer_h.two_pass_inputs(batch_h)
     Kh, Th = cfg_h.data.num_neighbors, cfg_h.model.num_timesteps
     Sh, Dh, Nh = Kh + 1, dsets_2["MUTAG"].feature_dim, batch_h.n_pad
     params_h = [p.detach() for p in trainer_h.model.encoders[0].stacked()]
     Ph = sum(p[0].numel() for p in params_h)
-    neigh_h = sample_neighbors(seed, rows_h, deg_h, gidx_h, Kh)
-    x2d_h = trainer_h._x_global[neigh_h.long()].reshape(Nh * Sh, Dh)
+    k7_args = (seed, trainer_h._nbr_table, trainer_h._deg,
+               trainer_h._x_global, *trainer_h.two_pass_inputs(batch_h), Kh)
+    out_k7 = sample_neighborhoods(*k7_args, with_ids=True)
+    x2d_h = out_k7[0].reshape(Nh * Sh, Dh)
     out_t, xs_t = u2gnn_encoder_train(x2d_h, params_h, Sh, Th, 0.5, seed)
     x8 = x2d_h.view(Nh, Sh, Dh)
     x8s = xs_t[-1].view(Nh, Sh, Dh)
@@ -2750,7 +2854,8 @@ def main() -> int:
     g8s = torch.randn(Nh, Dh, device=dev)
     ph_0 = [a[0] for a in params_h]
     ph_last = [a[(Th - 1) % a.shape[0]] for a in params_h]
-    k7_bytes = Nh * (4 + 4 + Kh * 4) + nbytes(neigh_h)
+    k7_b = k7_bytes(trainer_h._nbr_table, trainer_h._deg, trainer_h._x_global,
+                    batch_h, Kh, seed, out_k7)
     k4t_bytes = nbytes(x2d_h, out_t, xs_t) + nbytes(*params_h)
     k4t_flops = fwd_flops(Nh, Sh, Dh, F, Th)
     # K8/K8s read x, g and the layer's parameters and write dx (the size of
@@ -2769,10 +2874,10 @@ def main() -> int:
     # timestep): K9 and K10; the node-axis quickstart's: K11 and K12 over
     # (K+1) x N_pad rows
     tr_a, b_a = steps_4["act"]["trainer"], steps_4["act"]["batch"]
-    rows_a, deg_a, gidx_a = tr_a.two_pass_inputs(b_a)
     Da, Na = dsets_4["act"].feature_dim, b_a.n_pad
-    neigh_a = sample_neighbors(seed, rows_a, deg_a, gidx_a, K)
-    x9 = tr_a._x_global[neigh_a.long()].reshape(Na * S, Da)
+    x9 = sample_neighborhoods(seed, tr_a._nbr_table, tr_a._deg, tr_a._x_global,
+                              *tr_a.two_pass_inputs(b_a), K)[0] \
+        .reshape(Na * S, Da)
     p9 = [p.detach()[0] for p in tr_a.model.encoders[0].stacked()]
     g10 = torch.randn(Na * S, Da, device=dev)
     P9 = sum(p.numel() for p in p9)
@@ -2876,9 +2981,8 @@ def main() -> int:
                         *a6s, pq_last, layer=T - 1, rate=0.5, seed=seed,
                         slot0=True),
                     None),
-            "K7": (lambda: sample_neighbors(seed, rows_h, deg_h, gidx_h, Kh),
-                   lambda: sample_neighbors_plain(seed, rows_h, deg_h, gidx_h,
-                                                  Kh),
+            "K7": (lambda: sample_neighborhoods(*k7_args),
+                   lambda: sample_neighborhoods_plain(*k7_args),
                    None),
             "K4t": (lambda: u2gnn_encoder_train(x2d_h, params_h, Sh, Th, 0.5,
                                                 seed),
@@ -3053,9 +3157,9 @@ def main() -> int:
         "K6s": ("stored_slot0_bwd", src + "stored_bwd.cu",
                 "graph_transformer_tpu/ops/pallas_stored_bwd.py:192",
                 k6s_bytes, k6s_flops, bf),
-        "K7": ("sample_neighbors", src + "sampler.cu",
+        "K7": ("sample_neighborhoods", src + "sampler.cu",
                "graph_transformer_tpu/sampling/pallas_sampler.py:114",
-               k7_bytes, 0, bf),
+               k7_b, 0, bf),
         "K4t": ("encoder_train_fwd", src + "encoder_fwd.cu",
                 "graph_transformer_tpu/ops/pallas_u2gnn.py:266", k4t_bytes,
                 k4t_flops, f32),

@@ -16,11 +16,16 @@ Three branches, as in the JAX model:
   K8s/K8 (``ops/fused_sampled_encoder.py``).  All three compute in bf16,
   whatever ``compute_dtype`` says, as the JAX kernels do.
 - **Two-pass training** (``neigh_feat`` given; ``:184-239``), any number of
-  U2GNN layers and any features: the caller samples global neighbor ids
-  (kernel K7) and gathers their features; per U2GNN layer an encoder
-  encodes them, ``global_regather`` feeds the next layer, and the per-layer
-  heads' scores add up.  Without a ``seed`` it is deterministic (rate 0, no
-  head dropout), as the JAX model is with ``rng=None``.
+  U2GNN layers and any features: the caller samples the neighborhoods and
+  gives their features; per U2GNN layer an encoder encodes them, the
+  layer's output re-gathered feeds the next layer, and the per-layer heads'
+  scores add up.  The trainer's sampler (kernel K7) writes the batch slots
+  of the neighbors into ``batch.neigh``, and the re-gather is JAX's
+  batch-local ``out[batch.neigh]`` (``:233``); a caller that passes the
+  global ids ``neigh_global`` instead re-gathers through
+  ``global_regather``, JAX's route for them.  Without a ``seed`` it is
+  deterministic (rate 0, no head dropout), as the JAX model is with
+  ``rng=None``.
 - **Host-sampled training** (neither, with a ``seed``; ``:184-186``), the
   trainer's path with ``on_device_sampling`` off: the batch's own
   neighborhoods ``x[batch.neigh]`` (in ``compute_dtype``) are encoded with
@@ -160,18 +165,20 @@ class U2GNNSup(nn.Module):
         """Scores [B, C], or ``(scores, ponder)`` with ``return_ponder``.
         Fused training: ``sampled_inputs`` = (tag_rows [N,128], deg [N],
         self_tag [N], codebook [C,D]) and an int ``seed`` for the sampler and
-        all dropout.  Two-pass training: ``neigh_feat`` [N, K+1, D] gathered
-        by the global ids ``neigh_global`` [N, K+1] (needed past one U2GNN
-        layer, with ``num_total_nodes``) and a ``seed``, or none for a
-        deterministic pass.  Host-sampled training: only a ``seed`` (the
+        all dropout.  Two-pass training: ``neigh_feat`` [N, K+1, D], the
+        features of the neighborhoods whose batch rows ``batch.neigh``
+        holds, or of the global ids ``neigh_global`` [N, K+1] (then with
+        ``num_total_nodes``), and a ``seed``, or none for a deterministic
+        pass.  Host-sampled training: only a ``seed`` (the
         batch's own neighborhoods).  Evaluation: none of these."""
         if sampled_inputs is not None:
             out = self._fused(batch, sampled_inputs, seed)
+        elif neigh_feat is not None and neigh_global is None:
+            neigh = batch.neigh.to(torch.int64)
+            out = self._two_pass(batch, neigh_feat, lambda o: o[neigh], seed)
         elif neigh_feat is not None:
-            if len(self.encoders) > 1 and (neigh_global is None
-                                           or num_total_nodes is None):
-                raise ValueError("a deeper two-pass model re-gathers by "
-                                 "global id: pass neigh_global and "
+            if len(self.encoders) > 1 and num_total_nodes is None:
+                raise ValueError("re-gathering by global id needs "
                                  "num_total_nodes")
             out = self._two_pass(batch, neigh_feat, lambda o: global_regather(
                 o, batch.node_gidx, batch.node_mask, neigh_global,

@@ -56,7 +56,8 @@ SIGNATURES = {
                         _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
     "gt_k6_slot0_bwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P,
                         _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
-    "gt_k7_sample": [_P, _I, _P, _P, _P, _I, _I, _U, _P],
+    "gt_k7_sample": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _U,
+                     _P],
     "gt_k4t_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _P, _I, _I, _I, _I, _I,
                            _I, _F, _U, _U, _F, _I, _P],
     "gt_k8_layer_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _P, _P, _P,

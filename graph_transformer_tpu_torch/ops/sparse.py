@@ -23,8 +23,11 @@ def global_regather(out: torch.Tensor, node_gidx: torch.Tensor,
                     node_mask: torch.Tensor, neigh_global: torch.Tensor,
                     num_total_nodes: int) -> torch.Tensor:
     """The next U2GNN layer's neighborhood features ``[N, K+1, D]`` from this
-    layer's batch output ``out [N, D]``, on the two-pass path, whose sampler
-    emits dataset-global neighbor ids ``neigh_global [N, K+1]``.
+    layer's batch output ``out [N, D]``, given dataset-global neighbor ids
+    ``neigh_global [N, K+1]``: the JAX model's route on the two-pass path.
+    The port's trainer re-gathers by the batch slots its sampler writes
+    (``out[batch.neigh]``) and does not call this; the model keeps it for a
+    caller that passes global ids, and the tests hold the slot route to it.
 
     Each real row (``node_mask > 0``) is scattered to the slot of its global
     id ``node_gidx`` in a zero buffer of the dataset's nodes, then the

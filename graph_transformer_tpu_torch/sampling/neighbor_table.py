@@ -12,11 +12,16 @@ with-replacement 128-subsample of its list instead; the sampler clamps the
 degree to 128, so every draw stays marginally uniform over the true list.
 The subsample is drawn once per trainer build, as in the JAX package.
 
-:func:`sample_neighbors` is the two-pass path's sampler, kernel K7
-(``ops/csrc/sampler.cu``), a port of ``resample_batch_neighbors_fast``
+:func:`sample_neighborhoods` is the two-pass path's sampling stage, kernel
+K7 (``ops/csrc/sampler.cu``), a port of ``resample_batch_neighbors_fast``
 (``graph_transformer_tpu/sampling/pallas_sampler.py:165``, kernel
-``_sample_kernel``): on a CUDA tensor it launches K7, on a CPU tensor it runs
-:func:`sample_neighbors_plain`.
+``_sample_kernel``) with the feature gather the JAX trainer runs after it:
+one launch draws each batch row's neighbors from the dataset's table, writes
+their feature rows and their batch slots (the rows of the batch that hold
+them), so that a deeper model re-gathers a layer's output by slot.
+:func:`sample_neighbors` draws the same ids from table rows the caller
+gathered, through the same kernel.  On a CUDA tensor each launches K7, on a
+CPU tensor each runs its plain version.
 """
 
 from __future__ import annotations
@@ -106,11 +111,74 @@ def sample_neighbors(seed: int, table_rows: torch.Tensor, deg: torch.Tensor,
     gidx = node_gidx.to(torch.int32).reshape(N).contiguous()
     out = torch.empty(N, K + 1, dtype=torch.int32, device=rows.device)
     err = _build.load("sampler").gt_k7_sample(
-        rows.data_ptr(), W, deg.data_ptr(), gidx.data_ptr(), out.data_ptr(),
-        N, K, int(seed) & M32, _build.stream_ptr(rows.device))
+        rows.data_ptr(), W, deg.data_ptr(), 0, gidx.data_ptr(), None, None, 0,
+        None, None, out.data_ptr(), N, K, int(seed) & M32,
+        _build.stream_ptr(rows.device))
     _build.check(err, "K7 sample")
     sample_neighbors.launches += 1
     return out
 
 
 sample_neighbors.launches = 0
+
+
+def sample_neighborhoods_plain(seed: int, table: torch.Tensor,
+                               deg: torch.Tensor, x_global: torch.Tensor,
+                               node_gidx: torch.Tensor,
+                               node_mask: torch.Tensor, K: int,
+                               with_ids: bool = False) -> tuple:
+    """The plain version of K7's sampling stage: (feat [N, K+1, D] in
+    ``x_global``'s dtype, slots [N, K+1] int64, ids [N, K+1] int32 or
+    None).  ``ids`` are :func:`sample_neighbors_plain`'s draws from the
+    dataset's ``table`` and ``deg`` at the batch's ``node_gidx``, ``feat``
+    is ``x_global[ids]`` and a real row n (``node_mask > 0``) has the slots
+    ``n + ids - node_gidx[n]``, the batch rows that hold its neighbors (the
+    batch keeps each graph's nodes together in global order); a padding row
+    has slots n."""
+    g = node_gidx.to(torch.int64)
+    ids = sample_neighbors_plain(seed, table[g], deg[g], node_gidx, K)
+    n = torch.arange(g.shape[0], device=g.device)[:, None]
+    slots = torch.where(node_mask[:, None] > 0, n + ids - g[:, None], n)
+    return x_global[ids.to(torch.int64)], slots, ids if with_ids else None
+
+
+def sample_neighborhoods(seed: int, table: torch.Tensor, deg: torch.Tensor,
+                         x_global: torch.Tensor, node_gidx: torch.Tensor,
+                         node_mask: torch.Tensor, K: int,
+                         with_ids: bool = False) -> tuple:
+    """K7 on CUDA tensors, :func:`sample_neighborhoods_plain` on CPU tensors:
+    (feat, slots, ids or None) of a batch's rows, as the plain version
+    says.  The dataset's ``table`` [num_nodes, 128] int32, ``deg``
+    [num_nodes] int32 and ``x_global`` [num_nodes, D] (float32 or bf16)
+    and the batch's ``node_gidx`` [N] int32 and ``node_mask`` [N] float32
+    are taken as they are: contiguous, of these dtypes, or the wrapper
+    raises (the trainer prepares them once, so a step converts nothing)."""
+    if not table.is_cuda:
+        return sample_neighborhoods_plain(seed, table, deg, x_global,
+                                          node_gidx, node_mask, K, with_ids)
+    for t, dt in ((table, torch.int32), (deg, torch.int32),
+                  (node_gidx, torch.int32), (node_mask, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous():
+            raise TypeError(f"K7 takes contiguous {dt}, got {t.dtype}")
+    _build.check_rows_dtype(x_global)
+    if table.shape[1] != TABLE_WIDTH or not x_global.is_contiguous():
+        raise ValueError("K7 takes 128-wide table rows and contiguous "
+                         "feature rows")
+    N, D = node_gidx.shape[0], x_global.shape[1]
+    dev = table.device
+    feat = torch.empty(N, K + 1, D, dtype=x_global.dtype, device=dev)
+    slots = torch.empty(N, K + 1, dtype=torch.int64, device=dev)
+    ids = (torch.empty(N, K + 1, dtype=torch.int32, device=dev) if with_ids
+           else None)
+    err = _build.load("sampler").gt_k7_sample(
+        table.data_ptr(), TABLE_WIDTH, deg.data_ptr(), 1, node_gidx.data_ptr(),
+        node_mask.data_ptr(), x_global.data_ptr(),
+        D * x_global.element_size(), feat.data_ptr(), slots.data_ptr(),
+        None if ids is None else ids.data_ptr(), N, K, int(seed) & M32,
+        _build.stream_ptr(dev))
+    _build.check(err, "K7 sample")
+    sample_neighborhoods.launches += 1
+    return feat, slots, ids
+
+
+sample_neighborhoods.launches = 0

@@ -17,11 +17,12 @@ Two paths, chosen as the JAX trainer chooses (``sup_trainer.py:80-104``):
 - **two-pass**, otherwise (the default configuration, as the JAX CLI
   cannot set ``use_fused_sampler``; ``num_hidden_layers > 1``, continuous
   node attributes, the Universal-Transformer recurrences, several heads,
-  the node axis): the sampler K7 draws global neighbor ids from the
-  dataset's neighbor table, their features are gathered from the dataset's
+  the node axis): one launch of K7 draws every batch row's neighbors from
+  the dataset's neighbor table, writes their feature rows from the dataset's
   feature table on the device (``x_global``, in ``cfg.model.compute_dtype``,
-  float32 by default), and each U2GNN layer runs the encoder the model
-  picks: K4t forward and K8s then K8 per earlier layer backward
+  float32 by default) and their batch slots, which replace the batch's
+  ``neigh`` so that deeper U2GNN layers re-gather by slot; each U2GNN layer
+  runs the encoder the model picks: K4t forward and K8s then K8 per earlier layer backward
   (``ops/u2gnn_train.py``; K4tw and K8ws/K8w past D = 32) for basic
   single-head neighborhood-axis encoders, else the per-layer encoder
   (K9/K10 or K9w/K10w, or plain attention with K11/K12).  With
@@ -52,6 +53,7 @@ Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -74,7 +76,7 @@ from graph_transformer_tpu_torch.ops.losses import (
 )
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     build_neighbor_table,
-    sample_neighbors,
+    sample_neighborhoods,
     setup_fused_tables,
 )
 from graph_transformer_tpu_torch.train.optim import (
@@ -140,8 +142,8 @@ class SupTrainer:
                                  ds.feature_dim)
         if table is not None and self.two_pass:
             self._nbr_table = torch.from_numpy(table).to(dev)
-            self._x_global = torch.from_numpy(
-                np.asarray(ds.node_feat, np.float32)).to(
+            self._x_global = torch.from_numpy(np.ascontiguousarray(
+                ds.node_feat, np.float32)).to(
                     dev, COMPUTE_DTYPES[cfg.model.compute_dtype])
         elif fused is not None:
             tag_table, tags, codebook = fused
@@ -168,14 +170,16 @@ class SupTrainer:
                 self._codebook)
 
     def two_pass_inputs(self, batch: GraphBatch) -> tuple:
-        """(table_rows [N,128], deg, node_gidx) of the batch's node slots,
-        what the two-pass path's sampler reads."""
-        gidx = batch.node_gidx.to(torch.int64)
-        return self._nbr_table[gidx], self._deg[gidx], batch.node_gidx
+        """(node_gidx [N] int32, node_mask [N] float32) of the batch, what
+        the two-pass path's sampler reads beside the dataset's tables; the
+        batch holds them so, and nothing is gathered."""
+        return batch.node_gidx, batch.node_mask
 
     def step_inputs(self, batch: GraphBatch) -> tuple:
-        """The device tables' rows a training step of this trainer's path
-        reads, gathered once per batch (none when sampling on the host)."""
+        """What a training step of this trainer's path reads of the batch
+        beside the device tables, once per batch: the fused path's table
+        rows, the two-pass path's node ids and mask (none when sampling on
+        the host)."""
         if self.host_sampling:
             return ()
         return (self.two_pass_inputs(batch) if self.two_pass
@@ -188,14 +192,11 @@ class SupTrainer:
         if not self.two_pass:
             return self.model(batch, sampled_inputs=si, seed=seed,
                               return_ponder=True)
-        rows, deg, gidx = si
-        neigh_g = sample_neighbors(seed, rows, deg, gidx,
-                                   self.cfg.data.num_neighbors)
-        return self.model(batch, seed=seed,
-                          neigh_feat=self._x_global[neigh_g.to(torch.int64)],
-                          neigh_global=neigh_g,
-                          num_total_nodes=self.ds.num_nodes,
-                          return_ponder=True)
+        feat, slots, _ = sample_neighborhoods(
+            seed, self._nbr_table, self._deg, self._x_global, *si,
+            self.cfg.data.num_neighbors)
+        return self.model(dataclasses.replace(batch, neigh=slots), seed=seed,
+                          neigh_feat=feat, return_ponder=True)
 
     def loss(self, batch: GraphBatch, scores, ponder) -> torch.Tensor:
         """The label-smoothed soft cross entropy, plus the ACT ponder cost

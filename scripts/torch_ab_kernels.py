@@ -2,7 +2,7 @@
 """A/B of two checkouts of the port's kernels on one NVIDIA H100 (run on the
 card):
 
-    python3 scripts/torch_ab_kernels.py [--only wide_fwd|narrow_fwd|stored_bwd] ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 scripts/torch_ab_kernels.py [--only wide_fwd|narrow_fwd|stored_bwd|sampler] ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -71,7 +71,15 @@ that checkout's package and times, by torch.profiler device time a launch
   axis's 5,760 float32 rows; K14w on the A/B rows at the quickstart's
   width (8,832 x S=9 one-hot bf16 rows, D=68), whole and its products;
   single products (``ffn.weight_product``) of 5,760 rows at h^T dz's and
-  x^T dqkv's shapes (1,024 x 68, 68 x 204) in float32 and bf16.
+  x^T dqkv's shapes (1,024 x 68, 68 x 204) in float32 and bf16;
+- the two-pass path's sampling stage (``--only sampler`` builds
+  ``sampler.cu`` alone and times nothing else, :func:`sampler`) at DD's
+  counts on generated data: 334,925 dataset nodes in graphs of 284, a
+  batch of 16 graphs (4,544 real rows, 4,608 with padding), D=89 float32,
+  K=8; a step's stage is K7, the feature gather and one re-gather between
+  two U2GNN layers, forward and backward (a checkout whose sampler writes
+  batch slots re-gathers by them; an older one gathers the batch's table
+  rows first, then re-gathers by global id through ``global_regather``).
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -110,7 +118,11 @@ ONLY_SOURCES = {"wide_fwd": ("wide_fwd", "encoder_layer", "stored_fwd",
                                "stored_fwd", "recompute_bwd", "mega_bwd"),
                 "stored_bwd": ("stored_fwd", "stored_bwd", "recompute_bwd",
                                "encoder_layer", "ffn", "wide_fwd",
-                               "mega_bwd")}
+                               "mega_bwd"),
+                "sampler": ("sampler",)}
+# DD (public TU statistics: 1,178 graphs, 334,925 nodes, 89 node labels)
+# cut to graphs of 284 nodes, a batch of 16, K=8
+DD = dict(nodes=334925, graph_nodes=284, batch=16, D=89, K=8)
 NARROW = ("gt_encoder_fwd_kernel",)
 
 
@@ -528,6 +540,96 @@ def k14w(cs, dev, rng, seed, rate):
             "products_ms": cs.device_ms(fn, 3, PRODUCTS)}
 
 
+def stage_profile(cs, fn, reps=20) -> dict:
+    """Device ms and device operations a call of ``fn`` (every device
+    record of a torch.profiler session, summed; the stage runs in order on
+    one stream), with the host's ms a call by CUDA events, and the device ms
+    a call of its six costliest device operations, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in dev:
+        by_name[e.name[:60]] = (by_name.get(e.name[:60], 0.0)
+                                + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"device_ms": sum(e.time_range.end - e.time_range.start
+                             for e in dev) / reps / 1e3,
+            "ops": len(dev) / reps, "host_ms": cs.time_ms(fn, reps),
+            **{f"[{name}]": us / reps / 1e3 for name, us in top}}
+
+
+def sampler(cs, dev, seed):
+    """The two-pass sampling stage at DD's counts (``DD``): the dataset's
+    neighbor table (each node's 128 entries drawn from its own graph, its
+    first ``deg`` entries its neighbors, deg 1-10), degrees and float32
+    features on the card, a batch of 16 whole graphs.  Times, per step, the
+    stage (K7, the feature gather, one re-gather forward and backward), K7's
+    kernel alone, and in an older checkout the per-batch gather of the
+    batch's table rows, which ``train_epoch`` runs every step."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops.sparse import global_regather
+    from graph_transformer_tpu_torch.sampling import neighbor_table as nt
+
+    n, gn, D, K = DD["nodes"], DD["graph_nodes"], DD["D"], DD["K"]
+    G = n // gn
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    node = torch.arange(n, device=dev)
+    graph = (node // gn).clamp(max=G - 1)
+    size = torch.where(graph == G - 1, n - (G - 1) * gn, gn)
+    table = (graph[:, None] * gn + (torch.rand(n, 128, device=dev,
+                                               generator=gen)
+                                    * size[:, None]).long()).int()
+    deg = torch.randint(1, 11, (n,), device=dev, generator=gen,
+                        dtype=torch.int32)
+    x_global = torch.randn(n, D, device=dev, generator=gen)
+    picked = torch.randperm(G - 1, device=dev, generator=gen)[:DD["batch"]]
+    real = (picked[:, None] * gn + torch.arange(gn, device=dev)).reshape(-1)
+    N = -(-real.numel() // 128) * 128
+    gidx = torch.zeros(N, dtype=torch.int32, device=dev)
+    gidx[:real.numel()] = real.int()
+    mask = (torch.arange(N, device=dev) < real.numel()).float()
+    g64 = gidx.long()
+    out = torch.randn(N, D, device=dev, generator=gen, requires_grad=True)
+    cot = torch.randn(N, K + 1, D, device=dev, generator=gen)
+    res = {}
+    if hasattr(nt, "sample_neighborhoods"):
+        def stage():
+            feat, slots, _ = nt.sample_neighborhoods(seed, table, deg,
+                                                     x_global, gidx, mask, K)
+            return feat, torch.autograd.grad(out[slots], out, cot)
+
+        def k7():
+            return nt.sample_neighborhoods(seed, table, deg, x_global, gidx,
+                                           mask, K)
+    else:
+        rows, deg_b = table[g64], deg[g64]
+
+        def stage():
+            neigh = nt.sample_neighbors(seed, rows, deg_b, gidx, K)
+            feat = x_global[neigh.to(torch.int64)]
+            r = global_regather(out, gidx, mask, neigh, n)
+            return feat, torch.autograd.grad(r, out, cot)
+
+        def k7():
+            return nt.sample_neighbors(seed, rows, deg_b, gidx, K)
+
+        res["batch"] = stage_profile(cs, lambda: (table[g64], deg[g64]))
+    res["stage"] = stage_profile(cs, stage)
+    res["k7"] = {"ms": cs.device_ms(k7, 20, ("gt_sample_kernel",))}
+    return res
+
+
 def worker(root: str, only: str = "") -> dict:
     """The timings of the checkout at ``root`` (``only``: one family)."""
     import numpy as np
@@ -562,6 +664,8 @@ def worker(root: str, only: str = "") -> dict:
         return narrow_fwd(cs, dev, seed, rate)
     if only == "stored_bwd":
         return stored_bwd(cs, dev, seed, rate)
+    if only == "sampler":
+        return sampler(cs, dev, seed)
     out.update(wide_fwd(cs, dev, seed, rate,
                         os.path.join(root, "build", "ab_keep.pt")))
     if only == "wide_fwd":

@@ -172,7 +172,7 @@ def _spy_paths(monkeypatch):
             return fn(*a, **k)
         monkeypatch.setattr(mod, attr, wrapped)
 
-    spy("sample", sup_trainer, "sample_neighbors")
+    spy("sample", sup_trainer, "sample_neighborhoods")
     spy("two_pass", u2gnn_sup, "u2gnn_train_encoder")
     spy("fused", se, "sampled_forward")
     spy("fused", st, "stored_forward")

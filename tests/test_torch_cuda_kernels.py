@@ -222,6 +222,83 @@ def test_train_steps_launch_the_two_pass_kernels(cuda):
     assert all(got[k] == 0 for k in chip_smoke.FUSED_KERNELS)
 
 
+@pytest.mark.parametrize("case", ["hpo-arm", "quickstart", "bf16-d7",
+                                  "heavy"])
+def test_sampling_stage_matches_plain_version(cuda, tmp_path, case):
+    """K7's sampling stage (draws, feature rows and batch slots in one
+    launch) against its plain version bit for bit, on three batches each:
+    the HPO arm's (16 MUTAG-like graphs, degree tags, K=16, D=6 float32),
+    the quickstart's (4 IMDBBINARY-like graphs, K=8, D=68 float32), bf16
+    rows of D=7 on MUTAG-like graphs, and the heavy-tailed graph (hubs past
+    128) at DD's width (D=89 float32)."""
+    from graph_transformer_tpu_torch.data.batching import BatchBuilder
+    from graph_transformer_tpu_torch.data.tu import (
+        load_tu_dataset, synthetic_powerlaw_dataset)
+    from graph_transformer_tpu_torch.sampling.neighbor_table import (
+        build_neighbor_table)
+    import chip_smoke
+
+    data = str(tmp_path)
+    if case == "heavy":
+        ds = synthetic_powerlaw_dataset("heavy-tail", num_graphs=8,
+                                        mean_nodes=300, seed=1,
+                                        reddit_like=False, heavy_tail=True)
+        B, K, D, dt = 4, 8, 89, torch.float32
+    elif case == "quickstart":
+        chip_smoke.write_imdb_like_tu(data)
+        ds = load_tu_dataset("IMDBBINARY", data_dir=data)
+        B, K, D, dt = 4, 8, 68, torch.float32
+    else:
+        chip_smoke.write_mutag_like_tu(data)
+        ds = load_tu_dataset("MUTAG", data_dir=data, degree_as_tag=True)
+        B, K, D, dt = ((16, 16, 6, torch.float32) if case == "hpo-arm"
+                       else (16, 8, 7, torch.bfloat16))
+    table = torch.from_numpy(build_neighbor_table(ds, hub_seed=0)).to(cuda)
+    deg = torch.from_numpy(ds.degrees.astype(np.int32)).to(cuda)
+    if D == ds.feature_dim:
+        x_global = torch.from_numpy(np.ascontiguousarray(
+            ds.node_feat, np.float32)).to(cuda, dt)
+    else:
+        x_global = torch.randn(ds.num_nodes, D, device=cuda).to(dt)
+    builder = BatchBuilder(ds, B, K, seed=0)
+    for seed in (1, 2, 3):
+        chip_smoke.check_neighborhoods(f"{case} seed {seed}", table, deg,
+                                       x_global, builder.sample().to(cuda),
+                                       K, seed)
+
+
+def test_two_pass_step_launches_k7_once(cuda, monkeypatch):
+    """A two-pass step at two U2GNN layers launches K7 once, as
+    ``sample_neighborhoods`` (``sample_neighbors`` stays idle), and
+    re-gathers by K7's slots, never through ``global_regather``."""
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+    from graph_transformer_tpu_torch.models import u2gnn_sup
+    from graph_transformer_tpu_torch.sampling import neighbor_table as nt
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("global_regather on the trainer's path")
+
+    monkeypatch.setattr(u2gnn_sup, "global_regather", refuse)
+    ds = synthetic_powerlaw_dataset("S", num_graphs=16, mean_nodes=40,
+                                    seed=0, reddit_like=False)
+    cfg = ExperimentConfig(
+        data=DataConfig(batch_size=4, num_neighbors=4),
+        model=ModelConfig(num_timesteps=3, ff_hidden_size=64,
+                          num_hidden_layers=2),
+        train=TrainConfig(num_epochs=1))
+    tr = SupTrainer(ds, cfg, train_idx=np.arange(12),
+                    test_idx=np.arange(12, 16))
+    before = (nt.sample_neighborhoods.launches, nt.sample_neighbors.launches)
+    losses = tr.train_steps(tr.builder.sample(), 3)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(losses).all())
+    assert (nt.sample_neighborhoods.launches - before[0],
+            nt.sample_neighbors.launches - before[1]) == (3, 0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,D", [(9, 7), (17, 19), (32, 32)])
 def test_encoder_layer_kernels_match_plain_versions(cuda, S, D, dtype):

@@ -140,7 +140,7 @@ def test_trainer_without_on_device_sampling(flags, monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("called with on_device_sampling off")
 
-    for name in ("sample_neighbors", "build_neighbor_table",
+    for name in ("sample_neighborhoods", "build_neighbor_table",
                  "setup_fused_tables"):
         monkeypatch.setattr(sup_trainer, name, refuse)
     ds = synthetic_powerlaw_dataset("S", num_graphs=16, num_classes=2,

@@ -6,12 +6,16 @@ The JAX sampler draws from the TPU's PRNG and is skipped off the TPU
 The port's draws are held against K1's (both read the counters of
 ``ops/random.py``) and against the graph: slot 0 is the node, every other id
 a neighbor of it (the node itself when it has none), and a hub's draws come
-from its 128-entry subsample row."""
+from its 128-entry subsample row.  The sampling stage of a training step
+(``sample_neighborhoods``: K7's draws at a batch's rows, their feature rows
+and their batch slots) is held against ``sample_neighbors_plain`` and the
+feature gather, and its slots against the batch's own layout."""
 
 import numpy as np
 import pytest
 import torch
 
+from graph_transformer_tpu_torch.data.batching import BatchBuilder
 from graph_transformer_tpu_torch.data.tu import (
     GraphDataset,
     synthetic_powerlaw_dataset,
@@ -22,6 +26,8 @@ from graph_transformer_tpu_torch.ops.sampled_encoder import (
 )
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     build_neighbor_table,
+    sample_neighborhoods,
+    sample_neighborhoods_plain,
     sample_neighbors,
     sample_neighbors_plain,
 )
@@ -108,3 +114,72 @@ def test_cpu_tensors_take_the_plain_version(graph):
     assert torch.equal(got, sample_neighbors_plain(3, rows[sel], deg[sel],
                                                    gidx[sel] + 1000, 8))
     assert torch.equal(got[:, 0], gidx[sel] + 1000)
+
+
+SMALL = dict(num_graphs=20, mean_nodes=15, seed=2, reddit_like=False)
+
+
+def rows_of(ds, where, seed=0):
+    """(node_gidx int32, node_mask float32) of the rows a sampling stage
+    sees: every node of ``ds`` in order (``graph``), or a ``BatchBuilder``
+    batch with its padding rows (``batch``)."""
+    if where == "graph":
+        return (torch.arange(ds.num_nodes, dtype=torch.int32),
+                torch.ones(ds.num_nodes))
+    b = BatchBuilder(ds, 2, 4, seed=seed).sample()
+    assert bool((b.node_mask == 0).any())
+    return b.node_gidx, b.node_mask
+
+
+@pytest.mark.parametrize("where", ["graph", "batch"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("K", [4, 16])
+def test_neighborhoods_are_the_draws_and_their_rows(graph, K, dtype, where):
+    """K7's sampling stage draws ``sample_neighbors_plain``'s ids from the
+    dataset's table at the batch's node ids and writes ``x_global[ids]``,
+    bit for bit, in ``x_global``'s dtype; on CPU tensors the wrapper is the
+    plain version and launches nothing."""
+    ds, table, deg, _ = graph
+    gidx, mask = rows_of(ds, where)
+    x_global = torch.from_numpy(np.random.default_rng(K).standard_normal(
+        (ds.num_nodes, 7)).astype(np.float32)).to(getattr(torch, dtype))
+    g = gidx.long()
+    ids = sample_neighbors_plain(404, table[g], deg[g], gidx, K)
+    feat, slots, got = sample_neighborhoods_plain(
+        404, table, deg, x_global, gidx, mask, K, with_ids=True)
+    assert torch.equal(got, ids)
+    assert feat.dtype == x_global.dtype and feat.shape == (len(g), K + 1, 7)
+    assert torch.equal(feat, x_global[ids.long()])
+    assert slots.dtype == torch.int64 and slots.shape == ids.shape
+    before = sample_neighborhoods.launches
+    wrapped = sample_neighborhoods(404, table, deg, x_global, gidx, mask, K)
+    assert sample_neighborhoods.launches == before and wrapped[2] is None
+    assert torch.equal(wrapped[0], feat) and torch.equal(wrapped[1], slots)
+
+
+@pytest.mark.parametrize("data", ["heavy", "small"])
+@pytest.mark.parametrize("K", [4, 16])
+def test_slots_are_the_batch_rows_of_the_neighbors(K, data):
+    """A real row's slots hold its draws (``node_gidx[slot] == id``) within
+    its own graph, slot 0 itself; a padding row's slots are its own row."""
+    ds = synthetic_powerlaw_dataset(
+        "H", **(HEAVY if data == "heavy" else SMALL))
+    table = torch.from_numpy(build_neighbor_table(ds, hub_seed=0))
+    deg = torch.from_numpy(ds.degrees.astype(np.int32))
+    x_global = torch.zeros(ds.num_nodes, 3)
+    for seed in range(3):
+        b = BatchBuilder(ds, 8 if data == "small" else 2, K,
+                         seed=seed).sample()
+        _, slots, ids = sample_neighborhoods_plain(
+            seed, table, deg, x_global, b.node_gidx, b.node_mask, K,
+            with_ids=True)
+        N = b.n_pad
+        real = b.node_mask > 0
+        rows = torch.arange(N)[:, None].expand(N, K + 1)
+        assert bool((~real).any())
+        assert int(slots.min()) >= 0 and int(slots.max()) < N
+        assert torch.equal(b.node_gidx.long()[slots[real]], ids[real].long())
+        assert torch.equal(b.graph_id[slots[real]],
+                           b.graph_id[real][:, None].expand(-1, K + 1))
+        assert torch.equal(slots[real][:, 0], torch.arange(N)[real])
+        assert torch.equal(slots[~real], rows[~real])

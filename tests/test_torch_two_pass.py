@@ -55,8 +55,10 @@ from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
     u2gnn_encoder_train_plain,
 )
 from graph_transformer_tpu_torch.ops.u2gnn_train import u2gnn_train_encoder
+from graph_transformer_tpu_torch.models import u2gnn_sup
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     build_neighbor_table,
+    sample_neighborhoods_plain,
     sample_neighbors,
 )
 from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
@@ -207,11 +209,16 @@ def two_layer_models(k, seed=0, dtype="float32"):
     return dj, dt, jm, jp, tm
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_two_layer_model_matches_jax(dtype):
+@pytest.mark.parametrize("route,dtype", [
+    ("global", "float32"), ("global", "bfloat16"), ("slots", "float32"),
+    ("slots", "bfloat16")],
+    ids=["float32", "bfloat16", "slots-float32", "slots-bfloat16"])
+def test_two_layer_model_matches_jax(dtype, route):
     """k=2 at encoder rate 0: the same global neighborhoods (drawn by the
-    port's sampler) go to both packages.  float32: scores and loss to 1e-4,
-    every gradient leaf to 1e-4 of its own max; bfloat16: scores and loss to
+    port's sampler) go to both packages; JAX re-gathers by global id, the
+    port by global id (``global``) or, as its trainer does, by the batch
+    slots K7 writes (``slots``).  float32: scores and loss to 1e-4, every
+    gradient leaf to 1e-4 of its own max; bfloat16: scores and loss to
     2e-2, every leaf at cosine > 0.999."""
     dj, dt, jm, jp, tm = two_layer_models(2, seed=1, dtype=dtype)
     graphs = [4, 5, 6, 7]
@@ -219,9 +226,9 @@ def test_two_layer_model_matches_jax(dtype):
     bt = BatchBuilder(dt, 4, K, seed=3).build(graphs)
     table = torch.from_numpy(build_neighbor_table(dt, hub_seed=0))
     gidx = bt.node_gidx
-    neigh_g = sample_neighbors(2024, table[gidx.long()],
-                               torch.from_numpy(dt.degrees)[gidx.long()], gidx,
-                               K)
+    deg = torch.from_numpy(dt.degrees.astype(np.int32))
+    neigh_g = sample_neighbors(2024, table[gidx.long()], deg[gidx.long()],
+                               gidx, K)
     x_global = dt.node_feat.astype(np.float32)
     C, n = dt.num_classes, dt.num_nodes
 
@@ -233,8 +240,15 @@ def test_two_layer_model_matches_jax(dtype):
         return jax_soft_ce(scores, jax_smooth(bj.labels, C, 0.1)), scores
 
     (lj, sj), gj = jax.value_and_grad(loss_j, has_aux=True)(jp)
-    scores = tm(bt, neigh_feat=torch.from_numpy(x_global)[neigh_g.long()],
-                neigh_global=neigh_g, num_total_nodes=n)
+    if route == "global":
+        scores = tm(bt, neigh_feat=torch.from_numpy(x_global)[neigh_g.long()],
+                    neigh_global=neigh_g, num_total_nodes=n)
+    else:
+        feat, slots, ids = sample_neighborhoods_plain(
+            2024, table, deg, torch.from_numpy(x_global), gidx, bt.node_mask,
+            K, with_ids=True)
+        assert torch.equal(ids, neigh_g)
+        scores = tm(dataclasses.replace(bt, neigh=slots), neigh_feat=feat)
     lt = soft_cross_entropy(scores, label_smoothing(bt.labels, C, 0.1))
     lt.backward()
     tol = 1e-4 if dtype == "float32" else 2e-2
@@ -265,6 +279,69 @@ def test_global_path_equals_batch_local_eval_path():
     b = tm(bt, neigh_feat=x_global[neigh_g.long()], neigh_global=neigh_g,
            num_total_nodes=dt.num_nodes)
     torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5)
+
+
+def forward_rows(model, batch, **kw):
+    """(scores, [each U2GNN layer's output on the real rows]) of one
+    forward of ``model``."""
+    rows, head = [], model._head
+
+    def spy(i, out, b, seed):
+        rows.append(out[b.node_mask > 0])
+        return head(i, out, b, seed)
+
+    model._head = spy
+    try:
+        return model(batch, **kw), rows
+    finally:
+        del model._head
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_slot_route_equals_global_route(k):
+    """K7's slots as the batch's neighborhoods: with dropout (a seed), every
+    U2GNN layer's output on the real rows, and so the scores, equal bit for
+    bit the route through ``global_regather`` on K7's global ids.  (Padding
+    rows differ: their slots are their own rows.)"""
+    ds = synthetic_powerlaw_dataset("S", **DS)
+    tm = U2GNNSup(ds.feature_dim, ds.num_classes,
+                  ModelConfig(num_timesteps=T2, num_hidden_layers=k,
+                              ff_hidden_size=F2), seed=k)
+    bt = BatchBuilder(ds, 4, K, seed=k).sample()
+    assert bool((bt.node_mask == 0).any())
+    table = torch.from_numpy(build_neighbor_table(ds, hub_seed=0))
+    deg = torch.from_numpy(ds.degrees.astype(np.int32))
+    x_global = torch.from_numpy(ds.node_feat.astype(np.float32))
+    feat, slots, ids = sample_neighborhoods_plain(
+        99, table, deg, x_global, bt.node_gidx, bt.node_mask, K,
+        with_ids=True)
+    with torch.no_grad():
+        a, rows_a = forward_rows(tm, dataclasses.replace(bt, neigh=slots),
+                                 seed=7, neigh_feat=feat)
+        b, rows_b = forward_rows(tm, bt, seed=7, neigh_feat=feat,
+                                 neigh_global=ids,
+                                 num_total_nodes=ds.num_nodes)
+    assert len(rows_a) == len(rows_b) == k
+    for ra, rb in zip(rows_a, rows_b):
+        torch.testing.assert_close(ra, rb, rtol=0, atol=0)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_trainer_regathers_by_slot(monkeypatch):
+    """A two-pass trainer at k=2 re-gathers by K7's slots: training never
+    reaches ``global_regather``."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("global_regather on the trainer's path")
+
+    monkeypatch.setattr(u2gnn_sup, "global_regather", refuse)
+    ds = synthetic_powerlaw_dataset("S", num_graphs=12, mean_nodes=20,
+                                    seed=0, reddit_like=False)
+    tr = SupTrainer(ds, small_cfg(2), train_idx=np.arange(9),
+                    test_idx=np.arange(9, 12), device="cpu")
+    assert tr.two_pass
+    losses = tr.train_steps(tr.builder.sample(), 2)
+    assert bool(torch.isfinite(losses).all())
+    assert np.isfinite(tr.train_epoch())
 
 
 @pytest.mark.parametrize("mm", ["float32", "bfloat16"])
