@@ -32,6 +32,8 @@ SITES = 4  # dropout sites per layer: attn, attn-out, FFN hidden, FFN out
 SAMPLER_STREAM = 0x53414D50
 HEAD_STREAM = 0x48454144
 LAYER_STREAM = 0x4C415952
+EPOCH_STREAM = 0x45504F43
+SELECT_STREAM = 0x53454C43
 
 
 def _mul32(x, c: int):
@@ -98,6 +100,37 @@ def layer_seed(seed: int, layer: int) -> int:
     if layer == 0:
         return int(seed)
     return stream_key(seed, LAYER_STREAM + layer) & 0x7FFFFFFF
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The 32-bit key of epoch ``epoch`` of a run seeded ``seed``."""
+    return stream_key(seed, (EPOCH_STREAM + int(epoch)) & M32)
+
+
+def step_seed(seed: int, epoch: int, step: int) -> int:
+    """The 31-bit seed of step ``step`` of epoch ``epoch`` of a run seeded
+    ``seed``: a function of absolute indices, so a resumed run draws what
+    the uninterrupted one draws with no generator state."""
+    return stream_key(epoch_seed(seed, epoch), step) & 0x7FFFFFFF
+
+
+def select_without_replacement(seed: int, epoch: int, counts, k: int,
+                               steps: int, width: int,
+                               device="cpu") -> torch.Tensor:
+    """[F, steps, k] positions: for each of F sets of ``counts[f]`` items
+    and each step of epoch ``epoch``, ``k`` distinct positions below
+    ``counts[f]``, the ``k`` of smallest key, where position p's key at step
+    i is the word ``(i, p)`` of stream ``SELECT_STREAM`` of the epoch's key
+    (ties, which are rare, go to the lower position).  Every k-subset is
+    equally likely; the sets share the words, as the JAX CV's folds share
+    its key."""
+    bits = random_bits(epoch_seed(seed, epoch), SELECT_STREAM, steps * width,
+                       device).view(steps, width)
+    pos = torch.arange(width, device=device)
+    key = bits * width + pos  # unique, < 2**63
+    counts = torch.as_tensor(counts, device=device).view(-1, 1, 1)
+    key = torch.where(pos < counts, key[None], torch.iinfo(torch.int64).max)
+    return torch.topk(key, k, dim=-1, largest=False).indices
 
 
 def drop_args(rate: float, seed) -> tuple:

@@ -1,6 +1,7 @@
 """Graph pooling and the inter-layer re-gather — ports of ``graph_sum_pool``
 (``graph_transformer_tpu/ops/sparse.py:20``) and ``global_regather``
-(``:110-148``)."""
+(``:110-148``).  Neither accumulates with float atomics on the card, so a
+training step repeats bit for bit."""
 
 from __future__ import annotations
 
@@ -11,12 +12,18 @@ MAX_REGATHER_NODES = 2_000_000
 
 def graph_sum_pool(node_vec: torch.Tensor, graph_id: torch.Tensor,
                    num_graphs: int) -> torch.Tensor:
-    """Graph-level sum pooling [B, D]; padding rows carry graph id B and land
-    in an extra segment that is dropped."""
-    pooled = torch.zeros(num_graphs + 1, node_vec.shape[1],
-                         dtype=node_vec.dtype, device=node_vec.device)
-    pooled.index_add_(0, graph_id.to(torch.int64), node_vec)
-    return pooled[:num_graphs]
+    """Graph-level sum pooling [B, D]; padding rows carry graph id B and are
+    dropped.
+
+    The sum is the product of a dense one-hot ``[B, N]`` membership matrix
+    with ``node_vec``: a matrix product adds in a fixed order, so two runs on
+    the card give the same bits.  ``index_add_`` (JAX's ``segment_sum``)
+    accumulates with float atomics on CUDA, whose order changes from run to
+    run.  The backward is the transposed product, a gather."""
+    graph_id = graph_id.to(torch.int64)
+    rows = torch.arange(num_graphs, device=graph_id.device)
+    onehot = (graph_id[None, :] == rows[:, None]).to(node_vec.dtype)
+    return onehot @ node_vec
 
 
 def global_regather(out: torch.Tensor, node_gidx: torch.Tensor,

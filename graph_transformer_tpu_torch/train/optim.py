@@ -6,7 +6,9 @@
 ``g / ‖g‖ · max``; no epsilon on the norm, unlike
 ``torch.nn.utils.clip_grad_norm_``), then Adam (b1 0.9, b2 0.999, eps 1e-8,
 bias-corrected moments, ``-lr · m̂ / (sqrt(v̂) + eps)``), then × ``lr_scale``.
-Parameters update in place.  :class:`PlateauStepLR` is the reference's
+Parameters update in place; ``state_dict``/``load_state_dict`` carry
+optax's state (``count``, ``mu``, ``nu``, the injected ``lr_scale``) for
+``train/checkpoint.py``.  :class:`PlateauStepLR` is the reference's
 plateau-gated StepLR, unchanged.
 """
 
@@ -52,6 +54,28 @@ class ClippedAdam:
             v.mul_(self.b2).add_(g * g * (1.0 - self.b2))
             u = -self.lr * ((m / c1) / (torch.sqrt(v / c2) + self.eps))
             p.add_(u * self.lr_scale)
+
+    def state_dict(self) -> dict:
+        """``count``, ``mu``, ``nu`` and ``lr_scale`` (a float, or a device
+        scalar where the plateau rule runs on the device); the tensors are
+        the optimizer's own, so save or copy them before the next step."""
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu), "lr_scale": self.lr_scale}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a :meth:`state_dict` in, onto this optimizer's devices."""
+        if len(state["mu"]) != len(self.mu) or len(state["nu"]) != len(self.nu):
+            raise ValueError("the state holds moments of "
+                             f"{len(state['mu'])} parameters, not "
+                             f"{len(self.mu)}")
+        self.count = int(state["count"])
+        for dst, src in zip(self.mu + self.nu, list(state["mu"])
+                            + list(state["nu"])):
+            dst.copy_(src)
+        scale = state["lr_scale"]
+        self.lr_scale = (scale.to(self.mu[0].device)
+                         if torch.is_tensor(scale) else float(scale))
 
 
 def make_optimizer(params, learning_rate: float,

@@ -38,15 +38,23 @@ keeps fixed and ``train_epoch`` draws anew with every batch.
 
 :meth:`train_steps` runs n steps on one fixed batch — the counterpart of the
 JAX ``_train_scan`` (``sup_trainer.py:204-242``) that the benchmark drives.
+An epoch sums its step losses on the device and reads the sum once.
 Evaluation runs the deterministic model (K4, or the wide K4 past D = 32,
 for the whole-encoder configurations; the per-layer encoder at rate 0 for
-the others).
+the others); the test fold's eval batches are built at the first
+:meth:`evaluate` and cached, as in JAX, so the builder's draws come in
+JAX's order.  The CV runners (``train/tenfold_vmap.py``,
+``train/cv_ondevice.py``) hold a trainer a fold and share one
+:func:`device_tables` among them.
 
 Random numbers: the host draws one 31-bit seed per step from a CPU
-``torch.Generator`` (seeded by ``cfg.train.seed + 1``); the sampler, the
-encoder dropout and the head dropout take disjoint streams of that seed
+``torch.Generator`` (seeded by ``cfg.train.seed + 1``; :meth:`train_step`
+takes the seed from its caller instead); the sampler, the encoder dropout
+and the head dropout take disjoint streams of that seed
 (``ops/random.py``), so no device generator and no host-device sync are
-needed per step.
+needed per step.  :meth:`rng_state` holds the host generators for a
+checkpoint.  Nothing on the path adds with float atomics, so a step
+repeats bit for bit on the card.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
@@ -106,13 +114,40 @@ def fused_gate_ok(cfg_model: ModelConfig) -> bool:
             and whole_encoder_ok(cfg_model))
 
 
+def device_tables(ds: GraphDataset, cfg: ExperimentConfig, device) -> dict:
+    """The dataset's tables on ``device`` that training steps read, built
+    once: with device sampling, ``deg`` and, on the two-pass path, the
+    neighbor table ``nbr_table`` and the feature table ``x_global`` (in
+    ``compute_dtype``), or on the fused path ``tag_table``, ``tags`` and
+    ``codebook``; none with host sampling.  The CV runners build them once
+    for all folds."""
+    dev = resolve_device(device)
+    if not cfg.train.on_device_sampling:
+        return {}
+    table = build_neighbor_table(ds, hub_seed=cfg.train.seed)
+    fused = (setup_fused_tables(ds.node_feat, table)
+             if fused_gate_ok(cfg.model) else None)
+    out = {"deg": torch.from_numpy(ds.degrees.astype(np.int32)).to(dev)}
+    if fused is None:
+        out["nbr_table"] = torch.from_numpy(table).to(dev)
+        out["x_global"] = torch.from_numpy(np.ascontiguousarray(
+            ds.node_feat, np.float32)).to(
+                dev, COMPUTE_DTYPES[cfg.model.compute_dtype])
+    else:
+        for name, a in zip(("tag_table", "tags", "codebook"), fused):
+            out[name] = torch.from_numpy(a).to(dev)
+    return out
+
+
 class SupTrainer:
-    """Supervised U2GNN trainer for one CV fold."""
+    """Supervised U2GNN trainer for one CV fold.  ``tables``: the
+    :func:`device_tables` of ``ds`` and ``cfg`` on ``device``, where a
+    caller shares them among folds."""
 
     def __init__(self, ds: GraphDataset, cfg: ExperimentConfig,
                  train_idx: Optional[np.ndarray] = None,
                  test_idx: Optional[np.ndarray] = None,
-                 device="cuda"):
+                 device="cuda", tables: Optional[dict] = None):
         self.ds, self.cfg = ds, cfg
         self.device = resolve_device(device)
         if train_idx is None or test_idx is None:
@@ -129,27 +164,14 @@ class SupTrainer:
                                   cfg.train.learning_rate,
                                   cfg.train.grad_clip_norm)
         self.host_sampling = not cfg.train.on_device_sampling
-        table = (None if self.host_sampling
-                 else build_neighbor_table(ds, hub_seed=cfg.train.seed))
-        fused = (setup_fused_tables(ds.node_feat, table)
-                 if table is not None and fused_gate_ok(cfg.model) else None)
-        self.two_pass = fused is None
-        dev = self.device
-        if table is not None:
-            self._deg = torch.from_numpy(ds.degrees.astype(np.int32)).to(dev)
+        if tables is None:
+            tables = device_tables(ds, cfg, self.device)
+        self.two_pass = "tag_table" not in tables
         if self.two_pass:
             check_encoder_shapes(cfg.model, cfg.data.num_neighbors + 1,
                                  ds.feature_dim)
-        if table is not None and self.two_pass:
-            self._nbr_table = torch.from_numpy(table).to(dev)
-            self._x_global = torch.from_numpy(np.ascontiguousarray(
-                ds.node_feat, np.float32)).to(
-                    dev, COMPUTE_DTYPES[cfg.model.compute_dtype])
-        elif fused is not None:
-            tag_table, tags, codebook = fused
-            self._tag_table = torch.from_numpy(tag_table).to(dev)
-            self._tags = torch.from_numpy(tags).to(dev)
-            self._codebook = torch.from_numpy(codebook).to(dev)
+        for name, t in tables.items():
+            setattr(self, f"_{name}", t)
         self._seeds = torch.Generator().manual_seed(cfg.train.seed + 1)
         self.act_weight = (cfg.model.act_loss_weight
                            if cfg.model.recurrence == "act" else 0.0)
@@ -160,6 +182,7 @@ class SupTrainer:
         self.sched = PlateauStepLR(self.num_batches_per_epoch,
                                    cfg.train.lr_decay_gamma,
                                    cfg.train.plateau_window)
+        self._eval_stack = self._eval_rng = None
 
     # ----------------------------------------------------------- one step
     def sampled_inputs(self, batch: GraphBatch) -> tuple:
@@ -206,13 +229,20 @@ class SupTrainer:
                                   self.cfg.model.label_smoothing)
         return soft_cross_entropy(scores, targets) + self.act_weight * ponder
 
-    def _step(self, batch: GraphBatch, si: tuple) -> torch.Tensor:
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self._seeds))
+    def train_step(self, batch: GraphBatch, si: tuple,
+                   seed: int) -> torch.Tensor:
+        """One step on ``batch`` (with its :meth:`step_inputs` ``si``),
+        drawing the sampler's and the dropout's bits from ``seed``; returns
+        the loss on the device."""
         loss = self.loss(batch, *self._scores(batch, si, seed))
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
         return loss.detach()
+
+    def _step(self, batch: GraphBatch, si: tuple) -> torch.Tensor:
+        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self._seeds))
+        return self.train_step(batch, si, seed)
 
     def train_steps(self, batch: GraphBatch, n_steps: int) -> torch.Tensor:
         """``n_steps`` steps on one fixed batch (neighborhoods resample every
@@ -224,12 +254,18 @@ class SupTrainer:
         return torch.stack([self._step(batch, si) for _ in range(n_steps)])
 
     # ---------------------------------------------------------------- loops
+    def train_batches(self, n: int) -> torch.Tensor:
+        """``n`` steps, each on a new random batch; returns their summed
+        loss, a float32 device scalar (no host sync)."""
+        losses = []
+        for _ in range(n):
+            batch = self.builder.sample().to(self.device)
+            losses.append(self._step(batch, self.step_inputs(batch)))
+        return torch.stack(losses).sum()
+
     def train_epoch(self) -> float:
         """One epoch; returns the summed batch loss."""
-        total = 0.0
-        for _ in range(self.num_batches_per_epoch):
-            batch = self.builder.sample().to(self.device)
-            total += float(self._step(batch, self.step_inputs(batch)))
+        total = float(self.train_batches(self.num_batches_per_epoch))
         self.epoch_losses.append(total)
         new_scale = self.sched.update(self.epoch_losses)
         if new_scale != self.lr_scale:
@@ -237,17 +273,56 @@ class SupTrainer:
             set_lr_scale(self.opt, self.lr_scale)
         return total
 
+    def eval_stack(self, indices) -> list:
+        """The device batches covering ``indices`` in order, with each
+        batch's count of real graphs (its neighborhoods drawn now from the
+        builder's generator)."""
+        return [(b.to(self.device), n)
+                for b, n in self.builder.eval_batches(indices)]
+
     @torch.no_grad()
-    def evaluate(self, indices: Optional[np.ndarray] = None) -> float:
-        """Argmax accuracy over ``indices`` (default: the test fold),
-        deterministic forward."""
-        idx = self.test_idx if indices is None else np.asarray(indices)
+    def stack_correct(self, stack: list) -> torch.Tensor:
+        """Correct argmax predictions over an :meth:`eval_stack`, an int64
+        device scalar (deterministic forward)."""
         correct = torch.zeros((), dtype=torch.int64, device=self.device)
-        for batch, n_real in self.builder.eval_batches(idx):
-            batch = batch.to(self.device)
+        for batch, n_real in stack:
             pred = self.model(batch)[:n_real].argmax(dim=1)
             correct += (pred == batch.labels[:n_real].to(torch.int64)).sum()
-        return int(correct) / len(idx)
+        return correct
+
+    def test_stack(self) -> list:
+        """The test fold's :meth:`eval_stack`, built at the first call and
+        cached, as JAX's trainer caches it (the builder's state it was drawn
+        from is kept for :meth:`rng_state`)."""
+        if self._eval_stack is None:
+            self._eval_rng = self.builder.rng.bit_generator.state
+            self._eval_stack = self.eval_stack(self.test_idx)
+        return self._eval_stack
+
+    def evaluate(self, indices: Optional[np.ndarray] = None) -> float:
+        """Argmax accuracy over ``indices`` (default: the test fold's cached
+        :meth:`test_stack`), deterministic forward."""
+        if indices is None:
+            return int(self.stack_correct(self.test_stack())) / len(self.test_idx)
+        idx = np.asarray(indices)
+        return int(self.stack_correct(self.eval_stack(idx))) / len(idx)
+
+    def rng_state(self) -> dict:
+        """The host generators' states, JSON-able: the batch builder's, the
+        per-step seeds' and, once the test fold's eval batches are cached,
+        the builder's state they were drawn from."""
+        return {"builder": self.builder.rng.bit_generator.state,
+                "seeds": self._seeds.get_state().tolist(),
+                "eval": self._eval_rng}
+
+    def set_rng_state(self, state: dict) -> None:
+        """Restore :meth:`rng_state`, redrawing the cached eval batches."""
+        if state.get("eval") is not None:
+            self.builder.rng.bit_generator.state = state["eval"]
+            self._eval_stack = None
+            self.test_stack()
+        self.builder.rng.bit_generator.state = state["builder"]
+        self._seeds.set_state(torch.tensor(state["seeds"], dtype=torch.uint8))
 
 
 def train_evaluate_sup(ds: GraphDataset, cfg: ExperimentConfig,

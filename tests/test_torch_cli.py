@@ -60,18 +60,64 @@ def test_per_layer_flags_parse():
 @pytest.mark.parametrize("flag", [["--use_pallas"], ["--host_sampling"],
                                   ["--whole_encoder"]])
 def test_flags_of_unported_paths_are_refused(flag):
-    """``--use_pallas`` and ``--whole_encoder`` are refused (ROADMAP Queue
-    A item 1); ``--host_sampling`` parses into ``on_device_sampling=False``,
-    as the JAX CLI sets it (``cli/common.py:113``)."""
-    if flag == ["--host_sampling"]:
-        cfg = config_from_args(base_parser("t").parse_args(README_FLAGS
-                                                            + flag))
-        assert cfg.train.on_device_sampling is False
-        assert config_from_args(base_parser("t").parse_args(
-            README_FLAGS)).train.on_device_sampling is True
-        return
-    with pytest.raises(SystemExit):
-        base_parser("t").parse_args(README_FLAGS + flag)
+    """These three flags parse into their config fields, as the JAX CLI
+    sets them (``cli/common.py:109-113``): ``--use_pallas`` into
+    ``use_pallas``, ``--whole_encoder`` into ``use_pallas_whole_encoder``,
+    ``--host_sampling`` into ``on_device_sampling=False``; without them the
+    fields keep their defaults.  (Until slice 14 the first two were refused;
+    the name is kept.)  Neither of the first two changes a CLI run's path:
+    the fused gate also needs ``use_fused_sampler``, which no CLI sets."""
+    from graph_transformer_tpu_torch.train.sup_trainer import fused_gate_ok
+
+    cfg = config_from_args(base_parser("t").parse_args(README_FLAGS + flag))
+    plain = config_from_args(base_parser("t").parse_args(README_FLAGS))
+    field = {"--use_pallas": ("model", "use_pallas", True),
+             "--whole_encoder": ("model", "use_pallas_whole_encoder", True),
+             "--host_sampling": ("train", "on_device_sampling", False)}
+    part, name, value = field[flag[0]]
+    assert getattr(getattr(cfg, part), name) is value
+    assert getattr(getattr(plain, part), name) is (not value)
+    assert not fused_gate_ok(cfg.model)
+
+
+JAX_FLAG_CASES = [[], README_FLAGS, ["--sampled_num", "64"],
+                  ["--num_sampled", "32"], ["--dropout", "0.3"],
+                  ["--compute_dtype", "bfloat16"], ["--use_pallas"],
+                  ["--whole_encoder"], ["--checkpoint_dir", "ckpt"],
+                  ["--checkpoint_every", "3"], ["--resume"],
+                  ["--eval_every", "2"]]
+
+
+@pytest.mark.parametrize("argv", JAX_FLAG_CASES,
+                         ids=lambda a: "-".join(a[:1]) or "defaults")
+def test_flags_match_jax_config(argv):
+    """Each flag the port took over from the JAX CLI (and the README's
+    command line, and no flag): the port's parse and config equal JAX's
+    ``config_from_args`` on the same argv, field by field; the port's
+    namespace has JAX's keys and ``device``."""
+    import dataclasses
+
+    from graph_transformer_tpu.cli.common import base_parser as jax_parser
+    from graph_transformer_tpu.cli.common import (
+        config_from_args as jax_config)
+
+    args, jargs = base_parser("t").parse_args(argv), \
+        jax_parser("t").parse_args(argv)
+    assert set(vars(args)) == set(vars(jargs)) | {"device"}
+    assert {k: v for k, v in vars(args).items() if k != "device"} == \
+        vars(jargs)
+    cfg, jcfg = config_from_args(args), jax_config(jargs)
+    for part in ("data", "model", "train", "parallel"):
+        assert dataclasses.asdict(getattr(cfg, part)) == \
+            dataclasses.asdict(getattr(jcfg, part)), part
+
+
+def test_every_jax_flag_parses():
+    """The port's parser knows every option string of JAX's."""
+    from graph_transformer_tpu.cli.common import base_parser as jax_parser
+
+    port = set(base_parser("t")._option_string_actions)
+    assert set(jax_parser("t")._option_string_actions) <= port
 
 
 def _write_tu(root, name, num_graphs=20, seed=0):

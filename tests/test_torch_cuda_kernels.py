@@ -898,3 +898,25 @@ def test_host_sampling_launches_no_sampler(cuda):
         "K4tw", "K8w", "K8ws")
     assert got["K7"] == 0 and all(got[k] == 3 for k in want[:1])
     assert all(v == 0 for k, v in got.items() if k not in want)
+
+
+def test_training_steps_repeat_bit_for_bit(cuda, tmp_path):
+    """Two runs of three training steps from the same seeds, on the
+    two-pass path at the README's 10-fold width (a PTC-like file, K=16,
+    T=3, ff 1024, float32), give equal parameters and Adam moments bit for
+    bit: nothing on the path adds with float atomics (the pooling is a
+    one-hot product since slice 14, not ``index_add_``)."""
+    import chip_smoke
+    from graph_transformer_tpu_torch.data.tu import load_tu_dataset
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+
+    chip_smoke.write_ptc_like_tu(str(tmp_path))
+    ds = load_tu_dataset("PTC", data_dir=str(tmp_path))
+    runs = []
+    for _ in range(2):
+        tr = SupTrainer(ds, chip_smoke.cv_config(1), device="cuda")
+        losses = tr.train_steps(tr.builder.sample(), 3)
+        assert bool(torch.isfinite(losses).all())
+        runs.append([p.detach().clone() for p in tr.model.parameters()]
+                    + [m.clone() for m in tr.opt.mu + tr.opt.nu])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no module of it, and neither chip_smoke.py
-nor scripts/torch_wide_probe.py, imports jax, jaxlib or the JAX package;
+nor scripts/torch_wide_probe.py or torch_determinism_probe.py, imports jax,
+jaxlib or the JAX package;
 importing it builds nothing and does not import triton."""
 
 import ast
@@ -12,7 +13,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "graph_transformer_tpu"}
 FILES = sorted(ROOT.glob("graph_transformer_tpu_torch/**/*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_wide_probe.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_wide_probe.py",
+    ROOT / "scripts" / "torch_determinism_probe.py"]
 
 
 def imported_roots(path: Path):
