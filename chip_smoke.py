@@ -104,7 +104,23 @@
    bit to the uninterrupted run, with its device busy share beside the
    sequential runner's; ``cli.train_sup`` with ``--checkpoint_every 1``
    resumed, equal to a straight run (``cv_phases``).
-9. Prints edges/s, one JSON line describing every kernel (its device time
+9. Drives the unsupervised path (``unsup_phases``), after the kernel
+   timings and before item 8's phases: on an IMDBBINARY-like
+   file at the README's unsup width (batch 2, K=8, T=1, ff 1024, 512
+   candidates, float32 degree tags of D=68), K7, K4tw and K8ws held to
+   their plain versions on a training batch and K13w with K8ws on the same
+   batch with the fused flags (``check_unsup_kernels``); the sampled
+   softmax in both modes at that vocabulary and at 40,000 nodes (the fast
+   sampler) against a float64 host recomputation, the card's candidates
+   equal to the CPU's (``check_unsup_softmax``); ``cli.train_unsup.main``
+   for 2 epochs (1,000 steps: finite falling losses, the probe's mean
+   printed, exactly K7, K4tw and K8ws once a step); 20 steps each of the
+   README's command, the fused flags (K13w, K8ws), two U2GNN layers (K7,
+   2 x K4tw, 2 x K8ws) and a 40,000-node vocabulary (K7, K4t, K8s), with a
+   profile of 20 steps; two runs of 5 steps equal bit for bit; and the
+   probe's best mean on the PTC-like file with learnable labels at least
+   0.75 (``unsup_accuracy``).
+10. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
    call's time), the card's name and power limit, and as the last line
@@ -2324,6 +2340,22 @@ CV_MIN_MEAN = 0.75  # a label-blind model reads about 0.5
 CV_KERNELS = ("K7", "K4t", "K8s", "K8", "K4")
 
 
+# the unsupervised path: the README's unsup command
+# (README.md:68-72) on the IMDBBINARY-like file, and a short run on the
+# PTC-like file with learnable labels whose probe is gated; the CPU test
+# reads 0.8376 for the port and 0.8168 for JAX on that file with these flags
+# (tests/test_torch_unsup_trainer.py)
+UNSUP_FLAGS = ["--dataset", "IMDBBINARY", "--batch_size", "2",
+               "--ff_hidden_size", "1024", "--num_neighbors", "8",
+               "--num_sampled", "512", "--num_timesteps", "1",
+               "--learning_rate", "0.0001"]
+UNSUP_ACC_FLAGS = ["--batch_size", "8", "--ff_hidden_size", "32",
+                   "--num_neighbors", "4", "--num_timesteps", "1",
+                   "--num_sampled", "64", "--learning_rate", "0.005",
+                   "--num_epochs", "10"]
+UNSUP_MIN_MEAN = 0.75  # the CPU readings less about two fold-stds (0.05)
+
+
 class Preempted(RuntimeError):
     pass
 
@@ -2662,6 +2694,335 @@ def cv_phases(ds, data, root) -> dict:
         f"{k} {v:.3f}" for k, v in fold_epoch.items()), flush=True)
     out["fold_epoch_s"] = fold_epoch
     return out
+
+
+# ---------------------------------------------------- the unsupervised path
+def unsup_config(flags, **model):
+    """The config ``cli.train_unsup`` builds from ``flags``, with ``model``
+    fields replaced."""
+    import dataclasses
+
+    from graph_transformer_tpu_torch.cli import train_unsup
+
+    cfg = train_unsup.parse_config(flags + ["--device", "cuda"])[1]
+    return cfg.replace(model=dataclasses.replace(cfg.model, **model))
+
+
+def unsup_data(root) -> tuple:
+    """(IMDBBINARY-like dataset, its directory) under ``root``."""
+    from graph_transformer_tpu_torch.data.tu import load_tu_dataset
+
+    data = write_imdb_like_tu(os.path.join(root, "data"))
+    ds = load_tu_dataset("IMDBBINARY", data_dir=data)
+    describe("unsup IMDBBINARY-like", ds)
+    return ds, data
+
+
+def check_unsup_kernels(ds, dev) -> dict:
+    """The unsupervised path's kernels against their plain versions at its
+    own shapes, with the trainer's initial weights: on a training batch of
+    the README's unsup command (2 graphs, K=8, T=1, ff 1024, float32 degree
+    tags of D=68), K7's stage (:func:`check_neighborhoods`), then K4tw and
+    K8ws on the rows K7 drew (:func:`check_two_pass`: the float32 forward
+    rule, every gradient leaf at cosine > 0.999); on the same batch with
+    the fused flags, K13w with K8ws (:func:`check_fused_sampled`).  Returns
+    the errors keyed as the other cases'."""
+    import torch
+
+    from graph_transformer_tpu_torch.sampling.neighbor_table import (
+        sample_neighborhoods)
+    from graph_transformer_tpu_torch.train.unsup_trainer import UnsupTrainer
+
+    t = UnsupTrainer(ds, unsup_config(UNSUP_FLAGS), device="cuda")
+    if t.fused or t.host_sampling:
+        fail("the README's unsup command does not take the two-pass path")
+    K, T1 = t.cfg.data.num_neighbors, t.cfg.model.num_timesteps
+    S, D = K + 1, ds.feature_dim
+    batch = t.builder.sample().to(dev)
+    errs = {("K7", 0.0, "unsup batch"): check_neighborhoods(
+        "unsup batch", t._nbr_table, t._deg, t._x_global, batch, K, 77)}
+    feat = sample_neighborhoods(77, t._nbr_table, t._deg, t._x_global,
+                                batch.node_gidx, batch.node_mask, K)[0]
+    x2d = feat.reshape(-1, D)
+    if x2d.dtype != torch.float32 or D <= 32:
+        fail(f"the unsup rows are {x2d.dtype} of D={D}, not float32 past 32")
+    params = [p.detach() for p in t.model.encoders[0].stacked()]
+    errs.update({(k, r, "unsup"): v for (k, r), v in check_two_pass(
+        "unsup float32", params, x2d, S, T1, dev).items()})
+    tf = UnsupTrainer(ds, unsup_config(UNSUP_FLAGS, **FUSED_FLAGS),
+                      device="cuda")
+    if not tf.fused:
+        fail("the unsup fused flags do not take the fused path")
+    g = batch.node_gidx.long()
+    si = (tf._tag_table[g], tf._deg[g], tf._tags[g], tf._codebook)
+    errs.update({(k, r, "unsup fused"): v for (k, r), v in
+                 check_fused_sampled("unsup fused", si, params, S, T1,
+                                     dev).items()})
+    print(f"# check unsup: training batch N={batch.n_pad} x S={S}, D={D}, "
+          f"T={T1}, ff {params[6].shape[2]}, V={ds.num_nodes}", flush=True)
+    return errs
+
+
+def check_unsup_softmax(ds, dev) -> dict:
+    """The sampled softmax on the card against a float64 recomputation on
+    the host at the same candidates, both modes, at the IMDBBINARY-like
+    vocabulary (the exact sampler) and at 40,000 nodes (the fast one): the
+    card's candidate ids (and ``valid``) equal the CPU's for the same seed;
+    per-example losses within 1e-4 of their largest magnitude and the
+    gradients of inputs, weight and bias at cosine > 0.9999.  Times the
+    card's loss and backward.  Returns {(V, mode): (max_rel_err, ms)}."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import sampled_softmax as ss
+    from graph_transformer_tpu_torch.sampling.log_uniform import (
+        LogUniformSpec, probs_table)
+
+    out = {}
+    B, Dz = 384, ds.feature_dim
+    for V in (ds.num_nodes, 40_000):
+        spec = LogUniformSpec.create(V, 512)
+        gen = torch.Generator().manual_seed(V)
+        x = torch.randn(B, Dz, generator=gen)
+        w = torch.randn(V, Dz, generator=gen) * 0.1
+        b = torch.randn(V, generator=gen) * 0.1
+        labels = torch.cat([torch.arange(8), torch.randint(0, V, (B - 8,),
+                                                           generator=gen)])
+        mask = (torch.arange(B) < B - 40).float()
+        seed = 4321 + V
+        ids_d, valid_d = ss.draw_candidates(seed, spec, dev)
+        ids_h, valid_h = ss.draw_candidates(seed, spec, "cpu")
+        if not (torch.equal(ids_d.cpu(), ids_h)
+                and (valid_h is None) == (valid_d is None)
+                and (valid_h is None or torch.equal(valid_d.cpu(), valid_h))):
+            fail(f"sampled softmax V={V}: the card's candidates differ from "
+                 "the CPU's")
+        for mode in ("tf", "reference"):
+            def run(dv, dtype, probs=None):
+                ts = [t.to(dv, dtype).clone().requires_grad_(True)
+                      for t in (x, w, b)]
+                ids = ids_h.to(dv)
+                valid = None if valid_h is None else valid_h.to(dv)
+                loss = ss.loss_given(ts[1], ts[2], ts[0], labels.to(dv), ids,
+                                     valid, spec, mode, mask.to(dv, dtype),
+                                     probs)
+                loss.sum().backward()
+                return [loss.detach()] + [
+                    torch.zeros_like(t) if t.grad is None else t.grad
+                    for t in ts]
+
+            got = run(dev, torch.float32)
+            ref = run("cpu", torch.float64,
+                      probs_table(V, "cpu").to(torch.float64))
+            rel = float((got[0].cpu().double() - ref[0]).abs().max()
+                        / ref[0].abs().max())
+            cos = [cosine(a.cpu().double(), r) for a, r in zip(got[1:],
+                                                               ref[1:])
+                   if r.abs().max() > 0]
+            if not (rel < 1e-4 and min(cos) > 0.9999):
+                fail(f"sampled softmax V={V} {mode}: loss rel err {rel:.3e},"
+                     f" gradient cosines {cos}")
+            ms = time_ms(lambda: run(dev, torch.float32), 20)
+            out[(V, mode)] = (rel, ms)
+            print(f"# check sampled softmax V={V} {mode}: candidates equal "
+                  f"to the CPU's ({'fast, ' + str(int(valid_h.sum())) + ' valid' if valid_h is not None else 'exact'}"
+                  f"), loss max rel err {rel:.3e} against float64, lowest "
+                  f"gradient cosine {min(cos):.8f}; loss and backward "
+                  f"{ms:.4f} ms at B={B}, D={Dz}", flush=True)
+    return out
+
+
+def unsup_counts(label, launches, steps, want) -> None:
+    """Launches a step exactly ``want`` ({kernel: per step}) and no other
+    kernel."""
+    got = {k: v for k, v in launches.items() if v}
+    exp = {k: v * steps for k, v in want.items()}
+    print(f"# {label} launches over {steps} steps: {got}; a step: "
+          + ", ".join(f"{k} {launches[k] / steps:g}" for k in want),
+          flush=True)
+    if got != exp:
+        fail(f"{label}: launches {got}, expected {exp}")
+
+
+def unsup_cli(data, root) -> dict:
+    """The README's unsup command through ``cli.train_unsup.main`` for 2
+    epochs on the card, every launch count set to 0 just before and read
+    just after: finite falling epoch losses, the probe's mean ± std (the
+    labels are random: no gate), seconds an epoch, ms a step and exactly
+    K7, K4tw and K8ws once a step."""
+    import contextlib
+    import io
+    import re
+
+    import torch
+
+    from graph_transformer_tpu_torch.cli import train_unsup
+
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        mean, std = train_unsup.main(UNSUP_FLAGS + [
+            "--num_epochs", "2", "--device", "cuda", "--data_dir", data,
+            "--run_folder", os.path.join(root, "runs")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    for line in log.getvalue().splitlines():
+        print(f"# cli: {line}", flush=True)
+    losses = [float(v) for v in
+              re.findall(r"\| loss\s+(\S+) \|", log.getvalue())]
+    epoch_s = [float(v) for v in re.findall(r"\| (\S+)s$", log.getvalue(),
+                                            re.M)]
+    steps = launches["K7"]
+    if len(losses) != 2 or not np.all(np.isfinite(losses)) \
+            or not losses[1] < losses[0]:
+        fail(f"unsup CLI epoch losses {losses}")
+    if not 0.0 <= mean <= 1.0:
+        fail(f"unsup CLI probe mean {mean}")
+    unsup_counts("unsup CLI", launches, 1000,
+                 {"K7": 1, "K4tw": 1, "K8ws": 1})
+    print(f"# unsup CLI: losses {losses}, probe {mean:.4f} ± {std:.4f} "
+          f"(random labels); {secs:.1f} s for 2 epochs, seconds an epoch "
+          f"(probe included) {epoch_s}", flush=True)
+    return {"losses": losses, "mean": mean, "std": std, "s": secs,
+            "epoch_s": epoch_s, "steps": steps}
+
+
+def unsup_steps(label, ds, cfg, want, n=20) -> dict:
+    """``n`` steps of an ``UnsupTrainer`` on the card, each on a new batch,
+    every launch count set to 0 just before and read just after (after 3
+    warm-up steps): finite losses, the launches ``want`` a step exactly,
+    and the ms a step by CUDA events."""
+    import torch
+
+    from graph_transformer_tpu_torch.train.unsup_trainer import UnsupTrainer
+
+    t = UnsupTrainer(ds, cfg, device="cuda")
+    t.train_batches(3)
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    total = t.train_batches(n)
+    end.record()
+    end.synchronize()
+    if not bool(torch.isfinite(total)):
+        fail(f"{label}: loss {float(total)}")
+    launches = {k: c.launches for k, c in counters.items()}
+    unsup_counts(label, launches, n, want)
+    ms = start.elapsed_time(end) / n
+    print(f"# {label}: {ms:.3f} ms a step (new batch each step), "
+          f"V={ds.num_nodes}, D={ds.feature_dim}, N={t.builder.n_pad}",
+          flush=True)
+    return {"trainer": t, "ms": ms, "launches": launches}
+
+
+def unsup_repeat(ds, n=5) -> None:
+    """Two trainers of the README's unsup command, ``n`` steps each from
+    the same seeds: every parameter and Adam moment equal bit for bit
+    (the output table's gradient gathers from ``W[labels]`` and
+    ``W[sample_ids]`` scatter into [V, D])."""
+    import torch
+
+    from graph_transformer_tpu_torch.train.unsup_trainer import UnsupTrainer
+
+    runs = []
+    for _ in range(2):
+        t = UnsupTrainer(ds, unsup_config(UNSUP_FLAGS), device="cuda")
+        loss = t.train_batches(n)
+        torch.cuda.synchronize()
+        runs.append((float(loss), [p.detach().clone()
+                                   for p in t.model.parameters()],
+                     [m.clone() for m in t.opt.mu + t.opt.nu]))
+    (la, pa, ma), (lb, pb, mb) = runs
+    same = la == lb and all(torch.equal(a, b) for a, b in zip(pa + ma,
+                                                                pb + mb))
+    if not same:
+        diff = [n_ for n_, a, b in zip(
+            [n_ for n_, _ in t.model.named_parameters()], pa, pb)
+            if not torch.equal(a, b)]
+        fail(f"two unsup runs of {n} steps differ: losses {la} {lb}, "
+             f"parameters {diff}")
+    print(f"# unsup: two runs of {n} steps equal bit for bit (loss {la}, "
+          f"{len(pa)} parameters and their Adam moments)", flush=True)
+
+
+def unsup_accuracy(data_cv, root) -> dict:
+    """``cli.train_unsup.main`` with ``UNSUP_ACC_FLAGS`` on the PTC-like
+    file with learnable labels: fails unless the best probe mean is at
+    least ``UNSUP_MIN_MEAN``."""
+    import contextlib
+    import io
+
+    from graph_transformer_tpu_torch.cli import train_unsup
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        mean, std = train_unsup.main(
+            ["--dataset", "PTC", "--data_dir", data_cv, "--device", "cuda",
+             "--run_folder", os.path.join(root, "runs_acc")]
+            + UNSUP_ACC_FLAGS)
+    secs = time.perf_counter() - t0
+    for line in log.getvalue().splitlines():
+        print(f"# cli: {line}", flush=True)
+    print(f"# unsup accuracy on learnable labels: best {mean:.4f} ± "
+          f"{std:.4f} (gate {UNSUP_MIN_MEAN}; the CPU test reads 0.8376), "
+          f"{secs:.1f} s", flush=True)
+    if not mean >= UNSUP_MIN_MEAN:
+        fail(f"unsup probe mean {mean:.4f} < {UNSUP_MIN_MEAN}")
+    return {"mean": mean, "std": std, "s": secs}
+
+
+def unsup_phases(data_cv, root, dev) -> tuple:
+    """The unsupervised path's phases: its kernels at its shapes, the sampled
+    softmax, the README's unsup command through the CLI with a profile of
+    20 steps, 20 steps each of the fused flags, two U2GNN layers and a
+    vocabulary past 32,768, two runs bit for bit, and the probe's gate on
+    the PTC-like file.  Returns (errors by kernel, numbers)."""
+    import torch
+
+    from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
+
+    ds, data = unsup_data(root)
+    out = {}
+    t0 = time.perf_counter()
+    errs = check_unsup_kernels(ds, dev)
+    out["softmax"] = {f"{v}_{m}": r for (v, m), r in
+                      check_unsup_softmax(ds, dev).items()}
+    out["cli"] = unsup_cli(data, root)
+    runs = {
+        "readme": (ds, unsup_config(UNSUP_FLAGS),
+                   {"K7": 1, "K4tw": 1, "K8ws": 1}),
+        "fused": (ds, unsup_config(UNSUP_FLAGS, **FUSED_FLAGS),
+                  {"K13": 1, "K8ws": 1}),
+        "two layers": (ds, unsup_config(UNSUP_FLAGS, num_hidden_layers=2),
+                       {"K7": 1, "K4tw": 2, "K8ws": 2})}
+    big = synthetic_powerlaw_dataset("V40k", num_graphs=2000, num_classes=2,
+                                     mean_nodes=20, seed=15,
+                                     reddit_like=False)
+    describe("unsup V > 32,768", big)
+    if big.num_nodes <= 32_768 or big.feature_dim > 32:
+        fail(f"the large vocabulary has {big.num_nodes} nodes of D="
+             f"{big.feature_dim}")
+    runs["V > 32,768"] = (big, unsup_config(UNSUP_FLAGS),
+                          {"K7": 1, "K4t": 1, "K8s": 1})
+    steps = {}
+    for name, (d, cfg, want) in runs.items():
+        steps[name] = unsup_steps(f"unsup {name}", d, cfg, want)
+    out["ms_per_step"] = {k: v["ms"] for k, v in steps.items()}
+    t = steps["readme"]["trainer"]
+    out["profile"] = profile_busy(lambda: t.train_batches(20), 20)
+    unsup_repeat(ds)
+    out["accuracy"] = unsup_accuracy(data_cv, root)
+    print(f"# unsup phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return errs, out
 
 
 def timed_steps(trainer, batch, edges: float) -> tuple:
@@ -3630,6 +3991,14 @@ def main() -> int:
                 "graph_transformer_tpu/ops/pallas_stored_bwd.py:106",
                 k17_bytes, v_flops, bf),
     }
+    # ---- 9b. the unsupervised path (the README's unsup command through the
+    # CLI, the fused flags, two U2GNN layers, a vocabulary past 32,768, the
+    # probe on learnable labels); its kernel checks join the errors that the
+    # kernel line reads
+    errs_u, unsup = unsup_phases(data_cv, os.path.join(here, "build", "unsup"),
+                                 dev)
+    errs.update(errs_u)
+
     kernels = []
     for key, (name, source, replaces, b, f, rate) in meta.items():
         ms, wrapper_ms, plain_ms, lib_ms = timings[key]
@@ -3690,6 +4059,7 @@ def main() -> int:
                       "tenfold": {k: {n: v for n, v in run.items()
                                       if n != "launches"}
                                   for k, run in cv.items() if run},
+                      "unsup": unsup,
                       "hash_floor": floor,
                       "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(

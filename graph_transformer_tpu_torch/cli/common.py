@@ -6,8 +6,8 @@ and config field, plus ``--device`` (default ``cuda``).  As in JAX,
 ``--use_pallas`` and ``--whole_encoder`` only set their fields: the fused
 path's gate also needs ``use_fused_sampler``, which no CLI sets, so every CLI
 run trains on the two-pass path (``train/sup_trainer.fused_gate_ok``).
-``--sampled_num`` is stored for the unsupervised models, which the port does
-not run yet (ROADMAP Queue A), and ``--scan_epochs`` trains the same per-step
+``--sampled_num`` sets the unsupervised models' candidate count
+(``cli/train_unsup.py``), and ``--scan_epochs`` trains the same per-step
 loop (PyTorch runs eagerly).
 """
 

@@ -1,10 +1,11 @@
-"""Cross-validation splits — a copy of ``graph_transformer_tpu/data/splits.py``.
+"""Cross-validation splits — port of ``graph_transformer_tpu/data/splits.py``.
 
 The reference uses ``StratifiedKFold(n_splits=10, shuffle=True,
 random_state=0)`` (``U2GNN_pytorch/util.py:160-186``); its ``dataset/*/
-10fold_idx/*.txt`` fixture files are unused by code.  We call sklearn when
-available (bit-identical folds to the reference) and otherwise fall back to a
-numpy re-implementation of the same stratified assignment.
+10fold_idx/*.txt`` fixture files are unused by code.  The JAX package calls
+sklearn; the port has one numpy route that reproduces sklearn's folds fold
+for fold (``StratifiedKFold._make_test_folds`` of sklearn 1.9), so that the
+card, which has no sklearn, trains on the folds the JAX package trains on.
 """
 
 from __future__ import annotations
@@ -13,39 +14,42 @@ from typing import List, Tuple
 
 import numpy as np
 
-try:  # sklearn is an optional dependency; fall back gracefully
-    from sklearn.model_selection import StratifiedKFold
 
-    _HAVE_SKLEARN = True
-except Exception:  # pragma: no cover
-    _HAVE_SKLEARN = False
+def assign_test_folds(labels: np.ndarray, n_splits: int = 10,
+                      seed: int = 0) -> np.ndarray:
+    """[n] the test fold of each example, as sklearn assigns it: classes
+    encoded in order of first appearance, each fold's share of every class
+    dealt round-robin over the sorted codes, and each class's fold ids
+    shuffled by one ``RandomState(seed)``, class after class."""
+    y = np.asarray(labels).reshape(-1)
+    rng = np.random.RandomState(seed)
+    _, first, inv = np.unique(y, return_index=True, return_inverse=True)
+    _, class_perm = np.unique(first, return_inverse=True)
+    y_enc = class_perm[inv.reshape(-1)]
+    n_classes = len(first)
+    if np.all(n_splits > np.bincount(y_enc)):
+        raise ValueError(f"n_splits={n_splits} cannot be greater than the "
+                         "number of members in each class.")
+    y_order = np.sort(y_enc)
+    allocation = np.asarray([
+        np.bincount(y_order[i::n_splits], minlength=n_classes)
+        for i in range(n_splits)])
+    folds = np.empty(len(y), dtype=np.int64)
+    for k in range(n_classes):
+        per_class = np.arange(n_splits).repeat(allocation[:, k])
+        rng.shuffle(per_class)
+        folds[y_enc == k] = per_class
+    return folds
 
 
 def stratified_kfold_indices(
     labels: np.ndarray, n_splits: int = 10, seed: int = 0
 ) -> List[Tuple[np.ndarray, np.ndarray]]:
-    """Return [(train_idx, test_idx)] * n_splits, stratified on labels."""
-    labels = np.asarray(labels)
-    if _HAVE_SKLEARN:
-        skf = StratifiedKFold(n_splits=n_splits, shuffle=True, random_state=seed)
-        return [
-            (tr.copy(), te.copy())
-            for tr, te in skf.split(np.zeros(len(labels)), labels)
-        ]
-    # Fallback: shuffle within class, deal class members round-robin to folds.
-    rng = np.random.RandomState(seed)
-    fold_of = np.zeros(len(labels), dtype=np.int64)
-    for c in np.unique(labels):
-        idx = np.where(labels == c)[0]
-        rng.shuffle(idx)
-        fold_of[idx] = np.arange(len(idx)) % n_splits
-    out = []
-    all_idx = np.arange(len(labels))
-    for f in range(n_splits):
-        te = all_idx[fold_of == f]
-        tr = all_idx[fold_of != f]
-        out.append((tr, te))
-    return out
+    """Return [(train_idx, test_idx)] * n_splits, stratified on labels, each
+    in index order (sklearn's ``StratifiedKFold(shuffle=True)`` folds)."""
+    folds = assign_test_folds(labels, n_splits, seed)
+    return [(np.where(folds != f)[0], np.where(folds == f)[0])
+            for f in range(n_splits)]
 
 
 def separate_data_idx(

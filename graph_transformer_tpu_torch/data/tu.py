@@ -1,6 +1,5 @@
 """TU graph-classification dataset core — a copy of
-``graph_transformer_tpu/data/tu.py`` (numpy only; ``permute_graphs`` is not
-ported yet).
+``graph_transformer_tpu/data/tu.py`` (numpy only).
 
 Parses the powerful-gnns text format into a flat struct-of-arrays
 representation (global CSR adjacency + per-graph node ranges) that is the
@@ -112,6 +111,58 @@ class GraphDataset:
 
     def max_graph_nodes(self) -> int:
         return int(self.graph_num_nodes.max())
+
+
+def permute_graphs(
+    ds: GraphDataset, seed: int = 0, perm: Optional[np.ndarray] = None
+) -> GraphDataset:
+    """Reorder the dataset's graphs by a fixed random permutation,
+    renumbering all global node ids accordingly.
+
+    **Why this exists (round-4 finding):** the TU text files list graphs
+    sorted by class — the graph *index alone* predicts the label at ~100%
+    on PTC/IMDBBINARY/MUTAG.  The reference's transductive unsupervised
+    protocol (sampled softmax over global node ids,
+    ``train_pytorch_U2GNN_UnSup.py``, ``gcn_baseline/train_unsup_gcn.py``)
+    trains one output-embedding row per node, and the log-uniform candidate
+    distribution P(k) = log(1+1/(k+1))/log(N+1) makes each row's update
+    statistics a strong function of its numeric id — so pooled graph
+    embeddings encode file position, which *is* the label.  Training on a
+    graph-permuted dataset cuts that channel (position becomes independent
+    of the label) while leaving the actual representation-learning problem
+    identical.  See ``scripts/unsup_leak_control.py`` for measurements.
+    """
+    g = (np.random.default_rng(seed).permutation(ds.num_graphs)
+         if perm is None else np.asarray(perm))
+    sizes = ds.graph_num_nodes.astype(np.int64)
+    deg = ds.degrees.astype(np.int64)
+    # new-position -> old-node-id, grouped by permuted graphs
+    starts = ds.graph_offsets[g]
+    old_order = np.repeat(starts, sizes[g]) + _ragged_arange(sizes[g])
+    new_of_old = np.empty(ds.num_nodes, dtype=np.int64)
+    new_of_old[old_order] = np.arange(ds.num_nodes)
+    d_new = deg[old_order]
+    row_idx = np.repeat(ds.nbr_offsets[old_order], d_new) + _ragged_arange(
+        d_new
+    )
+    return GraphDataset(
+        name=ds.name + f"+perm{seed}",
+        node_feat=ds.node_feat[old_order],
+        nbr_offsets=np.concatenate([[0], np.cumsum(d_new)]).astype(np.int64),
+        nbr_ids=new_of_old[ds.nbr_ids[row_idx]].astype(np.int32),
+        graph_offsets=np.concatenate(
+            [[0], np.cumsum(sizes[g])]
+        ).astype(np.int64),
+        labels=ds.labels[g],
+        num_classes=ds.num_classes,
+    )
+
+
+def _ragged_arange(counts: np.ndarray) -> np.ndarray:
+    """[0..c0-1, 0..c1-1, ...] for the given counts."""
+    total = int(counts.sum())
+    ends = np.cumsum(counts)
+    return np.arange(total) - np.repeat(ends - counts, counts)
 
 
 def _resolve_path(dataset: str, data_dir: Optional[str]) -> str:

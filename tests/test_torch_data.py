@@ -103,10 +103,12 @@ def test_separate_data_idx_equal(fold):
         np.testing.assert_array_equal(a, b)
 
 
-def test_separate_data_idx_fallback_equal(monkeypatch):
-    """The machine with the card has no sklearn: the numpy fallback."""
-    monkeypatch.setattr(jax_splits, "_HAVE_SKLEARN", False)
-    monkeypatch.setattr(torch_splits, "_HAVE_SKLEARN", False)
+def test_separate_data_idx_fallback_equal():
+    """The machine with the card has no sklearn: the port's one numpy route
+    (no sklearn import, no fallback) gives JAX's folds, which sklearn
+    makes."""
+    assert jax_splits._HAVE_SKLEARN
+    assert not hasattr(torch_splits, "_HAVE_SKLEARN")
     labels = np.random.default_rng(3).integers(0, 2, 50)
     for fold in range(10):
         for a, b in zip(jax_splits.separate_data_idx(labels, fold),

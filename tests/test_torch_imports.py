@@ -60,3 +60,16 @@ def test_import_builds_nothing():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) > 15
+
+
+def test_native_loader_resolves_under_build():
+    """The port's native sampler loads its own build under ``build/``
+    (``native/build.py``), never the JAX package's library."""
+    from graph_transformer_tpu_torch.native import build
+
+    path = build.lib_path("log_uniform")
+    assert path.is_relative_to(ROOT / "build" / "native")
+    assert "graph_transformer_tpu/native" not in str(path)
+    src = (ROOT / "graph_transformer_tpu_torch" / "native"
+           / "log_uniform_native.py").read_text()
+    assert "graph_transformer_tpu_torch.native.build import ensure" in src
