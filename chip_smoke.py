@@ -120,6 +120,23 @@
    profile of 20 steps; two runs of 5 steps equal bit for bit; and the
    probe's best mean on the PTC-like file with learnable labels at least
    0.75 (``unsup_accuracy``).
+9c. Drives the node path past D = 128 (``node_phases``, slice 16): K18,
+   K19 and K20 against their plain versions at D = 160, 500, 1,433 and
+   3,703 (2,816 neighborhoods of S = 5; 256 at 3,703), float32 and bf16,
+   rates 0 and 0.5, each kernel's forward and the slot-0 layer's forward and
+   recompute backward (the full layer too at D = 160): float32 forwards
+   within 1e-4 and relative L2 1e-5, bf16 by ``check_bf16_spread``, every
+   leaf at cosine > 0.999 and float32 leaves at relative L2 1e-4 (against
+   the plain backward with the kernel's ReLU gates where the two forwards'
+   pre-activations straddle 0, the count printed); the whole encoder at
+   D = 160, T = 2 and the K9/K10 and K11/K12 routes against their plain
+   versions; ``cli.train_node.main`` on Planetoid files of Cora's shape it
+   writes under ``build/node/`` (``write_planetoid_like``): losses finite
+   and falling, exactly K18 15, K19 3 and K20 5 launches a step and no
+   other kernel, the best mask probe at least the test mask's majority
+   share less 0.05; 20 node steps timed with a profile of 5, two 5-step
+   runs bit for bit; each kernel's time at one node-step launch beside
+   ``torch.addmm``, ``scaled_dot_product_attention`` and ``F.layer_norm``.
 10. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
@@ -1949,6 +1966,76 @@ def write_imdb_like_tu(root, name="IMDBBINARY", num_graphs=1000, seed=0):
     return root
 
 
+CORA_CLASS_SIZES = (351, 217, 418, 818, 426, 298, 180)  # 2,708 nodes
+
+
+def write_planetoid_like(root, name="cora", num_feats=1433,
+                         class_sizes=CORA_CLASS_SIZES, n_train=140,
+                         n_val=500, n_test=1000, num_edges=5278,
+                         words=18, class_words=200, own_word=0.6,
+                         homophily=0.8, seed=0):
+    """Write Planetoid files ``<root>/ind.<name>.{x,y,tx,ty,allx,ally,graph,
+    test.index}`` of Cora's published shape at the defaults: 2,708 nodes in
+    Cora's 7 class sizes, 1,433 binary features, ``n_train`` / ``n_val`` /
+    ``n_test`` = 140 / 500 / 1,000 train, val and test nodes, 5,278
+    undirected edges.  Learnable labels: a node's ``words`` words are drawn
+    with probability ``own_word`` from its class's ``class_words`` (else from
+    all), and an edge's second end shares the first's class with probability
+    ``homophily``.  The byte format is the one ``tests/test_planetoid_loader.py``
+    writes (pickled scipy sparse feature blocks, one-hot labels, the
+    neighbor-dict graph, test ids in shuffled file order).  Node ids: the
+    first ``n - n_test`` are ``allx`` (of which ``x`` the first
+    ``n_train``), the last ``n_test`` the test nodes.  Returns the labels."""
+    import pickle
+
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    C = len(class_sizes)
+    labels = rng.permutation(np.repeat(np.arange(C), class_sizes))
+    n = len(labels)
+    vocab = [rng.choice(num_feats, class_words, replace=False)
+             for _ in range(C)]
+    feats = np.zeros((n, num_feats), np.float32)
+    for v in range(n):
+        own = rng.random(words) < own_word
+        cols = np.where(own, rng.choice(vocab[labels[v]], words),
+                        rng.integers(0, num_feats, words))
+        feats[v, cols] = 1.0
+    members = [np.nonzero(labels == c)[0] for c in range(C)]
+    pairs = set()
+    while len(pairs) < num_edges:
+        u = int(rng.integers(n))
+        v = int(rng.choice(members[labels[u]]) if rng.random() < homophily
+                else rng.integers(n))
+        if u != v:
+            pairs.add((min(u, v), max(u, v)))
+    graph = {v: [] for v in range(n)}
+    for u, v in sorted(pairs):
+        graph[u].append(v)
+        graph[v].append(u)
+    onehot = np.eye(C, dtype=np.float32)[labels]
+    n_all = n - n_test
+    test_ids = rng.permutation(np.arange(n_all, n))
+    os.makedirs(root, exist_ok=True)
+
+    def dump(suffix, obj):
+        with open(os.path.join(root, f"ind.{name}.{suffix}"), "wb") as f:
+            pickle.dump(obj, f)
+
+    dump("x", sp.csr_matrix(feats[:n_train]))
+    dump("y", onehot[:n_train])
+    dump("allx", sp.csr_matrix(feats[:n_all]))
+    dump("ally", onehot[:n_all])
+    dump("tx", sp.csr_matrix(feats[test_ids]))
+    dump("ty", onehot[test_ids])
+    dump("graph", graph)
+    with open(os.path.join(root, f"ind.{name}.test.index"), "w") as f:
+        f.write("".join(f"{i}\n" for i in test_ids))
+    assert n_train + n_val <= n_all
+    return labels
+
+
 # ---------------------------------------------------------------- profile
 def device_ms(fn, reps: int, kernels) -> float:
     """Device time per call of ``fn`` spent in the CUDA kernels whose names
@@ -2144,6 +2231,7 @@ def launch_counters():
     from graph_transformer_tpu_torch.ops import ffn
     from graph_transformer_tpu_torch.ops import folded_encoder as fe
     from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
     from graph_transformer_tpu_torch.ops import sampled_encoder as se
     from graph_transformer_tpu_torch.ops import stored_encoder as st
     from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
@@ -2168,7 +2256,8 @@ def launch_counters():
             "K14": ut.mega_recompute_backward,
             "K14w": ut.wide_mega_recompute_backward,
             "K15": fe.folded_stored_forward, "K16": fe.folded_forward,
-            "K17": st.stored_rows_forward}
+            "K17": st.stored_rows_forward, "K18": re.K18, "K19": re.K19,
+            "K20": re.K20}
 
 
 def describe(label, ds) -> None:
@@ -3025,6 +3114,530 @@ def unsup_phases(data_cv, root, dev) -> tuple:
     return errs, out
 
 
+# ------------------------------------------------ the node path (slice 16)
+# The encoder past D = 128 (K18-K20) at the node path's widths: Cora's
+# 1,433, Pubmed's 500, Citeseer's 3,703 (fewer rows), and 160 (N
+# neighborhoods of S = 5 slots, F = 1,024)
+ROWS_WIDTHS = ((160, 2816), (500, 2816), (1433, 2816), (3703, 256))
+ROWS_S, ROWS_F = 5, 1024
+# the node CLI at Cora's shape with the defaults (K = 4, T = 1, one layer,
+# ff 1024, float32, 512 candidates): 2,708 nodes padded to 2,816, 14,080
+# rows of D = 1,433
+NODE_FLAGS = ["--node_dataset", "cora", "--num_epochs", "20", "--eval_every",
+              "5"]
+# a step of the node path at T = 1 (ops/rows_encoder.py): K18 4 forward + 4
+# recompute + 3 row products (dx is not needed) + 4 weight products, K19
+# forward, recompute and backward, K20 2 + 1 + 2
+NODE_STEP_LAUNCHES = {"K18": 15, "K19": 3, "K20": 5}
+# the mask probe's gate: the test mask's majority-class share less this.
+# Both packages' probes read that share after 20 steps: the embedding is
+# the fork head's weight table, which 20 Adam steps of 5e-4 barely move
+# from its initial draw (the JAX package's CPU reading on Planetoid files
+# of half Cora's size and these flags: 0.2980, the share; PERF.md, PR 16)
+NODE_GATE_BELOW_MAJORITY = 0.05
+
+
+def rows_params(D, F, seed, dev, stored=None):
+    """One encoder layer's 12 tensors (KERNEL_ORDER; a leading [stored]
+    axis if ``stored``): weights 0.3 / sqrt(D / 6), LayerNorm scales near
+    1."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    lead = () if stored is None else (stored,)
+    shapes = ((D, 3 * D), (3 * D,), (D, D), (D,), (D,), (D,), (D, F), (F,),
+              (F, D), (D,), (D,), (D,))
+    scale = 0.3 / (D / 6.0) ** 0.5
+    out = [torch.randn(lead + s, generator=g) * scale for s in shapes]
+    out[4] += 1.0
+    out[10] += 1.0
+    return [t.to(dev) for t in out]
+
+
+class plain_pieces:
+    """Within the block, ``ops/rows_encoder``'s compositions take the plain
+    versions of K18-K20 on CUDA tensors too (the reference of the card's
+    checks)."""
+
+    NAMES = ("gemm", "weight_grad", "attention_forward", "attention_backward",
+             "res_ln_forward", "res_ln_backward")
+
+    def __enter__(self):
+        from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+        self.saved = [getattr(re, n) for n in self.NAMES]
+        for n in self.NAMES:
+            setattr(re, n, getattr(re, n + "_plain"))
+
+    def __exit__(self, *exc):
+        from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+        for n, f in zip(self.NAMES, self.saved):
+            setattr(re, n, f)
+
+
+def check_rows_forward(label, out_k, out_p, bf16) -> tuple:
+    """float32: within 1e-4 and relative L2 <= 1e-5 (products summed over
+    up to 14,080 terms: sqrt(K) 2^-24 ~ 7e-6); bf16 by
+    ``check_bf16_spread``."""
+    out_k, out_p = out_k.detach(), out_p.detach()
+    if bf16:
+        return check_bf16_spread(label, out_k, out_p)
+    d = (out_k - out_p).abs()
+    rel = float(d.norm() / out_p.norm().clamp_min(1e-30))
+    if not (float(d.max()) <= 1e-4 and rel <= 1e-5):
+        fail(f"{label}: max |err| {float(d.max())}, relative L2 {rel}")
+    return max_err([out_k], [out_p])
+
+
+def check_rows_grads(label, dx_k, gk, dx_p, gp, f32, names=LEAVES,
+                     regate=None) -> tuple:
+    """Every leaf at cosine > 0.999 (``check_grads``), float32 leaves
+    (``f32``) also at relative L2 <= 1e-4.  Where a float32 leaf misses
+    that and ``regate()`` is given, it returns (dx, grads, flips): the plain
+    backward with the FFN's ReLU gate taken from the kernel's forward at
+    the ``flips`` hidden elements where the two forwards' pre-activations
+    fall on either side of 0 (a gate that flips moves a hidden element's
+    gradient by its whole value: a step of the function, not an error of
+    the sums); the leaves are then held to 1e-4 against that, and the
+    flips and both readings printed.  No flip, and the miss fails."""
+    err, low = check_grads(label, dx_k, gk, dx_p, gp, names)
+    if not f32:
+        return err, low
+
+    def worst(ref_dx, ref_g):
+        return max((float((a - b).norm() / b.norm().clamp_min(1e-30)), leaf)
+                   for leaf, a, b in zip(names, (dx_k,) + tuple(gk),
+                                         (ref_dx,) + tuple(ref_g)))
+
+    rel, leaf = worst(dx_p, gp)
+    if rel <= 1e-4:
+        return err, low
+    if regate is None:
+        fail(f"{label} {leaf}: relative L2 {rel}")
+    dx_g, g_g, flips = regate()
+    rel_g, leaf_g = worst(dx_g, g_g)
+    print(f"# {label}: {leaf} relative L2 {rel:.3e} against the plain "
+          f"version; {flips} of the FFN's ReLU gates differ between the two "
+          f"forwards, and with the kernel's gates the worst leaf ({leaf_g}) "
+          f"reads {rel_g:.3e}", flush=True)
+    if flips == 0 or not rel_g <= 1e-4:
+        fail(f"{label} {leaf}: relative L2 {rel} ({flips} gates differ; "
+             f"{leaf_g} {rel_g} with the kernel's gates)")
+    return max_err((dx_k,) + tuple(gk), (dx_g,) + tuple(g_g)), low
+
+
+class kernel_gates:
+    """Within the block (and ``plain_pieces``), ``layer_forward_rows``
+    hands its backward the FFN hidden ``h`` with the kernel's ReLU gates
+    at the elements ``flips``."""
+
+    def __init__(self, h_kernel, flips):
+        self.h_kernel, self.flips = h_kernel, flips
+
+    def __enter__(self):
+        import torch
+
+        from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+        self.saved = fwd = re.layer_forward_rows
+
+        def gated(*a, **kw):
+            out = fwd(*a, **kw)
+            if kw.get("keep"):
+                out["h"] = torch.where(self.flips, self.h_kernel, out["h"])
+            return out
+
+        re.layer_forward_rows = gated
+
+    def __exit__(self, *exc):
+        from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+        re.layer_forward_rows = self.saved
+
+
+def check_rows_kernels(dev) -> dict:
+    """K18, K19 and K20 against their plain versions at the node path's
+    widths (``ROWS_WIDTHS``), float32 and bf16, rates 0 and 0.5: each
+    kernel's forward at the slot-0 layer's own intermediates, then the
+    layer's forward and its recompute backward (every kernel in every
+    layout), every gradient leaf; the full layer too at D = 160.  Returns
+    the errors by (kernel, ...)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    errs = {}
+    S = ROWS_S
+    for D, N in ROWS_WIDTHS:
+        p = rows_params(D, ROWS_F, D, dev)
+        g = torch.Generator().manual_seed(D + 1)
+        x = torch.randn(N * S, D, generator=g).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            bf = dtype == torch.bfloat16
+            xx = x.to(dtype)
+            for rate in (0.0, 0.5):
+                lab = f"D={D} N={N} {str(dtype)[6:]} rate {rate}"
+                kw = dict(layer=0, rate=rate, seed=1234, bf16=bf)
+                with plain_pieces():
+                    r = re.layer_forward_rows(xx, p, S, slot0=True, keep=True,
+                                              **kw)
+                qkv = re.gemm(xx, p[0], bf16=bf, bias=p[1])
+                ctx = re.attention_forward(r["qkv"], S, slot0=True, **kw)
+                y1 = re.res_ln_forward(xx, r["a"], p[4], p[5], res_every=S,
+                                       rate=rate, seed=1234, layer=0, site=1)
+                y1_p = re.res_ln_forward_plain(xx, r["a"], p[4], p[5],
+                                               res_every=S, rate=rate,
+                                               seed=1234, layer=0, site=1)
+                for key, a, b in (("K18", qkv, r["qkv"]), ("K19", ctx,
+                                                           r["ctx"]),
+                                  ("K20", y1, y1_p)):
+                    errs[(key, D, str(dtype), rate, "fwd")] = \
+                        check_rows_forward(f"{key} {lab}", a, b, bf)
+                for slot0 in (True, False) if D == 160 else (True,):
+                    lk = f"layer {'slot0' if slot0 else 'full'} {lab}"
+                    out_k = re.layer_forward_rows(xx, p, S, slot0=slot0, **kw)
+                    gout = torch.randn(out_k.shape, generator=g).to(dev)
+                    dx_k, g_k = re.layer_backward_rows(xx, gout, p, S,
+                                                       slot0=slot0, **kw)
+                    with plain_pieces():
+                        out_p = re.layer_forward_rows(xx, p, S, slot0=slot0,
+                                                      **kw)
+                        dx_p, g_p = re.layer_backward_rows(
+                            xx, gout, p, S, slot0=slot0, **kw)
+                    torch.cuda.synchronize()
+                    e = check_rows_forward(lk, out_k, out_p, bf)
+
+                    def regate(slot0=slot0, gout=gout):
+                        kw2 = dict(kw, slot0=slot0)
+                        h_k = re.layer_forward_rows(xx, p, S, keep=True,
+                                                    **kw2)["h"]
+                        with plain_pieces():
+                            h_p = re.layer_forward_rows(xx, p, S, keep=True,
+                                                        **kw2)["h"]
+                            flips = (h_k > 0) != (h_p > 0)
+                            with kernel_gates(h_k, flips):
+                                dx, gr = re.layer_backward_rows(xx, gout, p,
+                                                                S, **kw2)
+                        return dx, gr, int(flips.sum())
+
+                    ge, low = check_rows_grads(lk, dx_k, g_k, dx_p, g_p,
+                                               not bf, regate=regate)
+                    for key in ("K18", "K19", "K20"):
+                        errs[(key, D, str(dtype), rate, lk)] = (
+                            max(e[0], ge[0]), max(e[1], ge[1]))
+                    print(f"# {lk}: forward {e[0]:.3e}, worst leaf "
+                          f"{ge[0]:.3e} (cosine >= {low:.6f})", flush=True)
+    return errs
+
+
+def check_rows_routes(dev) -> dict:
+    """The routes past D = 128 at D = 160 against their plain versions on
+    the card: the whole encoder at T = 2 (``u2gnn_train_encoder``: two
+    layers, the slot-0 last, and the chain of recompute backwards) against
+    ``u2gnn_encoder_train_plain`` with the plain K8 chain; K9/K10's
+    (``fused_encoder_layer``) and K11/K12's (``ffn_residual_ln``) against
+    their plain versions; forward and every leaf, rates 0 and 0.5, float32
+    and bf16 (the whole encoder)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops.encoder_layer import (
+        encoder_layer_backward_plain, encoder_layer_forward_plain,
+        fused_encoder_layer)
+    from graph_transformer_tpu_torch.ops.ffn import (
+        ffn_backward_plain, ffn_forward_plain, ffn_residual_ln)
+    from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
+        u2gnn_encoder_train_plain)
+    from graph_transformer_tpu_torch.ops.u2gnn_train import (
+        mega_recompute_backward_plain, u2gnn_train_encoder)
+
+    errs = {}
+    D, N, S, Tn = 160, 1024, ROWS_S, 2
+    g = torch.Generator().manual_seed(160)
+    x = torch.randn(N * S, D, generator=g).to(dev)
+    w = torch.randn(N, D, generator=g).to(dev)
+    wr = torch.randn(N * S, D, generator=g).to(dev)
+    stacked = rows_params(D, ROWS_F, 161, dev, stored=Tn)
+    one = rows_params(D, ROWS_F, 162, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        xx = x.to(dtype)
+        for rate in (0.0, 0.5):
+            lab = f"whole encoder D=160 T=2 {str(dtype)[6:]} rate {rate}"
+            ps = [t.clone().requires_grad_(True) for t in stacked]
+            xk = xx.clone().requires_grad_(True)
+            out = u2gnn_train_encoder(xk, ps, S, Tn, rate, 99)
+            gk = torch.autograd.grad((out * w).sum(), [xk] + ps)
+            out_p, xs = u2gnn_encoder_train_plain(xx, stacked, S, Tn, rate, 99)
+            dx_p, g_p = mega_recompute_backward_plain(xx, xs, w, stacked, S,
+                                                      Tn, rate, 99)
+            torch.cuda.synchronize()
+            bf = dtype == torch.bfloat16
+            e = check_rows_forward(lab, out, out_p, bf)
+            ge, low = check_rows_grads(lab, gk[0].float(), gk[1:], dx_p, g_p,
+                                       not bf)
+            errs[("route", lab)] = (max(e[0], ge[0]), max(e[1], ge[1]))
+            print(f"# {lab}: forward {e[0]:.3e}, worst leaf {ge[0]:.3e} "
+                  f"(cosine >= {low:.6f})", flush=True)
+            if bf:
+                continue
+            lab = f"K9/K10 and K11/K12 routes D=160 rate {rate}"
+            ps = [t.clone().requires_grad_(True) for t in one]
+            xk = x.clone().requires_grad_(True)
+            out = fused_encoder_layer(xk, *ps, 99, S, rate, 1)
+            gk = torch.autograd.grad((out * wr).sum(), [xk] + ps)
+            dx_p, g_p = encoder_layer_backward_plain(x, wr, one, S, rate, 99,
+                                                     1)
+            e = check_rows_forward(lab, out, encoder_layer_forward_plain(
+                x, one, S, rate, 99, 1), False)
+            ge, _ = check_rows_grads(lab, gk[0], gk[1:], dx_p, g_p, True)
+            fp = [t.clone().requires_grad_(True) for t in one[6:]]
+            xk = x.clone().requires_grad_(True)
+            out = ffn_residual_ln(xk, *fp, 99, rate, 1)
+            fk = torch.autograd.grad((out * wr).sum(), [xk] + fp)
+            dx_p, f_p = ffn_backward_plain(x, wr, *one[6:], rate, 99, 1)
+            e2 = check_rows_forward(lab + " ffn", out, ffn_forward_plain(
+                x, *one[6:], rate, 99, 1), False)
+            ge2, _ = check_rows_grads(lab + " ffn", fk[0], fk[1:], dx_p, f_p,
+                                      True, FFN_LEAVES)
+            errs[("route", lab)] = (max(e[0], ge[0], e2[0], ge2[0]),
+                                    max(e[1], ge[1], e2[1], ge2[1]))
+            print(f"# {lab}: forward {max(e[0], e2[0]):.3e}, worst leaf "
+                  f"{max(ge[0], ge2[0]):.3e}", flush=True)
+    return errs
+
+
+def node_config(flags):
+    from graph_transformer_tpu_torch.cli import train_node
+    from graph_transformer_tpu_torch.cli.common import config_from_args
+
+    args = train_node.parser().parse_args(flags)
+    return config_from_args(args), args
+
+
+def node_majority_share(ds) -> float:
+    y = ds.node_labels[ds.test_mask]
+    return float(np.bincount(y).max() / len(y))
+
+
+def node_cli(root) -> dict:
+    """``cli.train_node.main`` with ``NODE_FLAGS`` on the Planetoid-format
+    files at Cora's shape under ``root``, every launch count set to 0 just
+    before and read just after: finite losses, the mean of the last five
+    below the mean of the first five, exactly ``NODE_STEP_LAUNCHES`` a step
+    and no other kernel, and the best mask probe at least the gate."""
+    import contextlib
+    import io
+
+    from graph_transformer_tpu_torch.cli import train_node
+
+    _, args = node_config(NODE_FLAGS + ["--citation_dir", root])
+    ds = train_node.load(args)
+    gate = node_majority_share(ds) - NODE_GATE_BELOW_MAJORITY
+    counters = launch_counters()
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        best = train_node.main(NODE_FLAGS + ["--citation_dir", root])
+    sec = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    print(buf.getvalue(), end="", flush=True)
+    losses = [float(line.split("|")[1].split()[1])
+              for line in buf.getvalue().splitlines()
+              if line.startswith("epoch ")]
+    steps = int(NODE_FLAGS[NODE_FLAGS.index("--num_epochs") + 1])
+    if len(losses) != steps or not all(np.isfinite(losses)):
+        fail(f"node CLI: losses {losses}")
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not last < first:
+        fail(f"node CLI: the last five losses' mean {last} is not below the "
+             f"first five's {first}")
+    unsup_counts("node CLI", launches, steps, NODE_STEP_LAUNCHES)
+    if not best >= gate:
+        fail(f"node CLI: best mask probe {best} below the gate {gate}")
+    print(f"# node CLI: {ds.num_nodes} nodes, D={ds.feature_dim}, losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {first:.4f}, last"
+          f" five {last:.4f}), best mask probe {best:.4f} (gate {gate:.4f}: "
+          f"the test mask's majority share less "
+          f"{NODE_GATE_BELOW_MAJORITY}), {sec:.1f} s", flush=True)
+    return {"losses": losses, "best_masks": best, "gate": gate,
+            "seconds": sec, "launches": {k: v for k, v in launches.items()
+                                         if v}}
+
+
+def node_step_flops(N, S, D, F) -> float:
+    """Product operations of a node step's forward at T = 1 (one slot-0
+    layer), by the code: the Q/K/V product over every row, the output
+    product and the FFN over slot 0's rows."""
+    return 2.0 * N * S * D * 3 * D + 2.0 * N * D * D + 4.0 * N * D * F
+
+
+def node_steps(root, n=20) -> dict:
+    """A ``NodeTrainer`` of the CLI's configuration on the card: ``n`` steps
+    timed by CUDA events after 3 warm-up steps, device busy and operations
+    a step from torch.profiler over 5 steps, and the forward's operation
+    bound beside the step; then two trainers of 5 steps each, every
+    parameter and Adam moment equal bit for bit."""
+    import torch
+
+    from graph_transformer_tpu_torch.cli import train_node
+    from graph_transformer_tpu_torch.train.node_trainer import NodeTrainer
+
+    cfg, args = node_config(NODE_FLAGS + ["--citation_dir", root])
+    ds = train_node.load(args)
+    t = NodeTrainer(ds, cfg, device="cuda")
+    for _ in range(3):
+        t.train_step(t.next_seed())
+    torch.cuda.synchronize()
+    seeds = [t.next_seed() for _ in range(n)]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for s in seeds:
+        loss = t.train_step(s)
+    end.record()
+    end.synchronize()
+    if not bool(torch.isfinite(loss)):
+        fail(f"node steps: loss {float(loss)}")
+    ms = start.elapsed_time(end) / n
+    prof = profile_busy(lambda: [t.train_step(t.next_seed())
+                                 for _ in range(5)], 5)
+    N, S, D = t.batch.n_pad, cfg.data.num_neighbors + 1, ds.feature_dim
+    flops = node_step_flops(N, S, D, cfg.model.ff_hidden_size)
+    bound_ms = flops / F32_FLOP_PER_S * 1e3
+    print(f"# node steps: {ms:.3f} ms a step ({n} steps, CUDA events), N={N},"
+          f" S={S}, D={D}; forward {flops:.4g} FLOP, bound "
+          f"{bound_ms:.3f} ms at 67 TFLOP/s float32 (the backward about "
+          "twice)", flush=True)
+    runs = []
+    for _ in range(2):
+        r = NodeTrainer(ds, cfg, device="cuda")
+        losses = [r.train_epoch() for _ in range(5)]
+        torch.cuda.synchronize()
+        runs.append((losses, [p.detach().clone()
+                              for p in r.model.parameters()],
+                     [m.clone() for m in r.opt.mu + r.opt.nu]))
+    (la, pa, ma), (lb, pb, mb) = runs
+    if not (la == lb and all(torch.equal(a, b)
+                             for a, b in zip(pa + ma, pb + mb))):
+        fail(f"two node runs of 5 steps differ: losses {la} {lb}")
+    print(f"# node: two runs of 5 steps equal bit for bit (losses {la})",
+          flush=True)
+    return {"ms_per_step": ms, "profile": prof, "forward_flops": flops,
+            "forward_bound_ms": bound_ms, "trainer": t}
+
+
+def rows_timings(dev, t) -> dict:
+    """Each of K18-K20 at one launch of the node step (the trainer ``t``'s
+    shapes, float32): K18 the Q/K/V product [N*S, D] x [D, 3D] + bias,
+    K19 the slot-0 attention forward, K20 the first LayerNorm forward over
+    slot 0's rows.  Per kernel: device ms a launch (profiler), the
+    wrapper's ms (CUDA events), the plain version's, one library call's
+    (``torch.addmm``, ``scaled_dot_product_attention`` on q [N, 1, 1, D]
+    and k, v [N, 1, S, D], ``F.layer_norm``; yardsticks the port never
+    calls), and the bound from this launch's bytes and operations."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    N, S = t.batch.n_pad, t.cfg.data.num_neighbors + 1
+    D = t.ds.feature_dim
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(N * S, D, generator=g).to(dev)
+    p = [a.detach()[0] for a in t.model.encoders[0].stacked()]
+    qkv = re.gemm(x, p[0], bias=p[1])
+    a = torch.randn(N, D, generator=g).to(dev)
+    kw = dict(rate=0.5, seed=3, layer=0)
+    calls = {
+        "K18": (lambda: re.gemm(x, p[0], bias=p[1]),
+                lambda: re.gemm_plain(x, p[0], bias=p[1]),
+                lambda: torch.addmm(p[1], x, p[0]),
+                ("rg_f32_kernel",),
+                4 * (x.numel() + p[0].numel() + p[1].numel() + qkv.numel()),
+                2.0 * N * S * D * 3 * D),
+        "K19": (lambda: re.attention_forward(qkv, S, slot0=True, **kw),
+                lambda: re.attention_forward_plain(qkv, S, slot0=True, **kw),
+                lambda: Fn.scaled_dot_product_attention(
+                    qkv.view(N, S, 3 * D)[:, None, :1, :D],
+                    qkv.view(N, S, 3 * D)[:, None, :, D:2 * D],
+                    qkv.view(N, S, 3 * D)[:, None, :, 2 * D:]),
+                ("ra_fwd_kernel",),
+                4 * (2 * N * D + 2 * N * S * D), 4.0 * N * S * D),
+        "K20": (lambda: re.res_ln_forward(x, a, p[4], p[5], res_every=S,
+                                          site=1, **kw),
+                lambda: re.res_ln_forward_plain(x, a, p[4], p[5], res_every=S,
+                                                site=1, **kw),
+                lambda: Fn.layer_norm(a, (D,), p[4], p[5]),
+                ("rl_fwd_kernel",), 4 * (3 * N * D + 2 * D), 8.0 * N * D),
+    }
+    out = {}
+    for key, (fn, plain, lib, names, b, f) in calls.items():
+        ms = device_ms(fn, 10, names)
+        bms, by = bound(b, f, F32_FLOP_PER_S)
+        out[key] = dict(ms=ms, wrapper_ms=time_ms(fn, 10),
+                        plain_ms=time_ms(plain, 10),
+                        library_ms=time_ms(lib, 10), bound_ms=bms,
+                        bound_by=by, bytes=b, flops=f)
+        print(f"# {key} at the node step's shape: {ms:.4f} ms a launch "
+              f"(wrapper {out[key]['wrapper_ms']:.4f}, plain "
+              f"{out[key]['plain_ms']:.4f}, library "
+              f"{out[key]['library_ms']:.4f}, bound {bms:.5f} by {by})",
+              flush=True)
+    return out
+
+
+ROWS_META = {
+    "K18": ("rows gemm", "graph_transformer_tpu_torch/ops/csrc/rows_gemm.cu",
+            "graph_transformer_tpu/ops/pallas_u2gnn.py:266 (D > 128; also "
+            ":316, pallas_encoder.py:196, :214, pallas_ffn.py:70, :97)"),
+    "K19": ("rows attention",
+            "graph_transformer_tpu_torch/ops/csrc/rows_attention.cu",
+            "graph_transformer_tpu/ops/pallas_u2gnn.py:266 (D > 128; also "
+            ":316, pallas_encoder.py:196, :214)"),
+    "K20": ("rows layer norm",
+            "graph_transformer_tpu_torch/ops/csrc/rows_ln.cu",
+            "graph_transformer_tpu/ops/pallas_u2gnn.py:266 (D > 128; also "
+            ":316, pallas_encoder.py:196, :214, pallas_ffn.py:70, :97)"),
+}
+
+
+def node_phases(root, dev) -> tuple:
+    """The node path's phases (slice 16): K18-K20 at the node widths, the
+    routes past D = 128, the node CLI at Cora's shape, timed and profiled
+    steps, two runs bit for bit, and K18-K20's timings.  Returns (errors
+    by kernel, numbers, kernels-line entries)."""
+    import torch
+
+    t0 = time.perf_counter()
+    errs = check_rows_kernels(dev)
+    errs.update(check_rows_routes(dev))
+    labels = write_planetoid_like(root)
+    print(f"# node data: Planetoid files at Cora's shape under {root}: "
+          f"{len(labels)} nodes, classes {np.bincount(labels).tolist()}",
+          flush=True)
+    out = {"cli": node_cli(root)}
+    steps = node_steps(root)
+    t = steps.pop("trainer")
+    out["steps"] = steps
+    timing = rows_timings(dev, t)
+    entries = []
+    for key, (name, source, replaces) in ROWS_META.items():
+        tm = timing[key]
+        errs_k = [v for k, v in errs.items() if k[0] == key]
+        launches = out["cli"]["launches"].get(key, 0)
+        entries.append({
+            "name": f"{key} {name}", "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(e[0] for e in errs_k),
+            "max_rel_err": max(e[1] for e in errs_k), **tm,
+            "excess_ms": launches * (tm["ms"] - tm["bound_ms"])})
+    print(f"# node phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    return errs, out, entries
+
+
 def timed_steps(trainer, batch, edges: float) -> tuple:
     """(ms/step, edges/s) of ``train_steps(batch, STEPS)`` after WARMUP
     steps, by CUDA events; fails on a loss that is not finite, and on the
@@ -3105,6 +3718,7 @@ MMA_KERNELS = {
     "stored_bwd": ("wd_stored_bwd_kernel", "wd_wgrad_mma_kernel"),
     "layer_bwd": ("gt_layer_bwd_kernel",),
     "mega_bwd": ("gt_mega_bwd_kernel", "wd_mega_bwd_kernel"),
+    "rows_gemm": ("rg_bf16_kernel",),
 }
 
 
@@ -3998,6 +4612,9 @@ def main() -> int:
     errs_u, unsup = unsup_phases(data_cv, os.path.join(here, "build", "unsup"),
                                  dev)
     errs.update(errs_u)
+    # ---- 9c. the node path past D = 128 (K18-K20)
+    _, node, node_kernels = node_phases(
+        os.path.join(here, "build", "node", "cora"), dev)
 
     kernels = []
     for key, (name, source, replaces, b, f, rate) in meta.items():
@@ -4020,6 +4637,7 @@ def main() -> int:
               f"bound {bms:.5f} by {by}"
               + (f", library {lib_ms:.4f}" if lib_ms is not None else "")
               + ")", flush=True)
+    kernels += node_kernels
     # the speed queue's order: kernels slower than their library call
     # first, then launches x (ms - bound) on their main paths
     slower = [k["name"].split()[0] for k in kernels
@@ -4060,6 +4678,7 @@ def main() -> int:
                                       if n != "launches"}
                                   for k, run in cv.items() if run},
                       "unsup": unsup,
+                      "node": node,
                       "hash_floor": floor,
                       "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(

@@ -1,7 +1,8 @@
 """Padded graph batches as torch tensors — port of
 ``graph_transformer_tpu/data/batching.py``.
 
-Only the vectorized numpy assembly path is ported (``batching.py:147-214``);
+Only the vectorized numpy assembly path is ported (``batching.py:147-214``),
+with ``whole_dataset_batch`` (``:238-254``);
 the C++ assembler (``native/batcher.cpp``) is later work.  Batches are built
 on the host with an explicit ``np.random.Generator`` (the same draws as the
 JAX package's numpy path for the same seed) and moved to the device with
@@ -187,3 +188,14 @@ class BatchBuilder:
                     [chunk, np.repeat(chunk[-1], self.batch_size - n_real)]
                 )
             yield self.build(chunk), n_real
+
+
+def whole_dataset_batch(ds: GraphDataset, num_neighbors: int,
+                        pad_multiple: int = 128, seed: int = 123
+                        ) -> GraphBatch:
+    """One batch holding every graph (the transductive modes: the node
+    trainer's one graph)."""
+    builder = BatchBuilder(ds, batch_size=ds.num_graphs,
+                           num_neighbors=num_neighbors,
+                           pad_multiple=pad_multiple, seed=seed)
+    return builder.build(np.arange(ds.num_graphs))

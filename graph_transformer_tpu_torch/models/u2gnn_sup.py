@@ -40,9 +40,9 @@ picks it (``ops/attention.py:393-433``), in ``compute_dtype``: basic,
 single-head, neighborhood-axis encoders take the whole-encoder kernels (K4t
 forward with the recompute backward K8/K8s, ``ops/u2gnn_train.py``, in
 training, K4tw and K8w/K8ws past D = 32; K4, or the wide K4 past D = 32, at
-evaluation); every other configuration — the Universal-Transformer
-recurrences (``rec.<i>`` parameters per U2GNN layer), ``num_heads > 1`` and
-the reference's node-axis attention — takes the per-layer encoder
+evaluation; K18-K20 past D = 128 in both); every other configuration —
+the Universal-Transformer recurrences (``rec.<i>`` parameters per U2GNN
+layer), ``num_heads > 1`` and the reference's node-axis attention — takes the per-layer encoder
 (``ops/attention.neighborhood_encoder``: K9/K10, K9w/K10w past D = 32, or
 plain attention and K11/K12), in training and at evaluation alike.  With
 ``return_ponder`` the model also returns the summed ACT ponder cost of its
@@ -74,7 +74,6 @@ from graph_transformer_tpu_torch.ops.attention import (
     xavier_uniform,
 )
 from graph_transformer_tpu_torch.ops.encoder_layer import check_layer_shapes
-from graph_transformer_tpu_torch.ops.ffn import check_ffn_shapes
 from graph_transformer_tpu_torch.ops.random import (
     HEAD_STREAM,
     keep_mask,
@@ -84,11 +83,9 @@ from graph_transformer_tpu_torch.ops.sparse import (
     global_regather,
     graph_sum_pool,
 )
+from graph_transformer_tpu_torch.ops.rows_encoder import check_rows_shapes
 from graph_transformer_tpu_torch.ops.stored_encoder import training_encoder
-from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
-    check_wide_shapes,
-    u2gnn_encoder,
-)
+from graph_transformer_tpu_torch.ops.u2gnn_encoder import u2gnn_encoder
 from graph_transformer_tpu_torch.ops.u2gnn_train import u2gnn_train_encoder
 from graph_transformer_tpu_torch.ops.ut_recurrence import (
     init_recurrence_params,
@@ -115,16 +112,16 @@ def whole_encoder_ok(cfg: ModelConfig) -> bool:
 
 
 def check_encoder_shapes(cfg: ModelConfig, S: int, D: int) -> None:
-    """Raise, naming the ROADMAP item, for neighborhoods of S slots and D
-    features that the kernels of ``cfg``'s training encoder do not take:
-    K4t/K8 and K4tw/K8w (whole encoder), K9/K10 and K9w/K10w (single-head
-    layers without a mask) or K11/K12 (node axis, several heads)."""
+    """Raise, naming ROADMAP item 6, for neighborhoods of S slots that the
+    kernels of ``cfg``'s training encoder do not take: K4t/K8, K4tw/K8w and
+    past D = 128 K18-K20 (whole encoder), K9/K10, K9w/K10w and K18-K20
+    (single-head layers without a mask) take S <= 32 at any D; the plain
+    attention with K11/K12, or K18 and K20 past D = 128 (node axis, several
+    heads), any S and D."""
     if whole_encoder_ok(cfg):
-        check_wide_shapes(S, D)
+        check_rows_shapes(S)
     elif cfg.num_heads == 1 and cfg.attention_axis == "neighborhood":
         check_layer_shapes(S, D)
-    else:
-        check_ffn_shapes(D)
 
 
 class U2GNNSup(nn.Module):

@@ -29,7 +29,7 @@ BUILD_DIR = Path(os.environ.get(
 SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd", "stored_fwd",
            "stored_bwd", "wide_fwd", "sampler", "recompute_bwd",
            "encoder_layer", "ffn", "fused_sampled_fwd", "mega_bwd",
-           "folded_fwd")
+           "folded_fwd", "rows_gemm", "rows_attention", "rows_ln")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -98,7 +98,22 @@ SIGNATURES = {
     "gt_k17_stored_rows_fwd": [_P, _I, _PARAMS, _I, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U,
                                _U, _F, _I, _P],
+    "gt_k18_gemm": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                    _I, _P, _P, _F, _I, _U, _U, _U, _F, _I, _I, _P, _P],
+    "gt_k18_colsum": [_P, _I, _P, _P, _I, _I, _I, _P],
+    "gt_k19_attn_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F, _I,
+                        _P],
+    "gt_k19_attn_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F,
+                        _I, _P],
+    "gt_k20_ln_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _U, _U, _U, _F, _I,
+                      _P],
+    "gt_k20_ln_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                      _U, _U, _U, _F, _I, _P],
 }
+# integer-valued helpers: K18's chunk counts (M, N, K) and (rows), K20's
+# backward blocks (R)
+COUNT_FNS = {"gt_k18_chunks": 3, "gt_k18_colsum_chunks": 1,
+             "gt_k20_bwd_blocks": 1}
 # scratch bytes: K6, K8w/K10w (N, S, D, F, G, slot0, bf16), K12 (M, D, F,
 # bf16), K14w (N, S, D, F, G, T, bf16) -> bytes; the split-K products'
 # scratch (rows, M1, N1) -> floats
@@ -190,6 +205,10 @@ def load(name: str) -> ctypes.CDLL:
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = [_I] * nargs
                 getattr(lib, fn).restype = ctypes.c_size_t
+        for fn, nargs in COUNT_FNS.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = [_I] * nargs
+                getattr(lib, fn).restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

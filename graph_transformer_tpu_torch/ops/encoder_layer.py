@@ -15,11 +15,13 @@ timestep ``layer`` from ``seed`` (``ops/random.py``).  The backward
 recomputes the layer from ``x2d`` and returns dx in ``x2d``'s dtype and the
 12 gradients, as the TPU kernel does; ``dout`` is taken in ``x2d``'s dtype.
 
-Dispatch: on CUDA tensors K9/K10 or K9w/K10w (a launch counter each), on
-CPU tensors the plain versions (``layer_forward`` and
-``layer_recompute_backward_plain``); S <= 32 and D <= 128 either way, wider
-rows raise naming ROADMAP Queue A's item "Rows past D=128 or S=32".  The TPU kernel's dense [R, R]
-block-masked attention is a TPU layout and is not carried over.
+Dispatch: on CUDA tensors K9/K10 or K9w/K10w (a launch counter each), past
+D = 128 the layer as kernels K18-K20 (``ops/rows_encoder.layer_rows_forward``
+and ``layer_rows_backward``); on CPU tensors the plain versions
+(``layer_forward`` and ``layer_recompute_backward_plain``).  S <= 32 either
+way: more slots raise naming ROADMAP Queue A's item "Rows past D=128 or
+S=32" (item 6).  The TPU kernel's dense [R, R] block-masked attention is a
+TPU layout and is not carried over.
 """
 
 from __future__ import annotations
@@ -32,12 +34,17 @@ import torch
 from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
 from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.rows_encoder import (
+    layer_rows_backward,
+    layer_rows_forward,
+)
 from graph_transformer_tpu_torch.ops.sampled_encoder import _split_grads
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
     MAX_D,
     MAX_S,
     WIDE_MAX_D,
     WIDE_ROWS,
+    check_wide_shapes,
 )
 from graph_transformer_tpu_torch.ops.u2gnn_train import (
     _mm,
@@ -46,11 +53,13 @@ from graph_transformer_tpu_torch.ops.u2gnn_train import (
 
 
 def check_layer_shapes(S: int, D: int) -> None:
-    if S > MAX_S or D > WIDE_MAX_D:
+    """S <= 32 at any D: K9/K10 (K9w/K10w past D = 32, K18-K20 past
+    D = 128)."""
+    if S > MAX_S:
         raise NotImplementedError(
             f"S={S}, D={D}: the encoder-layer kernels K9/K10 (K9w/K10w past "
-            f"D={MAX_D}) take S <= {MAX_S} and D <= {WIDE_MAX_D} (ROADMAP.md "
-            "Queue A, 'Rows past D=128 or S=32')")
+            f"D={MAX_D}, K18-K20 past D={WIDE_MAX_D}) take S <= {MAX_S} "
+            "(ROADMAP.md Queue A, 'Rows past D=128 or S=32', item 6)")
 
 
 def _split(x2d, S):
@@ -89,12 +98,14 @@ def encoder_layer_backward_plain(x2d, dout, params: Sequence[torch.Tensor],
 def encoder_layer_forward(x2d, params: Sequence[torch.Tensor], S: int,
                           rate: float = 0.0, seed: Optional[int] = None,
                           layer: int = 0) -> torch.Tensor:
-    """K9 on CUDA tensors (D <= 32; K9w past),
+    """K9 on CUDA tensors (D <= 32; K9w past, K18-K20 past D = 128),
     :func:`encoder_layer_forward_plain` on CPU tensors.  ``params``: one
     layer's 12 tensors in KERNEL_ORDER."""
     N, D = _split(x2d, S)
     if not x2d.is_cuda:
         return encoder_layer_forward_plain(x2d, params, S, rate, seed, layer)
+    if D > WIDE_MAX_D:
+        return layer_rows_forward(x2d, params, S, rate, seed, layer)
     if D > MAX_D:
         return wide_encoder_layer_forward(x2d, params, S, rate, seed, layer)
     return _forward(x2d, params, S, rate, seed, layer, False)
@@ -113,6 +124,7 @@ def wide_encoder_layer_forward(x2d, params: Sequence[torch.Tensor], S: int,
 
 def _forward(x2d, params, S, rate, seed, layer, wide):
     N, D = _split(x2d, S)
+    check_wide_shapes(S, D)
     _build.check_rows_dtype(x2d)
     x2d = x2d.contiguous()
     ps = _build.f32_params(params)
@@ -141,13 +153,15 @@ wide_encoder_layer_forward.launches = 0
 def encoder_layer_backward(x2d, dout, params: Sequence[torch.Tensor], S: int,
                            rate: float = 0.0, seed: Optional[int] = None,
                            layer: int = 0):
-    """K10 on CUDA tensors (D <= 32; K10w past),
+    """K10 on CUDA tensors (D <= 32; K10w past, K18-K20 past D = 128),
     :func:`encoder_layer_backward_plain` on CPU tensors; same return
     value."""
     N, D = _split(x2d, S)
     if not x2d.is_cuda:
         return encoder_layer_backward_plain(x2d, dout, params, S, rate, seed,
                                             layer)
+    if D > WIDE_MAX_D:
+        return layer_rows_backward(x2d, dout, params, S, rate, seed, layer)
     if D > MAX_D:
         return wide_encoder_layer_backward(x2d, dout, params, S, rate, seed,
                                            layer)
@@ -168,6 +182,7 @@ def wide_encoder_layer_backward(x2d, dout, params: Sequence[torch.Tensor],
 
 def _backward(x2d, dout, params, S, rate, seed, layer, wide):
     N, D = _split(x2d, S)
+    check_wide_shapes(S, D)
     _build.check_rows_dtype(x2d)
     x2d = x2d.contiguous()
     ps = _build.f32_params(params)

@@ -13,9 +13,9 @@ sites 2 (hidden) and 3 (FFN output) of timestep ``layer``
 (``ops/random.py``), the encoder layer's FFN sites, so the plain versions
 reproduce the kernels' masks.
 
-Dispatch: on CUDA tensors K11/K12 (a launch counter each), on CPU tensors the
-plain versions; D <= 128 either way, wider rows raise naming ROADMAP Queue A's
-item "Rows past D=128 or S=32".
+Dispatch: on CUDA tensors K11/K12 (a launch counter each) up to D = 128 and
+past it kernels K18 and K20 (``ops/rows_encoder.ffn_rows_forward`` and
+``ffn_rows_backward``), on CPU tensors the plain versions.
 """
 
 from __future__ import annotations
@@ -31,16 +31,13 @@ from graph_transformer_tpu_torch.ops.attention import (
     rnd,
 )
 from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.rows_encoder import (
+    ffn_rows_backward,
+    ffn_rows_forward,
+)
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import WIDE_MAX_D
 
 HIDDEN_SITE, OUT_SITE = 2, 3
-
-
-def check_ffn_shapes(D: int) -> None:
-    if D > WIDE_MAX_D:
-        raise NotImplementedError(
-            f"D={D}: the FFN kernels K11/K12 take D <= {WIDE_MAX_D} "
-            "(ROADMAP.md Queue A, 'Rows past D=128 or S=32')")
 
 
 def _mm(dtype: torch.dtype) -> torch.dtype:
@@ -92,12 +89,15 @@ def ffn_backward_plain(x, dout, w1, b1, w2, b2, gamma, beta,
 
 def ffn_forward(x, w1, b1, w2, b2, gamma, beta, rate: float = 0.0,
                 seed: Optional[int] = None, layer: int = 0):
-    """K11 on CUDA tensors, :func:`ffn_forward_plain` on CPU tensors."""
+    """K11 on CUDA tensors (K18 and K20 past D = 128),
+    :func:`ffn_forward_plain` on CPU tensors."""
     M, D = x.shape
-    check_ffn_shapes(D)
     if not x.is_cuda:
         return ffn_forward_plain(x, w1, b1, w2, b2, gamma, beta, rate, seed,
                                  layer)
+    if D > WIDE_MAX_D:
+        return ffn_rows_forward(x, w1, b1, w2, b2, gamma, beta, rate, seed,
+                                layer)
     _build.check_rows_dtype(x)
     x = x.contiguous()
     ps = _build.f32_params((w1, b1, w2, b2, gamma, beta))
@@ -117,14 +117,16 @@ ffn_forward.launches = 0
 
 def ffn_backward(x, dout, w1, b1, w2, b2, gamma, beta, rate: float = 0.0,
                  seed: Optional[int] = None, layer: int = 0):
-    """K12 on CUDA tensors, :func:`ffn_backward_plain` on CPU tensors; same
-    return value."""
+    """K12 on CUDA tensors (K18 and K20 past D = 128),
+    :func:`ffn_backward_plain` on CPU tensors; same return value."""
     M, D = x.shape
     F = w1.shape[1]
-    check_ffn_shapes(D)
     if not x.is_cuda:
         return ffn_backward_plain(x, dout, w1, b1, w2, b2, gamma, beta, rate,
                                   seed, layer)
+    if D > WIDE_MAX_D:
+        return ffn_rows_backward(x, dout, w1, b1, w2, b2, gamma, beta, rate,
+                                 seed, layer)
     _build.check_rows_dtype(x)
     x = x.contiguous()
     bf = int(x.dtype == torch.bfloat16)

@@ -7,7 +7,8 @@ the last layer, ``[N, D]`` float32.  Product operands take ``x2d``'s dtype
 kernel K4 (``csrc/encoder_fwd.cu``) for D <= 32, the wide K4
 (``csrc/wide_fwd.cu``, :func:`wide_encoder`) for 32 < D <= 128, and raises
 beyond; on a CPU tensor it runs :func:`u2gnn_encoder_plain`.  The main paths
-run it at eval (rate 0).
+run it at eval (rate 0).  Past D = 128 both functions run the layer as
+kernels K18-K20 (``ops/rows_encoder.encoder_train_rows``); S > 32 raises.
 
 :func:`u2gnn_encoder_train` is the same forward in training mode: dropout
 from a seed, and the inputs of layers 1..T-1 saved in the rows' dtype, as the
@@ -27,6 +28,7 @@ import torch
 from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
 from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.rows_encoder import encoder_train_rows
 
 MAX_D = 32        # K1-K4, K4t, K8-K10: one thread per row, D floats in
 MAX_S = 32        # registers
@@ -72,20 +74,27 @@ def _check_shapes(S: int, D: int) -> None:
 
 
 def check_wide_shapes(S: int, D: int) -> None:
+    """The wide kernels' limits (K4w, K4tw, K5, K6, K8w, K9w, K10w, K13w,
+    K14w, K17): the whole-encoder, layer and FFN routes take K18-K20 past
+    D = 128, the fused flags and K14 raise."""
     if S > MAX_S or D > WIDE_MAX_D:
         raise NotImplementedError(
             f"S={S}, D={D}: the port's wide encoder kernels take S <= {MAX_S}"
             f" and D <= {WIDE_MAX_D} (ROADMAP.md Queue A, 'Rows past D=128 or "
-            "S=32')")
+            "S=32', item 6)")
 
 
 def u2gnn_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
                   seq_len: int, num_timesteps: int, rate: float = 0.0,
                   seed: Optional[int] = None) -> torch.Tensor:
-    """[N·S, D] rows -> [N, D] float32 (slot 0 of the last layer)."""
+    """[N·S, D] rows -> [N, D] float32 (slot 0 of the last layer): K4 on
+    CUDA tensors (the wide K4 past D = 32, K18-K20 past D = 128)."""
     if not x2d.is_cuda:
         return u2gnn_encoder_plain(x2d, params, seq_len, num_timesteps, rate,
                                    seed)
+    if x2d.shape[1] > WIDE_MAX_D:
+        return encoder_train_rows(x2d, params, seq_len, num_timesteps, rate,
+                                  seed)[0]
     if x2d.shape[1] > MAX_D:
         return wide_encoder(x2d, params, seq_len, num_timesteps, rate, seed)
     return _launch(x2d, params, seq_len, num_timesteps, rate, seed, False)
@@ -105,12 +114,15 @@ def wide_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
 def u2gnn_encoder_train(x2d: torch.Tensor, params: Sequence[torch.Tensor],
                         seq_len: int, num_timesteps: int, rate: float = 0.0,
                         seed: Optional[int] = None):
-    """K4t on CUDA tensors (D <= 32; K4tw past),
+    """K4t on CUDA tensors (D <= 32; K4tw past, K18-K20 past D = 128),
     :func:`u2gnn_encoder_train_plain` on CPU tensors: ``(out [N, D]
     float32, xs [T-1, N·S, D])``."""
     if not x2d.is_cuda:
         return u2gnn_encoder_train_plain(x2d, params, seq_len, num_timesteps,
                                          rate, seed)
+    if x2d.shape[1] > WIDE_MAX_D:
+        return encoder_train_rows(x2d, params, seq_len, num_timesteps, rate,
+                                  seed)
     if x2d.shape[1] > MAX_D:
         return wide_encoder_train(x2d, params, seq_len, num_timesteps, rate,
                                   seed)

@@ -27,6 +27,10 @@ rows' cotangent as well as the parameters' gradients: in a k-layer model,
 layer 0's dx flows back through the re-gather (``ops/sparse.global_regather``)
 into the U2GNN layer below.
 
+Past D = 128 the chain's layers run as kernels K18-K20
+(``ops/rows_encoder.recompute_backward_rows``: the layer recomputed from its
+saved input, then its backward); K14 raises there (ROADMAP item 6).
+
 Dispatch: every public function takes the kernel on CUDA tensors and the
 plain PyTorch version on CPU tensors.  The plain backward runs the plain
 layer forward and then the plain K2/K3 backward on the recomputed residuals.
@@ -42,6 +46,9 @@ import torch
 from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
 from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.rows_encoder import (
+    recompute_backward_rows,
+)
 from graph_transformer_tpu_torch.ops.sampled_encoder import (
     _split_grads,
     layer_backward_plain,
@@ -50,6 +57,7 @@ from graph_transformer_tpu_torch.ops.sampled_encoder import (
 )
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import (
     MAX_D,
+    WIDE_MAX_D,
     WIDE_ROWS,
     check_wide_shapes,
     u2gnn_encoder_train,
@@ -127,13 +135,17 @@ def _plain(x, g, params, layer, rate, seed, slot0):
 
 
 def layer_recompute_backward(x, g, params, layer: int, rate: float,
-                             seed: Optional[int]):
-    """K8 on CUDA tensors (D <= 32; K8w past), the plain version
-    (:func:`layer_recompute_backward_plain`) on CPU tensors: a full layer
-    (t < T-1).  ``params``: the 12 stacked tensors (the layer uses slice
-    ``layer % stored``); products in ``x``'s dtype."""
+                             seed: Optional[int], need_dx: bool = True):
+    """K8 on CUDA tensors (D <= 32; K8w past, K18-K20 past D = 128), the
+    plain version (:func:`layer_recompute_backward_plain`) on CPU tensors:
+    a full layer (t < T-1).  ``params``: the 12 stacked tensors (the layer
+    uses slice ``layer % stored``); products in ``x``'s dtype.  Without
+    ``need_dx`` the rows route past D = 128 skips dx (returns None)."""
     if not x.is_cuda:
         return _plain(x, g, params, layer, rate, seed, False)
+    if x.shape[2] > WIDE_MAX_D:
+        return recompute_backward_rows(x, g, params, layer, rate, seed, False,
+                                       need_dx)
     if x.shape[2] > MAX_D:
         return wide_layer_recompute_backward(x, g, params, layer, rate, seed)
     out = _recompute_kernel("gt_k8_layer_bwd", "gt_k8_smem_bytes", x, g,
@@ -143,11 +155,15 @@ def layer_recompute_backward(x, g, params, layer: int, rate: float,
 
 
 def slot0_recompute_backward(x, g, params, layer: int, rate: float,
-                             seed: Optional[int]):
-    """K8s on CUDA tensors (D <= 32; K8ws past), the plain version on CPU
-    tensors: the slot-0 last layer, g [N, D]."""
+                             seed: Optional[int], need_dx: bool = True):
+    """K8s on CUDA tensors (D <= 32; K8ws past, K18-K20 past D = 128), the
+    plain version on CPU tensors: the slot-0 last layer, g [N, D];
+    ``need_dx`` as for :func:`layer_recompute_backward`."""
     if not x.is_cuda:
         return _plain(x, g, params, layer, rate, seed, True)
+    if x.shape[2] > WIDE_MAX_D:
+        return recompute_backward_rows(x, g, params, layer, rate, seed, True,
+                                       need_dx)
     if x.shape[2] > MAX_D:
         return wide_slot0_recompute_backward(x, g, params, layer, rate, seed)
     out = _recompute_kernel("gt_k8s_slot0_bwd", "gt_k8s_smem_bytes", x, g,
@@ -292,22 +308,23 @@ wide_mega_recompute_backward.launches = 0
 
 # ============================================================== autograd
 def chain_backward(x2d, xs, dout, params, seq_len: int, num_timesteps: int,
-                   rate: float, seed: Optional[int]):
+                   rate: float, seed: Optional[int], need_dx: bool = True):
     """Kernel 5's hybrid chain (``pallas_u2gnn.py:455-496``): K8s (K8ws) for
     the last layer, then K8 (K8w) per earlier layer, from the encoder input
     x2d [N·S, D] and the saved inputs xs [T-1, N·S, D].  Returns (dx
-    [N·S, D] float32, the 12 stacked gradients)."""
+    [N·S, D] float32, the 12 stacked gradients); without ``need_dx`` the
+    rows route skips the input's cotangent, and dx may be None."""
     S, T = seq_len, num_timesteps
     N, D = x2d.shape[0] // S, x2d.shape[1]
 
     def layer_bwd(t, g):
         x = (x2d if t == 0 else xs[t - 1]).view(N, S, D)
-        if t == T - 1:
-            return slot0_recompute_backward(x, g, params, t, rate, seed)
-        return layer_recompute_backward(x, g, params, t, rate, seed)
+        bwd = (slot0_recompute_backward if t == T - 1
+               else layer_recompute_backward)
+        return bwd(x, g, params, t, rate, seed, need_dx=need_dx or t > 0)
 
     dx, dparams = walk_backward(dout, params, T, layer_bwd)
-    return dx.reshape(N * S, D), dparams
+    return (None if dx is None else dx.reshape(N * S, D)), dparams
 
 
 class U2GNNTrainFn(torch.autograd.Function):
@@ -327,9 +344,14 @@ class U2GNNTrainFn(torch.autograd.Function):
         x2d, *params = ctx.saved_tensors
         S, T, rate, seed, mega_bwd = ctx.cfg
         xs, ctx.xs = ctx.xs, None
-        bwd = mega_recompute_backward if mega_bwd else chain_backward
-        dx, dparams = bwd(x2d, xs, dout, params, S, T, rate, seed)
-        dx = dx.to(x2d.dtype) if ctx.needs_input_grad[0] else None
+        need_dx = ctx.needs_input_grad[0]
+        if mega_bwd:
+            dx, dparams = mega_recompute_backward(x2d, xs, dout, params, S, T,
+                                                  rate, seed)
+        else:
+            dx, dparams = chain_backward(x2d, xs, dout, params, S, T, rate,
+                                         seed, need_dx)
+        dx = dx.to(x2d.dtype) if need_dx else None
         dparams = [d.to(p.dtype) for d, p in zip(dparams, params)]
         return (dx, None, None, None, None, None, *dparams)
 

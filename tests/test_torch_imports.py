@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of it, and neither chip_smoke.py
-nor scripts/torch_wide_probe.py or torch_determinism_probe.py, imports jax,
-jaxlib or the JAX package;
-importing it builds nothing and does not import triton."""
+nor scripts/torch_wide_probe.py, torch_determinism_probe.py or
+torch_node_phases.py, imports jax,
+jaxlib or the JAX package, nor sklearn or networkx (the card's machine has
+neither); importing it builds nothing and does not import triton."""
 
 import ast
 import subprocess
@@ -12,9 +13,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "graph_transformer_tpu"}
+NOT_ON_CARD = {"sklearn", "networkx"}
 FILES = sorted(ROOT.glob("graph_transformer_tpu_torch/**/*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_wide_probe.py",
-    ROOT / "scripts" / "torch_determinism_probe.py"]
+    ROOT / "scripts" / "torch_determinism_probe.py",
+    ROOT / "scripts" / "torch_node_phases.py"]
 
 
 def imported_roots(path: Path):
@@ -34,6 +37,12 @@ def test_port_has_modules():
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
     bad = FORBIDDEN.intersection(imported_roots(path))
+    assert not bad, f"{path} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_sklearn_or_networkx_imports(path):
+    bad = NOT_ON_CARD.intersection(imported_roots(path))
     assert not bad, f"{path} imports {sorted(bad)}"
 
 

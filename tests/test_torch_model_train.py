@@ -207,11 +207,13 @@ def test_entry_points_default_to_cuda():
 
 
 def test_unported_configurations_raise():
-    """Models other than U2GNNSup, and rows past the kernels of each
-    encoder path, raise naming their ROADMAP item: the whole-encoder
-    kernels (K4tw, K8w), the encoder-layer kernels K9w/K10w and the FFN
-    kernels K11/K12 past D=128 (Queue A's item "Rows past D=128 or
-    S=32")."""
+    """Models other than U2GNNSup, and neighborhoods past the kernels of
+    each encoder path, raise naming their ROADMAP item: the whole-encoder
+    kernels (K4t/K4tw/K8w, K18-K20 past D=128) and the encoder-layer
+    kernels (K9/K10, K9w/K10w, K18-K20) at S=33 (Queue A's item "Rows past
+    D=128 or S=32", item 6).  Rows of D=130 take every path, and the node
+    axis and several heads (plain attention, K11/K12 or K18 and K20) any
+    S."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         U2GNNSup(4, 2, ModelConfig(model="gcn"))
     rng = np.random.default_rng(0)
@@ -219,18 +221,25 @@ def test_unported_configurations_raise():
     # two-pass path
     ds = synthetic_powerlaw_dataset("S", num_graphs=4, mean_nodes=60, seed=0)
     assert ds.num_nodes > 128
-    for D, kw, match in ((130, {}, "Rows past D=128"),
-                         (130, dict(recurrence="gru"), "K9/K10"),
-                         (130, dict(attention_axis="node"), "K11/K12"),
-                         (130, dict(num_heads=2),
-                          "Queue A, 'Rows past D=128 or S=32'")):
-        ds.node_feat = rng.standard_normal((ds.num_nodes, D)).astype(
-            np.float32)
+    ds.node_feat = rng.standard_normal((ds.num_nodes, 130)).astype(
+        np.float32)
+    for K, kw, match in ((32, {}, "Rows past D=128"),
+                         (32, dict(recurrence="gru"), "K9/K10"),
+                         (32, dict(attention_axis="node"), None),
+                         (32, dict(num_heads=2), None),
+                         (3, {}, None), (3, dict(recurrence="gru"), None)):
         cfg = small_cfg(1)
-        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **kw))
-        with pytest.raises(NotImplementedError, match=match):
+        cfg = cfg.replace(
+            data=dataclasses.replace(cfg.data, num_neighbors=K),
+            model=dataclasses.replace(cfg.model, **kw))
+        if match is None:
             SupTrainer(ds, cfg, train_idx=np.arange(3),
                        test_idx=np.arange(3, 4), device="cpu")
+            continue
+        with pytest.raises(NotImplementedError, match=match) as err:
+            SupTrainer(ds, cfg, train_idx=np.arange(3),
+                       test_idx=np.arange(3, 4), device="cpu")
+        assert "item 6" in str(err.value)
 
 
 def test_params_from_jax_rejects_unknown_keys():

@@ -51,10 +51,7 @@ from graph_transformer_tpu_torch.ops.encoder_layer import (
     check_layer_shapes,
     fused_encoder_layer,
 )
-from graph_transformer_tpu_torch.ops.ffn import (
-    check_ffn_shapes,
-    ffn_residual_ln,
-)
+from graph_transformer_tpu_torch.ops.ffn import ffn_residual_ln
 from graph_transformer_tpu_torch.ops.losses import (
     label_smoothing,
     soft_cross_entropy,
@@ -151,17 +148,18 @@ def test_encoder_layer_matches_jax_kernel14_15(dtype):
 
 
 def test_encoder_layer_shapes():
-    """K9/K10 take S <= 32 and D <= 32, K9w/K10w D <= 128; wider rows name
-    ROADMAP Queue A's item "Rows past D=128 or S=32"."""
-    for S_, D_ in ((32, 32), (9, 33), (32, 128)):
+    """K9/K10 take S <= 32 at any D (K9w/K10w past D=32, K18-K20 past
+    D=128); more slots name ROADMAP Queue A's item "Rows past D=128 or
+    S=32" (item 6)."""
+    for S_, D_ in ((32, 32), (9, 33), (32, 128), (9, 129), (5, 1433)):
         check_layer_shapes(S_, D_)
-    for S_, D_ in ((33, 8), (9, 129)):
+    for S_, D_ in ((33, 8), (33, 129)):
         with pytest.raises(NotImplementedError,
-                           match="Queue A, 'Rows past D=128 or S=32'"):
+                           match="Queue A, 'Rows past D=128 or S=32', item 6"):
             check_layer_shapes(S_, D_)
-    x = torch.zeros(9 * 2, 130)
+    x = torch.zeros(33 * 2, 130)
     with pytest.raises(NotImplementedError, match="K9/K10"):
-        fused_encoder_layer(x, *[torch.zeros(1)] * 12, None, 9)
+        fused_encoder_layer(x, *[torch.zeros(1)] * 12, None, 33)
 
 
 # ---------------------------------------------------------- K11/K12 (plain)
@@ -201,12 +199,18 @@ def test_ffn_matches_jax_kernel16_17(dtype, D_, M, F_):
 
 
 def test_ffn_shapes():
-    """K11/K12 take D <= 128; wider rows name ROADMAP Queue A's item "Rows
-    past D=128 or S=32"."""
-    check_ffn_shapes(128)
-    with pytest.raises(NotImplementedError,
-                       match="Queue A, 'Rows past D=128 or S=32'"):
-        ffn_residual_ln(torch.zeros(4, 129), *[torch.zeros(1)] * 6)
+    """K11/K12 take D <= 128 and K18 with K20 past it, so rows of any width
+    run (here the plain version, D=129: finite, LayerNorm-scaled rows)."""
+    rng = np.random.default_rng(0)
+    D_, F_ = 129, 8
+    x = torch.from_numpy(rng.standard_normal((4, D_), np.float32))
+    p = [torch.from_numpy(a.astype(np.float32)) for a in (
+        rng.standard_normal((D_, F_)) * 0.1, np.zeros(F_),
+        rng.standard_normal((F_, D_)) * 0.1, np.zeros(D_), np.ones(D_),
+        np.zeros(D_))]
+    out = ffn_residual_ln(x, *p)
+    assert out.shape == (4, D_) and bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.mean(-1).numpy(), 0.0, atol=1e-5)
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.5])
