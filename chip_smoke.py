@@ -132,11 +132,12 @@
    D = 160, T = 2 and the K9/K10 and K11/K12 routes against their plain
    versions; ``cli.train_node.main`` on Planetoid files of Cora's shape it
    writes under ``build/node/`` (``write_planetoid_like``): losses finite
-   and falling, exactly K18 15, K19 3 and K20 5 launches a step and no
+   and falling, exactly K18 18, K19 3 and K20 5 launches a step and no
    other kernel, the best mask probe at least the test mask's majority
    share less 0.05; 20 node steps timed with a profile of 5, two 5-step
-   runs bit for bit; each kernel's time at one node-step launch beside
-   ``torch.addmm``, ``scaled_dot_product_attention`` and ``F.layer_norm``.
+   runs bit for bit; K18 at each of the step's launches beside
+   ``torch.addmm``/``mm``, K19 and K20 at one beside
+   ``scaled_dot_product_attention`` and ``F.layer_norm``.
 10. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
@@ -2091,15 +2092,16 @@ def device_ms(fn, reps: int, kernels) -> float:
     return ms
 
 
-def profile_busy(fn, n_steps: int, start_at: str = "") -> None:
+def profile_busy(fn, n_steps: int, start_at: str = "", sum_of=()) -> None:
     """Trace ``fn()``, which runs ``n_steps`` training steps, with
     torch.profiler; print the device time of each kernel per step and the
     device's busy share (union of device-operation intervals over the span
     from the first one's start to the last one's end; with ``start_at``,
     from the first kernel whose name holds it, so that set-up copies are
     left out), and return the share, the device operations and the busy ms
-    per step.  The profiler slows the host, so this share is a lower bound
-    of the unprofiled one."""
+    per step (with ``sum_of``, also the device ms a step of the kernels
+    whose names hold one of those).  The profiler slows the host, so this
+    share is a lower bound of the unprofiled one."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2138,8 +2140,13 @@ def profile_busy(fn, n_steps: int, start_at: str = "") -> None:
           flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"#   {us / n_steps / 1e3:9.4f} ms/step  {name[:90]}", flush=True)
-    return {"busy_share": busy / span, "ops_per_step": len(spans) / n_steps,
-            "busy_ms_per_step": busy / n_steps / 1e3}
+    out = {"busy_share": busy / span, "ops_per_step": len(spans) / n_steps,
+           "busy_ms_per_step": busy / n_steps / 1e3}
+    if sum_of:
+        out["ms_per_step_of"] = sum(us for n, us in by_name.items()
+                                    if any(k in n for k in sum_of)
+                                    ) / n_steps / 1e3
+    return out
 
 
 # ------------------------------------------------------------- library call
@@ -3125,10 +3132,12 @@ ROWS_S, ROWS_F = 5, 1024
 # rows of D = 1,433
 NODE_FLAGS = ["--node_dataset", "cora", "--num_epochs", "20", "--eval_every",
               "5"]
-# a step of the node path at T = 1 (ops/rows_encoder.py): K18 4 forward + 4
-# recompute + 3 row products (dx is not needed) + 4 weight products, K19
+# a step of the node path at T = 1 (ops/rows_encoder.py): K18 5 forward (q
+# on slot 0's rows, k and v on every row, the output product, the FFN's
+# two) + 5 recompute + 3 row products (dx is not needed) + 5 weight products
+# (W_in's q columns over slot 0's rows apart from its k, v columns), K19
 # forward, recompute and backward, K20 2 + 1 + 2
-NODE_STEP_LAUNCHES = {"K18": 15, "K19": 3, "K20": 5}
+NODE_STEP_LAUNCHES = {"K18": 18, "K19": 3, "K20": 5}
 # the mask probe's gate: the test mask's majority-class share less this.
 # Both packages' probes read that share after 20 steps: the embedding is
 # the fork head's weight table, which 20 Adam steps of 5e-4 barely move
@@ -3228,9 +3237,10 @@ def check_rows_grads(label, dx_k, gk, dx_p, gp, f32, names=LEAVES,
 
 
 class kernel_gates:
-    """Within the block (and ``plain_pieces``), ``layer_forward_rows``
-    hands its backward the FFN hidden ``h`` with the kernel's ReLU gates
-    at the elements ``flips``."""
+    """Within the block (and ``plain_pieces``), the FFN hidden ``h`` that
+    the layer and the FFN route hand their backward
+    (``ops/rows_encoder._ffn_hidden``) takes the kernel's ReLU gates at the
+    elements ``flips``."""
 
     def __init__(self, h_kernel, flips):
         self.h_kernel, self.flips = h_kernel, flips
@@ -3240,20 +3250,27 @@ class kernel_gates:
 
         from graph_transformer_tpu_torch.ops import rows_encoder as re
 
-        self.saved = fwd = re.layer_forward_rows
+        self.saved = hidden = re._ffn_hidden
 
         def gated(*a, **kw):
-            out = fwd(*a, **kw)
-            if kw.get("keep"):
-                out["h"] = torch.where(self.flips, self.h_kernel, out["h"])
-            return out
+            h, z = hidden(*a, **kw)
+            return torch.where(self.flips, self.h_kernel, h), z
 
-        re.layer_forward_rows = gated
+        re._ffn_hidden = gated
 
     def __exit__(self, *exc):
         from graph_transformer_tpu_torch.ops import rows_encoder as re
 
-        re.layer_forward_rows = self.saved
+        re._ffn_hidden = self.saved
+
+
+def slot0_qkv(qkv, S):
+    """What the slot-0 layer forms of QKV [N·S, 3D]: q on slot 0's rows,
+    k and v on every row, as one vector."""
+    import torch
+
+    D = qkv.shape[1] // 3
+    return torch.cat([qkv[::S, :D].reshape(-1), qkv[:, D:].reshape(-1)])
 
 
 def check_rows_kernels(dev) -> dict:
@@ -3282,16 +3299,16 @@ def check_rows_kernels(dev) -> dict:
                 with plain_pieces():
                     r = re.layer_forward_rows(xx, p, S, slot0=True, keep=True,
                                               **kw)
-                qkv = re.gemm(xx, p[0], bf16=bf, bias=p[1])
+                qkv = re._qkv_rows(xx, p[0], p[1], S, bf, True)
                 ctx = re.attention_forward(r["qkv"], S, slot0=True, **kw)
                 y1 = re.res_ln_forward(xx, r["a"], p[4], p[5], res_every=S,
                                        rate=rate, seed=1234, layer=0, site=1)
                 y1_p = re.res_ln_forward_plain(xx, r["a"], p[4], p[5],
                                                res_every=S, rate=rate,
                                                seed=1234, layer=0, site=1)
-                for key, a, b in (("K18", qkv, r["qkv"]), ("K19", ctx,
-                                                           r["ctx"]),
-                                  ("K20", y1, y1_p)):
+                for key, a, b in (("K18", slot0_qkv(qkv, S),
+                                   slot0_qkv(r["qkv"], S)),
+                                  ("K19", ctx, r["ctx"]), ("K20", y1, y1_p)):
                     errs[(key, D, str(dtype), rate, "fwd")] = \
                         check_rows_forward(f"{key} {lab}", a, b, bf)
                 for slot0 in (True, False) if D == 160 else (True,):
@@ -3341,6 +3358,7 @@ def check_rows_routes(dev) -> dict:
     and bf16 (the whole encoder)."""
     import torch
 
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
     from graph_transformer_tpu_torch.ops.encoder_layer import (
         encoder_layer_backward_plain, encoder_layer_forward_plain,
         fused_encoder_layer)
@@ -3389,7 +3407,21 @@ def check_rows_routes(dev) -> dict:
                                                      1)
             e = check_rows_forward(lab, out, encoder_layer_forward_plain(
                 x, one, S, rate, 99, 1), False)
-            ge, _ = check_rows_grads(lab, gk[0], gk[1:], dx_p, g_p, True)
+
+            def regate_layer(rate=rate):
+                kw = dict(layer=1, rate=rate, seed=99, bf16=False,
+                          slot0=False, keep=True)
+                h_k = re.layer_forward_rows(x, one, S, **kw)["h"]
+                with plain_pieces():
+                    h_p = re.layer_forward_rows(x, one, S, **kw)["h"]
+                    flips = (h_k > 0) != (h_p > 0)
+                    with kernel_gates(h_k, flips):
+                        dx, gr = re.layer_rows_backward(x, wr, one, S, rate,
+                                                        99, 1)
+                return dx, gr, int(flips.sum())
+
+            ge, _ = check_rows_grads(lab, gk[0], gk[1:], dx_p, g_p, True,
+                                     regate=regate_layer)
             fp = [t.clone().requires_grad_(True) for t in one[6:]]
             xk = x.clone().requires_grad_(True)
             out = ffn_residual_ln(xk, *fp, 99, rate, 1)
@@ -3397,8 +3429,19 @@ def check_rows_routes(dev) -> dict:
             dx_p, f_p = ffn_backward_plain(x, wr, *one[6:], rate, 99, 1)
             e2 = check_rows_forward(lab + " ffn", out, ffn_forward_plain(
                 x, *one[6:], rate, 99, 1), False)
+
+            def regate_ffn(rate=rate):
+                h_k = re._ffn_hidden(x, *one[6:10], False, rate, 99, 1)[0]
+                with plain_pieces():
+                    h_p = re._ffn_hidden(x, *one[6:10], False, rate, 99, 1)[0]
+                    flips = (h_k > 0) != (h_p > 0)
+                    with kernel_gates(h_k, flips):
+                        dx, gr = re.ffn_rows_backward(x, wr, *one[6:], rate,
+                                                      99, 1)
+                return dx, gr, int(flips.sum())
+
             ge2, _ = check_rows_grads(lab + " ffn", fk[0], fk[1:], dx_p, f_p,
-                                      True, FFN_LEAVES)
+                                      True, FFN_LEAVES, regate=regate_ffn)
             errs[("route", lab)] = (max(e[0], ge[0], e2[0], ge2[0]),
                                     max(e[1], ge[1], e2[1], ge2[1]))
             print(f"# {lab}: forward {max(e[0], e2[0]):.3e}, worst leaf "
@@ -3468,20 +3511,23 @@ def node_cli(root) -> dict:
 
 def node_step_flops(N, S, D, F) -> float:
     """Product operations of a node step's forward at T = 1 (one slot-0
-    layer), by the code: the Q/K/V product over every row, the output
-    product and the FFN over slot 0's rows."""
-    return 2.0 * N * S * D * 3 * D + 2.0 * N * D * D + 4.0 * N * D * F
+    layer), by the code: q over slot 0's rows, k and v over every row, the
+    output product and the FFN over slot 0's rows."""
+    return (2.0 * N * D * D + 2.0 * N * S * D * 2 * D + 2.0 * N * D * D
+            + 4.0 * N * D * F)
 
 
 def node_steps(root, n=20) -> dict:
     """A ``NodeTrainer`` of the CLI's configuration on the card: ``n`` steps
     timed by CUDA events after 3 warm-up steps, device busy and operations
-    a step from torch.profiler over 5 steps, and the forward's operation
+    a step from torch.profiler over 5 steps with K18's launches a step by
+    launch key (``rows_encoder.K18.shapes``), and the forward's operation
     bound beside the step; then two trainers of 5 steps each, every
     parameter and Adam moment equal bit for bit."""
     import torch
 
     from graph_transformer_tpu_torch.cli import train_node
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
     from graph_transformer_tpu_torch.train.node_trainer import NodeTrainer
 
     cfg, args = node_config(NODE_FLAGS + ["--citation_dir", root])
@@ -3501,15 +3547,24 @@ def node_steps(root, n=20) -> dict:
     if not bool(torch.isfinite(loss)):
         fail(f"node steps: loss {float(loss)}")
     ms = start.elapsed_time(end) / n
+    re.K18.shapes.clear()
     prof = profile_busy(lambda: [t.train_step(t.next_seed())
-                                 for _ in range(5)], 5)
+                                 for _ in range(5)], 5, sum_of=K18_KERNELS)
+    shapes = {k: v // 5 for k, v in re.K18.shapes.items()}
+    if (any(v % 5 for v in re.K18.shapes.values())
+            or sum(shapes.values()) != NODE_STEP_LAUNCHES["K18"]):
+        fail(f"node steps: K18's launches over 5 steps by shape "
+             f"{dict(re.K18.shapes)}, not {NODE_STEP_LAUNCHES['K18']} a step")
     N, S, D = t.batch.n_pad, cfg.data.num_neighbors + 1, ds.feature_dim
     flops = node_step_flops(N, S, D, cfg.model.ff_hidden_size)
     bound_ms = flops / F32_FLOP_PER_S * 1e3
+    k18_ms = prof["ms_per_step_of"] if prof else None
     print(f"# node steps: {ms:.3f} ms a step ({n} steps, CUDA events), N={N},"
           f" S={S}, D={D}; forward {flops:.4g} FLOP, bound "
-          f"{bound_ms:.3f} ms at 67 TFLOP/s float32 (the backward about "
-          "twice)", flush=True)
+          f"{bound_ms:.3f} ms at 67 TFLOP/s float32, "
+          f"{3 * flops / TF32_FLOP_PER_S * 1e3:.3f} ms as 3xTF32 (the "
+          f"backward about twice); K18 {k18_ms} ms a step (profile)",
+          flush=True)
     runs = []
     for _ in range(2):
         r = NodeTrainer(ds, cfg, device="cuda")
@@ -3525,25 +3580,208 @@ def node_steps(root, n=20) -> dict:
     print(f"# node: two runs of 5 steps equal bit for bit (losses {la})",
           flush=True)
     return {"ms_per_step": ms, "profile": prof, "forward_flops": flops,
-            "forward_bound_ms": bound_ms, "trainer": t}
+            "forward_bound_ms": bound_ms, "k18_ms_per_step": k18_ms,
+            "trainer": t, "k18_shapes": shapes}
 
 
-def rows_timings(dev, t) -> dict:
-    """Each of K18-K20 at one launch of the node step (the trainer ``t``'s
-    shapes, float32): K18 the Q/K/V product [N*S, D] x [D, 3D] + bias,
+TF32_FLOP_PER_S = 495e12  # H100 SXM, dense TF32 tensor cores
+# K18's device kernels: the products (float32 3xTF32, bf16), the split-K
+# products' partial sums and the bias gradients' column sums
+K18_KERNELS = ("rg_tf32_kernel", "rg_bf16_kernel", "rg_reduce_kernel",
+               "rg_colsum_kernel")
+
+
+def k18_bounds(b, f) -> dict:
+    """A float32 product's least times (ms) for ``b`` bytes and ``f``
+    operations: as 3xTF32 on the tensor cores (three TF32 products) and on
+    the CUDA cores."""
+    tc, by = bound(b, 3 * f, TF32_FLOP_PER_S)
+    f32, by32 = bound(b, f, F32_FLOP_PER_S)
+    return {"bound_ms": tc, "bound_by": by, "bound_f32_ms": f32,
+            "bound_f32_by": by32}
+
+
+def node_k18_table(N, S, D, F) -> list:
+    """K18's launches in a node step at T = 1 (one slot-0 layer, no dx), as
+    ``ops/rows_encoder.py`` makes them for N neighborhoods of S slots at
+    width D and FFN width F: (name, epilogue, launch key), the key as
+    ``rows_encoder.K18.shapes`` counts it (layout, bf16, M, N, K, the row
+    strides of A, B and C).  q from x's every S-th row into the QKV
+    buffer's first D columns, k and v from every row into the rest; the
+    output product and the FFN over slot 0's rows; the row products dh
+    (gate), dy1 (add) and dctx; the weight products (with their column
+    sums): W_in's q columns from slot 0's rows of x and of QKV's
+    cotangent, its k and v columns from every row, then W_out, W1, W2."""
+    R, D3 = N * S, 3 * D
+    return [("q nn", "bias", ("nn", False, N, D, D, S * D, D3, S * D3)),
+            ("kv nn", "bias", ("nn", False, R, 2 * D, D, D, D3, D3)),
+            ("out nn", "bias", ("nn", False, N, D, D, D, D, D)),
+            ("ffn1 nn", "relu_drop", ("nn", False, N, F, D, D, F, F)),
+            ("ffn2 nn", "bias", ("nn", False, N, D, F, F, D, D)),
+            ("dh nt", "gate", ("nt", False, N, F, D, D, D, F)),
+            ("dy1 nt", "add", ("nt", False, N, D, F, F, F, D)),
+            ("dctx nt", None, ("nt", False, N, D, D, D, D, D)),
+            ("dW_in q tn", None, ("tn", False, D, D, N, S * D, S * D3, D)),
+            ("dW_in kv tn", None, ("tn", False, D, 2 * D, R, D, D3, 2 * D)),
+            ("dW_out tn", None, ("tn", False, D, D, N, D, D, D)),
+            ("dW1 tn", None, ("tn", False, D, F, N, D, F, F)),
+            ("dW2 tn", None, ("tn", False, F, D, N, F, D, D))]
+
+
+def node_k18_launches(dev, N, S, D, F, seed=5, views=True) -> dict:
+    """Each launch of :func:`node_k18_table` on random float32 operands:
+    name -> (kernel call, library call, launch key, operations, bytes).
+    With ``views`` the operands and outputs are views as the step's are
+    (x[::S], W_in's column blocks, the QKV buffer's and its cotangent's),
+    so each call makes its table key; without, contiguous copies of the
+    same values and no ``out`` (for a checkout whose K18 takes no row
+    strides).  The library call is one torch.addmm or torch.mm (on
+    transposed views) of the same product, with
+    torch.backends.cuda.matmul.allow_tf32 False."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    g = torch.Generator().manual_seed(seed)
+    ws = 0.3 / (D / 6.0) ** 0.5
+
+    def rnd(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=g) * sc).to(dev)
+
+    R = N * S
+    x, w_in, b_in, dqkv = rnd(R, D), rnd(D, 3 * D, sc=ws), rnd(3 * D), rnd(
+        R, 3 * D)
+    qkv = torch.empty(R, 3 * D, device=dev)
+    w_out, w1, w2 = rnd(D, D, sc=ws), rnd(D, F, sc=ws), rnd(F, D, sc=ws)
+    b_d, b_f = rnd(D), rnd(F)
+    ctx, y1, dz, da, du2 = (rnd(N, D) for _ in range(5))
+    h, dh = rnd(N, F), rnd(N, F)
+    xs, w_q, w_kv, dq, dkv = (x[::S], w_in[:, :D], w_in[:, D:],
+                              dqkv[::S, :D], dqkv[:, D:])
+    b_q, b_kv = b_in[:D], b_in[D:]
+    q_out, kv_out = dict(out=qkv[::S, :D]), dict(out=qkv[:, D:])
+    if not views:
+        xs, w_q, w_kv, dq, dkv = (t.contiguous()
+                                  for t in (xs, w_q, w_kv, dq, dkv))
+        q_out = kv_out = {}
+    drop = (0.5, 3, 0, re.HIDDEN_SITE)
+
+    def nb(*ts):
+        return sum(t.numel() * 4 for t in ts)
+
+    def out(M, Nn):
+        return M * Nn * 4
+
+    calls = {
+        "q nn": (lambda: re.gemm(xs, w_q, bias=b_q, **q_out),
+                 lambda: torch.addmm(b_q, xs, w_q), 2.0 * N * D * D,
+                 nb(xs, w_q, b_q) + out(N, D)),
+        "kv nn": (lambda: re.gemm(x, w_kv, bias=b_kv, **kv_out),
+                  lambda: torch.addmm(b_kv, x, w_kv), 2.0 * R * D * 2 * D,
+                  nb(x, w_kv, b_kv) + out(R, 2 * D)),
+        "out nn": (lambda: re.gemm(ctx, w_out, bias=b_d),
+                   lambda: torch.addmm(b_d, ctx, w_out), 2.0 * N * D * D,
+                   nb(ctx, w_out, b_d) + out(N, D)),
+        "ffn1 nn": (lambda: re.gemm(y1, w1, bias=b_f, relu=True, drop=drop),
+                    lambda: torch.addmm(b_f, y1, w1), 2.0 * N * D * F,
+                    nb(y1, w1, b_f) + out(N, F)),
+        "ffn2 nn": (lambda: re.gemm(h, w2, bias=b_d),
+                    lambda: torch.addmm(b_d, h, w2), 2.0 * N * F * D,
+                    nb(h, w2, b_d) + out(N, D)),
+        "dh nt": (lambda: re.gemm(dz, w2, "nt", gate=h, gate_keep=0.5),
+                  lambda: torch.mm(dz, w2.t()), 2.0 * N * D * F,
+                  nb(dz, w2, h) + out(N, F)),
+        "dy1 nt": (lambda: re.gemm(dh, w1, "nt", add=du2),
+                   lambda: torch.addmm(du2, dh, w1.t()), 2.0 * N * F * D,
+                   nb(dh, w1, du2) + out(N, D)),
+        "dctx nt": (lambda: re.gemm(da, w_out, "nt"),
+                    lambda: torch.mm(da, w_out.t()), 2.0 * N * D * D,
+                    nb(da, w_out) + out(N, D)),
+        "dW_in q tn": (lambda: re.weight_grad(xs, dq),
+                       lambda: torch.mm(xs.t(), dq), 2.0 * N * D * D,
+                       nb(xs, dq) + out(D, D) + 4 * D),
+        "dW_in kv tn": (lambda: re.weight_grad(x, dkv),
+                        lambda: torch.mm(x.t(), dkv), 2.0 * R * D * 2 * D,
+                        nb(x, dkv) + out(D, 2 * D) + 8 * D),
+        "dW_out tn": (lambda: re.weight_grad(ctx, da),
+                      lambda: torch.mm(ctx.t(), da), 2.0 * N * D * D,
+                      nb(ctx, da) + out(D, D) + 4 * D),
+        "dW1 tn": (lambda: re.weight_grad(y1, dh),
+                   lambda: torch.mm(y1.t(), dh), 2.0 * N * D * F,
+                   nb(y1, dh) + out(D, F) + 4 * F),
+        "dW2 tn": (lambda: re.weight_grad(h, dz),
+                   lambda: torch.mm(h.t(), dz), 2.0 * N * F * D,
+                   nb(h, dz) + out(F, D) + 4 * D),
+    }
+    return {name: (calls[name][0], calls[name][1], key, *calls[name][2:])
+            for name, _, key in node_k18_table(N, S, D, F)}
+
+
+def rows_timings(dev, t, step_shapes) -> dict:
+    """Each of K18-K20 at the node step's launches (the trainer ``t``'s
+    shapes, float32).  K18: every launch of :func:`node_k18_table`, each
+    first checked to launch K18 once with its table key, then its device
+    ms a launch (profiler), its launches a step (``step_shapes``, the keys
+    the profiled node steps counted, which must be the table's), the
+    3xTF32 tensor-core and the float32 CUDA-core bounds and one library
+    call's time (``torch.addmm`` or ``torch.mm``, allow_tf32 False); K18's
+    entry is the step's largest launch, k and v over every row, with its
+    wrapper's and its plain version's time, the launches under
+    ``per_launch`` and their sum a step weighted by the counted launches.
     K19 the slot-0 attention forward, K20 the first LayerNorm forward over
-    slot 0's rows.  Per kernel: device ms a launch (profiler), the
-    wrapper's ms (CUDA events), the plain version's, one library call's
-    (``torch.addmm``, ``scaled_dot_product_attention`` on q [N, 1, 1, D]
-    and k, v [N, 1, S, D], ``F.layer_norm``; yardsticks the port never
-    calls), and the bound from this launch's bytes and operations."""
+    slot 0's rows.  Per kernel: device ms a launch, the wrapper's ms (CUDA
+    events), the plain version's, one library call's (``torch.addmm``,
+    ``scaled_dot_product_attention`` on q [N, 1, 1, D] and k, v
+    [N, 1, S, D], ``F.layer_norm``; yardsticks the port never calls), and
+    the bound from this launch's bytes and operations."""
     import torch
     import torch.nn.functional as Fn
 
     from graph_transformer_tpu_torch.ops import rows_encoder as re
 
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("rows_timings: the library products must run in float32 "
+             "(torch.backends.cuda.matmul.allow_tf32 is set)")
     N, S = t.batch.n_pad, t.cfg.data.num_neighbors + 1
-    D = t.ds.feature_dim
+    D, F = t.ds.feature_dim, t.cfg.model.ff_hidden_size
+    launches = node_k18_launches(dev, N, S, D, F)
+    keys = {v[2] for v in launches.values()}
+    if set(step_shapes) != keys:
+        fail(f"rows_timings: the node step launched K18 as {step_shapes}; "
+             f"node_k18_table has {sorted(keys)}")
+    per = {}
+    for name, (fn, lib, key, f, b) in launches.items():
+        re.K18.shapes.clear()
+        fn()
+        if dict(re.K18.shapes) != {key: 1}:
+            fail(f"rows_timings: {name} launched K18 as "
+                 f"{dict(re.K18.shapes)}, the step as {key}")
+        n = step_shapes[key]
+        per[name] = dict(ms=device_ms(fn, 10, K18_KERNELS), per_step=n,
+                         library_ms=time_ms(lib, 10), flops=f, bytes=b,
+                         **k18_bounds(b, f))
+        v = per[name]
+        print(f"# K18 {name}: {v['ms']:.4f} ms a launch, {n} a step "
+              f"(counted); bound {v['bound_ms']:.5f} (3xTF32 on the tensor "
+              f"cores), {v['bound_f32_ms']:.5f} (float32 CUDA cores); library "
+              f"{v['library_ms']:.4f} (one torch.addmm/mm, allow_tf32 "
+              "False)", flush=True)
+    kv = launches["kv nn"][0]
+    with plain_pieces():
+        kv_plain = time_ms(kv, 10)
+    steps_n = sum(v["per_step"] for v in per.values())
+    out = {"K18": dict(
+        per["kv nn"], wrapper_ms=time_ms(kv, 10), plain_ms=kv_plain,
+        ms_per_step=sum(v["ms"] * v["per_step"] for v in per.values()),
+        library_ms_per_step=sum(v["library_ms"] * v["per_step"]
+                                for v in per.values()),
+        excess_ms_per_launch=sum(v["per_step"] * (v["ms"] - v["bound_ms"])
+                                 for v in per.values()) / steps_n,
+        per_launch=per)}
+    print(f"# K18 a node step: {out['K18']['ms_per_step']:.4f} ms over "
+          f"{steps_n} counted launches (library "
+          f"{out['K18']['library_ms_per_step']:.4f}); kv nn wrapper "
+          f"{out['K18']['wrapper_ms']:.4f}, plain {kv_plain:.4f}", flush=True)
     g = torch.Generator().manual_seed(5)
     x = torch.randn(N * S, D, generator=g).to(dev)
     p = [a.detach()[0] for a in t.model.encoders[0].stacked()]
@@ -3551,12 +3789,6 @@ def rows_timings(dev, t) -> dict:
     a = torch.randn(N, D, generator=g).to(dev)
     kw = dict(rate=0.5, seed=3, layer=0)
     calls = {
-        "K18": (lambda: re.gemm(x, p[0], bias=p[1]),
-                lambda: re.gemm_plain(x, p[0], bias=p[1]),
-                lambda: torch.addmm(p[1], x, p[0]),
-                ("rg_f32_kernel",),
-                4 * (x.numel() + p[0].numel() + p[1].numel() + qkv.numel()),
-                2.0 * N * S * D * 3 * D),
         "K19": (lambda: re.attention_forward(qkv, S, slot0=True, **kw),
                 lambda: re.attention_forward_plain(qkv, S, slot0=True, **kw),
                 lambda: Fn.scaled_dot_product_attention(
@@ -3572,7 +3804,6 @@ def rows_timings(dev, t) -> dict:
                 lambda: Fn.layer_norm(a, (D,), p[4], p[5]),
                 ("rl_fwd_kernel",), 4 * (3 * N * D + 2 * D), 8.0 * N * D),
     }
-    out = {}
     for key, (fn, plain, lib, names, b, f) in calls.items():
         ms = device_ms(fn, 10, names)
         bms, by = bound(b, f, F32_FLOP_PER_S)
@@ -3620,8 +3851,9 @@ def node_phases(root, dev) -> tuple:
     out = {"cli": node_cli(root)}
     steps = node_steps(root)
     t = steps.pop("trainer")
+    shapes = steps.pop("k18_shapes")
     out["steps"] = steps
-    timing = rows_timings(dev, t)
+    timing = rows_timings(dev, t, shapes)
     entries = []
     for key, (name, source, replaces) in ROWS_META.items():
         tm = timing[key]
@@ -3632,7 +3864,8 @@ def node_phases(root, dev) -> tuple:
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(e[0] for e in errs_k),
             "max_rel_err": max(e[1] for e in errs_k), **tm,
-            "excess_ms": launches * (tm["ms"] - tm["bound_ms"])})
+            "excess_ms": launches * tm.get("excess_ms_per_launch",
+                                           tm["ms"] - tm["bound_ms"])})
     print(f"# node phases: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
     return errs, out, entries
@@ -3718,28 +3951,32 @@ MMA_KERNELS = {
     "stored_bwd": ("wd_stored_bwd_kernel", "wd_wgrad_mma_kernel"),
     "layer_bwd": ("gt_layer_bwd_kernel",),
     "mega_bwd": ("gt_mega_bwd_kernel", "wd_mega_bwd_kernel"),
-    "rows_gemm": ("rg_bf16_kernel",),
+    "rows_gemm": ("rg_bf16_kernel", "rg_tf32_kernel"),
 }
 
 
 def hmma_counts(_build) -> dict:
-    """HMMA (tensor-core) instructions in the SASS of each kernel of
-    MMA_KERNELS (``cuobjdump -sass`` of the built library), by library and
-    instantiation; fails where one holds none or a kernel is missing."""
+    """HMMA or HGMMA (tensor-core: mma.sync, wgmma) instructions in the
+    SASS of each kernel of MMA_KERNELS (``cuobjdump -sass`` of the built
+    library), by library and instantiation; fails where one holds none or a
+    kernel is missing."""
     counts = {}
     for name, kernels in MMA_KERNELS.items():
         funcs = sass_functions(_build.lib_path(name))
         for func, insts in funcs.items():
             if any(k in func for k in kernels):
-                counts[(name, func)] = sum("HMMA" in op for _, op, _, _ in insts)
+                counts[(name, func)] = sum("HMMA" in op or "HGMMA" in op
+                                           for _, op, _, _ in insts)
         missing = [k for k in kernels
                    if not any(k in f for (n, f) in counts if n == name)]
         if missing:
             fail(f"{name}: no SASS function of {missing}")
     if not all(counts.values()):
-        fail(f"tensor-core kernels without HMMA instructions: {counts}")
+        fail(f"tensor-core kernels without HMMA/HGMMA instructions: "
+             f"{counts}")
     for (name, func), n in counts.items():
-        print(f"# SASS {name}: {n} HMMA instructions in {func}", flush=True)
+        print(f"# SASS {name}: {n} HMMA/HGMMA instructions in {func}",
+              flush=True)
     return counts
 
 

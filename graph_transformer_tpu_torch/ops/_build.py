@@ -98,9 +98,9 @@ SIGNATURES = {
     "gt_k17_stored_rows_fwd": [_P, _I, _PARAMS, _I, _P, _P, _P, _P, _P, _P,
                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U,
                                _U, _F, _I, _P],
-    "gt_k18_gemm": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                    _I, _P, _P, _F, _I, _U, _U, _U, _F, _I, _I, _P, _P],
-    "gt_k18_colsum": [_P, _I, _P, _P, _I, _I, _I, _P],
+    "gt_k18_gemm": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                    _P, _I, _P, _P, _F, _I, _U, _U, _U, _F, _I, _I, _P, _P],
+    "gt_k18_colsum": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     "gt_k19_attn_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F, _I,
                         _P],
     "gt_k19_attn_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F,
@@ -153,6 +153,13 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest(name)}.so"
 
 
+def nvcc_command(src, out) -> list:
+    """The ``nvcc`` command that builds the source ``src`` (headers from
+    ``csrc/``) into the library ``out``, with ptxas's register report."""
+    return [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-Xptxas", "-v", "-o",
+            str(out), str(src)]
+
+
 def build_all(names=SOURCES, verbose: bool = False) -> float:
     """Compile every missing library, one ``nvcc`` per source in parallel;
     returns the seconds it took.  Raises with the compiler's output on a
@@ -161,15 +168,13 @@ def build_all(names=SOURCES, verbose: bool = False) -> float:
 
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
     procs = []
     for name in names:
         out = lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = nvcc_command(CSRC / f"{name}.cu", tmp)
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -192,24 +197,29 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         if not lib_path(name).exists():
             build_all()
-        lib = ctypes.CDLL(str(lib_path(name)))
-        for fn, argtypes in SIGNATURES.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-        for fn in SMEM_FNS:
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = [_I, _I, _I]
-                getattr(lib, fn).restype = ctypes.c_size_t
-        for fn, nargs in WORK_FNS.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = [_I] * nargs
-                getattr(lib, fn).restype = ctypes.c_size_t
-        for fn, nargs in COUNT_FNS.items():
-            if hasattr(lib, fn):
-                getattr(lib, fn).argtypes = [_I] * nargs
-                getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        lib = _libs[name] = open_lib(lib_path(name))
+    return lib
+
+
+def open_lib(path) -> ctypes.CDLL:
+    """The library at ``path`` with its exported functions' types set."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    for fn in SMEM_FNS:
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [_I, _I, _I]
+            getattr(lib, fn).restype = ctypes.c_size_t
+    for fn, nargs in WORK_FNS.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [_I] * nargs
+            getattr(lib, fn).restype = ctypes.c_size_t
+    for fn, nargs in COUNT_FNS.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [_I] * nargs
+            getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

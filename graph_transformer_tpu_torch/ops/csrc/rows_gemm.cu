@@ -14,35 +14,69 @@
 // rows_ln.cu), with the intermediates in device memory.
 //
 // C[M, N] = op(A) op(B), A(m, k) = a[m*sam + k*sak], B(k, n) = b[k*sbk +
-// n*sbn].  Float32 products (float32 operands) run on the CUDA cores
-// (rg_f32_kernel: 128 x 128 tiles through a cp.async ring, 8 x 8 outputs a
-// thread); bf16 products take float32 or bf16 operands, round them to bf16
-// as they are staged and run mma.sync m16n8k16 with f32 sums
-// (rg_bf16_kernel: 128 x 128 tiles, 32 of K a step, 8 warps of 64 x 32).  The epilogue, in the plain version's order: + bias[n], ReLU,
-// dropout of the [M, N] output at (seed, stream), x (gate > 0) / gate_keep,
-// + add (rows m % add_every == 0 read add row m / add_every).  The weight
+// n*sbn], output row m at c + m*ldc: the operands and the output may be
+// views with a row stride (the slot-0 layer forms q from slot 0's rows,
+// every S-th row of x, and writes q and k, v into the columns of one
+// [N*S, 3D] buffer).  The epilogue, in the plain version's order: + bias[n],
+// ReLU, dropout of the [M, N] output at (seed, stream), x (gate > 0) /
+// gate_keep, + add (rows m % add_every == 0 read add row m / add_every);
+// dropout, gate and add index the logical [M, N] output.  The weight
 // gradients split K (all rows) into a fixed number of chunks, each block
 // writing its chunk's partial tile, then rg_reduce_kernel sums the chunks in
 // chunk order: no float atomics, so runs repeat bit for bit.  rg_colsum
 // gives the bias gradients (column sums of B) the same way.
 //
-// Bound on the H100: at Cora's width (14,080 rows, D = 1,433, F = 1,024) the
-// products are operations-bound (the Q/K/V product: 1.73e11 FLOP on 323 MB,
-// 2.59 ms at 67 TFLOP/s float32 against 0.10 ms of bytes).  This first
-// design runs the CUDA cores' FMAs at about half that rate (PERF.md, PR 16:
-// the register-staged tiles it replaced ran at a third); warp tiling,
-// wgmma (bf16) and TMA are later work.
+// Float32 products (float32 operands) run on the tensor cores as 3xTF32
+// (rg_tf32_kernel): each operand element x is split once into hi = tf32(x)
+// and lo = tf32(x - hi) (cvt.rna's rounding), and wgmma m64n128k8 sums
+// lo*hi + hi*lo + hi*hi in float32, ~22 of float32's 24 mantissa bits a
+// product (one TF32 pass keeps 11, and would change the function).  Each
+// step of 32 of K sums from zero, and the step's sums are then added to the
+// output's float32 sums on the CUDA cores: the tensor cores do not round
+// their additions to nearest, and one accumulator chained over K = 1,433
+// measured 30x the per-step sums' distance from float64 on the H100,
+// missing the float32 rule (PERF.md, PR 17; tests/test_torch_rows_gemm.py
+// emulates both).  Tiles of 128 x 128 a block, two warpgroups of 64 x 128,
+// 32 of K a step, through a ring of RG_RING staged tiles: each operand's
+// lines (rows or columns along k, or k along them, as the operand lies in
+// device memory) are copied as the 16-byte chunks that cover them, by
+// cp.async (rows of D = 1,433 words start at any word: a line's first
+// element lies rg_off words into its first chunk; 4-byte copies measured
+// slower, and rows padded to a multiple of 4 words no faster).  B is split
+// once into TF32 high parts and remainders, K-major 8 x 4 core matrices
+// (the transpose of an operand contiguous along n happens there), read by
+// wgmma through shared-memory descriptors; A's fragments are split in the
+// registers of their one warpgroup.  While a step's products run, the next
+// tile's B is split and a later tile's copies are issued; each thread's
+// copy sources and shared-memory offsets are computed once a block.  bf16
+// products take float32 or bf16 operands, round them to bf16 as they are
+// staged and run mma.sync m16n8k16 with f32 sums (rg_bf16_kernel: 128 x 128
+// tiles, 32 of K a step, 8 warps of 64 x 32).
+//
+// Bound on the H100: at Cora's width (14,080 rows, D = 1,433, F = 1,024)
+// the products are operations-bound.  The node step's largest, k and v over
+// every row ([14,080 x 1,433] . [1,433 x 2,866], 1.16e11 FLOP on 242 MB),
+// takes 0.70 ms as 3xTF32 at 495 TFLOP/s, 1.73 ms at the CUDA cores' 67,
+// against 0.07 ms of bytes.  This design reads 3.6 GB of tiles from L2 for
+// that product, and its loads alone take 2.8 ms there (PERF.md, PR 17; a
+// bulk copy a line, the copy engine without a tensor map, which rows of
+// 1,433 words cannot have, was twice as slow): larger tiles, which the two
+// sets of sums leave no registers for, or tiles shared across a cluster
+// are the later step.
 #include "common.cuh"
 
 #define RG_BM 128
 #define RG_BN 128
+#define RG_BK 32       // K a step
 #define RG_THREADS 256
-#define RG_BK32 16   // K a step, float32 kernel
-#define RG_BK16 32   // K a step, bf16 kernel
-#define RG_PADF 4    // float32 tile row padding (keeps float4 alignment)
-#define RG_PADH 8    // bf16 tile row padding: conflict-free fragment loads
-#define RG_MINB 2    // float32 kernel: blocks an SM (128 registers a thread)
-#define RG_STAGES 2  // float32 kernel: tiles in its cp.async ring
+#define RG_PADH 8      // bf16 tile row padding: conflict-free fragment loads
+#define RG_RING 3      // float32 kernel: staged tiles in flight
+#define RG_TILE 4608   // float32 kernel: words of a staged operand tile (128
+                       // lines of 36, 32 of 132) or of its TF32 parts
+// the float32 kernel's shared memory: RG_RING staged tiles of A and of B,
+// and two of B's TF32 high parts and remainders (184,320 bytes at a ring
+// of 3: one block an SM)
+#define RG_SMEM_F32 ((RG_RING + 2) * 2 * RG_TILE * (int)sizeof(float))
 
 struct RgArgs {
   const void* a;
@@ -51,7 +85,7 @@ struct RgArgs {
   int b_bf;
   float* c;
   int M, N, K;
-  long long sam, sak, sbk, sbn;
+  long long sam, sak, sbk, sbn, ldc;
   const float* bias;
   int relu;
   const float* gate;
@@ -103,113 +137,354 @@ __device__ __forceinline__ void rg_store(const RgArgs& g, int m, int n,
   if (g.gate) v = v * (g.gate[e] > 0.f ? g.gate_inv : 0.f);
   if (g.add && m % g.add_every == 0)
     v = g.add[(size_t)(m / g.add_every) * g.N + n] + v;
-  g.c[e] = v;
+  g.c[(size_t)m * g.ldc + n] = v;
 }
 
 // ----------------------------------------------------------- float32
-// The float32 product: 128 x 128 tiles, 16 of K a step, 8 x 8 outputs a
-// thread, the tiles staged by cp.async 4 bytes a copy (the operands' rows,
-// of odd width at Cora's D = 1,433, are not 16-byte aligned) in a ring of
-// RG_STAGES tiles, out-of-range elements zero-filled: no staging registers,
-// so 128 registers a thread and two blocks an SM, and one barrier a step.
-__device__ __forceinline__ void rg_cp4(float* dst, const float* src, bool ok) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a),
-               "l"(src), "r"(ok ? 4 : 0));
+// 16-byte asynchronous copy global -> shared of src's first `bytes` bytes,
+// the rest zero-filled
+__device__ __forceinline__ void rg_cp16(float* dst, const float* src,
+                                        int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes));
 }
 
 __device__ __forceinline__ void rg_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// also a compiler barrier: the shared-memory reads of the copied tiles stay
+// after it
 template <int N>
 __device__ __forceinline__ void rg_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-#define RG_TILE_F ((RG_BK32) * ((RG_BM) + (RG_PADF)))  // floats a tile
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from
+// zero, on the 13 low mantissa bits), in two integer operations
+__device__ __forceinline__ uint32_t rg_rna(uint32_t x) {
+  return (x + 0x1000u) & 0xffffe000u;
+}
 
-__global__ void __launch_bounds__(RG_THREADS, RG_MINB)
-    rg_f32_kernel(const RgArgs g) {
-  extern __shared__ __align__(16) float rg_smem[];  // [STAGES][A tile, B tile]
-  constexpr int PER = RG_BM * RG_BK32 / RG_THREADS;  // 8
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// x's TF32 high part and the TF32 remainder
+__device__ __forceinline__ void rg_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = rg_rna(__float_as_uint(x));
+  lo = rg_rna(__float_as_uint(x - __uint_as_float(hi)));
+}
+
+// An operand's tile is staged as lines of words contiguous in device
+// memory, RG_LW(KC) words apart: KC (contiguous along k) 128 lines, its
+// rows or columns r, of 32 k each; otherwise 32 lines, k, of 128 r each.
+// A line is copied as the 16-byte aligned chunks that cover it, so its
+// first element lies rg_off(its address) words into the staged line; the
+// chunks' words past the line's range are zero-filled.
+#define RG_CH(KC) ((KC) ? 9 : 33)  // chunks a staged line
+#define RG_LW(KC) (4 * RG_CH(KC))  // words a staged line
+#define RG_NL(KC) ((KC) ? 128 : 32)
+
+struct RgOp {
+  const float* p;  // element (r = 0, k = 0) of the block's tile
+  long long ls;    // words from a line to the next
+  int rows;        // r < rows lie in the matrix
+};
+
+// the first element of line `line` at K offset kb
+template <bool KC>
+__device__ __forceinline__ const float* rg_line(const RgOp& op, int line,
+                                               int kb) {
+  return KC ? op.p + line * op.ls + kb : op.p + (kb + line) * op.ls;
+}
+
+__device__ __forceinline__ int rg_off(const float* p) {
+  return (int)((uintptr_t)p >> 2) & 3;
+}
+
+// this thread's copies of an operand's tile at K offset kb (k < k1)
+template <bool KC>
+__device__ __forceinline__ void rg_issue(float* dst, const RgOp& op, int kb,
+                                         int k1) {
+  constexpr int C = RG_CH(KC), T = RG_NL(KC) * C;
+  const int count = KC ? min(32, k1 - kb) : min(128, op.rows);
+  const float* safe = (const float*)((uintptr_t)op.p & ~(uintptr_t)15);
+#pragma unroll
+  for (int i = 0; i < (T + RG_THREADS - 1) / RG_THREADS; ++i) {
+    const int idx = threadIdx.x + i * RG_THREADS;
+    if (idx < T) {
+      const int line = idx / C, c = idx - line * C;
+      const bool ok = KC ? line < op.rows : kb + line < k1;
+      const float* fp = rg_line<KC>(op, ok ? line : 0, kb);
+      const int w = ok ? min(4, max(0, count + rg_off(fp) - 4 * c)) : 0;
+      const float* src =
+          (const float*)((uintptr_t)fp & ~(uintptr_t)15) + 4 * c;
+      rg_cp16(dst + 4 * idx, w ? src : safe, 4 * w);
+    }
+  }
+}
+
+// A full step's copies change only by a shift along k, which keeps each
+// line's word offset: this thread's chunks are planned once a block (their
+// sources at k0 as word offsets from op.p, their bytes), and a step adds
+// the shift; rg_issue serves the last, partial step.
+#define RG_NI 5  // chunks a thread an operand: ceil(128 * 9 / 256)
+struct RgPlan {
+  int off[RG_NI];  // word offset of the chunk's source at k0, from op.p
+  int bytes[RG_NI];
+};
+
+template <bool KC>
+__device__ __forceinline__ RgPlan rg_plan(const RgOp& op, int k0) {
+  constexpr int C = RG_CH(KC), T = RG_NL(KC) * C;
+  const int count = KC ? 32 : min(128, op.rows);
+  RgPlan pl;
+#pragma unroll
+  for (int i = 0; i < RG_NI; ++i) {
+    const int idx = threadIdx.x + i * RG_THREADS;
+    const int line = idx / C, c = idx - line * C;
+    const bool ok = idx < T && (!KC || line < op.rows);
+    const float* fp = rg_line<KC>(op, ok ? line : 0, k0);
+    const float* src =
+        (const float*)((uintptr_t)fp & ~(uintptr_t)15) + 4 * c;
+    pl.off[i] = (int)(src - op.p);
+    pl.bytes[i] = ok ? 4 * min(4, max(0, count + rg_off(fp) - 4 * c)) : 0;
+  }
+  return pl;
+}
+
+// a full step's copies, shifted `shift` words from k0's
+template <bool KC>
+__device__ __forceinline__ void rg_issue_full(float* dst, const RgOp& op,
+                                              const RgPlan& pl,
+                                              long long shift) {
+  constexpr int T = RG_NL(KC) * RG_CH(KC);
+  const float* safe = (const float*)((uintptr_t)op.p & ~(uintptr_t)15);
+#pragma unroll
+  for (int i = 0; i < RG_NI; ++i) {
+    const int idx = threadIdx.x + i * RG_THREADS;
+    if (idx < T)
+      rg_cp16(dst + 4 * idx, pl.bytes[i] ? op.p + pl.off[i] + shift : safe,
+              pl.bytes[i]);
+  }
+}
+
+// B's TF32 parts for the tensor cores: K-major 8 x 4 core matrices,
+// element (n, k) at word (n / 8) * RG_SBO + (k / 4) * RG_LBO + (n % 8) * 4 +
+// k % 4 (a warp's 32 stores of one core matrix land on 32 banks)
+#define RG_LBO 36   // words between core matrices along k (128 B + 16)
+#define RG_SBO 288  // words between core matrices along n
+__device__ __forceinline__ int rg_boff(int n, int k) {
+  return (n >> 3) * RG_SBO + (k >> 2) * RG_LBO + (n & 7) * 4 + (k & 3);
+}
+
+// shared-memory matrix descriptor of a K-major B slice of 8 of K (no
+// swizzle): start address, leading (k) and stride (n) byte offsets
+__device__ __forceinline__ uint64_t rg_desc(const float* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) |
+         ((uint64_t)(RG_LBO * 4 >> 4) << 16) |
+         ((uint64_t)(RG_SBO * 4 >> 4) << 32);
+}
+
+__device__ __forceinline__ void rg_wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void rg_wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void rg_wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving the accumulators' reads and writes across
+// the asynchronous products
+__device__ __forceinline__ void rg_fence_regs(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= a b over 64 x 128 x 8: a the warpgroup's TF32 A fragment in
+// registers (warp w rows 16 w .. +15, as mma.sync m16n8k8's), b a K-major
+// shared-memory slice; scale_d 0 ignores d
+__device__ __forceinline__ void rg_wgmma(float (&d)[64],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(b));
+}
+
+template <bool AK, bool BK>
+__global__ void __launch_bounds__(RG_THREADS, 1)
+    rg_tf32_kernel(const RgArgs g) {
+  // [RG_RING][A, B] staged tiles, then [2][B high, B remainder]
+  extern __shared__ __align__(128) float rg_smem[];
+  float* bparts = rg_smem + RG_RING * 2 * RG_TILE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
   const int m0 = blockIdx.y * RG_BM, n0 = blockIdx.x * RG_BN;
   const int k0 = blockIdx.z * g.kchunk;
   const int k1 = min(g.K, k0 + g.kchunk);
-  const bool ak = g.sak == 1, bn = g.sbn == 1;
-  const float* A = (const float*)g.a;
-  const float* B = (const float*)g.b;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  // A's lines: rows m (AK) or k; B's: columns n (BK) or k
+  const RgOp opa{(const float*)g.a + m0 * (AK ? g.sam : 1LL),
+                 AK ? g.sam : g.sak, g.M - m0};
+  const RgOp opb{(const float*)g.b + n0 * (BK ? g.sbn : 1LL),
+                 BK ? g.sbn : g.sbk, g.N - n0};
 
-  auto issue = [&](int kb, int stage) {
-    float* As = rg_smem + stage * 2 * RG_TILE_F;
-    float* Bs = As + RG_TILE_F;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * RG_THREADS;
-      const int am = ak ? e / RG_BK32 : e % RG_BM;
-      const int akk = ak ? e % RG_BK32 : e / RG_BM;
-      const int m = m0 + am, ka = kb + akk;
-      const bool oka = m < g.M && ka < k1;
-      rg_cp4(As + akk * (RG_BM + RG_PADF) + am,
-             oka ? A + (size_t)m * g.sam + (size_t)ka * g.sak : A, oka);
-      const int bnn = bn ? e % RG_BN : e / RG_BK32;
-      const int bkk = bn ? e / RG_BN : e % RG_BK32;
-      const int n = n0 + bnn, kbb = kb + bkk;
-      const bool okb = n < g.N && kbb < k1;
-      rg_cp4(Bs + bkk * (RG_BN + RG_PADF) + bnn,
-             okb ? B + (size_t)kbb * g.sbk + (size_t)n * g.sbn : B, okb);
+  const RgPlan pla = rg_plan<AK>(opa, k0), plb = rg_plan<BK>(opb, k0);
+  auto issue = [&](int kb, int slot) {
+    float* As = rg_smem + slot * 2 * RG_TILE;
+    if (kb + RG_BK <= k1) {
+      const long long d = kb - k0;
+      rg_issue_full<AK>(As, opa, pla, AK ? d : d * opa.ls);
+      rg_issue_full<BK>(As + RG_TILE, opb, plb, BK ? d : d * opb.ls);
+    } else {
+      rg_issue<AK>(As, opa, kb, k1);
+      rg_issue<BK>(As + RG_TILE, opb, kb, k1);
     }
   };
-
-  const int steps = k1 > k0 ? (k1 - k0 + RG_BK32 - 1) / RG_BK32 : 0;
+  // Where this thread reads and writes, the same every step (a step's shift
+  // along k keeps each line's word offset).  B's split: element i of 16 is
+  // (n, k) = (8 warp + lane / 4 + 64 (i % 2), 4 (i / 2) + lane % 4), read
+  // at braw + 4 (i / 2) (KC) or + 528 (i / 2) (a line of 132 words) + 64
+  // (i % 2) from its staged line, written at bpart + 2304 (i % 2) + 36 (i /
+  // 2) as a core-matrix element.  A warp writes one core matrix a store.
+  const int bn = 8 * warp + (lane >> 2);
+  int braw[2];
+  if (BK) {
 #pragma unroll
-  for (int s = 0; s < RG_STAGES - 1; ++s) {
-    if (s < steps) issue(k0 + s * RG_BK32, s);
+    for (int h = 0; h < 2; ++h)
+      braw[h] = (bn + 64 * h) * RG_LW(true) +
+                rg_off(rg_line<true>(opb, bn + 64 * h, k0)) + tq;
+  } else {
+    braw[0] = tq * RG_LW(false) + rg_off(rg_line<false>(opb, tq, k0)) + bn;
+    braw[1] = braw[0] + 64;
+  }
+  const int bpart = rg_boff(bn, tq);
+  // B of the tile in slot, landed: its TF32 high parts and remainders into
+  // bparts[pb], then visible to the tensor cores
+  auto split_b = [&](int slot, int pb) {
+    const float* Bs = rg_smem + slot * 2 * RG_TILE + RG_TILE;
+    float* Bh = bparts + pb * 2 * RG_TILE;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float x =
+          Bs[braw[i & 1] + (BK ? 4 : 4 * RG_LW(false)) * (i >> 1)];
+      uint32_t hi, lo;
+      rg_split(x, hi, lo);
+      const int o = bpart + 8 * RG_SBO * (i & 1) + RG_LBO * (i >> 1);
+      Bh[o] = __uint_as_float(hi);
+      Bh[RG_TILE + o] = __uint_as_float(lo);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  // warpgroup wg: rows 64 wg .. +63; its warp q: rows 16 q .. +15 of them;
+  // this thread's fragment rows ra and ra + 8, read at araw (+ 8 kk + 4 h
+  // along k) from their staged lines (AK), or at araw + (8 kk + 4 h) * 132
+  // (+ 8 for row ra + 8) from the k lines
+  const int wg = warp >> 2, q = warp & 3;
+  const int ra = wg * 64 + q * 16 + gq;
+  int araw[2];
+  if (AK) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      araw[h] = (ra + 8 * h) * RG_LW(true) +
+                rg_off(rg_line<true>(opa, ra + 8 * h, k0)) + tq;
+  } else {
+    araw[0] = tq * RG_LW(false) + rg_off(rg_line<false>(opa, tq, k0)) + ra;
+    araw[1] = araw[0] + 8;
+  }
+  float acc[64], s[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = s[i] = 0.f;
+  const int steps = k1 > k0 ? (k1 - k0 + RG_BK - 1) / RG_BK : 0;
+#pragma unroll
+  for (int st = 0; st < RG_RING - 1; ++st) {
+    if (st < steps) issue(k0 + st * RG_BK, st);
     rg_commit();
   }
-  for (int t = 0; t < steps; ++t) {
-    rg_wait<RG_STAGES - 2>();
+  if (steps > 0) {
+    rg_wait<RG_RING - 2>();
     __syncthreads();
-    const int nxt = t + RG_STAGES - 1;
-    if (nxt < steps) issue(k0 + nxt * RG_BK32, nxt % RG_STAGES);
-    rg_commit();
-    const float* As = rg_smem + (t % RG_STAGES) * 2 * RG_TILE_F;
-    const float* Bs = As + RG_TILE_F;
+    split_b(0, 0);
+  }
+  __syncthreads();
+  for (int t = 0; t < steps; ++t) {
+    const float* As = rg_smem + (t % RG_RING) * 2 * RG_TILE;
+    const float* Bh = bparts + (t & 1) * 2 * RG_TILE;
+    // A's fragments of the step, split: a0 (ra, k), a1 (ra + 8, k), a2
+    // (ra, k + 4), a3 (ra + 8, k + 4), k = 8 kk + tq
+    uint32_t ah[4][4], al[4][4];
 #pragma unroll
-    for (int kk = 0; kk < RG_BK32; ++kk) {
-      float av[8], bv[8];
-      const float* ar = As + kk * (RG_BM + RG_PADF);
-      const float* br = Bs + kk * (RG_BN + RG_PADF);
-      const float4 a0 = *(const float4*)(ar + ty * 4);
-      const float4 a1 = *(const float4*)(ar + 64 + ty * 4);
-      const float4 b0 = *(const float4*)(br + tx * 4);
-      const float4 b1 = *(const float4*)(br + 64 + tx * 4);
-      av[0] = a0.x; av[1] = a0.y; av[2] = a0.z; av[3] = a0.w;
-      av[4] = a1.x; av[5] = a1.y; av[6] = a1.z; av[7] = a1.w;
-      bv[0] = b0.x; bv[1] = b0.y; bv[2] = b0.z; bv[3] = b0.w;
-      bv[4] = b1.x; bv[5] = b1.y; bv[6] = b1.z; bv[7] = b1.w;
+    for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int h = 0; h < 2; ++h) {
+        const int dk = (8 * kk + 4 * h) * (AK ? 1 : RG_LW(false));
+        rg_split(As[araw[0] + dk], ah[kk][2 * h], al[kk][2 * h]);
+        rg_split(As[araw[1] + dk], ah[kk][2 * h + 1], al[kk][2 * h + 1]);
+      }
+    // lo*hi, hi*lo, hi*hi over each 8 of K, from zero: the step's sums
+    rg_fence_regs(s);
+    rg_wg_fence();
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bh = rg_desc(Bh + 2 * kk * RG_LBO);
+      const uint64_t bl = rg_desc(Bh + RG_TILE + 2 * kk * RG_LBO);
+      rg_wgmma(s, al[kk], bh, kk > 0);
+      rg_wgmma(s, ah[kk], bl, 1);
+      rg_wgmma(s, ah[kk], bh, 1);
     }
+    rg_wg_commit();
+    // while they run: B's split of tile t + 1, then the copies of tile t +
+    // RG_RING - 1 (after the split's proxy fence, which waits for this
+    // thread's copies in flight)
+    if (t + 1 < steps) {
+      rg_wait<RG_RING - 3>();
+      __syncthreads();
+      split_b((t + 1) % RG_RING, (t + 1) & 1);
+    }
+    const int nxt = t + RG_RING - 1;
+    if (nxt < steps) issue(k0 + nxt * RG_BK, nxt % RG_RING);
+    rg_commit();
+    rg_wg_wait();
+    rg_fence_regs(s);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += s[i];
+    __syncthreads();
   }
   rg_wait<0>();
+  // acc[4 j + e]: row ra + 8 (e / 2), column 8 j + 2 t + e % 2
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      rg_store(g, m, n, acc[i][j]);
-    }
-  }
+    for (int e = 0; e < 4; ++e)
+      rg_store(g, m0 + ra + 8 * (e >> 1), n0 + 8 * j + 2 * tq + (e & 1),
+               acc[4 * j + e]);
 }
 
 // -------------------------------------------------------------- bf16
@@ -217,9 +492,9 @@ __global__ void __launch_bounds__(RG_THREADS, RG_MINB)
 // that a fragment's two K-adjacent values are one 32-bit load.
 __global__ void __launch_bounds__(RG_THREADS)
     rg_bf16_kernel(const RgArgs g) {
-  __shared__ __align__(16) unsigned short As[RG_BM][RG_BK16 + RG_PADH];
-  __shared__ __align__(16) unsigned short Bs[RG_BN][RG_BK16 + RG_PADH];
-  constexpr int PER = RG_BM * RG_BK16 / RG_THREADS;  // 16
+  __shared__ __align__(16) unsigned short As[RG_BM][RG_BK + RG_PADH];
+  __shared__ __align__(16) unsigned short Bs[RG_BN][RG_BK + RG_PADH];
+  constexpr int PER = RG_BM * RG_BK / RG_THREADS;  // 16
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp % 2, wn = warp / 2;  // 2 x 4 warps of 64 x 32
   const int gq = lane >> 2, tq = lane & 3;
@@ -240,11 +515,11 @@ __global__ void __launch_bounds__(RG_THREADS)
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int e = tid + i * RG_THREADS;
-      const int am = ak ? e / RG_BK16 : e % RG_BM;
-      const int akk = ak ? e % RG_BK16 : e / RG_BM;
+      const int am = ak ? e / RG_BK : e % RG_BM;
+      const int akk = ak ? e % RG_BK : e / RG_BM;
       ra[i] = rg_bf(rg_a(g, m0 + am, kb + akk, k1));
-      const int bnn = bk ? e / RG_BK16 : e % RG_BN;
-      const int bkk = bk ? e % RG_BK16 : e / RG_BN;
+      const int bnn = bk ? e / RG_BK : e % RG_BN;
+      const int bkk = bk ? e % RG_BK : e / RG_BN;
       rb[i] = rg_bf(rg_b(g, kb + bkk, n0 + bnn, k1));
     }
   };
@@ -252,11 +527,11 @@ __global__ void __launch_bounds__(RG_THREADS)
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int e = tid + i * RG_THREADS;
-      const int am = ak ? e / RG_BK16 : e % RG_BM;
-      const int akk = ak ? e % RG_BK16 : e / RG_BM;
+      const int am = ak ? e / RG_BK : e % RG_BM;
+      const int akk = ak ? e % RG_BK : e / RG_BM;
       As[am][akk] = ra[i];
-      const int bnn = bk ? e / RG_BK16 : e % RG_BN;
-      const int bkk = bk ? e % RG_BK16 : e / RG_BN;
+      const int bnn = bk ? e / RG_BK : e % RG_BN;
+      const int bkk = bk ? e % RG_BK : e / RG_BN;
       Bs[bnn][bkk] = rb[i];
     }
   };
@@ -264,11 +539,11 @@ __global__ void __launch_bounds__(RG_THREADS)
   load(k0);
   stage();
   __syncthreads();
-  for (int kb = k0; kb < k1; kb += RG_BK16) {
-    const bool more = kb + RG_BK16 < k1;
-    if (more) load(kb + RG_BK16);
+  for (int kb = k0; kb < k1; kb += RG_BK) {
+    const bool more = kb + RG_BK < k1;
+    if (more) load(kb + RG_BK);
 #pragma unroll
-    for (int ks = 0; ks < RG_BK16; ks += 16) {
+    for (int ks = 0; ks < RG_BK; ks += 16) {
       uint32_t af[4][4];
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
@@ -318,13 +593,14 @@ __global__ void rg_reduce_kernel(const float* __restrict__ part, int chunks,
 }
 
 // part[z][n] = sum of b[r][n] over chunk z's rows, in row order
-__global__ void rg_colsum_kernel(const void* b, int bf, int rows, int N,
-                                 int rchunk, float* __restrict__ part) {
+__global__ void rg_colsum_kernel(const void* b, int bf, long long ldb,
+                                 int rows, int N, int rchunk,
+                                 float* __restrict__ part) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const int r0 = blockIdx.y * rchunk, r1 = min(rows, r0 + rchunk);
   float s = 0.f;
-  for (int r = r0; r < r1; ++r) s += rg_ld(b, bf, (size_t)r * N + n);
+  for (int r = r0; r < r1; ++r) s += rg_ld(b, bf, (size_t)r * ldb + n);
   part[(size_t)blockIdx.y * N + n] = s;
 }
 
@@ -340,10 +616,10 @@ static cudaError_t rg_reduce(const float* part, int chunks, size_t len,
 }
 
 // ------------------------------------------------------------- C interface
-// Chunks of the weight products' rows: about four waves of blocks (two
-// blocks on each of 132 SMs a wave; at Cora's dW_in, 408 tiles in one chunk
-// left the second of two waves half empty), at least 512 rows a chunk.  A
-// function of the shape alone, so the sums' order is fixed.
+// Chunks of the weight products' rows: about 1,056 blocks (eight waves of
+// the float32 kernel's one block on each of 132 SMs; a product's tiles in
+// one chunk would leave its last wave part empty), at least 512 rows a
+// chunk.  A function of the shape alone, so the sums' order is fixed.
 extern "C" int gt_k18_chunks(int M, int N, int K) {
   const int tiles = ((M + RG_BM - 1) / RG_BM) * ((N + RG_BN - 1) / RG_BN);
   const int want = (4 * 264 + tiles - 1) / tiles;
@@ -354,20 +630,26 @@ extern "C" int gt_k18_colsum_chunks(int rows) {
   return rg_imax(1, (rows + 127) / 128);
 }
 
-// C = op(A) op(B) with the epilogue; chunks > 1 (no epilogue) splits K and
-// writes partial [chunks, M, N] first.
+// C = op(A) op(B) with the epilogue, C's rows ldc floats apart; chunks > 1
+// (no epilogue, ldc = N) splits K and writes partial [chunks, M, N] first.
 extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
                            int b_bf16, float* c, int M, int N, int K, int sam,
-                           int sak, int sbk, int sbn, int mma_bf16,
+                           int sak, int sbk, int sbn, int ldc, int mma_bf16,
                            const float* bias, int relu, const float* gate,
                            const float* add, float gate_keep, int add_every,
                            unsigned int seed, unsigned int stream_id,
                            unsigned int keep24, float keep, int drop_on,
                            int chunks, float* partial, void* stream) {
+  // the float32 kernel keeps word offsets within an operand in 32 bits
+  const long long lim = 1LL << 31;
+  if ((long long)M * sam >= lim || (long long)K * sak >= lim ||
+      (long long)K * sbk >= lim || (long long)N * sbn >= lim)
+    return (int)cudaErrorInvalidValue;
   if (chunks < 1 || (chunks > 1 && (bias || relu || gate || add || drop_on ||
                                     !partial)) ||
       (!mma_bf16 && (a_bf16 || b_bf16)) ||
-      add_every < 1 || (sak != 1 && sam != 1) || (sbk != 1 && sbn != 1))
+      add_every < 1 || (sak != 1 && sam != 1) || (sbk != 1 && sbn != 1) ||
+      ldc < N || (chunks > 1 && ldc != N))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   RgArgs g;
@@ -383,6 +665,7 @@ extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
   g.sak = sak;
   g.sbk = sbk;
   g.sbn = sbn;
+  g.ldc = ldc;
   g.bias = bias;
   g.relu = relu;
   g.gate = gate;
@@ -391,30 +674,38 @@ extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
   g.add_every = add_every;
   g.dr = GtDrop{seed, keep24, keep, drop_on};
   g.key = gt_stream_key(seed, stream_id);
-  const int step = mma_bf16 ? RG_BK16 : RG_BK32;
-  g.kchunk = ((K + chunks - 1) / chunks + step - 1) / step * step;
+  g.kchunk = ((K + chunks - 1) / chunks + RG_BK - 1) / RG_BK * RG_BK;
   g.partial = chunks > 1 ? partial : nullptr;
   const dim3 grid((N + RG_BN - 1) / RG_BN, (M + RG_BM - 1) / RG_BM, chunks);
   if (mma_bf16) {
     rg_bf16_kernel<<<grid, RG_THREADS, 0, st>>>(g);
   } else {
-    const size_t bytes = RG_STAGES * 2 * RG_TILE_F * sizeof(float);
-    rg_f32_kernel<<<grid, RG_THREADS, bytes, st>>>(g);
+    // the layout of each operand's copies: contiguous along k or not
+    void (*kern)(const RgArgs) =
+        sak == 1 ? (sbk == 1 ? rg_tf32_kernel<true, true>
+                             : rg_tf32_kernel<true, false>)
+                 : (sbk == 1 ? rg_tf32_kernel<false, true>
+                             : rg_tf32_kernel<false, false>);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, RG_SMEM_F32);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<grid, RG_THREADS, RG_SMEM_F32, st>>>(g);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return (int)err;
   return (int)rg_reduce(partial, chunks, (size_t)M * N, c, st);
 }
 
-// col[n] = sum over rows of b[r][n] (b [rows, N], f32 or bf16): per-chunk
-// partials [chunks, N], then their sum in chunk order
+// col[n] = sum over rows of b[r][n] (b [rows, N] at row stride ldb, f32 or
+// bf16): per-chunk partials [chunks, N], then their sum in chunk order
 extern "C" int gt_k18_colsum(const void* b, int b_bf16, float* col,
-                             float* part, int rows, int N, int chunks,
-                             void* stream) {
+                             float* part, int rows, int N, int ldb,
+                             int chunks, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int rchunk = (rows + chunks - 1) / chunks;
   const dim3 grid((N + 255) / 256, chunks);
-  rg_colsum_kernel<<<grid, 256, 0, st>>>(b, b_bf16, rows, N, rchunk, part);
+  rg_colsum_kernel<<<grid, 256, 0, st>>>(b, b_bf16, ldb, rows, N, rchunk,
+                                          part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)rg_reduce(part, chunks, (size_t)N, col, st);

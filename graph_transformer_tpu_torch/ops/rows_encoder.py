@@ -13,6 +13,8 @@ each with its plain PyTorch version here:
   gradients, with the column sums of B that give the bias gradients), with
   the epilogues a layer needs: bias, ReLU, dropout at (layer, site), a gate
   ``(aux > 0) / keep`` (the ReLU-dropout backward), and an added matrix.
+  Operands and the output may be views with a row stride (``out=``);
+  float32 products run on the tensor cores as 3xTF32.
 - **K19**, :func:`attention_forward` / :func:`attention_backward`
   (``csrc/rows_attention.cu``): single-head attention over each
   neighborhood's S <= 32 slots, scores ``q·kᵀ/√D``, softmax, dropout at
@@ -34,12 +36,17 @@ QKV = K18(x, W_in, +b_in); ctx = K19(QKV); a = K18(ctx, W_out, +b_out);
 y1 = K20(x, a, site 1); h = K18(y1, W1, +b1, ReLU, site 2);
 z = K18(h, W2, +b2); out = K20(y1, z, site 3).  In the slot-0 last layer
 the queries, the output product, the FFN and the LayerNorms run on slot 0's
-row of each neighborhood only (``res_every`` = S).  The backward
-(:func:`layer_backward_rows`) recomputes that forward from the layer input,
-as K8 does, then K20's backward twice, K19's once, four K18 row products
-(dh, dy1, dctx, and dx where the input's cotangent is needed) and four K18
-weight products.  A layer's launches: forward K18 4, K19 1, K20 2; backward
-K18 12 (11 without dx), K19 2, K20 3.
+row of each neighborhood only (``res_every`` = S): q = K18(x[::S],
+W_in[:, :D]) and k, v = K18(x, W_in[:, D:]) write their columns of one QKV
+buffer, whose q columns off slot 0 stay unwritten (the slot-0 attention
+reads slot 0's query alone).  The backward (:func:`layer_backward_rows`)
+recomputes that forward from the layer input, as K8 does, then K20's
+backward twice, K19's once, four K18 row products (dh, dy1, dctx, and dx
+where the input's cotangent is needed) and four K18 weight products (five
+in the slot-0 layer: W_in's q columns over slot 0's rows, its k, v columns
+over every row).  A layer's launches: forward K18 4 (slot 0: 5), K19 1,
+K20 2; backward K18 12, 11 without dx (slot 0: 14, 13), K19 2, K20 3.  A
+node step at T = 1 (one slot-0 layer, no dx): K18 18, K19 3, K20 5.
 
 The routes past D = 128 (``ops/u2gnn_encoder.py``, ``ops/u2gnn_train.py``,
 ``ops/encoder_layer.py``, ``ops/ffn.py``) call the compositions below.
@@ -49,6 +56,7 @@ version on CPU tensors and raises on any other device.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Sequence
 
@@ -70,10 +78,13 @@ ATTN_SITE, OUT_SITE, HIDDEN_SITE, FFN_SITE = 0, 1, 2, 3
 
 
 class Counter:
-    """A kernel's launch count: one a call that launches it."""
+    """A kernel's launch count: one a call that launches it; ``shapes``
+    counts K18's launches by (layout, bf16, M, N, K, the row strides of A,
+    B and C)."""
 
     def __init__(self):
         self.launches = 0
+        self.shapes = collections.Counter()
 
 
 K18, K19, K20 = Counter(), Counter(), Counter()
@@ -111,13 +122,14 @@ def _drop_key(rate: float, seed: Optional[int], layer: int, site: int):
 # ===================================================================== K18
 def gemm_plain(a, b, layout: str = "nn", *, bf16: bool = False, bias=None,
                relu: bool = False, drop=None, gate=None, gate_keep=1.0,
-               add=None, add_every: int = 1):
+               add=None, add_every: int = 1, out=None):
     """Plain version of K18: ``C = op(A) op(B)`` float32, operands rounded
     to bfloat16 when ``bf16``.  ``layout`` ``nn``: A [M, K], B [K, N];
     ``nt``: B [N, K]; ``tn``: A [K, M].  Epilogue, in this order: ``+
     bias`` [N]; ReLU; dropout ``drop`` = (rate, seed, layer, site) over the
     [M, N] output; ``· (gate > 0) / gate_keep`` (``gate`` [M, N]); ``+
-    add`` on rows r with r % add_every == 0 (``add`` row r / add_every)."""
+    add`` on rows r with r % add_every == 0 (``add`` row r / add_every).
+    With ``out`` (a float32 [M, N] view) C is written there and returned."""
     mm = _mm(bf16)
     A = rnd(a.to(torch.float32), mm)
     B = rnd(b.to(torch.float32), mm)
@@ -143,19 +155,20 @@ def gemm_plain(a, b, layout: str = "nn", *, bf16: bool = False, bias=None,
         else:
             c = c.clone()
             c[::add_every] = add + c[::add_every]
-    return c
+    return c if out is None else out.copy_(c)
 
 
 def gemm(a, b, layout: str = "nn", *, bf16: bool = False, bias=None,
          relu: bool = False, drop=None, gate=None, gate_keep=1.0, add=None,
-         add_every: int = 1):
+         add_every: int = 1, out=None):
     """K18 on CUDA tensors, :func:`gemm_plain` on CPU tensors."""
     if not _device_ok(a, b):
         return gemm_plain(a, b, layout, bf16=bf16, bias=bias, relu=relu,
                           drop=drop, gate=gate, gate_keep=gate_keep, add=add,
-                          add_every=add_every)
-    M, N, K, strides = _shape(a, b, layout)
-    c = torch.empty(M, N, dtype=torch.float32, device=a.device)
+                          add_every=add_every, out=out)
+    M, N, K = _dims(a, b, layout)
+    c = (torch.empty(M, N, dtype=torch.float32, device=a.device)
+         if out is None else _out(out, M, N))
     if c.numel() == 0:
         return c
     if K == 0:
@@ -165,13 +178,16 @@ def gemm(a, b, layout: str = "nn", *, bf16: bool = False, bias=None,
     dk = _drop_key(*drop) if drop is not None else (0, 0, 1 << 24, 1.0, 0)
     err = _build.load("rows_gemm").gt_k18_gemm(
         a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
-        int(b.dtype == torch.bfloat16), c.data_ptr(), M, N, K, *strides,
+        int(b.dtype == torch.bfloat16), c.data_ptr(), M, N, K,
+        *_strides(a, b, layout), _row_stride(c),
         int(bf16), *(None if t is None else t.data_ptr() for t in eps[:1]),
         int(relu), *(None if t is None else t.data_ptr() for t in eps[1:]),
         float(gate_keep), int(add_every), *dk, 1, None,
         _build.stream_ptr(a.device))
     _build.check(err, "K18 gemm")
     K18.launches += 1
+    K18.shapes[(layout, bool(bf16), M, N, K, _row_stride(a), _row_stride(b),
+                _row_stride(c))] += 1
     return c
 
 
@@ -189,7 +205,7 @@ def weight_grad(a, b, *, bf16: bool = False):
     :func:`weight_grad_plain` on CPU tensors."""
     if not _device_ok(a, b):
         return weight_grad_plain(a, b, bf16=bf16)
-    M, N, K, strides = _shape(a, b, "tn")
+    M, N, K = _dims(a, b, "tn")
     dev = a.device
     c = torch.empty(M, N, dtype=torch.float32, device=dev)
     col = torch.empty(N, dtype=torch.float32, device=dev)
@@ -203,52 +219,78 @@ def weight_grad(a, b, *, bf16: bool = False):
     stream = _build.stream_ptr(dev)
     err = lib.gt_k18_gemm(
         a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
-        int(b.dtype == torch.bfloat16), c.data_ptr(), M, N, K, *strides,
+        int(b.dtype == torch.bfloat16), c.data_ptr(), M, N, K,
+        *_strides(a, b, "tn"), N,
         int(bf16), None, 0, None, None, 1.0, 1, 0, 0, 1 << 24, 1.0, 0,
         chunks, part.data_ptr(), stream)
     _build.check(err, "K18 weight product")
     cchunks = lib.gt_k18_colsum_chunks(K)
     cpart = torch.empty(cchunks * N, dtype=torch.float32, device=dev)
     err = lib.gt_k18_colsum(b.data_ptr(), int(b.dtype == torch.bfloat16),
-                            col.data_ptr(), cpart.data_ptr(), K, N, cchunks,
-                            stream)
+                            col.data_ptr(), cpart.data_ptr(), K, N,
+                            _row_stride(b), cchunks, stream)
     _build.check(err, "K18 column sums")
     K18.launches += 1
+    K18.shapes[("tn", bool(bf16), M, N, K, _row_stride(a), _row_stride(b),
+                N)] += 1
     return c, col
 
 
 def _operands(a, b, bf16):
-    """a, b contiguous; float32 products take float32 operands."""
+    """a, b with unit column stride (a view keeps its row stride); float32
+    products take float32 operands."""
     for t in (a, b):
         _build.check_rows_dtype(t)
         if not bf16 and t.dtype != torch.float32:
             raise TypeError("K18's float32 products take float32 operands")
-    return a.contiguous(), b.contiguous()
+    return tuple(t if t.shape[1] < 2 or t.stride(1) == 1 else t.contiguous()
+                 for t in (a, b))
+
+
+def _row_stride(t) -> int:
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def _out(out, M, N):
+    """``out`` checked as K18's output: float32 [M, N], unit column
+    stride."""
+    if (out.dtype != torch.float32 or tuple(out.shape) != (M, N)
+            or (N > 1 and out.stride(1) != 1) or out.device.type != "cuda"):
+        raise ValueError(f"K18 out: a float32 [{M}, {N}] CUDA view with unit "
+                         "column stride")
+    return out
 
 
 def _f32(t):
     return None if t is None else t.detach().to(torch.float32).contiguous()
 
 
-def _shape(a, b, layout):
-    """(M, N, K, (A's m and k strides, B's k and n strides)) of row-major
-    a, b in ``layout``."""
+def _dims(a, b, layout):
+    """(M, N, K) of row-major a, b in ``layout``."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("K18 takes 2-d operands")
     if layout == "nn":
         (M, K), (K2, N) = a.shape, b.shape
-        strides = (K, 1, N, 1)
     elif layout == "nt":
         (M, K), (N, K2) = a.shape, b.shape
-        strides = (K, 1, 1, K)
     elif layout == "tn":
         (K, M), (K2, N) = a.shape, b.shape
-        strides = (1, M, N, 1)
     else:
         raise ValueError(f"unknown layout {layout!r}")
     if K != K2:
         raise ValueError(f"K18 {layout}: inner dimensions {K} and {K2}")
-    return M, N, K, strides
+    return M, N, K
+
+
+def _strides(a, b, layout):
+    """(A's m and k strides, B's k and n strides) of a, b (unit column
+    stride, any row stride) in ``layout``."""
+    lda, ldb = _row_stride(a), _row_stride(b)
+    if layout == "nn":
+        return lda, 1, ldb, 1
+    if layout == "nt":
+        return lda, 1, 1, ldb
+    return 1, lda, ldb, 1
 
 
 # ===================================================================== K19
@@ -477,15 +519,13 @@ def layer_forward_rows(x, p: Sequence[torch.Tensor], S: int, *, layer: int,
     what the backward reads (qkv, ctx, a, y1, h, z)."""
     (w_in, b_in, w_out, b_out, g1, c1, w1, b1, w2, b2, g2, c2) = p
     every = S if slot0 else 1
-    qkv = gemm(x, w_in, bf16=bf16, bias=b_in)
+    qkv = _qkv_rows(x, w_in, b_in, S, bf16, slot0)
     ctx = attention_forward(qkv, S, slot0=slot0, rate=rate, seed=seed,
                             layer=layer, bf16=bf16)
     a = gemm(ctx, w_out, bf16=bf16, bias=b_out)
     y1 = res_ln_forward(x, a, g1, c1, res_every=every, rate=rate, seed=seed,
                         layer=layer, site=OUT_SITE)
-    h = gemm(y1, w1, bf16=bf16, bias=b1, relu=True,
-             drop=(rate, seed, layer, HIDDEN_SITE) if rate > 0 else None)
-    z = gemm(h, w2, bf16=bf16, bias=b2)
+    h, z = _ffn_hidden(y1, w1, b1, w2, b2, bf16, rate, seed, layer)
     if keep:
         return dict(qkv=qkv, ctx=ctx, a=a, y1=y1, h=h, z=z)
     return res_ln_forward(y1, z, g2, c2, rate=rate, seed=seed, layer=layer,
@@ -516,12 +556,36 @@ def layer_backward_rows(x, g, p: Sequence[torch.Tensor], S: int, *,
                               **kw)
     dx = (gemm(dqkv, w_in, "nt", bf16=bf16, add=du1, add_every=every)
           if need_dx else None)
-    dw_in, db_in = weight_grad(x, dqkv, bf16=bf16)
+    dw_in, db_in = _w_in_grad(x, dqkv, S, bf16, slot0)
     dw_out, db_out = weight_grad(r["ctx"], da, bf16=bf16)
     dw1, db1 = weight_grad(r["y1"], dh, bf16=bf16)
     dw2, db2 = weight_grad(r["h"], dz, bf16=bf16)
     return dx, (dw_in, db_in, dw_out, db_out, dg1, dc1, dw1, db1, dw2, db2,
                 dg2, dc2)
+
+
+def _qkv_rows(x, w_in, b_in, S: int, bf16: bool, slot0: bool):
+    """QKV [N·S, 3D] float32; in the slot-0 layer q is formed on slot 0's
+    rows only, its other rows left unwritten."""
+    if not slot0:
+        return gemm(x, w_in, bf16=bf16, bias=b_in)
+    D = x.shape[1]
+    qkv = torch.empty(x.shape[0], 3 * D, dtype=torch.float32,
+                      device=x.device)
+    gemm(x[::S], w_in[:, :D], bf16=bf16, bias=b_in[:D], out=qkv[::S, :D])
+    gemm(x, w_in[:, D:], bf16=bf16, bias=b_in[D:], out=qkv[:, D:])
+    return qkv
+
+
+def _w_in_grad(x, dqkv, S: int, bf16: bool, slot0: bool):
+    """(dW_in, db_in); in the slot-0 layer the q columns from slot 0's
+    rows (dq is zero on the others)."""
+    if not slot0:
+        return weight_grad(x, dqkv, bf16=bf16)
+    D = x.shape[1]
+    dwq, dbq = weight_grad(x[::S], dqkv[::S, :D], bf16=bf16)
+    dwkv, dbkv = weight_grad(x, dqkv[:, D:], bf16=bf16)
+    return torch.cat([dwq, dwkv], 1), torch.cat([dbq, dbkv])
 
 
 def _layer_params(params, t):

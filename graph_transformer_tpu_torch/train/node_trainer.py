@@ -17,9 +17,10 @@ dataset's train/test masks, a 2-fold logistic regression over all nodes
 
 The encoder's width is the feature count (Cora 1,433), so it runs the
 whole-encoder route past D = 128: kernels K18-K20 (``ops/rows_encoder.py``).
-A step at T = 1 (one slot-0 layer) launches K18 15 times (forward 4, the
-recompute 4, backward 3 row products and 4 weight products; the input's
-cotangent is not needed), K19 3 times and K20 5 times.
+A step at T = 1 (one slot-0 layer) launches K18 18 times (forward 5, q on
+slot 0's rows apart from k and v; the recompute 5; backward 3 row products
+and 5 weight products; the input's cotangent is not needed), K19 3 times
+and K20 5 times.
 
 Random numbers as in ``UnsupTrainer``: one 31-bit seed a step from a CPU
 ``torch.Generator`` (``cfg.train.seed + 1``); the neighbor draws, the

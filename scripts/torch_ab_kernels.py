@@ -2,7 +2,7 @@
 """A/B of two checkouts of the port's kernels on one NVIDIA H100 (run on the
 card):
 
-    python3 scripts/torch_ab_kernels.py [--only wide_fwd|narrow_fwd|stored_bwd|sampler] ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 scripts/torch_ab_kernels.py [--only wide_fwd|narrow_fwd|stored_bwd|sampler|rows_gemm] ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the root of a checkout (``.`` for this one; an older commit
 unpacked with ``git archive`` into a directory that ``.gitignore`` lists).
@@ -79,7 +79,19 @@ that checkout's package and times, by torch.profiler device time a launch
   K=8; a step's stage is K7, the feature gather and one re-gather between
   two U2GNN layers, forward and backward (a checkout whose sampler writes
   batch slots re-gathers by them; an older one gathers the batch's table
-  rows first, then re-gathers by global id through ``global_regather``).
+  rows first, then re-gathers by global id through ``global_regather``);
+- the encoder past D = 128 (``--only rows_gemm`` builds ``rows_gemm.cu``,
+  ``rows_attention.cu`` and ``rows_ln.cu`` and times nothing else,
+  :func:`rows_gemm`): K18 at each launch of the node step at Cora's shape
+  (``chip_smoke.node_k18_launches`` without views: N = 2,816, S = 5, D =
+  1,433, F = 1,024, float32, contiguous operands, since an older K18 takes
+  no row strides) and at the two shapes a checkout
+  that forms q on every row launches instead (Q/K/V [14,080 x 1,433] .
+  [1,433 x 4,299] and dW_in over 14,080 rows), with one library call each;
+  then the node step on Planetoid files of Cora's shape
+  (``chip_smoke.write_planetoid_like``, the node CLI's configuration): 20
+  steps by CUDA events after 3, and a profile of 5 (busy share, K18's
+  device ms a step).
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -119,7 +131,11 @@ ONLY_SOURCES = {"wide_fwd": ("wide_fwd", "encoder_layer", "stored_fwd",
                 "stored_bwd": ("stored_fwd", "stored_bwd", "recompute_bwd",
                                "encoder_layer", "ffn", "wide_fwd",
                                "mega_bwd"),
-                "sampler": ("sampler",)}
+                "sampler": ("sampler",),
+                "rows_gemm": ("rows_gemm", "rows_attention", "rows_ln")}
+# K18's float32 product kernel before it ran on the tensor cores (K18's
+# kernels in any checkout: this and chip_smoke.K18_KERNELS)
+K18_F32_BEFORE = "rg_f32_kernel"
 # DD (public TU statistics: 1,178 graphs, 334,925 nodes, 89 node labels)
 # cut to graphs of 284 nodes, a batch of 16, K=8
 DD = dict(nodes=334925, graph_nodes=284, batch=16, D=89, K=8)
@@ -630,6 +646,56 @@ def sampler(cs, dev, seed):
     return res
 
 
+def rows_gemm(cs, dev, root) -> dict:
+    """K18 at the node step's launches (and the full-q shapes), each
+    device ms a launch beside one library call, then the node step."""
+    import torch
+
+    from graph_transformer_tpu_torch.cli import train_node
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+    from graph_transformer_tpu_torch.train.node_trainer import NodeTrainer
+
+    N, S, D, F = 2816, 5, 1433, 1024
+    k18_all = cs.K18_KERNELS + (K18_F32_BEFORE,)
+    launches = cs.node_k18_launches(dev, N, S, D, F, views=False)
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(N * S, D, device=dev, generator=g)
+    w = torch.randn(D, 3 * D, device=dev, generator=g) * 0.016
+    b = torch.randn(3 * D, device=dev, generator=g)
+    dqkv = torch.randn(N * S, 3 * D, device=dev, generator=g)
+    launches["qkv nn (full q)"] = (lambda: re.gemm(x, w, bias=b),
+                                   lambda: torch.addmm(b, x, w), 0, 0, 0)
+    launches["dW_in tn (full q)"] = (lambda: re.weight_grad(x, dqkv),
+                                     lambda: torch.mm(x.t(), dqkv), 0, 0, 0)
+    k18, lib = {}, {}
+    for name, (fn, ref, *_) in launches.items():
+        k18[name] = cs.device_ms(fn, 10, k18_all)
+        lib[name] = cs.time_ms(ref, 10)
+    del x, w, b, dqkv
+    root_d = os.path.join(root, "build", "node", "cora")
+    cs.write_planetoid_like(root_d)
+    cfg, args = cs.node_config(cs.NODE_FLAGS + ["--citation_dir", root_d])
+    t = NodeTrainer(train_node.load(args), cfg, device="cuda")
+    for _ in range(3):
+        t.train_step(t.next_seed())
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        t.train_step(t.next_seed())
+    end.record()
+    end.synchronize()
+    prof = cs.profile_busy(lambda: [t.train_step(t.next_seed())
+                                    for _ in range(5)], 5, sum_of=k18_all)
+    node = {"ms_per_step": start.elapsed_time(end) / 20}
+    if prof:
+        node.update(busy_share=prof["busy_share"],
+                    busy_ms_per_step=prof["busy_ms_per_step"],
+                    k18_ms_per_step=prof["ms_per_step_of"])
+    return {"K18": k18, "library": lib, "node": node}
+
+
 def worker(root: str, only: str = "") -> dict:
     """The timings of the checkout at ``root`` (``only``: one family)."""
     import numpy as np
@@ -666,6 +732,8 @@ def worker(root: str, only: str = "") -> dict:
         return stored_bwd(cs, dev, seed, rate)
     if only == "sampler":
         return sampler(cs, dev, seed)
+    if only == "rows_gemm":
+        return rows_gemm(cs, dev, root)
     out.update(wide_fwd(cs, dev, seed, rate,
                         os.path.join(root, "build", "ab_keep.pt")))
     if only == "wide_fwd":

@@ -14,6 +14,9 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402  (the card's checks and the node step's shapes)
+
 pytestmark = pytest.mark.cuda
 # the fused path's gate (use_folded or use_stored_bwd pick among its kernels)
 FUSED_FLAGS = dict(use_fused_sampler=True, use_pallas=True,
@@ -364,6 +367,145 @@ def test_weight_product_matches_float64(cuda, rows, M1, N1, dtype):
     scale = a.double().abs().T @ b.double().abs()
     assert got.shape == (M1, N1) and torch.equal(got, again)
     assert bool(((got.double() - want).abs() <= 1e-4 * scale).all())
+
+
+# K18's launches in the slot-0 layer at Cora's shape (the node step's,
+# chip_smoke.node_k18_table: N = 2,816 neighborhoods, S = 5, D = 1,433, F =
+# 1,024), and dx (nt, add_every = S), which runs where the input's cotangent
+# is needed: (name, layout, M, N, K, epilogue); the weight products (tn)
+# with their column sums
+K18_NODE = [(name, key[0], *key[2:5], epilogue) for name, epilogue, key
+            in chip_smoke.node_k18_table(2816, 5, 1433, 1024)] + [
+    ("dx nt", "nt", 14080, 1433, 4299, "add_every")]
+
+
+def k18_case(cuda, layout, M, N, K, epilogue, dtype, seed):
+    """Operands of a K18 product (rows randn, weights 0.3 / sqrt(K / 6), as
+    the layer's) and the keyword arguments of ``epilogue``."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape, sc=1.0):
+        return (torch.randn(*shape, device=cuda, generator=gen) * sc).to(dt)
+
+    w = 0.3 / (K / 6.0) ** 0.5
+    a = rnd(K, M) if layout == "tn" else rnd(M, K)
+    b = rnd(N, K, sc=w) if layout == "nt" else rnd(K, N, sc=w)
+    f32 = dict(device=cuda, generator=gen)
+    kw = {"bias": dict(bias=torch.randn(N, **f32)),
+          "relu_drop": dict(bias=torch.randn(N, **f32), relu=True,
+                            drop=(0.5, 17, 0, 2)),
+          "gate": dict(gate=torch.randn(M, N, **f32), gate_keep=0.5),
+          "add": dict(add=torch.randn(M, N, **f32)),
+          "add_every": dict(add=torch.randn((M + 4) // 5, N, **f32),
+                            add_every=5),
+          None: {}}[epilogue]
+    return a, b, kw
+
+
+def check_k18(cuda, label, layout, M, N, K, epilogue, dtype, seed):
+    """K18 (``gemm``) against ``gemm_plain`` on the same operands: float32
+    by ``check_rows_forward``'s rule, bf16 by ``check_bf16_spread``."""
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    a, b, kw = k18_case(cuda, layout, M, N, K, epilogue, dtype, seed)
+    bf = dtype == "bfloat16"
+    launches = re.K18.launches
+    got = re.gemm(a, b, layout, bf16=bf, **kw)
+    want = re.gemm_plain(a, b, layout, bf16=bf, **kw)
+    torch.cuda.synchronize()
+    assert re.K18.launches == launches + 1
+    assert got.shape == (M, N)
+    chip_smoke.check_rows_forward(label, got, want, bf)
+
+
+def check_k18_weight(cuda, M, N, K, dtype, seed):
+    """K18's weight product (``weight_grad``: tn, split over the rows, then
+    the column sums) against float64, by the rule of
+    :func:`test_weight_product_matches_float64`, and in float32 also
+    within relative L2 1e-5 (``check_rows_forward``'s rule, which one TF32
+    pass misses); runs repeat bit for bit."""
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    a, b, _ = k18_case(cuda, "tn", M, N, K, None, dtype, seed)
+    got, col = re.weight_grad(a, b, bf16=dtype == "bfloat16")
+    again, col2 = re.weight_grad(a, b, bf16=dtype == "bfloat16")
+    torch.cuda.synchronize()
+    want = a.double().T @ b.double()
+    scale = a.double().abs().T @ b.double().abs()
+    assert got.shape == (M, N) and torch.equal(got, again)
+    assert torch.equal(col, col2)
+    assert bool(((got.double() - want).abs() <= 1e-4 * scale).all())
+    if dtype == "float32":
+        assert float((got.double() - want).norm()) <= 1e-5 * float(
+            want.norm())
+    cw = b.double().sum(0)
+    assert bool(((col.double() - cw).abs()
+                 <= 1e-5 * b.double().abs().sum(0)).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", K18_NODE, ids=[c[0] for c in K18_NODE])
+def test_k18_at_the_node_step(cuda, case, dtype):
+    """K18 at each launch of the slot-0 layer at Cora's shape, with the
+    launch's epilogue, against its plain version (products) or float64
+    (weight products)."""
+    name, layout, M, N, K, epilogue = case
+    if layout == "tn":
+        check_k18_weight(cuda, M, N, K, dtype, M + N + K)
+    else:
+        check_k18(cuda, f"K18 {name}", layout, M, N, K, epilogue, dtype,
+                  M + N + K)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("epilogue", ["bias", "relu_drop", "gate", "add",
+                                      "add_every"])
+@pytest.mark.parametrize("layout", ["nn", "nt", "tn"])
+@pytest.mark.parametrize("M,N,K", [(1001, 517, 333), (77, 130, 1433),
+                                   (129, 3, 40), (1, 1, 1)])
+def test_k18_ragged_every_epilogue(cuda, M, N, K, layout, epilogue, dtype):
+    """K18 on shapes that no tile divides (M, N not multiples of 128, K of
+    32), each layout with each epilogue, against its plain version."""
+    check_k18(cuda, f"K18 {layout} {M}x{N}x{K} {epilogue}", layout, M, N, K,
+              epilogue, dtype, 7 * M + N + K)
+    if epilogue == "bias":
+        check_k18_weight(cuda, M, N, K, dtype, M + 3 * N + K)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k18_slot0_views_at_cora_shape(cuda, dtype):
+    """The slot-0 layer's Q/K/V and dW_in at Cora's shape through views: q
+    from x's every S-th row into the QKV buffer's first D columns, k and v
+    into the rest; dW_in's q columns from slot 0's rows of x and dq.  Kernel
+    against plain on what the layer forms and reads."""
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    S, D = 5, 1433
+    x, w, kw = k18_case(cuda, "nn", 2816 * S, 3 * D, D, "bias", dtype, 3)
+    bf = dtype == "bfloat16"
+    launches = re.K18.launches
+    qkv = re._qkv_rows(x, w, kw["bias"], S, bf, True)
+    assert re.K18.launches == launches + 2
+    with chip_smoke.plain_pieces():
+        qkv_p = re._qkv_rows(x, w, kw["bias"], S, bf, True)
+    torch.cuda.synchronize()
+    chip_smoke.check_rows_forward("K18 slot-0 q, k, v",
+                                  chip_smoke.slot0_qkv(qkv, S),
+                                  chip_smoke.slot0_qkv(qkv_p, S), bf)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    dqkv = torch.randn(2816 * S, 3 * D, device=cuda, generator=gen)
+    dqkv.view(2816, S, 3 * D)[:, 1:, :D] = 0.0
+    dqkv = dqkv.to(x.dtype).float()  # values the bf16 products keep
+    dw, db = re._w_in_grad(x, dqkv, S, bf, True)
+    full = x.double().T @ dqkv.double()
+    scale = x.double().abs().T @ dqkv.double().abs()
+    assert bool(((dw.double() - full).abs() <= 1e-4 * scale).all())
+    if not bf:
+        assert float((dw.double() - full).norm()) <= 1e-5 * float(
+            full.norm())
+    assert bool(((db.double() - dqkv.double().sum(0)).abs()
+                 <= 1e-5 * dqkv.double().abs().sum(0)).all())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: no module of it, and neither chip_smoke.py
-nor scripts/torch_wide_probe.py, torch_determinism_probe.py or
-torch_node_phases.py, imports jax,
+nor scripts/torch_wide_probe.py, torch_determinism_probe.py,
+torch_node_phases.py or torch_k18_variants.py, imports jax,
 jaxlib or the JAX package, nor sklearn or networkx (the card's machine has
 neither); importing it builds nothing and does not import triton."""
 
@@ -17,7 +17,8 @@ NOT_ON_CARD = {"sklearn", "networkx"}
 FILES = sorted(ROOT.glob("graph_transformer_tpu_torch/**/*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_wide_probe.py",
     ROOT / "scripts" / "torch_determinism_probe.py",
-    ROOT / "scripts" / "torch_node_phases.py"]
+    ROOT / "scripts" / "torch_node_phases.py",
+    ROOT / "scripts" / "torch_k18_variants.py"]
 
 
 def imported_roots(path: Path):
