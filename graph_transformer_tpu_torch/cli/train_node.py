@@ -5,13 +5,13 @@
         --node_dataset cora --citation_dir <Planetoid dir> \
         --num_epochs 20 --eval_every 5 --device cuda
 
-Trains U2GNN (the fork's cross-attention head) transductively over one graph
-(karate, the synthetic SBM, a Planetoid citation graph, PPI, or ``npz:<path>``)
-with the sampled-softmax, GAE or contrastive loss, and evaluates the node
-embeddings by a train/test-mask logistic probe, a 2-fold logistic probe or
-k-means clustering metrics.  The flags are the JAX CLI's (``cli/common.py``
-plus the node flags) and ``--device`` (default ``cuda``); ``--node_model
-gcn`` and ``gat`` raise until their port (ROADMAP item 8).
+Trains U2GNN (the fork's cross-attention head), or the GCN / GAT baseline
+(``--node_model gcn|gat``), transductively over one graph (karate, the
+synthetic SBM, a Planetoid citation graph, PPI, or ``npz:<path>``) with the
+sampled-softmax, GAE or contrastive loss, and evaluates the node embeddings
+by a train/test-mask logistic probe, a 2-fold logistic probe or k-means
+clustering metrics.  The flags are the JAX CLI's (``cli/common.py`` plus the
+node flags) and ``--device`` (default ``cuda``).
 """
 
 from __future__ import annotations
@@ -60,12 +60,17 @@ def load(args):
     return load_node_dataset(args.node_dataset, **kw)
 
 
-def main(argv=None):
-    args = parser().parse_args(argv)
+def experiment_config(args):
+    """The run's configuration: the common flags' and the node model's."""
     cfg = config_from_args(args)
-    cfg = cfg.replace(model=dataclasses.replace(
+    return cfg.replace(model=dataclasses.replace(
         cfg.model, model=args.node_model, loss_type=args.loss_type,
         sampler_type=args.sampler_type))
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    cfg = experiment_config(args)
     ds = load(args)
     print(f"# node data: {ds.name}, {ds.num_nodes} nodes, "
           f"{ds.graph.num_directed_edges} directed edges, "

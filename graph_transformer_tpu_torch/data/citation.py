@@ -78,9 +78,16 @@ class NodeGraphDataset:
         return a
 
     def to_multiplex(self, **kw):
-        raise NotImplementedError(
-            "not ported yet: the multiplex pipeline (ROADMAP.md Queue A, "
-            "item 7: node and multiplex path)")
+        """Lift into the multiplex pipeline: the graph and, by default, a
+        cosine-kNN feature-similarity view
+        (``data/multiplex.single_graph_with_similarity_layer``)."""
+        from graph_transformer_tpu_torch.data.multiplex import (
+            single_graph_with_similarity_layer,
+        )
+
+        return single_graph_with_similarity_layer(
+            self.dense_adj(), self.graph.node_feat, self.node_labels,
+            name=self.name + "+sim", **kw)
 
 
 def _graph_from_edges(name: str, src: np.ndarray, dst: np.ndarray,

@@ -1,7 +1,7 @@
 """Losses of the U2GNN family — port of ``label_smoothing``,
 ``soft_cross_entropy`` (``graph_transformer_tpu/ops/losses.py:19-42``),
-``supcon_loss`` (``:44-84``) and ``gae_loss`` (``:99-116``).
-``multilayer_supcon_loss`` waits for the multiplex models (ROADMAP Queue A).
+``supcon_loss`` (``:44-84``), ``multilayer_supcon_loss`` (``:86-96``) and
+``gae_loss`` (``:99-116``).
 """
 
 from __future__ import annotations
@@ -62,6 +62,18 @@ def supcon_loss(features: torch.Tensor, mask: Optional[torch.Tensor] = None,
     if valid is not None:
         return -(mean_log_prob_pos * valid).sum() / valid.sum().clamp_min(1.0)
     return -mean_log_prob_pos.mean()
+
+
+def multilayer_supcon_loss(logits_list: Sequence[torch.Tensor],
+                           adj_stack: torch.Tensor,
+                           temperature: float = 1.0) -> torch.Tensor:
+    """Σ over graph layers i of SupCon(embeddings_i, adjacency_i), with
+    ``adj_stack`` [N, N, S] (``loss_functions.py:34-39``)."""
+    total = 0.0
+    for i, z in enumerate(logits_list):
+        total = total + supcon_loss(z, mask=adj_stack[:, :, i],
+                                    temperature=temperature)
+    return total
 
 
 def gae_loss(logits_list: Sequence[torch.Tensor], adj_label: torch.Tensor,

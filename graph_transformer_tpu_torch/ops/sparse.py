@@ -1,9 +1,27 @@
-"""Graph pooling and the inter-layer re-gather — ports of ``graph_sum_pool``
-(``graph_transformer_tpu/ops/sparse.py:20``) and ``global_regather``
-(``:110-148``).  Neither accumulates with float atomics on the card, so a
-training step repeats bit for bit."""
+"""Sparse gather/scatter substrate — ports of ``graph_sum_pool``
+(``graph_transformer_tpu/ops/sparse.py:20``), ``spmm``, ``gcn_norm_edges``,
+``edge_softmax``, ``sddmm_dot`` (``:37-109``) and ``global_regather``
+(``:110-148``).
+
+None accumulates with float atomics on the card, so a training step repeats
+bit for bit.  JAX reduces edges by ``segment_sum``/``segment_max``; here an
+edge list is grouped by segment once (:class:`Segments`: a stable sort of
+the segment ids and the count of each segment), and every reduction walks
+the sorted edges segment by segment (``torch.segment_reduce``, one output
+element's sum in one thread, in edge order).  The two differentiable
+primitives keep that order in both directions: :func:`segment_sum`'s
+backward gathers the segments' gradients back to the edges, and
+:func:`gather`'s (``x[ids]``) sums the edges' gradients by segment, where
+``x[ids]``'s own backward would accumulate into repeated rows.  Padding
+edges (``edge_mask`` 0) are reduced like the others and contribute zero,
+as in JAX.  These are the JAX package's XLA operations, not Pallas kernels;
+the port runs them in PyTorch.
+"""
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -55,3 +73,123 @@ def global_regather(out: torch.Tensor, node_gidx: torch.Tensor,
     idx = torch.where(node_mask > 0, node_gidx.to(torch.int64), pad_slot)
     buf = out.new_zeros(num_total_nodes + N, out.shape[1])
     return buf.index_copy(0, idx, out)[neigh_global.to(torch.int64)]
+
+
+# ------------------------------------------------------ segment reductions
+@dataclasses.dataclass
+class Segments:
+    """Elements grouped by a segment id: ``ids`` [E] (int64), ``order`` [E]
+    the elements sorted by segment (stably: within a segment in element
+    order) and ``lengths`` [num_segments] the elements of each segment."""
+
+    ids: torch.Tensor
+    order: torch.Tensor
+    lengths: torch.Tensor
+
+    @classmethod
+    def of(cls, ids: torch.Tensor, num_segments: int) -> "Segments":
+        ids = ids.to(torch.int64)
+        order = torch.sort(ids, stable=True).indices
+        return cls(ids, order, torch.bincount(ids, minlength=num_segments))
+
+    @property
+    def num_segments(self) -> int:
+        return self.lengths.shape[0]
+
+
+def _reduce(values: torch.Tensor, seg: Segments, op: str) -> torch.Tensor:
+    """[num_segments, ...] reduction of ``values`` [E, ...] by segment, each
+    segment's elements in element order (``sum`` of none is 0, ``max`` of
+    none -inf)."""
+    return torch.segment_reduce(values[seg.order], op, lengths=seg.lengths,
+                                axis=0, unsafe=True)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, seg):
+        ctx.seg = seg
+        return _reduce(values, seg, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.seg.ids], None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seg):
+        ctx.seg = seg
+        return x[seg.ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.seg, "sum"), None
+
+
+def segment_sum(values: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """y[n] = Σ over elements e of segment n of values[e] (JAX's
+    ``jax.ops.segment_sum``); differentiable, its backward a gather."""
+    return _SegmentSum.apply(values, seg)
+
+
+def gather(x: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """``x[seg.ids]``, differentiable, its backward a segment sum."""
+    return _Gather.apply(x, seg)
+
+
+def segment_max(values: torch.Tensor, seg: Segments) -> torch.Tensor:
+    """Max of each segment's values (-inf where empty), no gradient."""
+    return _reduce(values.detach(), seg, "max")
+
+
+# ----------------------------------------------------- graph operations
+def spmm(src: Segments, dst: Segments, edge_val: torch.Tensor,
+         x: torch.Tensor) -> torch.Tensor:
+    """y[dst] += val · x[src]: sparse A @ X with A given as COO edges
+    grouped by source (``src``) and by target (``dst``); the GCN
+    aggregation ``spmm(adj, X @ W)`` with ``edge_val`` the normalized
+    adjacency weights."""
+    return segment_sum(gather(x, src) * edge_val[:, None], dst)
+
+
+def gcn_norm_edges(edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                   edge_mask: torch.Tensor, num_nodes: int,
+                   add_self_loops: bool = True
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Symmetric GCN normalization D^-1/2 (A + I) D^-1/2 as edge values:
+    (src, dst, val), with the self loops appended (length E + N); degrees
+    count the masked edges only, by target."""
+    edge_src = edge_src.to(torch.int64)
+    edge_dst = edge_dst.to(torch.int64)
+    deg = _reduce(edge_mask, Segments.of(edge_dst, num_nodes), "sum")
+    if add_self_loops:
+        deg = deg + 1.0
+        loop = torch.arange(num_nodes, device=edge_src.device)
+        edge_src = torch.cat([edge_src, loop])
+        edge_dst = torch.cat([edge_dst, loop])
+        edge_mask = torch.cat([edge_mask, edge_mask.new_ones(num_nodes)])
+    dinv = torch.rsqrt(deg.clamp_min(1e-12))
+    return edge_src, edge_dst, dinv[edge_src] * dinv[edge_dst] * edge_mask
+
+
+def edge_softmax(scores: torch.Tensor, seg: Segments,
+                 edge_mask: torch.Tensor) -> torch.Tensor:
+    """Softmax of the edges' ``scores`` within each segment of ``seg``
+    (JAX normalizes over the ids it is given: the targets, or the sources in
+    the GAT), padding edges out: the segment max subtracted (no gradient
+    through it), exponentials summed by segment."""
+    masked = torch.where(edge_mask > 0, scores,
+                         torch.full_like(scores, -1e30))
+    smax = segment_max(masked, seg)
+    smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))
+    ex = torch.exp(masked - gather(smax, seg)) * edge_mask
+    denom = segment_sum(ex, seg)
+    return ex / gather(denom, seg).clamp_min(1e-16)
+
+
+def sddmm_dot(src: Segments, dst: Segments, a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """Per-edge dot products <a[src], b[dst]> (sampled dense-dense
+    matmul)."""
+    return (gather(a, src) * gather(b, dst)).sum(-1)

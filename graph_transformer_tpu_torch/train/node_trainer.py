@@ -22,12 +22,17 @@ slot 0's rows apart from k and v; the recompute 5; backward 3 row products
 and 5 weight products; the input's cotangent is not needed), K19 3 times
 and K20 5 times.
 
+The baselines ``gcn`` and ``gat`` (``models/gcn.py``, ``models/gat.py``,
+JAX ``node_trainer.py:44-63``) train on the same whole-graph batch over its
+edge list, grouped by segment once (``model.prepare``), and resample no
+neighborhoods; their embedding under the default loss is the sampled
+softmax's table ``ss.weight`` [V, 2], else the encoder's mu.
+
 Random numbers as in ``UnsupTrainer``: one 31-bit seed a step from a CPU
 ``torch.Generator`` (``cfg.train.seed + 1``); the neighbor draws, the
 dropout sites, the candidates and the neighbor negatives take disjoint
-streams of it.  ``gcn`` and ``gat`` raise until their port (ROADMAP
-item 8).  Entry points run on ``device="cuda"`` unless the caller asks for
-the CPU.
+streams of it.  Entry points run on ``device="cuda"`` unless the caller
+asks for the CPU.
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ from graph_transformer_tpu_torch.config import ExperimentConfig
 from graph_transformer_tpu_torch.data.batching import whole_dataset_batch
 from graph_transformer_tpu_torch.data.citation import NodeGraphDataset
 from graph_transformer_tpu_torch.data.splits import stratified_kfold_indices
+from graph_transformer_tpu_torch.models.gat import GATModel
+from graph_transformer_tpu_torch.models.gcn import GCNModel
 from graph_transformer_tpu_torch.models.u2gnn_sup import check_encoder_shapes
 from graph_transformer_tpu_torch.models.u2gnn_unsup import (
     U2GNNUnsup,
@@ -67,18 +74,20 @@ U2GNN_NAMES = ("u2gnn", "u2gnn_unsup", "u2gnn_sup")
 EVAL_MODES = ("masks", "2fold", "kmeans")
 
 
-def make_node_model(ds: NodeGraphDataset, cfg: ExperimentConfig,
-                    ) -> U2GNNUnsup:
+def make_node_model(ds: NodeGraphDataset, cfg: ExperimentConfig):
     """The node model of ``cfg.model.model``: U2GNN with the fork's
-    cross-layer-attention head (JAX ``node_trainer.py:44-55``)."""
+    cross-layer-attention head, or the GCN / GAT baseline (JAX
+    ``node_trainer.py:44-63``)."""
     name = cfg.model.model
     if name in U2GNN_NAMES:
         return U2GNNUnsup(ds.feature_dim, ds.num_nodes, cfg.model,
                           head="cross_attention", seed=cfg.train.seed)
-    if name in ("gcn", "gat"):
-        raise NotImplementedError(
-            f"not ported yet: node model {name!r} (ROADMAP.md Queue A, "
-            "item 8: Baselines)")
+    if name == "gcn":
+        return GCNModel(ds.feature_dim, ds.num_nodes, cfg.model,
+                        seed=cfg.train.seed)
+    if name == "gat":
+        return GATModel(ds.feature_dim, ds.num_nodes, cfg.model,
+                        seed=cfg.train.seed)
     raise ValueError(f"unknown node model {name!r} (u2gnn | gcn | gat)")
 
 
@@ -89,8 +98,10 @@ class NodeTrainer:
         self.device = resolve_device(device)
         g = ds.graph
         self.model = make_node_model(ds, cfg).to(self.device)
-        check_encoder_shapes(encoder_config(cfg.model),
-                             cfg.data.num_neighbors + 1, ds.feature_dim)
+        self.u2gnn = cfg.model.model in U2GNN_NAMES
+        if self.u2gnn:
+            check_encoder_shapes(encoder_config(cfg.model),
+                                 cfg.data.num_neighbors + 1, ds.feature_dim)
         self.spec = self.model.spec()
         self.opt = make_optimizer(self.model.parameters(),
                                   cfg.train.learning_rate,
@@ -108,14 +119,19 @@ class NodeTrainer:
         if cfg.model.loss_type in ("gae", "contrastive"):
             self.adj_mask = torch.from_numpy(
                 ds.dense_adj(self.batch.n_pad)).to(self.device)
+        self.graph = None if self.u2gnn else self.model.prepare(self.batch)
 
     def next_seed(self) -> int:
         return int(torch.randint(0, 2**31 - 1, (1,), generator=self._seeds))
 
     def loss(self, seed: int) -> torch.Tensor:
         """The loss of the step seeded ``seed``: fresh neighborhoods of
-        every node, then the model's loss."""
+        every node, then the model's loss (the baselines' on the batch's
+        edges)."""
         b = self.batch
+        if not self.u2gnn:
+            return self.model.loss(b, self.spec, seed,
+                                   adj_mask=self.adj_mask, graph=self.graph)
         neigh = resample_batch_neighbors(
             seed, self.csr, b.node_gidx, b.node_mask,
             self.cfg.data.num_neighbors, self.ds.num_nodes)
@@ -147,14 +163,16 @@ class NodeTrainer:
         """[N, D] evaluation embeddings on the host: the learned table (the
         fork head's ``weight``, else the sampled softmax's output rows) for
         the sampled-softmax loss and wherever the model has ``weight``; the
-        deterministic encoder output otherwise."""
+        deterministic encoder output (the baselines' mu) otherwise."""
         n = self.ds.num_nodes
         with torch.no_grad():
             if (self.cfg.model.loss_type == "default"
                     or self.model.weight is not None):
                 emb = self.model.node_embeddings()
-            else:
+            elif self.u2gnn:
                 emb = self.model.encode(self.batch, None)
+            else:  # the baselines' mu
+                emb = self.model.encode(self.batch, None, self.graph)[0]
         return emb.detach().float().cpu().numpy()[:n]
 
     # ----------------------------------------------------------------- eval

@@ -13,6 +13,12 @@ array).
   ``ss.bias`` and, for the fork's cross-attention head,
   ``cross_attn.<field>`` (``w_in``, ``b_in``, ``w_out``, ``b_out``) and
   ``weight``; onto ``U2GNNUnsup.state_dict()``.
+- ``MultilayerParams``: ``encoders.<i>.<field>``, ``cross_attn.<field>``,
+  ``weight`` and, with a projection head, ``proj_w`` and ``proj_b``; onto
+  ``MultilayerU2GNN.state_dict()``.
+- ``GCNParams`` and ``GATParams``: ``gc1``, ``gc2_mu`` and ``gc2_sig``,
+  each ``.w``, ``.b`` (and the GAT's ``.a``), and ``ss.weight``,
+  ``ss.bias``; onto ``GCNModel.state_dict()`` or ``GATModel``'s.
 
 ``model.load_state_dict(params_from_jax(tree))`` makes both packages compute
 the same function.  Unknown keys raise.
@@ -31,30 +37,59 @@ from graph_transformer_tpu_torch.ops.ut_recurrence import REC_FIELDS
 MHA_FIELDS = ("w_in", "b_in", "w_out", "b_out")
 SUP_KEYS = ("head_w", "head_b")
 UNSUP_KEYS = ("ss.weight", "ss.bias")
+MULTILAYER_KEYS = ("weight",) + tuple(f"cross_attn.{f}" for f in MHA_FIELDS)
+BASELINE_LAYERS = ("gc1", "gc2_mu", "gc2_sig")
+BASELINE_KEYS = tuple(f"{layer}.{f}" for layer in BASELINE_LAYERS
+                      for f in ("w", "b")) + UNSUP_KEYS
 
 
-def _known(key: str, unsup: bool) -> bool:
+def tree_kind(tree: Mapping[str, np.ndarray]) -> str:
+    """Which JAX parameter tree ``tree`` flattens: ``baseline`` (GCN or
+    GAT), ``unsup``, ``sup`` or ``multilayer``."""
+    if "gc1.w" in tree:
+        return "baseline"
+    if "ss.weight" in tree:
+        return "unsup"
+    if "head_w" in tree:
+        return "sup"
+    return "multilayer"
+
+
+def _known(key: str, kind: str) -> bool:
     parts = key.split(".")
-    if key in (UNSUP_KEYS + ("weight",) if unsup else SUP_KEYS):
+    if kind == "baseline":
+        return key in UNSUP_KEYS or (
+            len(parts) == 2 and parts[0] in BASELINE_LAYERS
+            and parts[1] in ("w", "b", "a"))
+    if kind == "sup" and key in SUP_KEYS:
         return True
-    if unsup and len(parts) == 2 and parts[0] == "cross_attn":
+    if kind == "unsup" and key in UNSUP_KEYS + ("weight",):
+        return True
+    if kind == "multilayer" and key in ("weight", "proj_w", "proj_b"):
+        return True
+    if (kind in ("unsup", "multilayer") and len(parts) == 2
+            and parts[0] == "cross_attn"):
         return parts[1] in MHA_FIELDS
     return (len(parts) == 3 and parts[1].isdigit()
             and ((parts[0] == "encoders" and parts[2] in FIELDS)
-                 or (not unsup and parts[0] == "rec"
+                 or (kind == "sup" and parts[0] == "rec"
                      and parts[2] in REC_FIELDS)))
 
 
+REQUIRED = {"sup": SUP_KEYS, "unsup": UNSUP_KEYS,
+            "multilayer": MULTILAYER_KEYS, "baseline": BASELINE_KEYS}
+
+
 def params_from_jax(tree: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """The port's state dict from the flattened JAX parameters (the unsup
-    tree where it has ``ss.weight``)."""
-    unsup = "ss.weight" in tree
+    """The port's state dict from the flattened JAX parameters, their kind
+    read from the keys (:func:`tree_kind`)."""
+    kind = tree_kind(tree)
     out: Dict[str, torch.Tensor] = {}
     for key, value in tree.items():
-        if not _known(key, unsup):
+        if not _known(key, kind):
             raise KeyError(f"unknown JAX parameter {key!r}")
         out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
-    required = UNSUP_KEYS if unsup else SUP_KEYS
+    required = REQUIRED[kind]
     if any(k not in out for k in required):
-        raise KeyError(f"{' and '.join(required)} are required")
+        raise KeyError(f"{', '.join(required)} are required")
     return out

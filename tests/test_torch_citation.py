@@ -92,8 +92,11 @@ def test_dense_adj_and_its_guard():
     assert a.dense_adj().sum() == 2 * len(tcit.KARATE_EDGES)
     with pytest.raises(ValueError, match="dense_adj"):
         a.dense_adj(n_pad=a.DENSE_ADJ_MAX_NODES + 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        a.to_multiplex()
+    ma, mb = a.to_multiplex(size_x=8), b.to_multiplex(size_x=8)
+    assert ma.name == mb.name == "karate+sim"
+    for f in ("x", "labels", "train_mask", "test_mask"):
+        np.testing.assert_allclose(getattr(ma, f), getattr(mb, f), atol=1e-6)
+    np.testing.assert_array_equal(ma.adj[:, :, 0], mb.adj[:, :, 0])
 
 
 def test_whole_dataset_batch_equals_jax(monkeypatch):

@@ -1062,3 +1062,58 @@ def test_training_steps_repeat_bit_for_bit(cuda, tmp_path):
         runs.append([p.detach().clone() for p in tr.model.parameters()]
                     + [m.clone() for m in tr.opt.mu + tr.opt.nu])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_multiplex_step_kernels_match_plain_versions(cuda):
+    """K4t and K8s at the siamese multiplex step's shape (12,000
+    neighborhoods of S = 9, D = 8, F = 1,024 in float32, rates 0 and 0.5:
+    108,000 rows) against their plain versions (``check_two_pass``'s
+    rules)."""
+    import chip_smoke
+
+    errs = chip_smoke.check_multiplex_kernels(cuda)
+    assert {k[0] for k in errs} == {"K4t", "K8s"}
+
+
+def _sparse_case(cuda, seed=0, n=2816, e=13000, d=64):
+    """A Cora-sized edge list on the card: heavy-tailed targets (node 0
+    gets a tenth of the edges), padding edges, random values."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e)
+    dst = np.where(rng.random(e) < 0.1, 0, rng.integers(0, n, e))
+    mask = (rng.random(e) < 0.95).astype(np.float32)
+
+    def t(a, dt=None):
+        return torch.tensor(a, dtype=dt, device=cuda)
+
+    return (t(src), t(dst), t(mask), t(rng.normal(size=(n, d)),
+                                        torch.float32),
+            t(rng.normal(size=e), torch.float32))
+
+
+def test_sparse_ops_repeat_bit_for_bit(cuda):
+    """``spmm`` and ``edge_softmax`` (and their gradients) on the card: two
+    runs equal bit for bit, and within 1e-5 of the CPU's."""
+    from graph_transformer_tpu_torch.ops import sparse as sp
+
+    src, dst, mask, x, scores = _sparse_case(cuda)
+    n = x.shape[0]
+
+    def run(dev):
+        s, d, v = sp.gcn_norm_edges(src.to(dev), dst.to(dev), mask.to(dev),
+                                    n)
+        xs = x.to(dev).clone().requires_grad_()
+        sc = scores.to(dev).clone().requires_grad_()
+        y = sp.spmm(sp.Segments.of(s, n), sp.Segments.of(d, n), v, xs)
+        seg = sp.Segments.of(src.to(dev), n)
+        att = sp.edge_softmax(sc, seg, mask.to(dev))
+        msg = sp.segment_sum(att[:, None] * sp.gather(
+            xs, sp.Segments.of(dst.to(dev), n)), seg)
+        ((y * y).sum() + (msg * msg).sum()).backward()
+        return [t.detach() for t in (y, att, msg, xs.grad, sc.grad)]
+
+    a, b = run(cuda), run(cuda)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    for p, q in zip(a, run("cpu")):
+        err = float((p.cpu() - q).abs().max())
+        assert err <= 1e-5 * max(float(q.abs().max()), 1.0)

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: no module of it, and neither chip_smoke.py
 nor scripts/torch_wide_probe.py, torch_determinism_probe.py,
 torch_node_phases.py or torch_k18_variants.py, imports jax,
-jaxlib or the JAX package, nor sklearn or networkx (the card's machine has
-neither); importing it builds nothing and does not import triton."""
+jaxlib or the JAX package, nor sklearn, pandas or networkx (the card's
+machine has none of them); importing it builds nothing and does not import
+triton."""
 
 import ast
 import subprocess
@@ -13,7 +14,11 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "graph_transformer_tpu"}
-NOT_ON_CARD = {"sklearn", "networkx"}
+NOT_ON_CARD = {"sklearn", "networkx", "pandas"}
+# the modules of the multiplex pipeline and the node baselines
+NEW_MODULES = ("data/multiplex.py", "models/multilayer.py", "models/gcn.py",
+               "models/gat.py", "train/ml_node_trainer.py",
+               "utils/laplacian.py", "cli/node_classification.py")
 FILES = sorted(ROOT.glob("graph_transformer_tpu_torch/**/*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_wide_probe.py",
     ROOT / "scripts" / "torch_determinism_probe.py",
@@ -33,6 +38,8 @@ def imported_roots(path: Path):
 
 def test_port_has_modules():
     assert len(FILES) > 20
+    for rel in NEW_MODULES:
+        assert ROOT / "graph_transformer_tpu_torch" / rel in FILES, rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

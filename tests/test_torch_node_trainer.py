@@ -12,7 +12,8 @@ against the JAX package's.
 2. JAX's own node-trainer cases (``tests/test_node_classification.py``:
    u2gnn with the sampled softmax and the 2-fold probe, the neighbor
    sampler, the contrastive head on a padded batch) on the port on the
-   CPU; ``gcn`` and ``gat`` raise, naming ROADMAP item 8.
+   CPU; ``gcn`` and ``gat`` build and train (``test_torch_gcn_gat.py`` holds
+   them to JAX), an unknown node model raises.
 3. ``cli.train_node.main`` on karate, and on a small Planetoid-format file
    of ``chip_smoke.write_planetoid_like``: every eval mode, finite losses,
    metrics in [0, 1]; the trainer's steps repeat for one seed.
@@ -172,8 +173,14 @@ def test_node_trainer_u2gnn_sampled_softmax():
 @pytest.mark.parametrize("model,loss_type", [("gat", "contrastive"),
                                              ("gcn", "gae")])
 def test_node_baselines_raise(model, loss_type):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        NodeTrainer(karate_club(), _cfg(model, loss_type=loss_type),
+    """JAX's baseline cases (gat contrastive, gcn gae) train a step on the
+    port; only an unknown node model raises."""
+    t = NodeTrainer(karate_club(), _cfg(model, loss_type=loss_type),
+                    device="cpu")
+    assert np.isfinite(t.train_epoch())
+    assert t.node_embeddings().shape == (34, 2)
+    with pytest.raises(ValueError, match="unknown node model"):
+        NodeTrainer(karate_club(), _cfg("gin", loss_type=loss_type),
                     device="cpu")
 
 
@@ -219,8 +226,11 @@ def test_cli_on_karate(capsys):
                               "8", "--num_neighbors", "2", "--device", "cpu"])
     assert 0.0 <= metric <= 1.0
     assert "node data: karate, 34 nodes" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 8"):
-        train_node.main(["--node_model", "gcn", "--device", "cpu"])
+    metric = train_node.main(["--node_model", "gcn", "--num_epochs", "2",
+                              "--ff_hidden_size", "8", "--sampled_num", "8",
+                              "--device", "cpu"])
+    assert 0.0 <= metric <= 1.0
+    assert "best masks metric" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("mode", ["masks", "2fold", "kmeans"])
