@@ -159,6 +159,23 @@
    the Cora-shaped files (20 steps, the default loss): finite losses, the
    trained loss below the initial one at the probe seeds, no kernel
    launched, ms a step, two 5-step runs bit for bit.
+9e. Drives the remaining single-device modules (``slice19_phases``):
+   ``BatchBuilder``'s host ms a batch with the C++ assembler (the default,
+   whose draws are the JAX package's) and with numpy at the bench's shape;
+   the graph-level GCN baseline (``UnsupTrainer(model="gcn_unsup")``, 2
+   layers of H = 1,024 on the IMDBBINARY-like file): 20 steps timed by
+   ``utils/profiling.StepTimer``, no kernel launched, the loss at the probe
+   seeds lower after training, a profile of 5 steps, the probe, two 5-step
+   runs bit for bit; OrthoNet fitted on the card and on the CPU on the
+   Laplacian of the mfeat-shaped files' first view (N = 2,000), the
+   histories, final losses and orthogonality within the stated tolerances;
+   ``nn.TransformerEncoder`` against the port's encoder fed its converted
+   weights (``utils/torch_compat``) on the card (K9w with one head, the
+   plain attention and K11 with two) by the float32 rule; the README's HPO
+   commands through ``cli.hpo.main``: 3 unsup trials of 1 epoch on the
+   IMDBBINARY-like file twice (each trial's launches exactly K7, K4tw,
+   K8ws and K8w by its arm; the two trial logs equal byte for byte) and 2
+   node trials on the Cora-shaped files (K18-K20 only).
 10. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
@@ -4283,6 +4300,338 @@ def multiplex_phases(root, cora_root, dev) -> tuple:
     return errs, out
 
 
+# ------------------------------------- the remaining single-device modules
+# (slice 19): the C++ batch assembler's host timing, the graph-level GCN
+# baseline, OrthoNet, torch-convention weights and the HPO CLI
+BATCHER_BATCHES = 30
+# the loss of a trained OrthoNet against the CPU's: the CPU's own float32
+# fits at 1, 4 and 8 threads read histories within 2.7e-4 of their largest
+# value and final losses within 1.4% of each other (mfeat-shaped view 0,
+# 200 epochs); Adam's first steps move a weight by ±lr whatever the size of
+# its gradient, so the fits part by the rounding of near-zero gradients
+ORTHO_HISTORY_TOL, ORTHO_FINAL_TOL, ORTHO_GRAM_TOL = 1e-3, 0.05, 1e-3
+# the README's HPO commands (README.md:92-93), cut to a few trials of one
+# epoch: each trial a full UnsupTrainer (K7, K4tw, K8ws, K8w past T = 1) or
+# NodeTrainer (K18-K20)
+HPO_UNSUP_FLAGS = ["--dataset", "IMDBBINARY", "--total_trials", "3",
+                   "--trial_epochs", "1"]
+HPO_NODE_FLAGS = ["--pipeline", "node", "--node_dataset", "cora",
+                  "--total_trials", "2", "--trial_epochs", "1"]
+
+
+def batcher_timing(ds) -> dict:
+    """Host ms a batch of each backend of ``BatchBuilder`` at the bench's
+    shape (64 REDDIT-like graphs, batch 16, K = 8), ``StepTimer`` over
+    ``BATCHER_BATCHES`` batches after 3; the backends' batches equal but
+    for the neighborhoods (each backend's own draws)."""
+    import torch
+
+    from graph_transformer_tpu_torch.data.batching import BatchBuilder
+    from graph_transformer_tpu_torch.utils.profiling import StepTimer
+
+    out, first = {}, {}
+    for backend in ("native", "numpy"):
+        bb = BatchBuilder(ds, BATCH, K, seed=0, backend=backend)
+        timer = StepTimer(warmup=3)
+        timer.start()
+        for _ in range(BATCHER_BATCHES + 3):
+            bb.sample()
+            timer.mark()
+        out[backend] = timer.summary()
+        first[backend] = bb.build(np.arange(BATCH))
+    a, b = first["native"], first["numpy"]
+    if not torch.equal(a.x, b.x) or torch.equal(a.neigh, b.neigh):
+        fail("batch assembler: the backends' features differ or their "
+             "draws are equal")
+    print("# host batching at the bench's shape (64 graphs, batch 16, K=8, "
+          f"N_pad {BatchBuilder(ds, BATCH, K).n_pad}): "
+          + ", ".join(f"{b} {s['mean_step_ms']:.3f} ms a batch (p50 "
+                      f"{s['p50_step_ms']:.3f}, max {s['max_step_ms']:.3f})"
+                      for b, s in out.items()), flush=True)
+    return out
+
+
+def gcn_unsup_phase(ds, n=20) -> dict:
+    """The graph-level GCN baseline (``UnsupTrainer(model="gcn_unsup")``)
+    on the IMDBBINARY-like file at the README's unsup flags with H = 1,024
+    and 2 layers: ``n`` steps after 3 (``StepTimer``, each on a new batch),
+    no kernel of the port launched, the loss at the probe seeds on the
+    first batch lower after training, busy share and operations a step
+    over 5 profiled steps, the probe's mean, two 5-step runs bit for bit."""
+    import torch
+
+    from graph_transformer_tpu_torch.train.unsup_trainer import UnsupTrainer
+    from graph_transformer_tpu_torch.utils.profiling import StepTimer
+
+    cfg = unsup_config(UNSUP_FLAGS, model="gcn_unsup", num_hidden_layers=2)
+    fresh = UnsupTrainer(ds, cfg, device="cuda")
+    # every trainer's first batch
+    batch = fresh.builder.sample().to(fresh.device)
+    t = UnsupTrainer(ds, cfg, device="cuda")
+
+    def steps():
+        timer, losses = StepTimer(warmup=3), []
+        timer.start()
+        for _ in range(n + 3):
+            loss = t.train_step(t.builder.sample().to(t.device),
+                                t.next_seed())
+            timer.mark(loss)
+            losses.append(float(loss))
+        return timer, losses
+
+    (timer, losses), _, launches = run_counted(steps)
+    if any(launches.values()):
+        fail(f"gcn_unsup launched {launches}")
+    probe = check_fell("gcn_unsup", lambda tr, s: tr.loss(batch, s), fresh,
+                       t, n + 3, losses)
+    step = timer.summary(nodes_per_step=float(batch.node_mask.sum()))
+    prof = profile_busy(lambda: t.train_batches(5), 5)
+    t0 = time.perf_counter()
+    mean, std = t.evaluate()
+    probe_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        r = UnsupTrainer(ds, cfg, device="cuda")
+        loss = r.train_batches(5)
+        torch.cuda.synchronize()
+        runs.append((float(loss), [p.detach().clone()
+                                   for p in r.model.parameters()],
+                     [m.clone() for m in r.opt.mu + r.opt.nu]))
+    (la, pa, ma), (lb, pb, mb) = runs
+    if not (la == lb and all(torch.equal(a, b)
+                             for a, b in zip(pa + ma, pb + mb))):
+        fail(f"two gcn_unsup runs of 5 steps differ: losses {la} {lb}")
+    print(f"# gcn_unsup (2 layers, H={cfg.model.ff_hidden_size}, "
+          f"V={ds.num_nodes}, table {tuple(t.model.ss.weight.shape)}): "
+          f"{step['mean_step_ms']:.3f} ms a step "
+          f"(p50 {step['p50_step_ms']:.3f}; StepTimer over {n}), no kernel "
+          f"launched; probe {mean:.4f} ± {std:.4f} (random labels) in "
+          f"{probe_s:.2f} s; two runs of 5 steps equal bit for bit",
+          flush=True)
+    return {"step": step, "profile": prof, **probe, "probe_mean": mean,
+            "probe_std": std, "probe_s": probe_s}
+
+
+def orthonet_phase(mfeat_root, epochs=200) -> dict:
+    """OrthoNet fitted on the card and on the CPU from the same seed, on
+    the Laplacian of the mfeat-shaped files' first view (N = 2,000, its
+    kNN graph from ``data/multiplex.uci_mfeat``) with the six views'
+    features: the initial loss within the float32 rule of a float64 one
+    (1e-4, or twice the CPU's distance), the histories within
+    ``ORTHO_HISTORY_TOL`` of their largest value, the final losses within
+    ``ORTHO_FINAL_TOL`` relative, both fits' outputs orthogonal
+    (|YᵀY/m − I| ≤ ``ORTHO_GRAM_TOL``), the loss fallen; the card's fit
+    timed."""
+    import torch
+
+    from graph_transformer_tpu_torch.data.multiplex import uci_mfeat
+    from graph_transformer_tpu_torch.models.orthonet import OrthoNet
+
+    ds = uci_mfeat(mfeat_root)
+    x = ds.x.reshape(ds.num_nodes, -1)
+    lap = ds.lap[:, :, 0]
+    kw = dict(input_dim=x.shape[1], hidden_dim=128, output_dim=10,
+              epochs=epochs, lr=1e-3, seed=42)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = OrthoNet(**kw, device="cuda").fit(x, lap)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = OrthoNet(**kw, device="cpu").fit(x, lap)
+    cpu_s = time.perf_counter() - t0
+    mlp = OrthoNet(**kw).init_mlp()  # the fits' initial weights
+    z = x.astype(np.float64)
+    for i, layer in enumerate(mlp):
+        z = z @ layer.w.detach().double().numpy() + layer.b.detach(
+            ).double().numpy()
+        if i < len(mlp) - 1:
+            z = np.maximum(z, 0.0)
+    r = np.linalg.cholesky(z.T @ z).T
+    y = z @ (np.sqrt(ds.num_nodes) * np.linalg.inv(r))
+    loss64 = float(np.trace(y.T @ lap @ y))
+    err0 = [abs(float(h[0]) - loss64) / abs(loss64)
+            for h in (card.history, cpu.history)]
+    hist = float(np.abs(card.history - cpu.history).max()
+                 / np.abs(cpu.history).max())
+    final = abs(float(card.history[-1] - cpu.history[-1])) / abs(
+        float(cpu.history[-1]))
+    grams = []
+    for net in (card, cpu):
+        out = net.predict(x).astype(np.float64)
+        grams.append(float(np.abs(out.T @ out / ds.num_nodes
+                                  - np.eye(kw["output_dim"])).max()))
+    print(f"# OrthoNet at N={ds.num_nodes} ({x.shape[1]} features, "
+          f"{epochs} epochs): card {card_s:.2f} s, CPU {cpu_s:.2f} s; loss "
+          f"{cpu.history[0]:.2f} -> {cpu.history[-1]:.4f} (CPU), "
+          f"{card.history[-1]:.4f} (card); initial loss from float64: card "
+          f"{err0[0]:.3e}, CPU {err0[1]:.3e}; histories {hist:.3e} of their "
+          f"largest value (tol {ORTHO_HISTORY_TOL}), final losses {final:.3e}"
+          f" (tol {ORTHO_FINAL_TOL}); |YᵀY/m - I| card {grams[0]:.3e}, CPU "
+          f"{grams[1]:.3e}", flush=True)
+    if not (err0[0] <= max(1e-4, 2 * err0[1]) and hist <= ORTHO_HISTORY_TOL
+            and final <= ORTHO_FINAL_TOL and max(grams) <= ORTHO_GRAM_TOL
+            and card.history[-1] < card.history[0] / 10):
+        fail("OrthoNet: the card's fit is not the CPU's")
+    return {"card_s": card_s, "cpu_s": cpu_s, "initial_rel_err": err0,
+            "history_rel": hist, "final_rel": final, "gram_err": grams,
+            "final_loss": [float(card.history[-1]), float(cpu.history[-1])]}
+
+
+def torch_compat_phase(dev) -> dict:
+    """``nn.TransformerEncoder`` (eval, ReLU, post-norm, T = 2, D = 68,
+    ff 1,024, 9 slots of 512 neighborhoods) and the port's encoder fed its
+    converted weights (``utils/torch_compat``), both on the card: with one
+    head the port runs K9w each timestep, with two the plain attention and
+    K11 (nothing else launched); the port's output against the encoder
+    in float64 by the float32 rule (within 1e-4, or twice the float32
+    encoder's own distance)."""
+    import copy
+
+    import torch
+
+    from graph_transformer_tpu_torch.ops.attention import transformer_encoder
+    from graph_transformer_tpu_torch.utils.torch_compat import (
+        encoder_params_from_torch_encoder)
+
+    D, F, T2, S, B = 68, 1024, 2, 9, 512
+    out = {}
+    for heads, want in ((1, {"K9w": T2}), (2, {"K11": T2})):
+        torch.manual_seed(heads)
+        layer = torch.nn.TransformerEncoderLayer(D, heads, F, dropout=0.5)
+        enc = torch.nn.TransformerEncoder(
+            layer, T2, enable_nested_tensor=False).eval()
+        x = torch.randn(S, B, D)
+        with torch.no_grad():
+            ref = copy.deepcopy(enc).double()(x.double())
+        enc = enc.to(dev)
+        p = encoder_params_from_torch_encoder(enc)
+        xd = x.to(dev)
+
+        def port():
+            with torch.no_grad():
+                return transformer_encoder(
+                    p.stacked(), xd.transpose(0, 1).contiguous(), heads,
+                    rate=0.0).transpose(0, 1)
+
+        got, _, launches = run_counted(port)
+        with torch.no_grad():
+            lib = enc(xd)
+        err_k = float((got.double().cpu() - ref).abs().max())
+        err_l = float((lib.double().cpu() - ref).abs().max())
+        launches = {k: v for k, v in launches.items() if v}
+        print(f"# torch_compat, {heads} head(s): port {err_k:.3e}, "
+              f"nn.TransformerEncoder {err_l:.3e} from float64; launches "
+              f"{launches}", flush=True)
+        if launches != want:
+            fail(f"torch_compat {heads} heads: launches {launches}, "
+                 f"expected {want}")
+        if not err_k <= max(1e-4, 2 * err_l):
+            fail(f"torch_compat {heads} heads: the port's encoder is "
+                 f"{err_k:.3e} from float64, the library's {err_l:.3e}")
+        out[heads] = {"err": err_k, "library_err": err_l}
+    return out
+
+
+def hpo_run(flags, json_path, want) -> tuple:
+    """``cli.hpo.main(flags)`` on the card with each trial's launches
+    counted (every count set to 0 just before the trial and read just
+    after) and timed; fails unless every trial's launches are
+    ``want(params)``: exactly those counts (a dict), or those kernels at
+    least once each (a set), and nothing else.  Returns (trials as the JSON
+    holds them, per-trial launches and seconds)."""
+    import torch
+
+    from graph_transformer_tpu_torch.cli import hpo
+
+    real, per_trial = hpo.optimize, []
+
+    def counted(space, evaluate, **kw):
+        def trial(params):
+            t0 = time.perf_counter()
+            value, _, launches = run_counted(lambda: evaluate(params))
+            torch.cuda.synchronize()
+            per_trial.append({"params": params, "value": value,
+                              "seconds": time.perf_counter() - t0,
+                              "launches": {k: v for k, v in launches.items()
+                                           if v}})
+            return value
+
+        return real(space, trial, **kw)
+
+    hpo.optimize = counted
+    try:
+        hpo.main(flags + ["--device", "cuda", "--results_json", json_path])
+    finally:
+        hpo.optimize = real
+    for r in per_trial:
+        print(f"# hpo trial: {r['params']} value {r['value']:.5f}, "
+              f"{r['seconds']:.1f} s, launches {r['launches']}", flush=True)
+        expect, got = want(r["params"]), r["launches"]
+        if (set(got) if isinstance(expect, set) else got) != expect:
+            fail(f"hpo trial {r['params']}: launches {got}, expected "
+                 f"{expect}")
+    with open(json_path) as f:
+        return json.load(f)["trials"], per_trial
+
+
+def hpo_phases(ds, data, cora_root, root) -> dict:
+    """The README's HPO commands through ``cli.hpo.main`` on the card: the
+    unsup pipeline (``HPO_UNSUP_FLAGS``) on the IMDBBINARY-like file twice,
+    the two trial logs equal byte for byte, each trial exactly K7 a step,
+    K4tw and K8ws a step and layer, K8w (T − 1) a step and layer; the node
+    pipeline (``HPO_NODE_FLAGS``) on the Cora-shaped files, each trial on
+    K18-K20 only."""
+    steps = -(-ds.num_graphs // 4)  # an epoch in the CLI's batches of 4
+
+    def unsup_want(p):
+        k, t = p["num_hidden_layers"], p["num_timesteps"]
+        want = {"K7": steps, "K4tw": k * steps, "K8ws": k * steps}
+        if t > 1:
+            want["K8w"] = k * (t - 1) * steps
+        return want
+
+    flags = HPO_UNSUP_FLAGS + ["--data_dir", data]
+    logs, out = [], {}
+    for run in ("a", "b"):
+        path = os.path.join(root, f"hpo_unsup_{run}.json")
+        trials, per_trial = hpo_run(flags, path, unsup_want)
+        with open(path, "rb") as f:
+            logs.append(f.read())
+        out[f"unsup_{run}"] = per_trial
+    if logs[0] != logs[1]:
+        fail("two HPO runs of one seed wrote different trial logs")
+    best = max(t["accuracy"] for t in trials)
+    print(f"# hpo unsup: two runs wrote the same trial log ({len(logs[0])} "
+          f"bytes, best accuracy {best:.5f})", flush=True)
+    old = os.environ.get("GT_TPU_CITATION")
+    os.environ["GT_TPU_CITATION"] = cora_root
+    try:
+        _, out["node"] = hpo_run(HPO_NODE_FLAGS, os.path.join(
+            root, "hpo_node.json"), lambda p: {"K18", "K19", "K20"})
+    finally:
+        if old is None:
+            os.environ.pop("GT_TPU_CITATION")
+        else:
+            os.environ["GT_TPU_CITATION"] = old
+    return out
+
+
+def slice19_phases(ds_bench, unsup_root, mfeat_root, cora_root, dev) -> dict:
+    """This slice's phases: host batching's ms by backend, the GCN graph
+    baseline, OrthoNet, torch-convention weights and the HPO CLI."""
+    t0 = time.perf_counter()
+    ds, data = unsup_data(unsup_root)
+    out = {"batcher": batcher_timing(ds_bench),
+           "gcn_unsup": gcn_unsup_phase(ds),
+           "orthonet": orthonet_phase(mfeat_root),
+           "torch_compat": torch_compat_phase(dev)}
+    out["hpo"] = hpo_phases(ds, data, cora_root, unsup_root)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"# slice-19 phases: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def timed_steps(trainer, batch, edges: float) -> tuple:
     """(ms/step, edges/s) of ``train_steps(batch, STEPS)`` after WARMUP
     steps, by CUDA events; fails on a loss that is not finite, and on the
@@ -5270,6 +5619,12 @@ def main() -> int:
         os.path.join(here, "build", "multiplex"),
         os.path.join(here, "build", "node", "cora"), dev)
     errs.update(errs_m)
+    # ---- 9e. the remaining single-device modules: host batching by
+    # backend, the graph-level GCN baseline, OrthoNet, torch-convention
+    # weights and the HPO CLI's two pipelines
+    rest = slice19_phases(ds, os.path.join(here, "build", "unsup"),
+                          os.path.join(here, "build", "multiplex"),
+                          os.path.join(here, "build", "node", "cora"), dev)
 
     kernels = []
     for key, (name, source, replaces, b, f, rate) in meta.items():
@@ -5335,6 +5690,7 @@ def main() -> int:
                       "unsup": unsup,
                       "node": node,
                       "multiplex": multiplex,
+                      "slice19": rest,
                       "hash_floor": floor,
                       "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(

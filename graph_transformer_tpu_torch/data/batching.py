@@ -1,12 +1,17 @@
 """Padded graph batches as torch tensors — port of
 ``graph_transformer_tpu/data/batching.py``.
 
-Only the vectorized numpy assembly path is ported (``batching.py:147-214``),
-with ``whole_dataset_batch`` (``:238-254``);
-the C++ assembler (``native/batcher.cpp``) is later work.  Batches are built
-on the host with an explicit ``np.random.Generator`` (the same draws as the
-JAX package's numpy path for the same seed) and moved to the device with
-:meth:`GraphBatch.to`.
+Batches are built on the host and moved to the device with
+:meth:`GraphBatch.to`.  As in JAX (``batching.py:82-136``), ``backend``
+picks the assembler: ``"auto"`` (the default) and ``"native"`` take the C++
+assembler (``native/batcher.cpp``, the port's copy: one
+``rng.integers(0, 2**63 - 1)`` seed a batch, neighborhoods drawn with
+``std::mt19937_64``), ``"numpy"`` the vectorized path (``:147-214``, the
+neighborhoods drawn by the ``np.random.Generator``).  Each equals JAX's
+path of the same name array for array, so the port's default batches are
+JAX's.  Unlike JAX's ``"auto"``, a failed build of the assembler raises
+(with the compiler's message) instead of falling back to numpy, which would
+change every draw without showing it.
 
 Layout of a :class:`GraphBatch` (B graphs, padded to N_pad nodes / E_pad
 directed edges):
@@ -29,6 +34,11 @@ import numpy as np
 import torch
 
 from graph_transformer_tpu_torch.data.tu import GraphDataset
+
+
+BACKENDS = ("auto", "native", "numpy")
+_ARRAYS = ("x", "neigh", "graph_id", "node_gidx", "node_mask", "edge_src",
+           "edge_dst", "edge_mask")
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -66,7 +76,8 @@ class BatchBuilder:
     """Assembles fixed-shape :class:`GraphBatch` objects from a dataset.
 
     The padded sizes are chosen once per (dataset, batch_size) so that every
-    batch has the same shapes."""
+    batch has the same shapes; ``backend`` is ``"auto"``/``"native"`` (the
+    C++ assembler) or ``"numpy"``."""
 
     def __init__(
         self,
@@ -76,7 +87,11 @@ class BatchBuilder:
         pad_multiple: int = 128,
         seed: int = 123,
         indices: Optional[np.ndarray] = None,
+        backend: str = "auto",
     ):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}: one of "
+                             f"{', '.join(BACKENDS)}")
         self.ds = ds
         self.batch_size = int(batch_size)
         self.K = int(num_neighbors)
@@ -84,6 +99,12 @@ class BatchBuilder:
         self.indices = (
             np.arange(ds.num_graphs) if indices is None else np.asarray(indices)
         )
+        self._native = None
+        if backend != "numpy":
+            from graph_transformer_tpu_torch.native.batcher import (
+                NativeBatchAssembler)
+
+            self._native = NativeBatchAssembler(ds)
         sizes = ds.graph_num_nodes
         deg = ds.degrees.astype(np.int64)
         # per-graph directed edge counts via cumulative degree at graph bounds
@@ -108,6 +129,14 @@ class BatchBuilder:
         ds = self.ds
         rng = rng or self.rng
         g = np.asarray(graph_indices, dtype=np.int64)
+        if self._native is not None:
+            out = self._native.assemble(
+                g, self.K, self.n_pad, self.e_pad,
+                seed=int(rng.integers(0, 2**63 - 1)))
+            arrays = {k: out[k] for k in _ARRAYS}
+            arrays["labels"] = ds.labels[g].astype(np.int32)
+            return GraphBatch(**{k: torch.from_numpy(v)
+                                 for k, v in arrays.items()})
         B = len(g)
         sizes = ds.graph_num_nodes[g].astype(np.int64)
         starts = ds.graph_offsets[g]

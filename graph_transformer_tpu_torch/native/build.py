@@ -6,7 +6,8 @@ compiles each source of :data:`TARGETS` into ``build/native/`` at the root
 of the checkout (listed in ``.gitignore``), as ``lib<name>-<hash>.so``
 where ``<hash>`` covers the source and the flags: an edited source rebuilds,
 an unchanged one is reused.  Nothing is built when the package is imported;
-the wrappers call :func:`ensure` at their first use.
+the wrappers call :func:`ensure` at their first use.  A failed build raises
+with the compiler's message: no caller falls back to another path.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE.parents[1] / "build" / "native"
-TARGETS = {"log_uniform": "log_uniform.cpp"}
+TARGETS = {"log_uniform": "log_uniform.cpp", "batcher": "batcher.cpp"}
 FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 
@@ -38,7 +39,10 @@ def build(name: str, verbose: bool = True) -> str:
     cmd = ["g++", *FLAGS, str(HERE / TARGETS[name]), "-o", str(tmp)]
     if verbose:
         print("+", " ".join(cmd))
-    subprocess.run(cmd, check=True, capture_output=not verbose)
+    done = subprocess.run(cmd, capture_output=not verbose, text=True)
+    if done.returncode:
+        raise RuntimeError(f"g++ failed ({done.returncode}) building "
+                           f"{TARGETS[name]}:\n{done.stderr or ''}")
     os.replace(tmp, out)
     return str(out)
 

@@ -21,7 +21,10 @@ Paths, as the JAX trainer picks them (``unsup_trainer.py:80-101``):
   only (``:82``) and the CSR sampler elsewhere; the port takes K7 on every
   device, as its ``SupTrainer`` and the CV runners do;
 - with ``on_device_sampling`` off (``--host_sampling``) no table is built
-  and the batch's own neighborhoods are encoded.
+  and the batch's own neighborhoods are encoded;
+- ``model == "gcn_unsup"``: the GCN baseline (``models/gcn_unsup_graphs``)
+  on the batch's edges, with neither the fused path nor a neighbor table,
+  as in JAX (``:58-63``, ``:79-81``); no kernel.
 
 The dataset's tables come from ``train/sup_trainer.device_tables`` (one
 build); the CSR is built only for ``sampler_type == "neighbor"``.  The
@@ -51,6 +54,7 @@ import torch
 from graph_transformer_tpu_torch.config import ExperimentConfig
 from graph_transformer_tpu_torch.data.batching import BatchBuilder, GraphBatch
 from graph_transformer_tpu_torch.data.tu import GraphDataset
+from graph_transformer_tpu_torch.models.gcn_unsup_graphs import GCNGraphUnsup
 from graph_transformer_tpu_torch.models.u2gnn_sup import check_encoder_shapes
 from graph_transformer_tpu_torch.models.u2gnn_unsup import (
     U2GNNUnsup,
@@ -87,18 +91,16 @@ def unsup_fused_ok(cfg: ExperimentConfig) -> bool:
 class UnsupTrainer:
     def __init__(self, ds: GraphDataset, cfg: ExperimentConfig,
                  device="cuda"):
-        if cfg.model.model == "gcn_unsup":
-            raise NotImplementedError(
-                "not ported yet: model 'gcn_unsup' (ROADMAP.md Queue A, "
-                "item 8: Baselines)")
         self.ds, self.cfg = ds, cfg
         self.device = resolve_device(device)
         self.builder = BatchBuilder(
             ds, batch_size=cfg.data.batch_size,
             num_neighbors=cfg.data.num_neighbors,
             pad_multiple=cfg.data.pad_multiple, seed=cfg.data.seed)
-        self.model = U2GNNUnsup(ds.feature_dim, ds.num_nodes, cfg.model,
-                                seed=cfg.train.seed).to(self.device)
+        self.gcn = cfg.model.model == "gcn_unsup"
+        model_cls = GCNGraphUnsup if self.gcn else U2GNNUnsup
+        self.model = model_cls(ds.feature_dim, ds.num_nodes, cfg.model,
+                               seed=cfg.train.seed).to(self.device)
         self.spec = self.model.spec()
         self.opt = make_optimizer(self.model.parameters(),
                                   cfg.train.learning_rate,
@@ -106,15 +108,18 @@ class UnsupTrainer:
         self.host_sampling = not cfg.train.on_device_sampling
         table_cfg = cfg if unsup_fused_ok(cfg) else cfg.replace(
             model=dataclasses.replace(cfg.model, use_fused_sampler=False))
-        tables = device_tables(ds, table_cfg, self.device)
+        # the GCN aggregates over the batch's edges: no neighborhoods
+        tables = {} if self.gcn else device_tables(ds, table_cfg,
+                                                   self.device)
         self.fused = "tag_table" in tables
-        if not self.fused:
+        if not (self.fused or self.gcn):
             check_encoder_shapes(encoder_config(cfg.model),
                                  cfg.data.num_neighbors + 1, ds.feature_dim)
         for name, t in tables.items():
             setattr(self, f"_{name}", t)
         self.csr = (DeviceCSR.from_dataset(ds, self.device)
-                    if cfg.model.sampler_type == "neighbor" else None)
+                    if cfg.model.sampler_type == "neighbor" and not self.gcn
+                    else None)
         self.vocab_perm = None
         if cfg.model.id_symmetric:
             self.vocab_perm = torch.from_numpy(
@@ -134,6 +139,9 @@ class UnsupTrainer:
     def loss(self, batch: GraphBatch, seed: int) -> torch.Tensor:
         """The training loss of ``batch`` (on the device) for the step
         seeded ``seed``, on this trainer's path."""
+        if self.gcn:
+            return self.model.loss(batch, self.spec, seed,
+                                   vocab_perm=self.vocab_perm)
         kw = dict(csr=self.csr, vocab_perm=self.vocab_perm)
         if self.host_sampling:
             return self.model.loss(batch, self.spec, seed, **kw)

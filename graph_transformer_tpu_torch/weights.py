@@ -19,6 +19,13 @@ array).
 - ``GCNParams`` and ``GATParams``: ``gc1``, ``gc2_mu`` and ``gc2_sig``,
   each ``.w``, ``.b`` (and the GAT's ``.a``), and ``ss.weight``,
   ``ss.bias``; onto ``GCNModel.state_dict()`` or ``GATModel``'s.
+- ``GCNGraphUnsupParams``: ``layers.<i>.w``, ``layers.<i>.b``,
+  ``ss.weight``, ``ss.bias``; onto ``GCNGraphUnsup.state_dict()``.
+- OrthoNet's list of ``{"w", "b"}`` dicts: ``<i>.w``, ``<i>.b``; onto
+  ``models/orthonet.OrthoNet.mlp``'s state dict.
+- ``TransformerEncoderParams`` (one encoder, e.g. from JAX's
+  ``utils/torch_compat``): its fields; onto ``EncoderParams.state_dict()``.
+  ``MHAParams``: ``w_in``, ``b_in``, ``w_out``, ``b_out``.
 
 ``model.load_state_dict(params_from_jax(tree))`` makes both packages compute
 the same function.  Unknown keys raise.
@@ -45,9 +52,16 @@ BASELINE_KEYS = tuple(f"{layer}.{f}" for layer in BASELINE_LAYERS
 
 def tree_kind(tree: Mapping[str, np.ndarray]) -> str:
     """Which JAX parameter tree ``tree`` flattens: ``baseline`` (GCN or
-    GAT), ``unsup``, ``sup`` or ``multilayer``."""
+    GAT), ``gcn_unsup``, ``orthonet``, ``encoder`` (or MHA), ``unsup``,
+    ``sup`` or ``multilayer``."""
     if "gc1.w" in tree:
         return "baseline"
+    if "layers.0.w" in tree:
+        return "gcn_unsup"
+    if "0.w" in tree:
+        return "orthonet"
+    if "w_in" in tree:
+        return "encoder"
     if "ss.weight" in tree:
         return "unsup"
     if "head_w" in tree:
@@ -57,6 +71,15 @@ def tree_kind(tree: Mapping[str, np.ndarray]) -> str:
 
 def _known(key: str, kind: str) -> bool:
     parts = key.split(".")
+    if kind == "gcn_unsup":
+        return key in UNSUP_KEYS or (
+            len(parts) == 3 and parts[0] == "layers" and parts[1].isdigit()
+            and parts[2] in ("w", "b"))
+    if kind == "orthonet":
+        return (len(parts) == 2 and parts[0].isdigit()
+                and parts[1] in ("w", "b"))
+    if kind == "encoder":
+        return key in FIELDS
     if kind == "baseline":
         return key in UNSUP_KEYS or (
             len(parts) == 2 and parts[0] in BASELINE_LAYERS
@@ -77,7 +100,9 @@ def _known(key: str, kind: str) -> bool:
 
 
 REQUIRED = {"sup": SUP_KEYS, "unsup": UNSUP_KEYS,
-            "multilayer": MULTILAYER_KEYS, "baseline": BASELINE_KEYS}
+            "multilayer": MULTILAYER_KEYS, "baseline": BASELINE_KEYS,
+            "gcn_unsup": ("layers.0.w", "layers.0.b") + UNSUP_KEYS,
+            "orthonet": ("0.w", "0.b"), "encoder": MHA_FIELDS}
 
 
 def params_from_jax(tree: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -3,7 +3,8 @@ loaders, array for array: karate (the port's constants against networkx's
 graph), the SBM generator, a Planetoid fixture written as
 ``tests/test_planetoid_loader.py`` writes it (with Citeseer's missing test
 rows), PPI, npz and ``from_arrays``; ``dense_adj`` and its size guard;
-``whole_dataset_batch`` (JAX's builder on its numpy path); the multiplex
+``whole_dataset_batch`` (both packages' default builders, their C++
+assemblers); the multiplex
 bridge raising until its port."""
 
 import numpy as np
@@ -14,6 +15,7 @@ from graph_transformer_tpu.data import citation as jcit
 from graph_transformer_tpu_torch.data import batching as tbatching
 from graph_transformer_tpu_torch.data import citation as tcit
 from test_planetoid_loader import _write_fixture, _write_ppi_fixture
+from test_torch_batcher import jax_assembler
 
 GRAPH_FIELDS = ("node_feat", "nbr_offsets", "nbr_ids", "graph_offsets",
                 "labels")
@@ -99,15 +101,9 @@ def test_dense_adj_and_its_guard():
     np.testing.assert_array_equal(ma.adj[:, :, 0], mb.adj[:, :, 0])
 
 
-def test_whole_dataset_batch_equals_jax(monkeypatch):
-    """JAX's builder on its numpy path (the C++ assembler draws other
-    neighborhoods), as ``tests/test_torch_tenfold.py`` puts it."""
-    import graph_transformer_tpu.native.batcher as jax_native
-
-    def refuse(*a, **k):
-        raise RuntimeError("numpy path")
-
-    monkeypatch.setattr(jax_native, "NativeBatchAssembler", refuse)
+def test_whole_dataset_batch_equals_jax():
+    """Both packages' default builders, which take their C++ assemblers."""
+    jax_assembler()
     ds = tcit.sbm_synthetic(num_nodes=60, seed=1)
     t = tbatching.whole_dataset_batch(ds.graph, 4, pad_multiple=32, seed=9)
     j = jbatching.whole_dataset_batch(jcit.sbm_synthetic(

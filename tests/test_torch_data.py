@@ -56,7 +56,8 @@ def test_batch_builder_equal():
     dj, dt = jax_synthetic("S", **kw), synthetic_powerlaw_dataset("S", **kw)
     bj = JaxBuilder(dj, batch_size=4, num_neighbors=8, seed=5,
                     backend="numpy")
-    bt = BatchBuilder(dt, batch_size=4, num_neighbors=8, seed=5)
+    bt = BatchBuilder(dt, batch_size=4, num_neighbors=8, seed=5,
+                      backend="numpy")
     assert (bj.n_pad, bj.e_pad) == (bt.n_pad, bt.e_pad)
     pairs = [(bj.build([0, 1, 2, 3]), bt.build([0, 1, 2, 3])),
              (bj.sample(), bt.sample()), (bj.sample(), bt.sample())]

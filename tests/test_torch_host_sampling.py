@@ -86,7 +86,7 @@ def test_host_sampled_forward_matches_jax(k, monkeypatch):
     dj, dt, jm, jp, tm = models(k, seed=k)
     graphs = [1, 3, 5, 6]
     bj = JaxBuilder(dj, 4, K, seed=4, backend="numpy").build(graphs)
-    bt = BatchBuilder(dt, 4, K, seed=4).build(graphs)
+    bt = BatchBuilder(dt, 4, K, seed=4, backend="numpy").build(graphs)
     np.testing.assert_array_equal(np.asarray(bj.neigh), bt.neigh.numpy())
     C = dt.num_classes
 

@@ -1,4 +1,5 @@
-"""The PyTorch port stands alone: no module of it, and neither chip_smoke.py
+"""The PyTorch port stands alone: no module of it (the HPO harness, a numpy
+module, included), and neither chip_smoke.py
 nor scripts/torch_wide_probe.py, torch_determinism_probe.py,
 torch_node_phases.py or torch_k18_variants.py, imports jax,
 jaxlib or the JAX package, nor sklearn, pandas or networkx (the card's
@@ -15,10 +16,16 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "graph_transformer_tpu"}
 NOT_ON_CARD = {"sklearn", "networkx", "pandas"}
-# the modules of the multiplex pipeline and the node baselines
+# the modules of the multiplex pipeline and the node baselines; the batch
+# assembler, profiling, prefetch, torch-convention weights, the graph-level
+# GCN baseline, OrthoNet and the HPO harness and CLI
 NEW_MODULES = ("data/multiplex.py", "models/multilayer.py", "models/gcn.py",
                "models/gat.py", "train/ml_node_trainer.py",
-               "utils/laplacian.py", "cli/node_classification.py")
+               "utils/laplacian.py", "cli/node_classification.py",
+               "native/batcher.py", "utils/profiling.py",
+               "train/prefetch.py", "utils/torch_compat.py",
+               "models/gcn_unsup_graphs.py", "models/orthonet.py",
+               "exp/__init__.py", "exp/hpo.py", "cli/hpo.py")
 FILES = sorted(ROOT.glob("graph_transformer_tpu_torch/**/*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_wide_probe.py",
     ROOT / "scripts" / "torch_determinism_probe.py",
@@ -79,14 +86,18 @@ def test_import_builds_nothing():
     assert int(out.stdout.split()[-1]) > 15
 
 
-def test_native_loader_resolves_under_build():
-    """The port's native sampler loads its own build under ``build/``
-    (``native/build.py``), never the JAX package's library."""
+@pytest.mark.parametrize("name,binding", [
+    ("log_uniform", "log_uniform_native.py"), ("batcher", "batcher.py")])
+def test_native_loader_resolves_under_build(name, binding):
+    """The port's native sampler and batch assembler load their own builds
+    under ``build/`` (``native/build.py``), never the JAX package's
+    libraries, and the port keeps its own copy of each C++ source."""
     from graph_transformer_tpu_torch.native import build
 
-    path = build.lib_path("log_uniform")
+    path = build.lib_path(name)
     assert path.is_relative_to(ROOT / "build" / "native")
     assert "graph_transformer_tpu/native" not in str(path)
-    src = (ROOT / "graph_transformer_tpu_torch" / "native"
-           / "log_uniform_native.py").read_text()
+    native = ROOT / "graph_transformer_tpu_torch" / "native"
+    assert (native / build.TARGETS[name]).is_file()
+    src = (native / binding).read_text()
     assert "graph_transformer_tpu_torch.native.build import ensure" in src

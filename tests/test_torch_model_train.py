@@ -84,7 +84,7 @@ def models(seed=0):
 def test_eval_scores_match_jax():
     dj, dt, jm, jp, tm = models()
     bj = JaxBuilder(dj, 4, K, seed=3, backend="numpy").build([0, 1, 2, 3])
-    bt = BatchBuilder(dt, 4, K, seed=3).build([0, 1, 2, 3])
+    bt = BatchBuilder(dt, 4, K, seed=3, backend="numpy").build([0, 1, 2, 3])
     ref = jm.apply(jp, bj, rng=None)
     got = tm(bt)
     assert got.shape == (4, dt.num_classes)

@@ -57,6 +57,7 @@ from graph_transformer_tpu_torch.train.node_trainer import (
     train_evaluate_node,
 )
 from graph_transformer_tpu_torch.weights import params_from_jax
+from test_torch_batcher import jax_assembler
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
@@ -109,8 +110,9 @@ def setup(seed, **kw):
     tm = U2GNNUnsup(dt.feature_dim, dt.num_nodes, ModelConfig(**mk),
                     "cross_attention")
     tm.load_state_dict(params_from_jax(flatten_jax(jp)))
+    jax_assembler()
     bj = JaxBuilder(dj.graph, 1, K, pad_multiple=32, seed=4,
-                    backend="numpy").build(np.arange(1))
+                    backend="native").build(np.arange(1))
     bt = whole_dataset_batch(dt.graph, K, pad_multiple=32, seed=4)
     np.testing.assert_array_equal(np.asarray(bj.neigh), bt.neigh.numpy())
     assert bt.n_pad == 64 and dt.feature_dim == D_WIDE

@@ -404,7 +404,7 @@ def test_model_matches_jax(case):
     assert tm.encoders[0].w_in.shape[0] == 1
     graphs = [4, 5, 6, 7]
     bj = JaxBuilder(dj, 4, K, seed=3, backend="numpy").build(graphs)
-    bt = BatchBuilder(dt, 4, K, seed=3).build(graphs)
+    bt = BatchBuilder(dt, 4, K, seed=3, backend="numpy").build(graphs)
     table = torch.from_numpy(build_neighbor_table(dt, hub_seed=0))
     gidx = bt.node_gidx
     neigh_g = sample_neighbors(99, table[gidx.long()],

@@ -18,6 +18,7 @@ The JAX side's batch builders take their numpy path (the C++ assembler is
 switched off), the port's only path, so that both draw the same batches."""
 
 import dataclasses
+import functools
 import re
 import sys
 from pathlib import Path
@@ -46,12 +47,14 @@ from graph_transformer_tpu_torch.config import (
     ModelConfig,
     TrainConfig,
 )
+from graph_transformer_tpu_torch.data import batching as tbatching
 from graph_transformer_tpu_torch.data.splits import stratified_kfold_indices
 from graph_transformer_tpu_torch.data.tu import (
     load_tu_dataset,
     synthetic_powerlaw_dataset,
 )
 from graph_transformer_tpu_torch.models import u2gnn_sup
+from graph_transformer_tpu_torch.train import sup_trainer
 from graph_transformer_tpu_torch.train.optim import plateau_lr_step
 from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
 from graph_transformer_tpu_torch.train.tenfold_vmap import (
@@ -66,11 +69,14 @@ import chip_smoke  # noqa: E402
 
 @pytest.fixture
 def numpy_builders(monkeypatch):
-    """JAX's ``BatchBuilder`` on its numpy path, the port's."""
+    """Both packages' ``BatchBuilder`` on its numpy path: JAX's finds no
+    C++ assembler, the port's trainers ask for ``backend="numpy"``."""
     def refuse(ds):
         raise RuntimeError("the C++ assembler is off in this test")
 
     monkeypatch.setattr(jax_native, "NativeBatchAssembler", refuse)
+    monkeypatch.setattr(sup_trainer, "BatchBuilder", functools.partial(
+        tbatching.BatchBuilder, backend="numpy"))
 
 
 def small():

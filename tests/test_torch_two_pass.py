@@ -223,7 +223,7 @@ def test_two_layer_model_matches_jax(dtype, route):
     dj, dt, jm, jp, tm = two_layer_models(2, seed=1, dtype=dtype)
     graphs = [4, 5, 6, 7]
     bj = JaxBuilder(dj, 4, K, seed=3, backend="numpy").build(graphs)
-    bt = BatchBuilder(dt, 4, K, seed=3).build(graphs)
+    bt = BatchBuilder(dt, 4, K, seed=3, backend="numpy").build(graphs)
     table = torch.from_numpy(build_neighbor_table(dt, hub_seed=0))
     gidx = bt.node_gidx
     deg = torch.from_numpy(dt.degrees.astype(np.int32))

@@ -82,7 +82,8 @@ def setup(k, head, seed=0, **model_kw):
     tm.load_state_dict(params_from_jax(flatten_jax(jp)))
     graphs = np.arange(dj.num_graphs)
     bj = JaxBuilder(dj, len(graphs), K, seed=4, backend="numpy").build(graphs)
-    bt = BatchBuilder(dt, len(graphs), K, seed=4).build(graphs)
+    bt = BatchBuilder(dt, len(graphs), K, seed=4,
+                      backend="numpy").build(graphs)
     np.testing.assert_array_equal(np.asarray(bj.neigh), bt.neigh.numpy())
     assert bt.n_pad >= dt.num_nodes
     return dj, dt, jm, jp, tm, bj, bt

@@ -6,6 +6,7 @@ config, its accuracy file, ``--resume`` against a straight run, and both
 CLIs' best means on a file with learnable labels."""
 
 import dataclasses
+import functools
 import json
 import re
 import sys
@@ -26,9 +27,10 @@ from graph_transformer_tpu_torch.config import (
     ModelConfig,
     TrainConfig,
 )
+from graph_transformer_tpu_torch.data import batching as tbatching
 from graph_transformer_tpu_torch.data.splits import stratified_kfold_indices
 from graph_transformer_tpu_torch.data.tu import synthetic_powerlaw_dataset
-from graph_transformer_tpu_torch.train import evaluate
+from graph_transformer_tpu_torch.train import evaluate, unsup_trainer
 from graph_transformer_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -71,8 +73,12 @@ def small_ds():
 @pytest.mark.parametrize("model", [
     {}, dict(num_hidden_layers=2, sampled_softmax_mode="reference"),
     dict(id_symmetric=True), dict(sampler_type="neighbor")])
-def test_trainer_loss_falls(model):
-    """Finite epoch losses, the last below the first; a probe in [0, 1]."""
+def test_trainer_loss_falls(model, numpy_builders):
+    """Finite epoch losses, the last below the first; a probe in [0, 1].
+    On the numpy builders' draws, as the test was set: an epoch's loss sums
+    six random subsets of graphs of unequal sizes, and on the C++
+    assembler's draws JAX's own trainer reads a last epoch above the first
+    in each of the first three models (e.g. 858.9, 692.0, 747.1, 887.5)."""
     out = train_evaluate_unsup(small_ds(), small_cfg(**model),
                                log_fn=lambda s: None, device="cpu")
     losses = [h["loss"] for h in out["history"]]
@@ -91,8 +97,9 @@ def test_trainer_paths_and_refusals():
         on_device_sampling=False)), device="cpu")
     assert host.host_sampling and not hasattr(host, "_nbr_table")
     assert np.isfinite(host.train_epoch())
-    with pytest.raises(NotImplementedError, match="item 8: Baselines"):
-        UnsupTrainer(ds, small_cfg(model="gcn_unsup"), device="cpu")
+    gcn = UnsupTrainer(ds, small_cfg(model="gcn_unsup"), device="cpu")
+    assert gcn.gcn and not hasattr(gcn, "_nbr_table") and gcn.csr is None
+    assert np.isfinite(gcn.train_epoch())
     t = UnsupTrainer(ds, small_cfg(id_symmetric=True), device="cpu")
     want = np.random.default_rng(123 + 7).permutation(ds.num_nodes)
     np.testing.assert_array_equal(t.vocab_perm.numpy(), want)
@@ -286,11 +293,14 @@ def test_resume_equals_straight_run(tmp_path, capsys):
 
 @pytest.fixture
 def numpy_builders(monkeypatch):
-    """JAX's ``BatchBuilder`` on its numpy path, the port's."""
+    """Both packages' ``BatchBuilder`` on its numpy path: JAX's finds no
+    C++ assembler, the port's trainers ask for ``backend="numpy"``."""
     def refuse(ds):
         raise RuntimeError("the C++ assembler is off in this test")
 
     monkeypatch.setattr(jax_native, "NativeBatchAssembler", refuse)
+    monkeypatch.setattr(unsup_trainer, "BatchBuilder", functools.partial(
+        tbatching.BatchBuilder, backend="numpy"))
 
 
 # the flags of chip_smoke's unsup accuracy phase, on its PTC-like file

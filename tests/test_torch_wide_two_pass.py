@@ -234,7 +234,7 @@ def test_wide_two_layer_model_matches_jax(dtype):
     tm.load_state_dict(params_from_jax(flatten_jax(jp)))
     graphs = [0, 1, 2, 3]
     bj = JaxBuilder(dj, 4, K, seed=3, backend="numpy").build(graphs)
-    bt = BatchBuilder(dt, 4, K, seed=3).build(graphs)
+    bt = BatchBuilder(dt, 4, K, seed=3, backend="numpy").build(graphs)
     table = torch.from_numpy(build_neighbor_table(dt, hub_seed=0))
     gidx = bt.node_gidx
     neigh_g = sample_neighbors(99, table[gidx.long()],
