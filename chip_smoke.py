@@ -97,13 +97,14 @@
    (batch 4, ff 1024, K=16, T=3, float32; two-pass: K7, K4t, K8s, 2 x K8 a
    step, K4 at evaluation, and nothing else): ``cli.tenfold.main`` for 2
    epochs (fails unless the mean of the folds' best accuracies is at least
-   0.75 and every loss is finite); ``TenfoldVmapRunner`` against a
-   ``SupTrainer`` a fold on 3 folds x 2 epochs, equal bit for bit;
-   ``run_cv_on_device`` on 2 folds x 4 epochs in chunks of 2, killed after
-   its first snapshot and resumed under ``run_cv_elastic``, equal bit for
-   bit to the uninterrupted run, with its device busy share beside the
-   sequential runner's; ``cli.train_sup`` with ``--checkpoint_every 1``
-   resumed, equal to a straight run (``cv_phases``).
+   0.75 and every loss is finite); ``TenfoldVmapRunner`` (section 9f's
+   unsharded run: 10 folds, 2 epochs) against the CLI's ``SupTrainer`` a
+   fold, each epoch equal bit for bit; ``run_cv_on_device`` on 2
+   folds x 2 epochs in chunks of 1, killed after its first snapshot and
+   resumed under ``run_cv_elastic``, equal bit for bit to the
+   uninterrupted run, with its device busy share beside the sequential
+   runner's; ``cli.train_sup`` with ``--checkpoint_every 1`` resumed,
+   equal to a straight run (``cv_phases``).
 9. Drives the unsupervised path (``unsup_phases``), after the kernel
    timings and before item 8's phases: on an IMDBBINARY-like
    file at the README's unsup width (batch 2, K=8, T=1, ff 1024, 512
@@ -172,10 +173,30 @@
    ``nn.TransformerEncoder`` against the port's encoder fed its converted
    weights (``utils/torch_compat``) on the card (K9w with one head, the
    plain attention and K11 with two) by the float32 rule; the README's HPO
-   commands through ``cli.hpo.main``: 3 unsup trials of 1 epoch on the
+   commands through ``cli.hpo.main``: 2 unsup trials of 1 epoch on the
    IMDBBINARY-like file twice (each trial's launches exactly K7, K4tw,
    K8ws and K8w by its arm; the two trial logs equal byte for byte) and 2
    node trials on the Cora-shaped files (K18-K20 only).
+9f. Drives the parallel layer (``parallel_phases``; ``parallel/dryrun.py``'s
+   four regimes): (a) ``dryrun_multichip(1, "nccl", "cuda")`` in this
+   process, NCCL at world size 1 — regime 1 (U2GNNSup's batch sharded by
+   node ranges, the FFN leaves over ``model``) at the bench's shapes in
+   float32 at rate 0 against the model's own pass, then a bf16 step at rate
+   0.5; regime 2 (the node-partitioned halo step) on the Cora-shaped files
+   at K = 4, T = 1, ff 1024, two layers, 512 candidates against the step
+   without a group; regime 3 (the overlapped halo step on the edge-balanced,
+   padded partition) against the masked blocking one; regime 4 (the folds
+   over ranks) unsharded on the PTC-like file, 10 folds, 2 epochs — then the
+   group destroyed; (b) one job of 4 ranks over gloo sharing cuda:0 that
+   load the kernels built here (regime 1 on a (2, 2) mesh, 2-3 on 4 node
+   ranges, 4 on 2 ranks with 5 folds each), held to (a): losses within
+   1e-5 relative, every gradient leaf at cosine > 0.999 and relative L2
+   1e-4, each overlapped row equal bit for bit to the blocking one and
+   the gradients within relative L2 1e-5, the folds' 2 epochs bit for
+   bit, every regime's launches a step exact on every rank (K4t, K8s, 3
+   K8; K18 32, K19 6, K20 10; twice that overlapped; K7, K4t, K8s, 2 K8 a
+   step and K4 an eval batch); each rank's ms a step blocking and
+   overlapped, one card shared by 4 ranks (not gated).
 10. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
@@ -2297,37 +2318,9 @@ PER_LAYER_WANT = {"act": ("K7", "K9", "K10"), "node": ("K7", "K11", "K12")}
 
 def launch_counters():
     """Every kernel wrapper's launch counter, by kernel."""
-    from graph_transformer_tpu_torch.ops import encoder_layer as el
-    from graph_transformer_tpu_torch.ops import ffn
-    from graph_transformer_tpu_torch.ops import folded_encoder as fe
-    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
-    from graph_transformer_tpu_torch.ops import rows_encoder as re
-    from graph_transformer_tpu_torch.ops import sampled_encoder as se
-    from graph_transformer_tpu_torch.ops import stored_encoder as st
-    from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
-    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
-    from graph_transformer_tpu_torch.sampling import neighbor_table as nt
+    from graph_transformer_tpu_torch.utils.profiling import kernel_counters
 
-    return {"K1": se.sampled_forward, "K2": se.layer_backward,
-            "K3": se.slot0_backward, "K4": ue.u2gnn_encoder,
-            "K4w": ue.wide_encoder, "K5": st.stored_forward,
-            "K6": st.stored_layer_backward, "K6s": st.stored_slot0_backward,
-            "K7": nt.sample_neighborhoods, "K4t": ue.u2gnn_encoder_train,
-            "K8": ut.layer_recompute_backward,
-            "K8s": ut.slot0_recompute_backward,
-            "K9": el.encoder_layer_forward, "K10": el.encoder_layer_backward,
-            "K11": ffn.ffn_forward, "K12": ffn.ffn_backward,
-            "K4tw": ue.wide_encoder_train,
-            "K8w": ut.wide_layer_recompute_backward,
-            "K8ws": ut.wide_slot0_recompute_backward,
-            "K9w": el.wide_encoder_layer_forward,
-            "K10w": el.wide_encoder_layer_backward,
-            "K13": fs.fused_sampled_forward,
-            "K14": ut.mega_recompute_backward,
-            "K14w": ut.wide_mega_recompute_backward,
-            "K15": fe.folded_stored_forward, "K16": fe.folded_forward,
-            "K17": st.stored_rows_forward, "K18": re.K18, "K19": re.K19,
-            "K20": re.K20}
+    return kernel_counters()
 
 
 def describe(label, ds) -> None:
@@ -2496,6 +2489,9 @@ TENFOLD_FLAGS = ["--dataset", "PTC", "--batch_size", "4",
                  "--num_timesteps", "3", "--learning_rate", "0.0005",
                  "--scan_epochs"]
 CV_MIN_MEAN = 0.75  # a label-blind model reads about 0.5
+# the on-device CV killed after its first snapshot and resumed: 2 epochs in
+# chunks of 1
+CV_RESUME_EPOCHS = 2
 CV_KERNELS = ("K7", "K4t", "K8s", "K8", "K4")
 
 
@@ -2616,7 +2612,13 @@ def cv_cli(ds, data) -> dict:
     class Recording(tenfold.SupTrainer):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
+            self.accs = []
             trainers.append(self)
+
+        def evaluate(self, indices=None):
+            acc = super().evaluate(indices)
+            self.accs.append(acc)
+            return acc
 
     counters = launch_counters()
     for c in counters.values():
@@ -2648,65 +2650,44 @@ def cv_cli(ds, data) -> dict:
           f"{secs / 2:.2f} s per CV epoch of 10 folds, {secs * 1e3 / steps:.3f}"
           f" ms a step with evaluation and set-up", flush=True)
     return {"mean": mean, "std": std, "s": secs, "steps": steps,
-            "launches": launches}
+            "launches": launches,
+            "epochs": [(t.epoch_losses, t.accs, t.num_batches_per_epoch)
+                       for t in trainers]}
 
 
-def cv_runners(ds) -> dict:
+def cv_runners(cli: dict, r4: dict) -> dict:
     """``TenfoldVmapRunner`` (the CLI's ``--vmap_folds``) against a
-    ``SupTrainer`` a fold, the CLI's default loop, on 3 folds x 2 epochs
-    at the README's 10-fold width: every epoch loss and best accuracy
-    equal bit for bit for each fold whose batch count is the runner's
-    ``steps_per_epoch`` (the check that two runs repeat on the card).
-    Returns each runner's seconds an epoch."""
-    import torch
-
-    from graph_transformer_tpu_torch.data.splits import (
-        stratified_kfold_indices)
-    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
-    from graph_transformer_tpu_torch.train.tenfold_vmap import (
-        TenfoldVmapRunner)
-
-    cfg = cv_config(2)
-    folds = stratified_kfold_indices(ds.labels, 10, seed=0)[:3]
-    runner = TenfoldVmapRunner(ds, cfg, folds=folds, device="cuda")
-    vm, best, t_vm = [], np.zeros(len(folds)), 0.0
-    for _ in range(2):
-        t0 = time.perf_counter()
-        vm.append(runner.train_epoch())
-        best = np.maximum(best, runner.evaluate())
-        t_vm += time.perf_counter() - t0
-    seq, t_seq, compared = [], 0.0, 0
-    for f, (tr, te) in enumerate(folds):
-        t = SupTrainer(ds, cfg, tr, te, device="cuda")
-        losses, b = [], 0.0
-        for _ in range(2):
-            t0 = time.perf_counter()
-            losses.append(t.train_epoch())
-            b = max(b, t.evaluate())
-            torch.cuda.synchronize()
-            t_seq += time.perf_counter() - t0
-        seq.append((losses, b))
-        if t.num_batches_per_epoch != runner.steps_per_epoch:
+    ``SupTrainer`` a fold, the CLI's default loop, at the README's 10-fold
+    width, on runs already made: the runner is section 9f's unsharded
+    reference (10 folds, 2 epochs), the trainers are :func:`cv_cli`'s (2
+    epochs).  Each epoch's loss and accuracy are equal bit for bit for each
+    fold whose batch count is the runner's ``steps_per_epoch`` (the check
+    that two runs repeat on the card, Adam's state carried across an
+    epoch).  Returns the runner's seconds an epoch."""
+    spe, epochs = r4["steps_per_epoch"], len(r4["losses"])
+    compared = 0
+    for f, (losses, accs, batches) in enumerate(cli["epochs"]):
+        if batches != spe:
             continue
         compared += 1
-        got = [float(v[f]) for v in vm]
-        if got != losses or float(best[f]) != b:
-            fail(f"fold {f}: runner losses {got}, best {best[f]} against "
-                 f"sequential {losses}, {b}")
+        got = ([float(v) for v in r4["losses"][:, f]],
+               [float(v) for v in r4["accs"][:, f]])
+        if got != (losses[:epochs], accs[:epochs]):
+            fail(f"fold {f}: runner losses and accuracies {got} against the "
+                 f"sequential trainer's {(losses, accs)}")
     if not compared:
         fail("no fold has the runner's steps_per_epoch")
-    steps = 2 * len(folds) * runner.steps_per_epoch
-    print(f"# runners on {len(folds)} folds x 2 epochs: {compared} folds "
-          f"equal bit for bit; fold-looped {t_vm / 2:.2f} s an epoch "
-          f"({t_vm * 1e3 / steps:.3f} ms a step), sequential "
-          f"{t_seq / 2:.2f} s an epoch; runner losses "
-          f"{np.stack(vm).T.tolist()}, best {best.tolist()}", flush=True)
-    return {"vmap_s_epoch": t_vm / 2, "seq_s_epoch": t_seq / 2,
-            "folds": len(folds), "compared": compared}
+    folds = len(cli["epochs"])
+    s_epoch = r4["s"] / epochs
+    print(f"# runners on {folds} folds x {epochs} epochs: {compared} folds "
+          f"equal bit for bit; fold-looped {s_epoch:.2f} s an epoch with "
+          f"set-up ({s_epoch * 1e3 / (folds * spe):.3f} ms a step), "
+          f"sequential {cli['s'] / 2:.2f} s an epoch (the CLI's)", flush=True)
+    return {"vmap_s_epoch": s_epoch, "folds": folds, "compared": compared}
 
 
 def cv_on_device_resume(ds, root) -> dict:
-    """``run_cv_on_device`` on 2 folds x 4 epochs in chunks of 2, once
+    """``run_cv_on_device`` on 2 folds x 2 epochs in chunks of 1, once
     uninterrupted (launch counts as :func:`check_cv_launches`), once killed
     right after its first snapshot and resumed under ``run_cv_elastic``:
     best accuracies, epoch losses and epoch accuracies equal bit for bit.
@@ -2722,7 +2703,7 @@ def cv_on_device_resume(ds, root) -> dict:
     from graph_transformer_tpu_torch.train.elastic import run_cv_elastic
     from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
 
-    cfg = cv_config(4)
+    cfg = cv_config(CV_RESUME_EPOCHS)
     folds = stratified_kfold_indices(ds.labels, 10, seed=0)[:2]
     steps = max(-(-len(tr) // 4) for tr, _ in folds)
     counters = launch_counters()
@@ -2731,11 +2712,12 @@ def cv_on_device_resume(ds, root) -> dict:
     t0 = time.perf_counter()
     ref = cv_ondevice.run_cv_on_device(ds, cfg, folds=folds,
                                        return_history=True,
-                                       epochs_per_dispatch=2, device="cuda")
+                                       epochs_per_dispatch=1, device="cuda")
     secs = time.perf_counter() - t0
     launches = {k: c.launches for k, c in counters.items()}
-    check_cv_launches("on-device CV", launches, 4 * len(folds) * steps,
-                      4 * sum(-(-len(te) // 4) for _, te in folds), 3)
+    E = CV_RESUME_EPOCHS
+    check_cv_launches("on-device CV", launches, E * len(folds) * steps,
+                      E * sum(-(-len(te) // 4) for _, te in folds), 3)
     if not np.all(np.isfinite(ref[3])):
         fail(f"on-device CV losses {ref[3]}")
 
@@ -2752,7 +2734,7 @@ def cv_on_device_resume(ds, root) -> dict:
     cv_ondevice.save_checkpoint = save_then_die
     try:
         res = run_cv_elastic(ds, cfg, ckpt, folds=folds, return_history=True,
-                             epochs_per_dispatch=2, device="cuda",
+                             epochs_per_dispatch=1, device="cuda",
                              max_restarts=2,
                              retryable=(Preempted,),
                              on_failure=lambda a, e: attempts.append(a))
@@ -2765,8 +2747,8 @@ def cv_on_device_resume(ds, root) -> dict:
         if not np.array_equal(ref[i], res[i]):
             fail(f"on-device CV resumed: {name} {res[i]} against the "
                  f"uninterrupted {ref[i]}")
-    print(f"# on-device CV, 2 folds x 4 epochs: {secs:.1f} s, {secs / 4:.2f} s"
-          f" an epoch ({secs * 1e3 / (4 * len(folds) * steps):.3f} ms a step "
+    print(f"# on-device CV, 2 folds x {E} epochs: {secs:.1f} s, {secs / E:.2f}"
+          f" s an epoch ({secs * 1e3 / (E * len(folds) * steps):.3f} ms a step "
           f"with set-up); killed after its first snapshot and resumed: equal "
           f"bit for bit (best {ref[0].tolist()}, losses {ref[3].tolist()})",
           flush=True)
@@ -2787,7 +2769,7 @@ def cv_on_device_resume(ds, root) -> dict:
     print("# sequential runner, 1 epoch of 20 steps:", flush=True)
     busy_seq = profile_busy(sequential, 20, start_at="gt_sample")
     torch.cuda.synchronize()
-    return {"s_epoch": secs / 4, "busy": busy_dev, "busy_seq": busy_seq}
+    return {"s_epoch": secs / E, "busy": busy_dev, "busy_seq": busy_seq}
 
 
 def train_sup_resume(data, root) -> None:
@@ -2832,14 +2814,15 @@ def train_sup_resume(data, root) -> None:
              "straight run's")
 
 
-def cv_phases(ds, data, root) -> dict:
+def cv_phases(ds, data, root, r4) -> dict:
     """Slice 14's phases on the PTC-like dataset ``ds`` with learnable
     labels (written to ``data``), each timed: the 10-fold CLI, the
-    fold-looped runner against the sequential one, the on-device CV's
-    resume, and ``cli.train_sup``'s resume."""
+    fold-looped runner (section 9f's unsharded run ``r4``) against the
+    CLI's sequential trainers, the on-device CV's resume, and
+    ``cli.train_sup``'s resume."""
     out = {}
     for name, fn in (("cli", lambda: cv_cli(ds, data)),
-                     ("runners", lambda: cv_runners(ds)),
+                     ("runners", lambda: cv_runners(out["cli"], r4)),
                      ("on_device", lambda: cv_on_device_resume(ds, root)),
                      ("train_sup", lambda: train_sup_resume(data, root))):
         t0 = time.perf_counter()
@@ -4313,7 +4296,7 @@ ORTHO_HISTORY_TOL, ORTHO_FINAL_TOL, ORTHO_GRAM_TOL = 1e-3, 0.05, 1e-3
 # the README's HPO commands (README.md:92-93), cut to a few trials of one
 # epoch: each trial a full UnsupTrainer (K7, K4tw, K8ws, K8w past T = 1) or
 # NodeTrainer (K18-K20)
-HPO_UNSUP_FLAGS = ["--dataset", "IMDBBINARY", "--total_trials", "3",
+HPO_UNSUP_FLAGS = ["--dataset", "IMDBBINARY", "--total_trials", "2",
                    "--trial_epochs", "1"]
 HPO_NODE_FLAGS = ["--pipeline", "node", "--node_dataset", "cora",
                   "--total_trials", "2", "--trial_epochs", "1"]
@@ -4630,6 +4613,186 @@ def slice19_phases(ds_bench, unsup_root, mfeat_root, cora_root, dev) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"# slice-19 phases: {out['seconds']:.1f} s", flush=True)
     return out
+
+
+# ---------------------------------------------------- the parallel layer
+# section 9f: the four regimes of parallel/dryrun.py at real widths, in NCCL
+# at world size 1 in this process, then in PAR_RANKS spawned ranks over gloo
+# that share cuda:0 (one card: NCCL takes one rank a device)
+PAR_RANKS = 4
+PAR_TIMEOUT_S = 300
+# regimes 2-3 on the Cora-shaped files: the node CLI's K = 4, T = 1, ff 1024,
+# 512 candidates, float32; two U2GNN layers, as JAX's dry run
+HALO_K, HALO_LAYERS, HALO_T, HALO_CANDIDATES = 4, 2, 1, 512
+HALO_TIMED_STEPS = 3
+# a U2GNN layer's per-layer encoder past D = 128 at T = 1 (every row out):
+# forward K18 4, K19 1, K20 2; backward K18 12, K19 2, K20 3
+# (ops/rows_encoder.py)
+ROWS_LAYER_LAUNCHES = {"K18": 16, "K19": 3, "K20": 5}
+
+
+def halo_neighborhoods(g, K, seed) -> np.ndarray:
+    """[N, K+1] neighborhoods of one graph: self, then K neighbors drawn
+    with replacement from each node's edges (self where it has none)."""
+    rng = np.random.default_rng(seed)
+    n = g.num_nodes
+    deg = g.degrees.astype(np.int64)
+    pick = rng.integers(0, np.maximum(deg, 1)[:, None], size=(n, K))
+    nbr = g.nbr_ids[g.nbr_offsets[:n, None] + pick]
+    nbr = np.where(deg[:, None] > 0, nbr, np.arange(n)[:, None])
+    return np.concatenate([np.arange(n)[:, None], nbr], 1).astype(np.int32)
+
+
+def parallel_inputs(ds, cora_root, ds_cv):
+    """The regimes' inputs: regime 1 at the bench's shapes (bench.py:65-105:
+    the REDDITMULTI5K-like set, batch 16, K = 8, T = 4, ff 1024; the parity
+    step in float32, the step at rate 0.5 in the bench's bf16); regimes 2-3
+    on the Cora-shaped files (2,708 nodes, D = 1,433; 2,708 = 4 x 677, and
+    regime 3 on the edge-balanced partition, padded to multiples of 8);
+    regime 4 the README's 10-fold command on the PTC-like file, 2 epochs
+    (as :func:`cv_cli` runs it)."""
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    from graph_transformer_tpu_torch.data.batching import BatchBuilder
+    from graph_transformer_tpu_torch.data.citation import load_planetoid
+    from graph_transformer_tpu_torch.data.splits import (
+        stratified_kfold_indices)
+    from graph_transformer_tpu_torch.models.u2gnn_sup import U2GNNSup
+    from graph_transformer_tpu_torch.parallel import dryrun as dr
+
+    cfg = ExperimentConfig(
+        data=DataConfig(batch_size=BATCH, num_neighbors=K),
+        model=ModelConfig(num_timesteps=T, num_hidden_layers=1,
+                          ff_hidden_size=FF, compute_dtype="float32"),
+        train=TrainConfig(num_epochs=1))
+    batch = BatchBuilder(ds, BATCH, K, seed=0).build(np.arange(BATCH))
+    model = U2GNNSup(ds.feature_dim, ds.num_classes, cfg.model, seed=0)
+    r1 = dr.Regime1(cfg, ds.feature_dim, ds.num_classes,
+                    {k: v.clone() for k, v in model.state_dict().items()},
+                    batch, seed=7, train_dtype="bfloat16")
+    g = load_planetoid("cora", cora_root).graph
+    x = np.ascontiguousarray(g.node_feat, np.float32)
+    neigh = halo_neighborhoods(g, HALO_K, seed=3)
+    halo = dict(layers=HALO_LAYERS, ff_hidden=FF, num_timesteps=HALO_T,
+                nsampled=HALO_CANDIDATES)
+    r2 = dr.Halo(x, neigh, seed=11, param_seed=2, **halo)
+    r3 = dr.Halo(x, neigh, seed=13, param_seed=4, deg=g.degrees,
+                 pad_multiple=8, **halo)
+    r4 = dr.Regime4(ds_cv, cv_config(2),
+                    stratified_kfold_indices(ds_cv.labels, 10, seed=0),
+                    epochs=2)
+    print(f"# parallel inputs: regime 1 N={batch.n_pad}, D={ds.feature_dim}, "
+          f"{BATCH} graphs; regimes 2-3 N={g.num_nodes}, D={x.shape[1]}, "
+          f"K={HALO_K}, {HALO_LAYERS} layers; regime 4 {len(r4.folds)} folds "
+          f"of the PTC-like file", flush=True)
+    return dr.Inputs(r1, r2, r3, r4, timed_steps=HALO_TIMED_STEPS)
+
+
+def parallel_expect(inputs) -> dict:
+    """Each regime's exact launches a step on every rank: regime 1 K4t, K8s
+    and T - 1 K8 (D = 4); regime 2 and the masked blocking step
+    ROWS_LAYER_LAUNCHES a U2GNN layer, the overlapped step twice that (an
+    encoder call for the interior rows and one for the boundary rows);
+    regime 4 K7, K4t, K8s and 2 x K8 a step and K4 an eval batch of the
+    rank's folds."""
+    sup = {"K4t": 1, "K8s": 1, "K8": inputs.r1.cfg.model.num_timesteps - 1}
+    layers = inputs.r2.layers * inputs.r2.num_timesteps
+    halo = {k: v * layers for k, v in ROWS_LAYER_LAUNCHES.items()}
+    r4 = inputs.r4
+    B, Tcv = r4.cfg.data.batch_size, r4.cfg.model.num_timesteps
+
+    def cv(res):
+        n = res["r4"]["ranks"]
+        evals = r4.epochs * sum(-(-len(te) // B)
+                                for _, te in r4.folds[res["rank"]::n])
+        steps = res["r4"]["steps"]
+        return {"K7": steps, "K4t": steps, "K8s": steps,
+                "K8": (Tcv - 1) * steps, "K4": evals}
+
+    return {"r1": sup, "r1_train": sup, "r2": halo,
+            "r3_overlap": {k: 2 * v for k, v in halo.items()},
+            "r3_blocking": halo, "r4": cv}
+
+
+def parallel_phases(ds, cora_root, ds_cv) -> tuple:
+    """Section 9f: (a) ``dryrun_multichip(1, "nccl", "cuda")`` in this
+    process (regime 1 against the model's own pass on one device, regime 2
+    against the step without a group, regime 3 overlapped against blocking,
+    regime 4 the unsharded runner), then the group destroyed; (b) one job
+    of PAR_RANKS ranks over gloo on cuda:0 (regime 1 on a (2, 2) mesh, 2-3
+    on 4 node ranges, 4 on 2 ranks, 5 folds a rank) held to (a): losses
+    within 1e-5 relative, every gradient leaf by the leaf rule, the
+    overlapped rows equal bit for bit to the blocking ones and the
+    gradients within relative L2 1e-5, the folds bit for bit, each
+    regime's launches a step exact on every rank.  Returns (a)'s regime 4
+    (the unsharded runner, which ``cv_runners`` reuses) and the numbers."""
+    import torch
+
+    from graph_transformer_tpu_torch.parallel import dryrun as dr
+    from graph_transformer_tpu_torch.parallel.launch import launch
+
+    inputs = parallel_inputs(ds, cora_root, ds_cv)
+    expect = parallel_expect(inputs)
+    t0 = time.perf_counter()
+    try:
+        one = dr.dryrun_multichip(1, "nccl", "cuda", inputs,
+                                  timeout_s=PAR_TIMEOUT_S)
+        ref = one["results"][0]
+        dr.check_launches([ref], expect)
+    except AssertionError as e:
+        fail(f"9f (a): {e}")
+    t_one = time.perf_counter() - t0
+    print(f"# 9f (a) NCCL at world size 1: {t_one:.1f} s (regimes "
+          + ", ".join(f"{ref[f'r{i}_s']:.1f}" for i in range(1, 5))
+          + " s); launches a step " + json.dumps(dr.per_step_launches(ref)),
+          flush=True)
+    if torch.distributed.is_initialized():
+        fail("the NCCL group of (a) is still up")
+    t0, wall0 = time.perf_counter(), time.time()
+    ranks = launch(dr.run_regimes, PAR_RANKS, inputs, backend="gloo",
+                   device="cuda", timeout_s=PAR_TIMEOUT_S)
+    t_job = time.perf_counter() - t0
+    t_up = max(r["start"] for r in ranks) - wall0
+    try:
+        deltas = dr.check(ref, ranks, expect=expect)
+    except AssertionError as e:
+        fail(f"9f (b): {e}")
+    for r in ranks:
+        print(f"# 9f (b) rank {r['rank']} ({r['backend']} on {r['device']}, "
+              f"one card shared by {PAR_RANKS} ranks, not gated): regime 1 "
+              f"rate-0.5 step {r['r1']['ms_train']:.1f} ms; regime 3 "
+              f"{r['r3']['ms_blocking']:.3f} ms a step blocking, "
+              f"{r['r3']['ms_overlap']:.3f} overlapped, of which the "
+              f"gradients' all-reduces ({r['r3']['grad_bytes']:,} bytes, leaf "
+              f"by leaf) {r['r3']['ms_grad_all_reduce']:.3f} ms; regimes "
+              + ", ".join(f"{r[f'r{i}_s']:.1f}" for i in range(1, 5))
+              + f" s, meshes {r['meshes_s']:.1f} s", flush=True)
+    print(f"# 9f (b) {PAR_RANKS} gloo ranks on cuda:0: {t_job:.1f} s, of "
+          f"which {t_up:.1f} s until the last rank ran (spawn, imports, CUDA, "
+          f"the group); regime 3 rows differing from blocking "
+          f"{deltas['r3_rows_differing']} of "
+          f"{sum(r['r3']['rows'] for r in ranks)}", flush=True)
+    r3 = ranks[0]["r3"]
+    out = {"world1_s": t_one, "job_s": t_job, "ranks_up_s": t_up,
+           "ranks": PAR_RANKS,
+           "deltas": {k: v for k, v in deltas.items() if k != "launches"},
+           "launches": {"world1": dr.per_step_launches(ref),
+                        **deltas["launches"]},
+           "ms_blocking": [r["r3"]["ms_blocking"] for r in ranks],
+           "ms_overlap": [r["r3"]["ms_overlap"] for r in ranks],
+           "ms_grad_all_reduce": [r["r3"]["ms_grad_all_reduce"]
+                                  for r in ranks],
+           "grad_bytes": r3["grad_bytes"],
+           "world1_ms_blocking": ref["r3"]["ms_blocking"],
+           "world1_ms_overlap": ref["r3"]["ms_overlap"],
+           "world1_ms_grad_all_reduce": ref["r3"]["ms_grad_all_reduce"],
+           "halo_rows": [r["r2"]["halo_rows"] for r in ranks],
+           "cost_model": ranks[0]["r2"]["cost"],
+           "partition": {k: r3[k] for k in ("n_local", "halo_rows",
+                                            "interior", "valid_fraction")},
+           "losses": {"r1": ref["r1"]["loss"], "r2": ref["r2"]["loss"],
+                      "r3": ref["r3"]["loss_overlap"]}}
+    return ref["r4"], out
 
 
 def timed_steps(trainer, batch, edges: float) -> tuple:
@@ -5625,6 +5788,12 @@ def main() -> int:
     rest = slice19_phases(ds, os.path.join(here, "build", "unsup"),
                           os.path.join(here, "build", "multiplex"),
                           os.path.join(here, "build", "node", "cora"), dev)
+    # ---- 9f. the parallel layer: its four regimes in NCCL at world size 1,
+    # then in 4 gloo ranks sharing the card, each held to world size 1
+    t0 = time.perf_counter()
+    r4_ref, parallel = parallel_phases(
+        ds, os.path.join(here, "build", "node", "cora"), ds_cv)
+    print(f"# parallel phases: {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = []
     for key, (name, source, replaces, b, f, rate) in meta.items():
@@ -5665,7 +5834,8 @@ def main() -> int:
     # sessions CUPTI has recorded no device event in a later session on the
     # card (five sessions in a row)
     t0 = time.perf_counter()
-    cv = cv_phases(ds_cv, data_cv, os.path.join(here, "build", "tenfold"))
+    cv = cv_phases(ds_cv, data_cv, os.path.join(here, "build", "tenfold"),
+                   r4_ref)
     print(f"# 10-fold phases: {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"# edges/s on the card: bench {eps:.1f}, quickstart {eps_q:.1f}, "
           f"hpo arm {eps_h:.1f}, act {steps_4['act']['eps']:.1f}, node axis "
@@ -5691,6 +5861,7 @@ def main() -> int:
                       "node": node,
                       "multiplex": multiplex,
                       "slice19": rest,
+                      "parallel": parallel,
                       "hash_floor": floor,
                       "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(

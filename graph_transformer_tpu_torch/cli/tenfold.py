@@ -12,17 +12,28 @@ every fold each epoch (``train/tenfold_vmap.py``; a fold whose batch count
 is the largest trains bit for bit as in the default loop), and
 ``--cv_on_device`` runs the whole CV with on-device batching, selection,
 evaluation and plateau rule (``train/cv_ondevice.py``; its own random
-streams).  ``--shard_folds`` above 1 raises: the parallel layer is not
-ported.  Runs on ``--device cuda`` unless given ``--device cpu``.
+streams).  ``--shard_folds N`` with ``--vmap_folds`` shards the folds over
+N ranks, rank r training folds r, r + N, … (``parallel/``): launch N
+processes with the ``GT_*`` variables set (``python -m
+graph_transformer_tpu_torch.parallel.launch --ranks N --backend nccl --
+graph_transformer_tpu_torch.cli.tenfold ... --vmap_folds --shard_folds N
+--backend nccl``); each joins the group with ``--backend`` on
+``cuda:{rank % device_count}``, every rank gathers every fold's
+result and the first prints them.  Without a
+group of N ranks it raises.  Runs on ``--device cuda`` unless given
+``--device cpu``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from graph_transformer_tpu_torch.cli.common import base_parser, config_from_args
 from graph_transformer_tpu_torch.data.splits import stratified_kfold_indices
 from graph_transformer_tpu_torch.data.tu import load_tu_dataset
+from graph_transformer_tpu_torch.parallel import bootstrap
 from graph_transformer_tpu_torch.train.sup_trainer import (
     SupTrainer,
     device_tables,
@@ -50,8 +61,12 @@ def main(argv=None):
              "the folds run one after another)")
     parser.add_argument(
         "--shard_folds", default=0, type=int,
-        help="with --vmap_folds: shard the folds over this many devices "
-             "(must divide 10; not ported yet, so above 1 it raises)")
+        help="with --vmap_folds: shard the folds over this many ranks "
+             "(must divide 10; needs a group of that many ranks, from the "
+             "GT_* variables)")
+    parser.add_argument(
+        "--backend", default="nccl", choices=("nccl", "gloo"),
+        help="with --shard_folds: the process group's backend")
     parser.add_argument(
         "--cv_on_device", action="store_true",
         help="the whole CV with on-device graph selection, batch gather, "
@@ -72,10 +87,18 @@ def main(argv=None):
         from graph_transformer_tpu_torch.train.tenfold_vmap import (
             TenfoldVmapRunner)
 
+        device = args.device
+        if args.shard_folds > 1 and os.environ.get(bootstrap.ENV_PROCESS_ID):
+            device = bootstrap.device_for(
+                int(os.environ[bootstrap.ENV_PROCESS_ID]), args.device)
+            bootstrap.initialize_from_env(args.backend, device)
         runner = TenfoldVmapRunner(ds, cfg, shard_folds=args.shard_folds,
-                                   device=args.device)
-        accs, _, _ = runner.run()
-        return report(accs)
+                                   device=device)
+        # every rank holds every fold's numbers; the first one prints them
+        lead = runner.mesh is None or runner.mesh.rank == runner.mesh.ranks[0]
+        accs, mean, std = runner.run(log_fn=print if lead else None)
+        bootstrap.destroy()
+        return report(accs) if lead else (mean, std)
     accs = []
     tables = device_tables(ds, cfg, args.device)
     for i, (tr, te) in enumerate(stratified_kfold_indices(ds.labels, 10,

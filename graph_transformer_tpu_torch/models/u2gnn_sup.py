@@ -61,7 +61,7 @@ ROADMAP item that will port them.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -158,7 +158,8 @@ class U2GNNSup(nn.Module):
                 neigh_feat: Optional[torch.Tensor] = None,
                 neigh_global: Optional[torch.Tensor] = None,
                 num_total_nodes: Optional[int] = None,
-                return_ponder: bool = False):
+                return_ponder: bool = False,
+                regather: Optional[Callable] = None):
         """Scores [B, C], or ``(scores, ponder)`` with ``return_ponder``.
         Fused training: ``sampled_inputs`` = (tag_rows [N,128], deg [N],
         self_tag [N], codebook [C,D]) and an int ``seed`` for the sampler and
@@ -166,13 +167,16 @@ class U2GNNSup(nn.Module):
         features of the neighborhoods whose batch rows ``batch.neigh``
         holds, or of the global ids ``neigh_global`` [N, K+1] (then with
         ``num_total_nodes``), and a ``seed``, or none for a deterministic
-        pass.  Host-sampled training: only a ``seed`` (the
-        batch's own neighborhoods).  Evaluation: none of these."""
+        pass; ``regather(out)`` replaces the batch-local re-gather
+        between U2GNN layers (``parallel/spmd.py`` gathers over ranks).
+        Host-sampled training: only a ``seed`` (the batch's own
+        neighborhoods).  Evaluation: none of these."""
         if sampled_inputs is not None:
             out = self._fused(batch, sampled_inputs, seed)
         elif neigh_feat is not None and neigh_global is None:
             neigh = batch.neigh.to(torch.int64)
-            out = self._two_pass(batch, neigh_feat, lambda o: o[neigh], seed)
+            out = self._two_pass(batch, neigh_feat,
+                                 regather or (lambda o: o[neigh]), seed)
         elif neigh_feat is not None:
             if len(self.encoders) > 1 and num_total_nodes is None:
                 raise ValueError("re-gathering by global id needs "

@@ -30,6 +30,7 @@ SOURCES = ("sampled_fwd", "layer_bwd", "encoder_fwd", "stored_fwd",
            "stored_bwd", "wide_fwd", "sampler", "recompute_bwd",
            "encoder_layer", "ffn", "fused_sampled_fwd", "mega_bwd",
            "folded_fwd", "rows_gemm", "rows_attention", "rows_ln")
+NO_BUILD_ENV = "GT_TORCH_NO_BUILD"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -192,10 +193,15 @@ def build_all(names=SOURCES, verbose: bool = False) -> float:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The library of source ``name``, built first if missing."""
+    """The library of source ``name``, built first if missing (with
+    ``GT_TORCH_NO_BUILD`` set, as in the ranks ``parallel/launch.py``
+    spawns after building in the parent, a missing library raises)."""
     lib = _libs.get(name)
     if lib is None:
         if not lib_path(name).exists():
+            if os.environ.get(NO_BUILD_ENV):
+                raise RuntimeError(f"{lib_path(name)} is not built and "
+                                   f"{NO_BUILD_ENV} forbids building it here")
             build_all()
         lib = _libs[name] = open_lib(lib_path(name))
     return lib

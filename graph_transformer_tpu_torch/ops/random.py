@@ -34,6 +34,7 @@ HEAD_STREAM = 0x48454144
 LAYER_STREAM = 0x4C415952
 EPOCH_STREAM = 0x45504F43
 SELECT_STREAM = 0x53454C43
+FOLD_STREAM = 0x464F4C44
 
 
 def _mul32(x, c: int):
@@ -100,6 +101,13 @@ def layer_seed(seed: int, layer: int) -> int:
     if layer == 0:
         return int(seed)
     return stream_key(seed, LAYER_STREAM + layer) & 0x7FFFFFFF
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """A 31-bit seed for part ``i`` (a rank, a row set) of a computation
+    seeded ``seed``, as JAX's ``fold_in``: a word of stream
+    ``FOLD_STREAM + i``."""
+    return stream_key(seed, (FOLD_STREAM + int(i)) & M32) & 0x7FFFFFFF
 
 
 def epoch_seed(seed: int, epoch: int) -> int:

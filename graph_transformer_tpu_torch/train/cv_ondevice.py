@@ -30,6 +30,13 @@ as JAX's key is, so a resumed run needs no generator state.  With a
 ``chunk``) is saved at every chunk boundary but the last, and a run that
 finds a snapshot resumes from it bit for bit (``train/elastic.py``).
 
+With a ``mesh`` the folds shard over its ``data`` axis (JAX's ``mesh``
+fold axis, ``cv_ondevice.py:59, 294-303``): rank r runs folds r, r + W, …,
+every rank draws the selection words of the whole CV (their width is the
+largest train split of all folds), so each fold draws what it draws
+unsharded, and each chunk's summaries and the best accuracies are gathered
+into fold order on every rank; snapshots go to a subdirectory a rank.
+
 Where JAX samples with its CSR sampler off the TPU, the port runs K7 on
 every device, as its ``SupTrainer`` does.  The selection and the hash are
 the port's own, so a run matches JAX's statistically, not bit for bit, as
@@ -39,6 +46,7 @@ JAX's own on-device CV matches its host-sampled runners.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -55,6 +63,7 @@ from graph_transformer_tpu_torch.ops.random import (
     select_without_replacement,
     step_seed,
 )
+from graph_transformer_tpu_torch.parallel.mesh import Mesh, all_gather
 from graph_transformer_tpu_torch.train.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -66,6 +75,7 @@ from graph_transformer_tpu_torch.train.sup_trainer import (
     fused_gate_ok,
     resolve_device,
 )
+from graph_transformer_tpu_torch.train.tenfold_vmap import fold_mesh
 
 HIST_FILL = 3.0e38  # plateau-history fill: never fires
 
@@ -96,6 +106,15 @@ def plateau_step(loss: torch.Tensor, epoch: int, hist: torch.Tensor,
     return scale, torch.cat([hist[1:], loss[None]]), n_plateau
 
 
+def fold_order(local: np.ndarray, mesh: Mesh, num_folds: int) -> np.ndarray:
+    """[num_folds, ...] in fold order from every rank's [own folds, ...]
+    (rank r holds folds r, r + n, ...)."""
+    parts = all_gather(torch.from_numpy(np.ascontiguousarray(local))
+                       .to(mesh.device), mesh, "data")
+    return parts.transpose(0, 1).reshape(num_folds, *local.shape[1:]) \
+        .cpu().numpy()
+
+
 def run_cv_on_device(
     ds: GraphDataset,
     cfg: ExperimentConfig,
@@ -105,13 +124,15 @@ def run_cv_on_device(
     epochs_per_dispatch: Optional[int] = None,
     checkpoint_dir: Optional[str] = None,
     device="cuda",
+    mesh: Optional[Mesh] = None,
 ):
     """Full CV on the device; returns ``(best_accs [F], mean, std)``, plus
     the histories ``(epoch_losses, epoch_accs)`` [epochs, F] with
     ``return_history``.  ``epochs_per_dispatch`` bounds a chunk (the epochs
     between host reads and snapshots); ``checkpoint_dir`` (default
     ``cfg.train.checkpoint_dir``) snapshots and resumes as the module
-    says."""
+    says.  ``mesh``: shard the folds over its ``data`` axis (the fold
+    count must divide evenly over it)."""
     if not cfg.train.on_device_sampling:
         raise ValueError("run_cv_on_device requires on_device_sampling")
     if fused_gate_ok(cfg.model):  # JAX's CV trains the two-pass path
@@ -120,9 +141,15 @@ def run_cv_on_device(
     dev = resolve_device(device)
     if folds is None:
         folds = stratified_kfold_indices(ds.labels, num_folds, seed=0)
-    F = len(folds)
     B = cfg.data.batch_size
     W = cfg.train.plateau_window
+    steps = max(max(1, -(-len(tr) // B)) for tr, _ in folds)
+    width = max(len(tr) for tr, _ in folds)
+    all_folds = folds
+    if mesh is not None:  # this rank's folds: r, r + n, ...
+        fold_mesh(len(folds), mesh.axis_size("data"), mesh)
+        folds = folds[mesh.axis_index("data")::mesh.axis_size("data")]
+    F = len(folds)
 
     # ---- host prep, once: fold id tables, eval stacks, dataset upload
     tables = device_tables(ds, cfg, dev)
@@ -130,9 +157,8 @@ def run_cv_on_device(
     for t in trainers:  # JAX's CV loss has no ACT ponder cost (:227-233)
         t.act_weight = 0.0
     n_pad = trainers[0].builder.n_pad
-    steps = max(t.num_batches_per_epoch for t in trainers)
     counts = [len(tr) for tr, _ in folds]
-    train_ids = torch.zeros(F, max(counts), dtype=torch.int64)
+    train_ids = torch.zeros(F, width, dtype=torch.int64)
     for f, (tr, _) in enumerate(folds):
         train_ids[f, : len(tr)] = torch.as_tensor(np.asarray(tr))
     train_ids = train_ids.to(dev)
@@ -155,6 +181,8 @@ def run_cv_on_device(
     eaccs: List[np.ndarray] = []
     chunk0 = 0
     ckpt_dir = checkpoint_dir or cfg.train.checkpoint_dir
+    if ckpt_dir and mesh is not None:
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{mesh.axis_index('data')}")
     path = latest_checkpoint(ckpt_dir) if ckpt_dir else None
     if path is not None:
         params, opt_states, extra = restore_checkpoint(
@@ -174,7 +202,7 @@ def run_cv_on_device(
         c_loss, c_acc = [], []
         for e in range(c * per_chunk, (c + 1) * per_chunk):
             sel = select_without_replacement(base, e, counts, B, steps,
-                                             train_ids.shape[1], dev)
+                                             width, dev)
             seeds = [step_seed(base, e, i) for i in range(steps)]
             e_loss, e_acc = [], []
             for f, t in enumerate(trainers):
@@ -209,6 +237,9 @@ def run_cv_on_device(
     best = best_f.cpu().numpy()
     eloss = np.concatenate(elosses, axis=1)[:, :num_epochs]
     eacc = np.concatenate(eaccs, axis=1)[:, :num_epochs]
+    if mesh is not None:
+        best, eloss, eacc = (fold_order(a, mesh, len(all_folds))
+                             for a in (best, eloss, eacc))
     if return_history:
         return best, float(best.mean()), float(best.std()), eloss.T, eacc.T
     return best, float(best.mean()), float(best.std())

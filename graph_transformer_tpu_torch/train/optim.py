@@ -37,13 +37,16 @@ class ClippedAdam:
             p.grad = None
 
     @torch.no_grad()
-    def step(self, grads: Optional[Sequence[torch.Tensor]] = None) -> None:
-        """One update from ``grads`` (default: the parameters' ``.grad``)."""
+    def step(self, grads: Optional[Sequence[torch.Tensor]] = None,
+             g_norm: Optional[torch.Tensor] = None) -> None:
+        """One update from ``grads`` (default: the parameters' ``.grad``),
+        clipped by ``g_norm`` (default: their global norm; a caller whose
+        parameters are slices of larger leaves passes the whole leaves')."""
         if grads is None:
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in self.params]
-        g_norm = torch.sqrt(sum((g.to(torch.float32) ** 2).sum()
-                                for g in grads))
+        if g_norm is None:
+            g_norm = global_norm(grads)
         clip = g_norm < self.max_norm
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
@@ -76,6 +79,12 @@ class ClippedAdam:
         scale = state["lr_scale"]
         self.lr_scale = (scale.to(self.mu[0].device)
                          if torch.is_tensor(scale) else float(scale))
+
+
+def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every element of ``grads``, in
+    float32 (optax's ``global_norm``)."""
+    return torch.sqrt(sum((g.to(torch.float32) ** 2).sum() for g in grads))
 
 
 def make_optimizer(params, learning_rate: float,

@@ -8,6 +8,8 @@ profiling.py``.
   written as a Chrome trace into ``logdir``.
 - :func:`annotate`: a named range in the profiler's timeline
   (``torch.profiler.record_function``).
+- :func:`kernel_counters`: every kernel wrapper's launch counter, by the
+  kernel's name (K1-K20), each counting the launches its wrapper made.
 """
 
 from __future__ import annotations
@@ -105,3 +107,49 @@ def trace(logdir: str):
 def annotate(name: str):
     """Named range visible in profiler timelines."""
     return torch.profiler.record_function(name)
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter (``.launches``), by kernel."""
+    from graph_transformer_tpu_torch.ops import encoder_layer as el
+    from graph_transformer_tpu_torch.ops import ffn
+    from graph_transformer_tpu_torch.ops import folded_encoder as fe
+    from graph_transformer_tpu_torch.ops import fused_sampled_encoder as fs
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+    from graph_transformer_tpu_torch.ops import sampled_encoder as se
+    from graph_transformer_tpu_torch.ops import stored_encoder as st
+    from graph_transformer_tpu_torch.ops import u2gnn_encoder as ue
+    from graph_transformer_tpu_torch.ops import u2gnn_train as ut
+    from graph_transformer_tpu_torch.sampling import neighbor_table as nt
+
+    return {"K1": se.sampled_forward, "K2": se.layer_backward,
+            "K3": se.slot0_backward, "K4": ue.u2gnn_encoder,
+            "K4w": ue.wide_encoder, "K5": st.stored_forward,
+            "K6": st.stored_layer_backward, "K6s": st.stored_slot0_backward,
+            "K7": nt.sample_neighborhoods, "K4t": ue.u2gnn_encoder_train,
+            "K8": ut.layer_recompute_backward,
+            "K8s": ut.slot0_recompute_backward,
+            "K9": el.encoder_layer_forward, "K10": el.encoder_layer_backward,
+            "K11": ffn.ffn_forward, "K12": ffn.ffn_backward,
+            "K4tw": ue.wide_encoder_train,
+            "K8w": ut.wide_layer_recompute_backward,
+            "K8ws": ut.wide_slot0_recompute_backward,
+            "K9w": el.wide_encoder_layer_forward,
+            "K10w": el.wide_encoder_layer_backward,
+            "K13": fs.fused_sampled_forward,
+            "K14": ut.mega_recompute_backward,
+            "K14w": ut.wide_mega_recompute_backward,
+            "K15": fe.folded_stored_forward, "K16": fe.folded_forward,
+            "K17": st.stored_rows_forward, "K18": re.K18, "K19": re.K19,
+            "K20": re.K20}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for c in kernel_counters().values():
+        c.launches = 0
+
+
+def read_launches() -> Dict[str, int]:
+    """Every kernel's launch count, by kernel."""
+    return {k: c.launches for k, c in kernel_counters().items()}

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of it (the HPO harness, a numpy
 module, included), and neither chip_smoke.py
 nor scripts/torch_wide_probe.py, torch_determinism_probe.py,
-torch_node_phases.py or torch_k18_variants.py, imports jax,
+torch_node_phases.py, torch_k18_variants.py or torch_parallel_probe.py,
+imports jax,
 jaxlib or the JAX package, nor sklearn, pandas or networkx (the card's
 machine has none of them); importing it builds nothing and does not import
 triton."""
@@ -18,19 +19,24 @@ FORBIDDEN = {"jax", "jaxlib", "graph_transformer_tpu"}
 NOT_ON_CARD = {"sklearn", "networkx", "pandas"}
 # the modules of the multiplex pipeline and the node baselines; the batch
 # assembler, profiling, prefetch, torch-convention weights, the graph-level
-# GCN baseline, OrthoNet and the HPO harness and CLI
+# GCN baseline, OrthoNet and the HPO harness and CLI; the parallel layer
 NEW_MODULES = ("data/multiplex.py", "models/multilayer.py", "models/gcn.py",
                "models/gat.py", "train/ml_node_trainer.py",
                "utils/laplacian.py", "cli/node_classification.py",
                "native/batcher.py", "utils/profiling.py",
                "train/prefetch.py", "utils/torch_compat.py",
                "models/gcn_unsup_graphs.py", "models/orthonet.py",
-               "exp/__init__.py", "exp/hpo.py", "cli/hpo.py")
+               "exp/__init__.py", "exp/hpo.py", "cli/hpo.py",
+               "parallel/__init__.py", "parallel/mesh.py",
+               "parallel/bootstrap.py", "parallel/launch.py",
+               "parallel/spmd.py", "parallel/edge_partition.py",
+               "parallel/dryrun.py")
 FILES = sorted(ROOT.glob("graph_transformer_tpu_torch/**/*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_wide_probe.py",
     ROOT / "scripts" / "torch_determinism_probe.py",
     ROOT / "scripts" / "torch_node_phases.py",
-    ROOT / "scripts" / "torch_k18_variants.py"]
+    ROOT / "scripts" / "torch_k18_variants.py",
+    ROOT / "scripts" / "torch_parallel_probe.py"]
 
 
 def imported_roots(path: Path):

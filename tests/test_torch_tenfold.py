@@ -4,7 +4,9 @@ takes the absent ``mutag`` fixture):
 
 - the fold-looped runner equals a sequential ``SupTrainer`` a fold, bit for
   bit (JAX's bar, ``test_tenfold_vmap.py:33``, is a tolerance);
-- the plateau decay is per fold (``:68``); ``shard_folds`` refuses (``:113``);
+- the plateau decay is per fold (``:68``); ``shard_folds`` keeps JAX's
+  divisibility check (``:113``) and, without a group of that many ranks,
+  raises (``tests/test_torch_parallel.py`` runs it sharded);
 - the CLI prints JAX's lines in each of its three modes;
 - slice parity with JAX: at dropout 0 with host sampling, where both
   packages' numpy builders give the same batches, the port's runner started
@@ -57,10 +59,7 @@ from graph_transformer_tpu_torch.models import u2gnn_sup
 from graph_transformer_tpu_torch.train import sup_trainer
 from graph_transformer_tpu_torch.train.optim import plateau_lr_step
 from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
-from graph_transformer_tpu_torch.train.tenfold_vmap import (
-    PARALLEL_ITEM,
-    TenfoldVmapRunner,
-)
+from graph_transformer_tpu_torch.train.tenfold_vmap import TenfoldVmapRunner
 from graph_transformer_tpu_torch.weights import params_from_jax
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -136,18 +135,24 @@ def test_plateau_decay_is_per_fold():
     assert runner.scheds[1].num_steps < runner.scheds[1].step_size
 
 
-def test_shard_folds_refuses():
-    """JAX's divisibility check first, then a refusal naming the ROADMAP
-    item that ports the parallel layer; the CLI passes the flag on."""
+def test_shard_folds_refuses(tmp_path):
+    """JAX's divisibility check first; then, with no process group of
+    ``shard_folds`` ranks, a clear refusal (no silent unsharded run); the
+    CLI passes the flag on and refuses alike."""
     ds, cfg = small()
     folds = stratified_kfold_indices(ds.labels, 10, seed=0)
     with pytest.raises(ValueError, match="divide"):
         TenfoldVmapRunner(ds, cfg, folds=folds[:3], shard_folds=2,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match=re.escape(PARALLEL_ITEM)):
+    group = re.escape("needs an initialised process group of 2 ranks")
+    with pytest.raises(RuntimeError, match=group):
         TenfoldVmapRunner(ds, cfg, folds=folds[:2], shard_folds=2,
                           device="cpu")
-    assert "Parallel layer" in PARALLEL_ITEM
+    with pytest.raises(RuntimeError, match=group):
+        chip_smoke.write_ptc_like_tu(str(tmp_path), num_graphs=40, seed=2)
+        tenfold.main(["--dataset", "PTC", "--data_dir", str(tmp_path),
+                      "--vmap_folds", "--shard_folds", "2", "--device", "cpu",
+                      "--backend", "gloo"])
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
     assert "10. **Parallel layer.**" in roadmap
 
