@@ -138,7 +138,14 @@
    share less 0.05; 20 node steps timed with a profile of 5, two 5-step
    runs bit for bit; K18 at each of the step's launches beside
    ``torch.addmm``/``mm``, K19 and K20 at one beside
-   ``scaled_dot_product_attention`` and ``F.layer_norm``.
+   ``scaled_dot_product_attention`` and ``F.layer_norm``, and their
+   backward launches beside their bounds.  Then the same in bf16
+   (``NODE_BF16_FLAGS``): K18's bf16 products at each width in every
+   layout and epilogue with the bf16 layer's operand types
+   (``check_k18_bf16``), the CLI with every K18 launch in bf16 and the loss
+   at fixed step seeds lower after training, 20 timed and 5 profiled steps,
+   two 5-step runs bit for bit, and K18 at each launch beside one bf16
+   ``torch.mm`` with a float32 result.
 9d. Drives the multiplex path and the node baselines
    (``multiplex_phases``): K4t and K8s against their plain
    versions at the siamese step's shape (12,000 neighborhoods of S = 9,
@@ -3184,6 +3191,9 @@ NODE_FLAGS = ["--node_dataset", "cora", "--num_epochs", "20", "--eval_every",
 # (W_in's q columns over slot 0's rows apart from its k, v columns), K19
 # forward, recompute and backward, K20 2 + 1 + 2
 NODE_STEP_LAUNCHES = {"K18": 18, "K19": 3, "K20": 5}
+# the same in bf16 (the reference's --compute_dtype bfloat16: the rows
+# rounded to bf16, every K18 product on bf16-rounded operands)
+NODE_BF16_FLAGS = NODE_FLAGS + ["--compute_dtype", "bfloat16"]
 # the mask probe's gate: the test mask's majority-class share less this.
 # Both packages' probes read that share after 20 steps: the embedding is
 # the fork head's weight table, which 20 Adam steps of 5e-4 barely move
@@ -3394,6 +3404,91 @@ def check_rows_kernels(dev) -> dict:
     return errs
 
 
+K18_BF16_REL = 1e-4  # K18's bf16 products against their plain version
+
+
+def check_k18_bf16_products(label, got, want) -> tuple:
+    """K18's bf16 products against ``gemm_plain(bf16=True)``: both round the
+    same operands to bf16 and sum in float32, so they differ only in sum
+    order (relative L2 at most 1.18e-5 at D = 160-3,703 on an H100).  Held
+    by ``check_bf16_spread`` and within relative L2 ``K18_BF16_REL``, which
+    a rounding other than to nearest even (~2e-3) fails."""
+    got, want = got.detach(), want.detach()
+    e = check_bf16_spread(label, got, want)
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    if not rel <= K18_BF16_REL:
+        fail(f"{label}: relative L2 {rel} against the plain version's "
+             f"bf16 products (limit {K18_BF16_REL})")
+    return e
+
+
+def check_k18_bf16(dev) -> dict:
+    """K18's bf16 products against their plain version at the node path's
+    widths (``ROWS_WIDTHS``: R = N S rows of D, F = ``ROWS_F``), with the
+    operands' types of the bf16 layer (x in bf16, weights and K18's own
+    outputs float32): every layout with each epilogue the layer gives it,
+    the FFN's dropout at rates 0 and 0.5, and dx's product (``add_every``
+    = S); forwards by :func:`check_k18_bf16_products`, the weight products
+    (with their column sums) at cosine > 0.999 and within relative L2
+    ``K18_BF16_REL``.  Returns the errors by (kernel, ...)."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    errs, S, F = {}, ROWS_S, ROWS_F
+    bf = torch.bfloat16
+    for D, N in ROWS_WIDTHS:
+        R = N * S
+        g = torch.Generator().manual_seed(D + 7)
+        ws = 0.3 / (D / 6.0) ** 0.5
+
+        def rnd(*shape, sc=1.0):
+            return (torch.randn(*shape, generator=g) * sc).to(dev)
+
+        x = rnd(R, D).to(bf)
+        w_in, w1, w2 = rnd(D, 3 * D, sc=ws), rnd(D, F, sc=ws), rnd(F, D,
+                                                                    sc=ws)
+        y1, dz, dqkv = rnd(N, D), rnd(N, D), rnd(R, 3 * D)
+        h = rnd(N, F)
+        cases = [("nn x W bias", (x, w_in[:, D:], "nn"),
+                  dict(bias=rnd(2 * D))),
+                 ("nn y1 W1 add", (y1, w1, "nn"), dict(add=rnd(N, F))),
+                 ("nn h W2 bias", (h, w2, "nn"), dict(bias=rnd(D))),
+                 ("nt dz W2 gate", (dz, w2, "nt"),
+                  dict(gate=rnd(N, F), gate_keep=0.5)),
+                 ("nt dh W1 add", (h, w1, "nt"), dict(add=rnd(N, D))),
+                 ("nt dqkv W_in add_every", (dqkv, w_in, "nt"),
+                  dict(add=rnd(N, D), add_every=S)),
+                 ("nt dz W_out", (dz, w_in[:, :D], "nt"), {})]
+        cases += [(f"nn y1 W1 relu_drop rate {rate}", (y1, w1, "nn"),
+                   dict(bias=rnd(F), relu=True,
+                        drop=(rate, 11, 0, re.HIDDEN_SITE)))
+                  for rate in (0.0, 0.5)]
+        for lab, (a, b, layout), kw in cases:
+            got = re.gemm(a, b, layout, bf16=True, **kw)
+            want = re.gemm_plain(a, b, layout, bf16=True, **kw)
+            torch.cuda.synchronize()
+            rate = kw["drop"][0] if "drop" in kw else 0.0
+            errs[("K18", D, str(bf), rate, lab)] = check_k18_bf16_products(
+                f"K18 bf16 D={D} {lab}", got, want)
+        for lab, a, b in (("tn x dqkv", x, dqkv[:, D:]), ("tn y1 dh", y1, h),
+                          ("tn x[::S] dq", x[::S], dqkv[::S, :D])):
+            got = re.weight_grad(a, b, bf16=True)
+            want = re.weight_grad_plain(a, b, bf16=True)
+            torch.cuda.synchronize()
+            low = min(cosine(k, p) for k, p in zip(got, want))
+            rel = max(float((k - p).norm() / p.norm().clamp_min(1e-30))
+                      for k, p in zip(got, want))
+            if not (low > 0.999 and rel <= K18_BF16_REL):
+                fail(f"K18 bf16 D={D} {lab}: cosine {low}, relative L2 "
+                     f"{rel}")
+            errs[("K18", D, str(bf), 0.0, lab)] = max_err(list(got),
+                                                          list(want))
+            print(f"#   K18 bf16 D={D} {lab}: cosine {low:.7f}, relative "
+                  f"L2 {rel:.2e}", flush=True)
+    return errs
+
+
 def check_rows_routes(dev) -> dict:
     """The routes past D = 128 at D = 160 against their plain versions on
     the card: the whole encoder at T = 2 (``u2gnn_train_encoder``: two
@@ -3507,51 +3602,60 @@ def node_majority_share(ds) -> float:
     return float(np.bincount(y).max() / len(y))
 
 
-def node_cli(root) -> dict:
-    """``cli.train_node.main`` with ``NODE_FLAGS`` on the Planetoid-format
-    files at Cora's shape under ``root``, every launch count set to 0 just
-    before and read just after: finite losses, the mean of the last five
-    below the mean of the first five, exactly ``NODE_STEP_LAUNCHES`` a step
-    and no other kernel, and the best mask probe at least the gate."""
-    import contextlib
-    import io
-
+def node_cli(root, flags=NODE_FLAGS, label="node CLI") -> dict:
+    """``cli.train_node.main`` with ``flags`` on the Planetoid-format files
+    at Cora's shape under ``root``, every launch count set to 0 just before
+    and read just after: finite losses, the mean of the last five below the
+    mean of the first five, exactly ``NODE_STEP_LAUNCHES`` a step and no
+    other kernel, each K18 launch in the flags' compute dtype, and the best
+    mask probe at least the gate.  In bf16 also the loss at the
+    ``PROBE_SEEDS`` seeds lower with the trained parameters than with the
+    initial ones."""
     from graph_transformer_tpu_torch.cli import train_node
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+    from graph_transformer_tpu_torch.train.node_trainer import NodeTrainer
 
-    _, args = node_config(NODE_FLAGS + ["--citation_dir", root])
+    cfg, args = node_config(flags + ["--citation_dir", root])
+    bf16 = cfg.model.compute_dtype == "bfloat16"
     ds = train_node.load(args)
     gate = node_majority_share(ds) - NODE_GATE_BELOW_MAJORITY
-    counters = launch_counters()
-    for c in counters.values():
-        c.launches = 0
-    buf = io.StringIO()
+    re.K18.shapes.clear()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        best = train_node.main(NODE_FLAGS + ["--citation_dir", root])
+    with kept_output(train_node, "train_evaluate_node") as out:
+        best, text, launches = run_counted(
+            lambda: train_node.main(flags + ["--citation_dir", root]))
     sec = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
-    print(buf.getvalue(), end="", flush=True)
     losses = [float(line.split("|")[1].split()[1])
-              for line in buf.getvalue().splitlines()
-              if line.startswith("epoch ")]
-    steps = int(NODE_FLAGS[NODE_FLAGS.index("--num_epochs") + 1])
+              for line in text.splitlines() if line.startswith("epoch ")]
+    steps = int(flags[flags.index("--num_epochs") + 1])
     if len(losses) != steps or not all(np.isfinite(losses)):
-        fail(f"node CLI: losses {losses}")
+        fail(f"{label}: losses {losses}")
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if not last < first:
-        fail(f"node CLI: the last five losses' mean {last} is not below the "
+        fail(f"{label}: the last five losses' mean {last} is not below the "
              f"first five's {first}")
-    unsup_counts("node CLI", launches, steps, NODE_STEP_LAUNCHES)
+    unsup_counts(label, launches, steps, NODE_STEP_LAUNCHES)
+    kinds = {key[1] for key in re.K18.shapes}
+    if kinds != {bf16}:
+        fail(f"{label}: K18 launched with bf16 products {sorted(kinds)}, the "
+             f"compute dtype is {cfg.model.compute_dtype}")
+    probe = {}
+    if bf16:
+        trained = out["trainer"]
+        probe = check_fell(label, lambda tr, s: tr.loss(s),
+                           NodeTrainer(ds, cfg, device="cuda"), trained,
+                           steps, losses)
     if not best >= gate:
-        fail(f"node CLI: best mask probe {best} below the gate {gate}")
-    print(f"# node CLI: {ds.num_nodes} nodes, D={ds.feature_dim}, losses "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {first:.4f}, last"
-          f" five {last:.4f}), best mask probe {best:.4f} (gate {gate:.4f}: "
-          f"the test mask's majority share less "
-          f"{NODE_GATE_BELOW_MAJORITY}), {sec:.1f} s", flush=True)
+        fail(f"{label}: best mask probe {best} below the gate {gate}")
+    print(f"# {label}: {ds.num_nodes} nodes, D={ds.feature_dim}, "
+          f"{cfg.model.compute_dtype}, losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first five {first:.4f}, last five {last:.4f}), "
+          f"best mask probe {best:.4f} (gate {gate:.4f}: the test mask's "
+          f"majority share less {NODE_GATE_BELOW_MAJORITY}), {sec:.1f} s",
+          flush=True)
     return {"losses": losses, "best_masks": best, "gate": gate,
-            "seconds": sec, "launches": {k: v for k, v in launches.items()
-                                         if v}}
+            "seconds": sec, **probe,
+            "launches": {k: v for k, v in launches.items() if v}}
 
 
 def node_step_flops(N, S, D, F) -> float:
@@ -3562,20 +3666,21 @@ def node_step_flops(N, S, D, F) -> float:
             + 4.0 * N * D * F)
 
 
-def node_steps(root, n=20) -> dict:
-    """A ``NodeTrainer`` of the CLI's configuration on the card: ``n`` steps
-    timed by CUDA events after 3 warm-up steps, device busy and operations
-    a step from torch.profiler over 5 steps with K18's launches a step by
-    launch key (``rows_encoder.K18.shapes``), and the forward's operation
-    bound beside the step; then two trainers of 5 steps each, every
-    parameter and Adam moment equal bit for bit."""
+def node_steps(root, n=20, flags=NODE_FLAGS, label="node steps") -> dict:
+    """A ``NodeTrainer`` of the CLI's configuration (``flags``) on the card:
+    ``n`` steps timed by CUDA events after 3 warm-up steps, device busy and
+    operations a step from torch.profiler over 5 steps with K18's launches
+    a step by launch key (``rows_encoder.K18.shapes``) and its device ms a
+    step, and the forward's operation bound beside the step; then two
+    trainers of 5 steps each, every parameter and Adam moment equal bit for
+    bit."""
     import torch
 
     from graph_transformer_tpu_torch.cli import train_node
     from graph_transformer_tpu_torch.ops import rows_encoder as re
     from graph_transformer_tpu_torch.train.node_trainer import NodeTrainer
 
-    cfg, args = node_config(NODE_FLAGS + ["--citation_dir", root])
+    cfg, args = node_config(flags + ["--citation_dir", root])
     ds = train_node.load(args)
     t = NodeTrainer(ds, cfg, device="cuda")
     for _ in range(3):
@@ -3590,7 +3695,7 @@ def node_steps(root, n=20) -> dict:
     end.record()
     end.synchronize()
     if not bool(torch.isfinite(loss)):
-        fail(f"node steps: loss {float(loss)}")
+        fail(f"{label}: loss {float(loss)}")
     ms = start.elapsed_time(end) / n
     re.K18.shapes.clear()
     prof = profile_busy(lambda: [t.train_step(t.next_seed())
@@ -3598,18 +3703,20 @@ def node_steps(root, n=20) -> dict:
     shapes = {k: v // 5 for k, v in re.K18.shapes.items()}
     if (any(v % 5 for v in re.K18.shapes.values())
             or sum(shapes.values()) != NODE_STEP_LAUNCHES["K18"]):
-        fail(f"node steps: K18's launches over 5 steps by shape "
+        fail(f"{label}: K18's launches over 5 steps by shape "
              f"{dict(re.K18.shapes)}, not {NODE_STEP_LAUNCHES['K18']} a step")
     N, S, D = t.batch.n_pad, cfg.data.num_neighbors + 1, ds.feature_dim
     flops = node_step_flops(N, S, D, cfg.model.ff_hidden_size)
-    bound_ms = flops / F32_FLOP_PER_S * 1e3
+    bf16 = cfg.model.compute_dtype == "bfloat16"
+    bound_ms = flops / (BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S) * 1e3
     k18_ms = prof["ms_per_step_of"] if prof else None
-    print(f"# node steps: {ms:.3f} ms a step ({n} steps, CUDA events), N={N},"
-          f" S={S}, D={D}; forward {flops:.4g} FLOP, bound "
-          f"{bound_ms:.3f} ms at 67 TFLOP/s float32, "
-          f"{3 * flops / TF32_FLOP_PER_S * 1e3:.3f} ms as 3xTF32 (the "
-          f"backward about twice); K18 {k18_ms} ms a step (profile)",
-          flush=True)
+    rates = ("989 TFLOP/s bf16" if bf16 else
+             f"67 TFLOP/s float32, {3 * flops / TF32_FLOP_PER_S * 1e3:.3f} "
+             "ms as 3xTF32")
+    print(f"# {label}: {ms:.3f} ms a step ({n} steps, CUDA events), N={N},"
+          f" S={S}, D={D}, {cfg.model.compute_dtype}; forward {flops:.4g} "
+          f"FLOP, bound {bound_ms:.3f} ms at {rates} (the backward about "
+          f"twice); K18 {k18_ms} ms a step (profile)", flush=True)
     runs = []
     for _ in range(2):
         r = NodeTrainer(ds, cfg, device="cuda")
@@ -3621,8 +3728,8 @@ def node_steps(root, n=20) -> dict:
     (la, pa, ma), (lb, pb, mb) = runs
     if not (la == lb and all(torch.equal(a, b)
                              for a, b in zip(pa + ma, pb + mb))):
-        fail(f"two node runs of 5 steps differ: losses {la} {lb}")
-    print(f"# node: two runs of 5 steps equal bit for bit (losses {la})",
+        fail(f"{label}: two runs of 5 steps differ: losses {la} {lb}")
+    print(f"# {label}: two runs of 5 steps equal bit for bit (losses {la})",
           flush=True)
     return {"ms_per_step": ms, "profile": prof, "forward_flops": flops,
             "forward_bound_ms": bound_ms, "k18_ms_per_step": k18_ms,
@@ -3630,10 +3737,11 @@ def node_steps(root, n=20) -> dict:
 
 
 TF32_FLOP_PER_S = 495e12  # H100 SXM, dense TF32 tensor cores
-# K18's device kernels: the products (float32 3xTF32, bf16), the split-K
-# products' partial sums and the bias gradients' column sums
-K18_KERNELS = ("rg_tf32_kernel", "rg_bf16_kernel", "rg_reduce_kernel",
-               "rg_colsum_kernel")
+# K18's device kernels: the products (float32 3xTF32; bf16 on wgmma, after
+# the packing that rounds both operands), the split-K products' partial
+# sums and the bias gradients' column sums
+K18_KERNELS = ("rg_tf32_kernel", "rg_pack_kernel", "rg_wgmma_bf16_kernel",
+               "rg_reduce_kernel", "rg_colsum_kernel")
 
 
 def k18_bounds(b, f) -> dict:
@@ -3646,7 +3754,7 @@ def k18_bounds(b, f) -> dict:
             "bound_f32_by": by32}
 
 
-def node_k18_table(N, S, D, F) -> list:
+def node_k18_table(N, S, D, F, bf16=False) -> list:
     """K18's launches in a node step at T = 1 (one slot-0 layer, no dx), as
     ``ops/rows_encoder.py`` makes them for N neighborhoods of S slots at
     width D and FFN width F: (name, epilogue, launch key), the key as
@@ -3657,32 +3765,47 @@ def node_k18_table(N, S, D, F) -> list:
     (gate), dy1 (add) and dctx; the weight products (with their column
     sums): W_in's q columns from slot 0's rows of x and of QKV's
     cotangent, its k and v columns from every row, then W_out, W1, W2."""
-    R, D3 = N * S, 3 * D
-    return [("q nn", "bias", ("nn", False, N, D, D, S * D, D3, S * D3)),
-            ("kv nn", "bias", ("nn", False, R, 2 * D, D, D, D3, D3)),
-            ("out nn", "bias", ("nn", False, N, D, D, D, D, D)),
-            ("ffn1 nn", "relu_drop", ("nn", False, N, F, D, D, F, F)),
-            ("ffn2 nn", "bias", ("nn", False, N, D, F, F, D, D)),
-            ("dh nt", "gate", ("nt", False, N, F, D, D, D, F)),
-            ("dy1 nt", "add", ("nt", False, N, D, F, F, F, D)),
-            ("dctx nt", None, ("nt", False, N, D, D, D, D, D)),
-            ("dW_in q tn", None, ("tn", False, D, D, N, S * D, S * D3, D)),
-            ("dW_in kv tn", None, ("tn", False, D, 2 * D, R, D, D3, 2 * D)),
-            ("dW_out tn", None, ("tn", False, D, D, N, D, D, D)),
-            ("dW1 tn", None, ("tn", False, D, F, N, D, F, F)),
-            ("dW2 tn", None, ("tn", False, F, D, N, F, D, D))]
+    R, D3, b = N * S, 3 * D, bool(bf16)
+    return [("q nn", "bias", ("nn", b, N, D, D, S * D, D3, S * D3)),
+            ("kv nn", "bias", ("nn", b, R, 2 * D, D, D, D3, D3)),
+            ("out nn", "bias", ("nn", b, N, D, D, D, D, D)),
+            ("ffn1 nn", "relu_drop", ("nn", b, N, F, D, D, F, F)),
+            ("ffn2 nn", "bias", ("nn", b, N, D, F, F, D, D)),
+            ("dh nt", "gate", ("nt", b, N, F, D, D, D, F)),
+            ("dy1 nt", "add", ("nt", b, N, D, F, F, F, D)),
+            ("dctx nt", None, ("nt", b, N, D, D, D, D, D)),
+            ("dW_in q tn", None, ("tn", b, D, D, N, S * D, S * D3, D)),
+            ("dW_in kv tn", None, ("tn", b, D, 2 * D, R, D, D3, 2 * D)),
+            ("dW_out tn", None, ("tn", b, D, D, N, D, D, D)),
+            ("dW1 tn", None, ("tn", b, D, F, N, D, F, F)),
+            ("dW2 tn", None, ("tn", b, F, D, N, F, D, D))]
 
 
-def node_k18_launches(dev, N, S, D, F, seed=5, views=True) -> dict:
-    """Each launch of :func:`node_k18_table` on random float32 operands:
-    name -> (kernel call, library call, launch key, operations, bytes).
-    With ``views`` the operands and outputs are views as the step's are
-    (x[::S], W_in's column blocks, the QKV buffer's and its cotangent's),
-    so each call makes its table key; without, contiguous copies of the
-    same values and no ``out`` (for a checkout whose K18 takes no row
-    strides).  The library call is one torch.addmm or torch.mm (on
-    transposed views) of the same product, with
-    torch.backends.cuda.matmul.allow_tf32 False."""
+BF16_MM = "torch.mm out_dtype=float32"
+
+
+def bf16_mm(x, y):
+    """One torch product of bf16 operands with a float32 result."""
+    import torch
+
+    return torch.mm(x, y, out_dtype=torch.float32)
+
+
+def node_k18_launches(dev, N, S, D, F, seed=5, views=True,
+                      bf16=False) -> dict:
+    """Each launch of :func:`node_k18_table` on random operands: name ->
+    (kernel call, library call, launch key, operations, bytes).  With
+    ``views`` the operands and outputs are views as the step's are (x[::S],
+    W_in's column blocks, the QKV buffer's and its cotangent's), so each
+    call makes its table key; without, contiguous copies of the same values
+    and no ``out`` (for a checkout whose K18 takes no row strides).  Float32:
+    the library call is one torch.addmm or torch.mm (on transposed views) of
+    the same product, with torch.backends.cuda.matmul.allow_tf32 False.
+    bf16 (``bf16``: x in bf16, as the bf16 step's rows; every other operand
+    float32, as the step's weights and K18's outputs; bf16 products): one
+    :func:`bf16_mm` on bf16 copies of the operands made beforehand (the
+    casts not counted, no bias, gate or add), a yardstick of the product
+    alone.  Bytes count the operands as they lie in memory."""
     import torch
 
     from graph_transformer_tpu_torch.ops import rows_encoder as re
@@ -3696,6 +3819,8 @@ def node_k18_launches(dev, N, S, D, F, seed=5, views=True) -> dict:
     R = N * S
     x, w_in, b_in, dqkv = rnd(R, D), rnd(D, 3 * D, sc=ws), rnd(3 * D), rnd(
         R, 3 * D)
+    if bf16:
+        x = x.to(torch.bfloat16)
     qkv = torch.empty(R, 3 * D, device=dev)
     w_out, w1, w2 = rnd(D, D, sc=ws), rnd(D, F, sc=ws), rnd(F, D, sc=ws)
     b_d, b_f = rnd(D), rnd(F)
@@ -3710,75 +3835,91 @@ def node_k18_launches(dev, N, S, D, F, seed=5, views=True) -> dict:
                                   for t in (xs, w_q, w_kv, dq, dkv))
         q_out = kv_out = {}
     drop = (0.5, 3, 0, re.HIDDEN_SITE)
+    kw = dict(bf16=bf16)
 
     def nb(*ts):
-        return sum(t.numel() * 4 for t in ts)
+        return sum(t.numel() * t.element_size() for t in ts)
 
     def out(M, Nn):
         return M * Nn * 4
 
+    if bf16:
+        def lib(bias, a, b):
+            a_, b_ = a.to(torch.bfloat16), b.to(torch.bfloat16)
+            return lambda: bf16_mm(a_, b_)
+    else:
+        def lib(bias, a, b):
+            if bias is None:
+                return lambda: torch.mm(a, b)
+            return lambda: torch.addmm(bias, a, b)
+
     calls = {
-        "q nn": (lambda: re.gemm(xs, w_q, bias=b_q, **q_out),
-                 lambda: torch.addmm(b_q, xs, w_q), 2.0 * N * D * D,
+        "q nn": (lambda: re.gemm(xs, w_q, bias=b_q, **q_out, **kw),
+                 lib(b_q, xs, w_q), 2.0 * N * D * D,
                  nb(xs, w_q, b_q) + out(N, D)),
-        "kv nn": (lambda: re.gemm(x, w_kv, bias=b_kv, **kv_out),
-                  lambda: torch.addmm(b_kv, x, w_kv), 2.0 * R * D * 2 * D,
+        "kv nn": (lambda: re.gemm(x, w_kv, bias=b_kv, **kv_out, **kw),
+                  lib(b_kv, x, w_kv), 2.0 * R * D * 2 * D,
                   nb(x, w_kv, b_kv) + out(R, 2 * D)),
-        "out nn": (lambda: re.gemm(ctx, w_out, bias=b_d),
-                   lambda: torch.addmm(b_d, ctx, w_out), 2.0 * N * D * D,
+        "out nn": (lambda: re.gemm(ctx, w_out, bias=b_d, **kw),
+                   lib(b_d, ctx, w_out), 2.0 * N * D * D,
                    nb(ctx, w_out, b_d) + out(N, D)),
-        "ffn1 nn": (lambda: re.gemm(y1, w1, bias=b_f, relu=True, drop=drop),
-                    lambda: torch.addmm(b_f, y1, w1), 2.0 * N * D * F,
+        "ffn1 nn": (lambda: re.gemm(y1, w1, bias=b_f, relu=True, drop=drop,
+                                    **kw),
+                    lib(b_f, y1, w1), 2.0 * N * D * F,
                     nb(y1, w1, b_f) + out(N, F)),
-        "ffn2 nn": (lambda: re.gemm(h, w2, bias=b_d),
-                    lambda: torch.addmm(b_d, h, w2), 2.0 * N * F * D,
+        "ffn2 nn": (lambda: re.gemm(h, w2, bias=b_d, **kw),
+                    lib(b_d, h, w2), 2.0 * N * F * D,
                     nb(h, w2, b_d) + out(N, D)),
-        "dh nt": (lambda: re.gemm(dz, w2, "nt", gate=h, gate_keep=0.5),
-                  lambda: torch.mm(dz, w2.t()), 2.0 * N * D * F,
+        "dh nt": (lambda: re.gemm(dz, w2, "nt", gate=h, gate_keep=0.5, **kw),
+                  lib(None, dz, w2.t()), 2.0 * N * D * F,
                   nb(dz, w2, h) + out(N, F)),
-        "dy1 nt": (lambda: re.gemm(dh, w1, "nt", add=du2),
-                   lambda: torch.addmm(du2, dh, w1.t()), 2.0 * N * F * D,
+        "dy1 nt": (lambda: re.gemm(dh, w1, "nt", add=du2, **kw),
+                   lib(du2, dh, w1.t()), 2.0 * N * F * D,
                    nb(dh, w1, du2) + out(N, D)),
-        "dctx nt": (lambda: re.gemm(da, w_out, "nt"),
-                    lambda: torch.mm(da, w_out.t()), 2.0 * N * D * D,
+        "dctx nt": (lambda: re.gemm(da, w_out, "nt", **kw),
+                    lib(None, da, w_out.t()), 2.0 * N * D * D,
                     nb(da, w_out) + out(N, D)),
-        "dW_in q tn": (lambda: re.weight_grad(xs, dq),
-                       lambda: torch.mm(xs.t(), dq), 2.0 * N * D * D,
+        "dW_in q tn": (lambda: re.weight_grad(xs, dq, **kw),
+                       lib(None, xs.t(), dq), 2.0 * N * D * D,
                        nb(xs, dq) + out(D, D) + 4 * D),
-        "dW_in kv tn": (lambda: re.weight_grad(x, dkv),
-                        lambda: torch.mm(x.t(), dkv), 2.0 * R * D * 2 * D,
+        "dW_in kv tn": (lambda: re.weight_grad(x, dkv, **kw),
+                        lib(None, x.t(), dkv), 2.0 * R * D * 2 * D,
                         nb(x, dkv) + out(D, 2 * D) + 8 * D),
-        "dW_out tn": (lambda: re.weight_grad(ctx, da),
-                      lambda: torch.mm(ctx.t(), da), 2.0 * N * D * D,
+        "dW_out tn": (lambda: re.weight_grad(ctx, da, **kw),
+                      lib(None, ctx.t(), da), 2.0 * N * D * D,
                       nb(ctx, da) + out(D, D) + 4 * D),
-        "dW1 tn": (lambda: re.weight_grad(y1, dh),
-                   lambda: torch.mm(y1.t(), dh), 2.0 * N * D * F,
+        "dW1 tn": (lambda: re.weight_grad(y1, dh, **kw),
+                   lib(None, y1.t(), dh), 2.0 * N * D * F,
                    nb(y1, dh) + out(D, F) + 4 * F),
-        "dW2 tn": (lambda: re.weight_grad(h, dz),
-                   lambda: torch.mm(h.t(), dz), 2.0 * N * F * D,
+        "dW2 tn": (lambda: re.weight_grad(h, dz, **kw),
+                   lib(None, h.t(), dz), 2.0 * N * F * D,
                    nb(h, dz) + out(F, D) + 4 * D),
     }
     return {name: (calls[name][0], calls[name][1], key, *calls[name][2:])
-            for name, _, key in node_k18_table(N, S, D, F)}
+            for name, _, key in node_k18_table(N, S, D, F, bf16)}
 
 
-def rows_timings(dev, t, step_shapes) -> dict:
+def rows_timings(dev, t, step_shapes, bf16=False) -> dict:
     """Each of K18-K20 at the node step's launches (the trainer ``t``'s
-    shapes, float32).  K18: every launch of :func:`node_k18_table`, each
-    first checked to launch K18 once with its table key, then its device
-    ms a launch (profiler), its launches a step (``step_shapes``, the keys
-    the profiled node steps counted, which must be the table's), the
-    3xTF32 tensor-core and the float32 CUDA-core bounds and one library
-    call's time (``torch.addmm`` or ``torch.mm``, allow_tf32 False); K18's
-    entry is the step's largest launch, k and v over every row, with its
-    wrapper's and its plain version's time, the launches under
-    ``per_launch`` and their sum a step weighted by the counted launches.
-    K19 the slot-0 attention forward, K20 the first LayerNorm forward over
-    slot 0's rows.  Per kernel: device ms a launch, the wrapper's ms (CUDA
-    events), the plain version's, one library call's (``torch.addmm``,
-    ``scaled_dot_product_attention`` on q [N, 1, 1, D] and k, v
-    [N, 1, S, D], ``F.layer_norm``; yardsticks the port never calls), and
-    the bound from this launch's bytes and operations."""
+    shapes).  K18: every launch of :func:`node_k18_table`, each first
+    checked to launch K18 once with its table key, then its device ms a
+    launch (profiler), its launches a step (``step_shapes``, the keys the
+    profiled node steps counted, which must be the table's), its bounds
+    and one library call's time; K18's entry is the step's largest launch,
+    k and v over every row, with its wrapper's and its plain version's
+    time, the launches under ``per_launch`` and their sum a step weighted
+    by the counted launches.  Float32: the 3xTF32 tensor-core and the
+    float32 CUDA-core bounds, the library call ``torch.addmm`` or
+    ``torch.mm`` (allow_tf32 False).  bf16 (``bf16``, K18 alone): the bf16
+    bound (989 TFLOP/s, the operands' bytes as they lie in memory) and the
+    library call :func:`bf16_mm` on bf16 copies.  K19 the slot-0 attention
+    forward, K20 the first LayerNorm forward over slot 0's rows, and each
+    one's backward (float32 only).  Per kernel: device ms a launch, the
+    wrapper's ms (CUDA events), the plain version's, one library call's
+    (``torch.addmm``, ``scaled_dot_product_attention`` on q [N, 1, 1, D] and
+    k, v [N, 1, S, D], ``F.layer_norm``; yardsticks the port never calls;
+    none for the backward launches), and the bound from this launch's bytes
+    and operations."""
     import torch
     import torch.nn.functional as Fn
 
@@ -3789,11 +3930,13 @@ def rows_timings(dev, t, step_shapes) -> dict:
              "(torch.backends.cuda.matmul.allow_tf32 is set)")
     N, S = t.batch.n_pad, t.cfg.data.num_neighbors + 1
     D, F = t.ds.feature_dim, t.cfg.model.ff_hidden_size
-    launches = node_k18_launches(dev, N, S, D, F)
+    launches = node_k18_launches(dev, N, S, D, F, bf16=bf16)
     keys = {v[2] for v in launches.values()}
     if set(step_shapes) != keys:
         fail(f"rows_timings: the node step launched K18 as {step_shapes}; "
              f"node_k18_table has {sorted(keys)}")
+    tag = "bf16" if bf16 else "float32"
+    lib_name = BF16_MM if bf16 else "torch.addmm/mm, allow_tf32 False"
     per = {}
     for name, (fn, lib, key, f, b) in launches.items():
         re.K18.shapes.clear()
@@ -3802,15 +3945,21 @@ def rows_timings(dev, t, step_shapes) -> dict:
             fail(f"rows_timings: {name} launched K18 as "
                  f"{dict(re.K18.shapes)}, the step as {key}")
         n = step_shapes[key]
+        if bf16:
+            bms, by = bound(b, f, BF16_FLOP_PER_S)
+            bounds = {"bound_ms": bms, "bound_by": by}
+        else:
+            bounds = k18_bounds(b, f)
         per[name] = dict(ms=device_ms(fn, 10, K18_KERNELS), per_step=n,
                          library_ms=time_ms(lib, 10), flops=f, bytes=b,
-                         **k18_bounds(b, f))
+                         **bounds)
         v = per[name]
-        print(f"# K18 {name}: {v['ms']:.4f} ms a launch, {n} a step "
-              f"(counted); bound {v['bound_ms']:.5f} (3xTF32 on the tensor "
-              f"cores), {v['bound_f32_ms']:.5f} (float32 CUDA cores); library "
-              f"{v['library_ms']:.4f} (one torch.addmm/mm, allow_tf32 "
-              "False)", flush=True)
+        print(f"# K18 {tag} {name}: {v['ms']:.4f} ms a launch, {n} a step "
+              f"(counted); bound {v['bound_ms']:.5f} ("
+              + ("989 TFLOP/s bf16" if bf16 else "3xTF32 on the tensor cores"
+                 f"), {v['bound_f32_ms']:.5f} (float32 CUDA cores")
+              + f"); library {v['library_ms']:.4f} (one {lib_name})",
+              flush=True)
     kv = launches["kv nn"][0]
     with plain_pieces():
         kv_plain = time_ms(kv, 10)
@@ -3822,11 +3971,13 @@ def rows_timings(dev, t, step_shapes) -> dict:
                                 for v in per.values()),
         excess_ms_per_launch=sum(v["per_step"] * (v["ms"] - v["bound_ms"])
                                  for v in per.values()) / steps_n,
-        per_launch=per)}
-    print(f"# K18 a node step: {out['K18']['ms_per_step']:.4f} ms over "
+        library=lib_name, per_launch=per)}
+    print(f"# K18 {tag} a node step: {out['K18']['ms_per_step']:.4f} ms over "
           f"{steps_n} counted launches (library "
           f"{out['K18']['library_ms_per_step']:.4f}); kv nn wrapper "
           f"{out['K18']['wrapper_ms']:.4f}, plain {kv_plain:.4f}", flush=True)
+    if bf16:
+        return out
     g = torch.Generator().manual_seed(5)
     x = torch.randn(N * S, D, generator=g).to(dev)
     p = [a.detach()[0] for a in t.model.encoders[0].stacked()]
@@ -3861,6 +4012,34 @@ def rows_timings(dev, t, step_shapes) -> dict:
               f"{out[key]['plain_ms']:.4f}, library "
               f"{out[key]['library_ms']:.4f}, bound {bms:.5f} by {by})",
               flush=True)
+    # the backward launches (no one library call computes either): K19's
+    # slot-0 attention backward (q of slot 0's rows, k and v of every row
+    # and dctx read, dqkv written), K20's first LayerNorm backward over slot
+    # 0's rows (its per-block dgamma, dbeta partials summed in order)
+    d = torch.randn(N, D, generator=g).to(dev)
+    bwd = {
+        "K19": (lambda: re.attention_backward(qkv, d, S, slot0=True, **kw),
+                lambda: re.attention_backward_plain(qkv, d, S, slot0=True,
+                                                    **kw),
+                ("ra_bwd_kernel",),
+                4 * (2 * N * D + 2 * N * S * D + 3 * N * S * D),
+                10.0 * N * S * D),
+        "K20": (lambda: re.res_ln_backward(d, x, a, p[4], p[5], res_every=S,
+                                           site=1, **kw),
+                lambda: re.res_ln_backward_plain(d, x, a, p[4], p[5],
+                                                 res_every=S, site=1, **kw),
+                ("rl_bwd_kernel", "rl_reduce_kernel"),
+                4 * (5 * N * D + 4 * D), 12.0 * N * D),
+    }
+    for key, (fn, plain, names, b, f) in bwd.items():
+        ms = device_ms(fn, 10, names)
+        bms, by = bound(b, f, F32_FLOP_PER_S)
+        out[key]["backward"] = dict(ms=ms, plain_ms=time_ms(plain, 10),
+                                    library_ms=None, bound_ms=bms,
+                                    bound_by=by, bytes=b, flops=f)
+        print(f"# {key} backward at the node step's shape: {ms:.4f} ms a "
+              f"launch (plain {out[key]['backward']['plain_ms']:.4f}, bound "
+              f"{bms:.5f} by {by}; no library call)", flush=True)
     return out
 
 
@@ -3881,14 +4060,16 @@ ROWS_META = {
 
 def node_phases(root, dev) -> tuple:
     """The node path's phases (slice 16): K18-K20 at the node widths, the
-    routes past D = 128, the node CLI at Cora's shape, timed and profiled
-    steps, two runs bit for bit, and K18-K20's timings.  Returns (errors
-    by kernel, numbers, kernels-line entries)."""
+    routes past D = 128, K18's bf16 products at each width, the node CLI at
+    Cora's shape, timed and profiled steps, two runs bit for bit, and
+    K18-K20's timings; then the CLI, the steps and K18's timings again in
+    bf16.  Returns (errors by kernel, numbers, kernels-line entries)."""
     import torch
 
     t0 = time.perf_counter()
     errs = check_rows_kernels(dev)
     errs.update(check_rows_routes(dev))
+    errs.update(check_k18_bf16(dev))
     labels = write_planetoid_like(root)
     print(f"# node data: Planetoid files at Cora's shape under {root}: "
           f"{len(labels)} nodes, classes {np.bincount(labels).tolist()}",
@@ -3899,6 +4080,15 @@ def node_phases(root, dev) -> tuple:
     shapes = steps.pop("k18_shapes")
     out["steps"] = steps
     timing = rows_timings(dev, t, shapes)
+    del t
+    # the bf16 twin (--compute_dtype bfloat16): the CLI, the steps, K18
+    out["cli_bf16"] = node_cli(root, NODE_BF16_FLAGS, "node CLI bf16")
+    steps = node_steps(root, flags=NODE_BF16_FLAGS, label="node steps bf16")
+    t = steps.pop("trainer")
+    shapes = steps.pop("k18_shapes")
+    out["steps_bf16"] = steps
+    timing_bf16 = rows_timings(dev, t, shapes, bf16=True)["K18"]
+    del t
     entries = []
     for key, (name, source, replaces) in ROWS_META.items():
         tm = timing[key]
@@ -3911,6 +4101,17 @@ def node_phases(root, dev) -> tuple:
             "max_rel_err": max(e[1] for e in errs_k), **tm,
             "excess_ms": launches * tm.get("excess_ms_per_launch",
                                            tm["ms"] - tm["bound_ms"])})
+    # K18's bf16 products: their own kernel, launched by the bf16 CLI
+    name, source, replaces = ROWS_META["K18"]
+    errs_k = [v for k, v in errs.items()
+              if k[0] == "K18" and k[2] == "torch.bfloat16"]
+    launches = out["cli_bf16"]["launches"].get("K18", 0)
+    entries.append({
+        "name": f"K18 {name} (bf16 products)", "route": "cuda",
+        "source": source, "replaces": replaces, "launches": launches,
+        "max_abs_err": max(e[0] for e in errs_k),
+        "max_rel_err": max(e[1] for e in errs_k), **timing_bf16,
+        "excess_ms": launches * timing_bf16["excess_ms_per_launch"]})
     print(f"# node phases: {time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.synchronize()
     return errs, out, entries
@@ -4875,7 +5076,7 @@ MMA_KERNELS = {
     "stored_bwd": ("wd_stored_bwd_kernel", "wd_wgrad_mma_kernel"),
     "layer_bwd": ("gt_layer_bwd_kernel",),
     "mega_bwd": ("gt_mega_bwd_kernel", "wd_mega_bwd_kernel"),
-    "rows_gemm": ("rg_bf16_kernel", "rg_tf32_kernel"),
+    "rows_gemm": ("rg_wgmma_bf16_kernel", "rg_tf32_kernel"),
 }
 
 

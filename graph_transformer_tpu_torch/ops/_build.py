@@ -100,7 +100,8 @@ SIGNATURES = {
                                _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U,
                                _U, _F, _I, _P],
     "gt_k18_gemm": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _P, _I, _P, _P, _F, _I, _U, _U, _U, _F, _I, _I, _P, _P],
+                    _P, _I, _P, _P, _F, _I, _U, _U, _U, _F, _I, _I, _P, _P,
+                    _P],
     "gt_k18_colsum": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
     "gt_k19_attn_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F, _I,
                         _P],
@@ -111,16 +112,17 @@ SIGNATURES = {
     "gt_k20_ln_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       _U, _U, _U, _F, _I, _P],
 }
-# integer-valued helpers: K18's chunk counts (M, N, K) and (rows), K20's
-# backward blocks (R)
-COUNT_FNS = {"gt_k18_chunks": 3, "gt_k18_colsum_chunks": 1,
+# integer-valued helpers: K18's chunk counts (M, N, K, bf16) and (rows),
+# K20's backward blocks (R)
+COUNT_FNS = {"gt_k18_chunks": 4, "gt_k18_colsum_chunks": 1,
              "gt_k20_bwd_blocks": 1}
 # scratch bytes: K6, K8w/K10w (N, S, D, F, G, slot0, bf16), K12 (M, D, F,
-# bf16), K14w (N, S, D, F, G, T, bf16) -> bytes; the split-K products'
-# scratch (rows, M1, N1) -> floats
+# bf16), K14w (N, S, D, F, G, T, bf16), K18's bf16 packed tiles (M, N, K)
+# -> bytes; the split-K products' scratch (rows, M1, N1) -> floats
 WORK_FNS = {"gt_k6_work_bytes": 7, "gt_k8w_work_bytes": 7,
             "gt_k10w_work_bytes": 7, "gt_k12_work_bytes": 4,
-            "gt_k14w_work_bytes": 7, "gt_wgrad_split_floats": 3}
+            "gt_k14w_work_bytes": 7, "gt_k18_bf16_scratch": 3,
+            "gt_wgrad_split_floats": 3}
 # each kernel's shared memory per block, (G, S, D) -> bytes
 SMEM_FNS = ("gt_k1_smem_bytes", "gt_k2_smem_bytes", "gt_k3_smem_bytes",
             "gt_k4_smem_bytes", "gt_k4w_smem_bytes", "gt_k5_smem_bytes",

@@ -48,28 +48,54 @@
 // wgmma through shared-memory descriptors; A's fragments are split in the
 // registers of their one warpgroup.  While a step's products run, the next
 // tile's B is split and a later tile's copies are issued; each thread's
-// copy sources and shared-memory offsets are computed once a block.  bf16
-// products take float32 or bf16 operands, round them to bf16 as they are
-// staged and run mma.sync m16n8k16 with f32 sums (rg_bf16_kernel: 128 x 128
-// tiles, 32 of K a step, 8 warps of 64 x 32).
+// copy sources and shared-memory offsets are computed once a block.
+//
+// bf16 products take float32 or bf16 operands in device memory, in any mix
+// and layout, in two passes.  rg_pack_kernel rounds each operand once a
+// launch to bf16 (to nearest even, as the plain version's
+// .to(torch.bfloat16)) into packed tiles: 256 rows of A or 128 columns of B
+// by 32 of K a tile, 64 bytes a row in the layout wgmma reads (K-major,
+// 64-byte swizzle), zeros past the matrix, tiles in order (a tile a
+// thread block, read along the operand's contiguous dimension, written as
+// 16-byte chunks).  rg_wgmma_bf16_kernel then runs
+// 256 x 128 output tiles, two warpgroups of 128 x 128 (two m64n128k16
+// products each a 16 of K), both operands read from shared memory through
+// descriptors; one thread keeps RB_STAGES steps' tiles in flight, a step's
+// A and B tile as two bulk copies of the copy engine counted on the
+// stage's mbarrier; a stage is refilled once both warpgroups' products of
+// it are done; the output goes through shared memory so that the epilogue
+// reads and writes whole rows.  Staging float32 rows that start at any
+// word (rows of 1,433 words; no tensor map) and rounding them inside the
+// product kernel instead moved each element through shared memory four
+// times and held k, v above 1 ms, slower than torch's product (PERF.md);
+// packed, the product kernel copies whole tiles and rounds nothing.
+// Sum order: one float32 accumulator chained over the block's K (16 of K
+// an instruction, in K order); the weight products split K into chunks
+// (rg_bf16_chunks) summed in chunk order by rg_reduce_kernel.  The float32
+// rule does not bind bf16 products (their rules are check_bf16_spread and
+// cosine > 0.999 on the leaves); tests/test_torch_rows_gemm.py emulates
+// this order against float64 on bf16-rounded operands at K = 1,433 and
+// 14,080.
 //
 // Bound on the H100: at Cora's width (14,080 rows, D = 1,433, F = 1,024)
 // the products are operations-bound.  The node step's largest, k and v over
-// every row ([14,080 x 1,433] . [1,433 x 2,866], 1.16e11 FLOP on 242 MB),
-// takes 0.70 ms as 3xTF32 at 495 TFLOP/s, 1.73 ms at the CUDA cores' 67,
-// against 0.07 ms of bytes.  This design reads 3.6 GB of tiles from L2 for
+// every row ([14,080 x 1,433] . [1,433 x 2,866], 1.16e11 FLOP on 242 MB as
+// float32), takes 0.70 ms as 3xTF32 at 495 TFLOP/s, 1.73 ms at the CUDA
+// cores' 67, against 0.07 ms of bytes; in bf16 0.117 ms at 989 TFLOP/s,
+// against 0.065 ms of bytes (x as bf16, the weight and the output as
+// float32: 218 MB).  The float32 design reads 3.6 GB of tiles from L2 for
 // that product, and its loads alone take 2.8 ms there (PERF.md, PR 17; a
 // bulk copy a line, the copy engine without a tensor map, which rows of
 // 1,433 words cannot have, was twice as slow): larger tiles, which the two
 // sets of sums leave no registers for, or tiles shared across a cluster
-// are the later step.
+// are the later step.  The bf16 product kernel reads 1.37 GB of packed
+// tiles from L2 at k, v, which bounds it there (PERF.md).
 #include "common.cuh"
 
 #define RG_BM 128
 #define RG_BN 128
 #define RG_BK 32       // K a step
 #define RG_THREADS 256
-#define RG_PADH 8      // bf16 tile row padding: conflict-free fragment loads
 #define RG_RING 3      // float32 kernel: staged tiles in flight
 #define RG_TILE 4608   // float32 kernel: words of a staged operand tile (128
                        // lines of 36, 32 of 132) or of its TF32 parts
@@ -80,9 +106,7 @@
 
 struct RgArgs {
   const void* a;
-  int a_bf;
   const void* b;
-  int b_bf;
   float* c;
   int M, N, K;
   long long sam, sak, sbk, sbn, ldc;
@@ -103,23 +127,6 @@ __device__ __forceinline__ float rg_ld(const void* p, int bf, size_t i) {
     return __bfloat162float(
         __ushort_as_bfloat16(__ldg((const unsigned short*)p + i)));
   return __ldg((const float*)p + i);
-}
-
-__device__ __forceinline__ float rg_a(const RgArgs& g, int m, int k, int k1) {
-  return (m < g.M && k < k1)
-             ? rg_ld(g.a, g.a_bf, (size_t)m * g.sam + (size_t)k * g.sak)
-             : 0.f;
-}
-
-__device__ __forceinline__ float rg_b(const RgArgs& g, int k, int n, int k1) {
-  return (n < g.N && k < k1)
-             ? rg_ld(g.b, g.b_bf, (size_t)k * g.sbk + (size_t)n * g.sbn)
-             : 0.f;
-}
-
-// v rounded to bf16, as its bits
-__device__ __forceinline__ unsigned short rg_bf(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16(v));
 }
 
 // one output: the partial of a split product, or the epilogue and C
@@ -488,96 +495,423 @@ __global__ void __launch_bounds__(RG_THREADS, 1)
 }
 
 // -------------------------------------------------------------- bf16
-// Tiles in shared memory as bf16 with K contiguous: As[m][k], Bs[n][k], so
-// that a fragment's two K-adjacent values are one 32-bit load.
-__global__ void __launch_bounds__(RG_THREADS)
-    rg_bf16_kernel(const RgArgs g) {
-  __shared__ __align__(16) unsigned short As[RG_BM][RG_BK + RG_PADH];
-  __shared__ __align__(16) unsigned short Bs[RG_BN][RG_BK + RG_PADH];
-  constexpr int PER = RG_BM * RG_BK / RG_THREADS;  // 16
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % 2, wn = warp / 2;  // 2 x 4 warps of 64 x 32
-  const int gq = lane >> 2, tq = lane & 3;
-  const int m0 = blockIdx.y * RG_BM, n0 = blockIdx.x * RG_BN;
-  const int k0 = blockIdx.z * g.kchunk;
-  const int k1 = min(g.K, k0 + g.kchunk);
-  const bool ak = g.sak == 1, bk = g.sbk == 1;
-  unsigned short ra[PER], rb[PER];
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+// The operands' bf16 tiles, rounded once by rg_pack_kernel: for an operand
+// of R rows or columns r and K of k, tile rt of TR rows (RB_BM for A, RB_BN
+// for B) and step s (32 of K) is one block of TR x 64 bytes, row rr at byte
+// 64 rr holding k = 32 s .. 32 s + 31 as four 16-byte chunks, chunk c at
+// position c ^ ((rr / 2) % 4) (the 64-byte swizzle wgmma reads: the 8 rows
+// of an atom land on 32 banks); blocks in order (rt, s), zeros past R and
+// K.
+#define RB_BM 256
+#define RB_BN 128
+#define RB_THREADS 256             // two warpgroups of 128 rows
+#define RB_STAGES 6                // tiles in flight a block
+#define RB_TILE_A (RB_BM * 64)     // bytes of a packed A tile: 16,384
+#define RB_TILE_B (RB_BN * 64)     // 8,192
+#define RB_CT (RB_BN + 4)  // floats a row of the output tile in the epilogue
+static_assert(RB_BM * RB_CT * 4 <= RB_STAGES * (RB_TILE_A + RB_TILE_B),
+              "the epilogue's tile fits the stages' room");
+// the stages, their barriers, and room to align them to 1,024 bytes (the
+// swizzle's pattern follows address bits): 148,528 bytes, one block an SM
+#define RG_SMEM_BF16 \
+  (RB_STAGES * (RB_TILE_A + RB_TILE_B) + 8 * RB_STAGES + 1024)
 
-  auto load = [&](int kb) {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * RG_THREADS;
-      const int am = ak ? e / RG_BK : e % RG_BM;
-      const int akk = ak ? e % RG_BK : e / RG_BM;
-      ra[i] = rg_bf(rg_a(g, m0 + am, kb + akk, k1));
-      const int bnn = bk ? e / RG_BK : e % RG_BN;
-      const int bkk = bk ? e % RG_BK : e / RG_BN;
-      rb[i] = rg_bf(rg_b(g, kb + bkk, n0 + bnn, k1));
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int e = tid + i * RG_THREADS;
-      const int am = ak ? e / RG_BK : e % RG_BM;
-      const int akk = ak ? e % RG_BK : e / RG_BM;
-      As[am][akk] = ra[i];
-      const int bnn = bk ? e / RG_BK : e % RG_BN;
-      const int bkk = bk ? e % RG_BK : e / RG_BN;
-      Bs[bnn][bkk] = rb[i];
-    }
-  };
+// 16-byte chunks of an operand's packed tiles
+static inline long long rb_chunks(int R, int K, int tr) {
+  return (long long)((R + tr - 1) / tr) * ((K + 31) / 32) * tr * 4;
+}
 
-  load(k0);
-  stage();
+// the aligned 32-bit word at base + b, with only its bytes in [o, end) (the
+// rest zero; a half word where the range starts or ends inside it)
+__device__ __forceinline__ uint32_t rb_word(const char* base, int b, int o,
+                                            int end) {
+  if (b >= end || b + 4 <= o) return 0u;
+  if (b >= o && b + 4 <= end) return __ldg((const uint32_t*)(base + b));
+  if (b < o)
+    return (uint32_t)__ldg((const unsigned short*)(base + b + 2)) << 16;
+  return __ldg((const unsigned short*)(base + b));
+}
+
+// half index of element (rr, kk) in a packed tile
+__device__ __forceinline__ int rb_half(int rr, int kk) {
+  return 32 * rr + 8 * ((kk >> 3) ^ ((rr >> 1) & 3)) + (kk & 7);
+}
+
+// The packed tile (rt, s) = blockIdx.x of the operand X(r, k) = x[r sr +
+// k sk] (KC: contiguous along k, sk = 1; else sr = 1), TR rows, into shared
+// memory at its packed place, then written as 16-byte chunks.  Its elements
+// are read by consecutive lanes along the operand's contiguous dimension (a
+// row's 32 k, or a k line's rows), every load first.  float32 (BF false):
+// an element a lane, rounded to bf16 (to nearest even).  bf16: a pair a
+// lane, as the aligned 32-bit word holding its first byte and the next
+// lane's word shifted (rows start at any 2-byte boundary); no rounding.
+template <bool KC, int TR, bool BF>
+__global__ void __launch_bounds__(256)
+    rg_pack_kernel(const void* __restrict__ x, int R, int K, long long sr,
+                   long long sk, uint4* __restrict__ out) {
+  __shared__ __align__(16) unsigned short tile[TR * 32];
+  const int steps = (K + 31) / 32;
+  const long long rt = blockIdx.x / steps;
+  const int k0 = (int)(blockIdx.x - rt * steps) * 32;
+  const long long r0 = rt * TR;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if constexpr (!BF) {
+    constexpr int NE = TR * 32 / 256;  // elements a thread
+    float v[NE];
+#pragma unroll
+    for (int j = 0; j < NE; ++j) {
+      const int i = threadIdx.x + 256 * j;
+      const int rr = KC ? i >> 5 : i % TR, kk = KC ? i & 31 : i / TR;
+      const long long r = r0 + rr;
+      const int k = k0 + kk;
+      v[j] = r < R && k < K
+                 ? __ldg((const float*)x + (r * sr + (long long)k * sk))
+                 : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NE; ++j) {
+      const int i = threadIdx.x + 256 * j;
+      tile[KC ? rb_half(i >> 5, i & 31) : rb_half(i % TR, i / TR)] =
+          __bfloat16_as_ushort(__float2bfloat16(v[j]));
+    }
+  } else if constexpr (KC) {
+    // 16 lanes a row (lane h: k = 2 h, 2 h + 1), 16 rows a pass
+    constexpr int NP = TR / 16;
+    const int h = lane & 15, cnt = min(32, K - k0);
+    uint32_t w[NP], ex[NP];
+    int o[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const long long r = r0 + 16 * p + 2 * warp + (lane >> 4);
+      w[p] = ex[p] = 0u;
+      o[p] = 0;
+      if (r < R) {
+        const char* e0 = (const char*)x + (r * sr + k0) * 2;
+        o[p] = (int)((uintptr_t)e0 & 3);
+        w[p] = rb_word(e0 - o[p], 4 * h, o[p], o[p] + 2 * cnt);
+        if (h == 15) ex[p] = rb_word(e0 - o[p], 64, o[p], o[p] + 2 * cnt);
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      const uint32_t nx = __shfl_down_sync(0xffffffffu, w[p], 1);
+      const uint32_t pr =
+          o[p] ? __funnelshift_r(w[p], h == 15 ? ex[p] : nx, 16) : w[p];
+      const int rr = 16 * p + 2 * warp + (lane >> 4);
+      *(uint32_t*)&tile[rb_half(rr, 2 * h)] = pr;
+    }
+  } else {
+    // a k line a warp at a time (warp w: lines w + 8 q), lane l the rows
+    // 2 l, 2 l + 1 of each 64
+    constexpr int NQ = 4, NC = TR / 64;
+    uint32_t w[NQ][NC], ex[NQ][NC];
+    int o[NQ][NC];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int k = k0 + warp + 8 * q;
+        const int cnt = (int)min(64LL, R - (r0 + 64 * c));
+        w[q][c] = ex[q][c] = 0u;
+        o[q][c] = 0;
+        if (k < K && cnt > 0) {
+          const char* e0 = (const char*)x + ((long long)k * sk + r0 + 64 * c) * 2;
+          o[q][c] = (int)((uintptr_t)e0 & 3);
+          w[q][c] = rb_word(e0 - o[q][c], 4 * lane, o[q][c], o[q][c] + 2 * cnt);
+          if (lane == 31)
+            ex[q][c] = rb_word(e0 - o[q][c], 128, o[q][c], o[q][c] + 2 * cnt);
+        }
+      }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const uint32_t nx = __shfl_down_sync(0xffffffffu, w[q][c], 1);
+        const uint32_t pr =
+            o[q][c] ? __funnelshift_r(w[q][c], lane == 31 ? ex[q][c] : nx, 16)
+                    : w[q][c];
+        const int kk = warp + 8 * q, rr = 64 * c + 2 * lane;
+        tile[rb_half(rr, kk)] = (unsigned short)pr;
+        tile[rb_half(rr + 1, kk)] = (unsigned short)(pr >> 16);
+      }
+  }
   __syncthreads();
-  for (int kb = k0; kb < k1; kb += RG_BK) {
-    const bool more = kb + RG_BK < k1;
-    if (more) load(kb + RG_BK);
+  uint4* dst = out + (long long)blockIdx.x * TR * 4;
 #pragma unroll
-    for (int ks = 0; ks < RG_BK; ks += 16) {
-      uint32_t af[4][4];
+  for (int c = threadIdx.x; c < TR * 4; c += 256)
+    dst[c] = ((const uint4*)tile)[c];
+}
+
+// X's packed tiles of TR rows (X(r, k) = x[r sr + k sk], float32 or bf16)
+template <int TR>
+static void rg_pack(const void* x, int bf, int R, int K, long long sr,
+                    long long sk, void* out, cudaStream_t st) {
+  const int blocks = ((R + TR - 1) / TR) * ((K + 31) / 32);
+  uint4* o = (uint4*)out;
+  if (sk == 1) {
+    if (bf)
+      rg_pack_kernel<true, TR, true><<<blocks, 256, 0, st>>>(x, R, K, sr, sk,
+                                                              o);
+    else
+      rg_pack_kernel<true, TR, false><<<blocks, 256, 0, st>>>(x, R, K, sr,
+                                                               sk, o);
+  } else {
+    if (bf)
+      rg_pack_kernel<false, TR, true><<<blocks, 256, 0, st>>>(x, R, K, sr,
+                                                               sk, o);
+    else
+      rg_pack_kernel<false, TR, false><<<blocks, 256, 0, st>>>(x, R, K, sr,
+                                                                sk, o);
+  }
+}
+
+// shared-memory matrix descriptor of a K-major slice of 16 of K (32 bytes
+// into the rows at p) in the packed layout: 64-byte swizzle, atoms of 8
+// rows 512 bytes apart (the leading offset is unused)
+__device__ __forceinline__ uint64_t rb_desc(const char* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
+}
+
+__device__ __forceinline__ void rb_wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// stage s's copies: A's and B's packed tiles of step t by the copy engine,
+// counted on the stage's barrier (one thread)
+__device__ __forceinline__ void rb_load(char* stage, uint64_t* bar,
+                                        const char* a, const char* b) {
+  const unsigned sb = (unsigned)__cvta_generic_to_shared(bar);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(sb), "n"(RB_TILE_A + RB_TILE_B)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(stage)),
+      "l"(a), "n"(RB_TILE_A), "r"(sb)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(stage + RB_TILE_A)),
+      "l"(b), "n"(RB_TILE_B), "r"(sb)
+      : "memory");
+}
+
+// until the barrier's phase of this parity has completed; a wait of more
+// than about 2^32 cycles traps (a fault of the pipeline's bookkeeping
+// becomes a launch error, not a hang)
+__device__ __forceinline__ void rb_wait(uint64_t* bar, uint32_t parity) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1LL << 32)) __trap();
+  }
+}
+
+// d += a b over 64 x 128 x 16, bf16 operands from shared memory (both
+// K-major), float32 sums
+__device__ __forceinline__ void rb_wgmma(float (&d)[64], uint64_t a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// rg_store's epilogue over the output tile ct (rows RB_CT floats apart) at
+// (m0, n0), a thread a column (n = tid % RB_BN, every RP-th row), 16 rows
+// at a time: each operation's loads for the 16 issued together, the
+// operations in rg_store's order
+__device__ __forceinline__ void rb_epilogue(const RgArgs& g,
+                                            const float* ct, int m0,
+                                            int n0) {
+  constexpr int RP = RB_THREADS / RB_BN;  // rows a pass
+  const int n = n0 + threadIdx.x % RB_BN, r0 = threadIdx.x / RB_BN;
+  if (n >= g.N) return;
+  if (g.partial) {
+    float* part = g.partial + (size_t)blockIdx.z * g.M * g.N + n;
+#pragma unroll 8
+    for (int r = r0; r < RB_BM; r += RP)
+      if (m0 + r < g.M) part[(size_t)(m0 + r) * g.N] = ct[r * RB_CT + n - n0];
+    return;
+  }
+  const float bn = g.bias ? g.bias[n] : 0.f;
+  for (int rb = r0; rb < RB_BM; rb += 16 * RP) {
+    float v[16];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + gq;
-        af[mt][0] = *(const uint32_t*)&As[r][ks + 2 * tq];
-        af[mt][1] = *(const uint32_t*)&As[r + 8][ks + 2 * tq];
-        af[mt][2] = *(const uint32_t*)&As[r][ks + 2 * tq + 8];
-        af[mt][3] = *(const uint32_t*)&As[r + 8][ks + 2 * tq + 8];
-      }
+    for (int u = 0; u < 16; ++u) v[u] = ct[(rb + RP * u) * RB_CT + n - n0];
+    if (g.bias) {
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + gq;
-        const uint32_t b0 = *(const uint32_t*)&Bs[c][ks + 2 * tq];
-        const uint32_t b1 = *(const uint32_t*)&Bs[c][ks + 2 * tq + 8];
+      for (int u = 0; u < 16; ++u) v[u] = v[u] + bn;
+    }
+    if (g.relu) {
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) wm_mma_bf16(acc[mt][nt], af[mt], b0, b1);
+      for (int u = 0; u < 16; ++u) v[u] = v[u] > 0.f ? v[u] : 0.f;
+    }
+    if (g.dr.on) {
+      // gt_drop's v / keep; at keep 0.5 (on == 2) the same value as v * 2
+      const bool half = g.dr.on == 2;
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const uint32_t e = (uint32_t)((size_t)(m0 + rb + RP * u) * g.N + n);
+        v[u] = gt_keep(g.dr, g.key, e)
+                   ? (half ? v[u] * 2.f : v[u] / g.dr.keep)
+                   : 0.f;
       }
     }
-    __syncthreads();
-    if (more) {
-      stage();
-      __syncthreads();
+    if (g.gate) {
+      float gv[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int m = m0 + rb + RP * u;
+        gv[u] = m < g.M ? g.gate[(size_t)m * g.N + n] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u) v[u] = v[u] * (gv[u] > 0.f ? g.gate_inv : 0.f);
+    }
+    if (g.add) {
+      float av[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int m = m0 + rb + RP * u;
+        av[u] = m < g.M && m % g.add_every == 0
+                    ? g.add[(size_t)(m / g.add_every) * g.N + n]
+                    : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if ((m0 + rb + RP * u) % g.add_every == 0) v[u] = av[u] + v[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 16; ++u) {
+      const int m = m0 + rb + RP * u;
+      if (m < g.M) g.c[(size_t)m * g.ldc + n] = v[u];
     }
   }
+}
+
+// C (+ epilogue) of the block's 256 x 128 tile over its chunk of K, from
+// the packed tiles pa (A's, RB_BM rows) and pb (B's, RB_BN columns), ks
+// steps of 32 in all: thread 0 keeps RB_STAGES steps' tiles in flight by
+// the copy engine; each warpgroup runs its rows' products on the stage that
+// has landed, one group in flight; a stage is refilled once both
+// warpgroups' products of it are done.
+__global__ void __launch_bounds__(RB_THREADS, 1)
+    rg_wgmma_bf16_kernel(const RgArgs g, const char* __restrict__ pa,
+                         const char* __restrict__ pb, int ks) {
+  extern __shared__ __align__(128) char rb_dyn[];
+  char* st = (char*)(((uintptr_t)rb_dyn + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = (uint64_t*)(st + RB_STAGES * (RB_TILE_A + RB_TILE_B));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int m0 = blockIdx.y * RB_BM, n0 = blockIdx.x * RB_BN;
+  const int k0 = blockIdx.z * g.kchunk;
+  const int k1 = min(g.K, k0 + g.kchunk);
+  const int s0 = k0 / 32;
+  const int steps = k1 > k0 ? (k1 - k0 + 31) / 32 : 0;
+  // this block's packed tiles of step s0 + t
+  const char* ta = pa + ((long long)blockIdx.y * ks + s0) * RB_TILE_A;
+  const char* tb = pb + ((long long)blockIdx.x * ks + s0) * RB_TILE_B;
+  if (tid == 0) {
+    for (int s = 0; s < RB_STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+          (unsigned)__cvta_generic_to_shared(full + s)));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int t = 0; t < RB_STAGES && t < steps; ++t)
+      rb_load(st + t * (RB_TILE_A + RB_TILE_B), full + t,
+              ta + (long long)t * RB_TILE_A, tb + (long long)t * RB_TILE_B);
+  }
+  __syncthreads();
+  // warpgroup wg: rows 128 wg .. +127 as two m64 parts h; its warp q: rows
+  // 16 q .. +15 of a part
+  const int wg = warp >> 2, q = warp & 3;
+  float acc[2][64];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    rg_fence_regs(acc[h]);
+  }
+  for (int t = 0; t < steps; ++t) {
+    const int s = t % RB_STAGES;
+    const char* sa = st + s * (RB_TILE_A + RB_TILE_B);
+    rb_wait(full + s, (t / RB_STAGES) & 1);
+    rg_wg_fence();
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int m = m0 + wm * 64 + mt * 16 + gq + 8 * (q / 2);
-        const int n = n0 + wn * 32 + nt * 8 + 2 * tq + (q % 2);
-        rg_store(g, m, n, acc[mt][nt][q]);
-      }
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint64_t bd = rb_desc(sa + RB_TILE_A + 32 * kk);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        rb_wgmma(acc[h], rb_desc(sa + 64 * (128 * wg + 64 * h) + 32 * kk),
+                 bd);
+    }
+    rg_wg_commit();
+    // step t - 1's products done in both warpgroups: its stage takes step
+    // t - 1 + RB_STAGES
+    rb_wg_wait1();
+    __syncthreads();
+    const int nt = t - 1 + RB_STAGES;
+    if (tid == 0 && t >= 1 && nt < steps) {
+      const int ns = (t - 1) % RB_STAGES;
+      rb_load(st + ns * (RB_TILE_A + RB_TILE_B), full + ns,
+              ta + (long long)nt * RB_TILE_A, tb + (long long)nt * RB_TILE_B);
+    }
+  }
+  rg_wg_wait();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) rg_fence_regs(acc[h]);
+  // the sums through shared memory (the stages' room, free now), so that
+  // the epilogue reads and writes whole rows: acc[h][4 j + e] is row 128 wg
+  // + 64 h + 16 q + g + 8 (e / 2), column 8 j + 2 t + e % 2
+  __syncthreads();
+  float* ct = (float*)st;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ct[(128 * wg + 64 * h + 16 * q + gq + 8 * (e >> 1)) * RB_CT + 8 * j +
+           2 * tq + (e & 1)] = acc[h][4 * j + e];
+  __syncthreads();
+  rb_epilogue(g, ct, m0, n0);
 }
 
 // ----------------------------------------------------- the second passes
@@ -616,11 +950,31 @@ static cudaError_t rg_reduce(const float* part, int chunks, size_t len,
 }
 
 // ------------------------------------------------------------- C interface
-// Chunks of the weight products' rows: about 1,056 blocks (eight waves of
-// the float32 kernel's one block on each of 132 SMs; a product's tiles in
-// one chunk would leave its last wave part empty), at least 512 rows a
-// chunk.  A function of the shape alone, so the sums' order is fixed.
-extern "C" int gt_k18_chunks(int M, int N, int K) {
+// Chunks of the weight products' rows, a function of the shape (and of the
+// product's type) alone, so the sums' order is fixed.  float32: about 1,056
+// blocks (eight waves of the float32 kernel's one block on each of 132 SMs;
+// a product's tiles in one chunk would leave its last wave part empty), at
+// least 512 rows a chunk.  bf16: of 1 to 8 chunks of at least 512 rows, the
+// fewest waves of 132 blocks a chunk's share (a last wave part empty costs
+// as much as a full one), plus 0.05 a chunk for the partial sums each one
+// writes and rg_reduce_kernel reads.
+static int rg_bf16_chunks(int M, int N, int K) {
+  const int tiles = ((M + RB_BM - 1) / RB_BM) * ((N + RB_BN - 1) / RB_BN);
+  const int most = rg_imax(1, rg_imin(8, K / 512));
+  int best = 1;
+  double cost = 1e30;
+  for (int c = 1; c <= most; ++c) {
+    const double v = (double)((tiles * c + 131) / 132) / c + 0.05 * c;
+    if (v < cost - 1e-9) {
+      cost = v;
+      best = c;
+    }
+  }
+  return best;
+}
+
+extern "C" int gt_k18_chunks(int M, int N, int K, int bf16) {
+  if (bf16) return rg_bf16_chunks(M, N, K);
   const int tiles = ((M + RG_BM - 1) / RG_BM) * ((N + RG_BN - 1) / RG_BN);
   const int want = (4 * 264 + tiles - 1) / tiles;
   return rg_imax(1, rg_imin(want, K / 512));
@@ -632,6 +986,15 @@ extern "C" int gt_k18_colsum_chunks(int rows) {
 
 // C = op(A) op(B) with the epilogue, C's rows ldc floats apart; chunks > 1
 // (no epilogue, ldc = N) splits K and writes partial [chunks, M, N] first.
+// bytes of the bf16 products' packed tiles of A [M, K] and B [K, N]
+extern "C" size_t gt_k18_bf16_scratch(int M, int N, int K) {
+  return (size_t)(rb_chunks(M, K, RB_BM) + rb_chunks(N, K, RB_BN)) * 16;
+}
+
+// C = op(A) op(B) with the epilogue, C's rows ldc floats apart; chunks > 1
+// (no epilogue, ldc = N) splits K and writes partial [chunks, M, N] first.
+// bf16 products pack both operands into `scratch`
+// (gt_k18_bf16_scratch bytes) first.
 extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
                            int b_bf16, float* c, int M, int N, int K, int sam,
                            int sak, int sbk, int sbn, int ldc, int mma_bf16,
@@ -639,7 +1002,8 @@ extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
                            const float* add, float gate_keep, int add_every,
                            unsigned int seed, unsigned int stream_id,
                            unsigned int keep24, float keep, int drop_on,
-                           int chunks, float* partial, void* stream) {
+                           int chunks, float* partial, void* scratch,
+                           void* stream) {
   // the float32 kernel keeps word offsets within an operand in 32 bits
   const long long lim = 1LL << 31;
   if ((long long)M * sam >= lim || (long long)K * sak >= lim ||
@@ -654,9 +1018,7 @@ extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
   const cudaStream_t st = (cudaStream_t)stream;
   RgArgs g;
   g.a = a;
-  g.a_bf = a_bf16;
   g.b = b;
-  g.b_bf = b_bf16;
   g.c = c;
   g.M = M;
   g.N = N;
@@ -676,10 +1038,21 @@ extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
   g.key = gt_stream_key(seed, stream_id);
   g.kchunk = ((K + chunks - 1) / chunks + RG_BK - 1) / RG_BK * RG_BK;
   g.partial = chunks > 1 ? partial : nullptr;
-  const dim3 grid((N + RG_BN - 1) / RG_BN, (M + RG_BM - 1) / RG_BM, chunks);
   if (mma_bf16) {
-    rg_bf16_kernel<<<grid, RG_THREADS, 0, st>>>(g);
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    char* pa = (char*)scratch;
+    char* pb = pa + rb_chunks(M, K, RB_BM) * 16;
+    rg_pack<RB_BM>(a, a_bf16, M, K, sam, sak, pa, st);
+    rg_pack<RB_BN>(b, b_bf16, N, K, sbn, sbk, pb, st);
+    cudaError_t err = cudaFuncSetAttribute(
+        rg_wgmma_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        RG_SMEM_BF16);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N + RB_BN - 1) / RB_BN, (M + RB_BM - 1) / RB_BM, chunks);
+    rg_wgmma_bf16_kernel<<<grid, RB_THREADS, RG_SMEM_BF16, st>>>(
+        g, pa, pb, (K + 31) / 32);
   } else {
+    const dim3 grid((N + RG_BN - 1) / RG_BN, (M + RG_BM - 1) / RG_BM, chunks);
     // the layout of each operand's copies: contiguous along k or not
     void (*kern)(const RgArgs) =
         sak == 1 ? (sbk == 1 ? rg_tf32_kernel<true, true>

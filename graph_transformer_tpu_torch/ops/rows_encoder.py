@@ -14,7 +14,8 @@ each with its plain PyTorch version here:
   the epilogues a layer needs: bias, ReLU, dropout at (layer, site), a gate
   ``(aux > 0) / keep`` (the ReLU-dropout backward), and an added matrix.
   Operands and the output may be views with a row stride (``out=``);
-  float32 products run on the tensor cores as 3xTF32.
+  float32 products run on the tensor cores as 3xTF32, bf16 products (of
+  float32 or bf16 operands, rounded as they are staged) on ``wgmma``.
 - **K19**, :func:`attention_forward` / :func:`attention_backward`
   (``csrc/rows_attention.cu``): single-head attention over each
   neighborhood's S <= 32 slots, scores ``q·kᵀ/√D``, softmax, dropout at
@@ -176,13 +177,16 @@ def gemm(a, b, layout: str = "nn", *, bf16: bool = False, bias=None,
     a, b = _operands(a, b, bf16)
     eps = [_f32(t) for t in (bias, gate, add)]
     dk = _drop_key(*drop) if drop is not None else (0, 0, 1 << 24, 1.0, 0)
-    err = _build.load("rows_gemm").gt_k18_gemm(
+    lib = _build.load("rows_gemm")
+    scratch = _packed(lib, M, N, K, bf16, a.device)
+    err = lib.gt_k18_gemm(
         a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
         int(b.dtype == torch.bfloat16), c.data_ptr(), M, N, K,
         *_strides(a, b, layout), _row_stride(c),
         int(bf16), *(None if t is None else t.data_ptr() for t in eps[:1]),
         int(relu), *(None if t is None else t.data_ptr() for t in eps[1:]),
         float(gate_keep), int(add_every), *dk, 1, None,
+        None if scratch is None else scratch.data_ptr(),
         _build.stream_ptr(a.device))
     _build.check(err, "K18 gemm")
     K18.launches += 1
@@ -213,16 +217,18 @@ def weight_grad(a, b, *, bf16: bool = False):
     if K == 0:
         return c.zero_(), col.zero_()
     lib = _build.load("rows_gemm")
-    chunks = lib.gt_k18_chunks(M, N, K)
+    chunks = lib.gt_k18_chunks(M, N, K, int(bf16))
     part = torch.empty(chunks * M * N if chunks > 1 else 1,
                        dtype=torch.float32, device=dev)
+    scratch = _packed(lib, M, N, K, bf16, dev)
     stream = _build.stream_ptr(dev)
     err = lib.gt_k18_gemm(
         a.data_ptr(), int(a.dtype == torch.bfloat16), b.data_ptr(),
         int(b.dtype == torch.bfloat16), c.data_ptr(), M, N, K,
         *_strides(a, b, "tn"), N,
         int(bf16), None, 0, None, None, 1.0, 1, 0, 0, 1 << 24, 1.0, 0,
-        chunks, part.data_ptr(), stream)
+        chunks, part.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), stream)
     _build.check(err, "K18 weight product")
     cchunks = lib.gt_k18_colsum_chunks(K)
     cpart = torch.empty(cchunks * N, dtype=torch.float32, device=dev)
@@ -234,6 +240,15 @@ def weight_grad(a, b, *, bf16: bool = False):
     K18.shapes[("tn", bool(bf16), M, N, K, _row_stride(a), _row_stride(b),
                 N)] += 1
     return c, col
+
+
+def _packed(lib, M, N, K, bf16, dev):
+    """The scratch of K18's bf16 products (both operands' tiles rounded to
+    bf16 and packed), None for float32 products."""
+    if not bf16:
+        return None
+    return torch.empty(lib.gt_k18_bf16_scratch(M, N, K), dtype=torch.uint8,
+                       device=dev)
 
 
 def _operands(a, b, bf16):

@@ -87,11 +87,15 @@ that checkout's package and times, by torch.profiler device time a launch
   1,433, F = 1,024, float32, contiguous operands, since an older K18 takes
   no row strides) and at the two shapes a checkout
   that forms q on every row launches instead (Q/K/V [14,080 x 1,433] .
-  [1,433 x 4,299] and dW_in over 14,080 rows), with one library call each;
-  then the node step on Planetoid files of Cora's shape
-  (``chip_smoke.write_planetoid_like``, the node CLI's configuration): 20
-  steps by CUDA events after 3, and a profile of 5 (busy share, K18's
-  device ms a step).
+  [1,433 x 4,299] and dW_in over 14,080 rows), with one library call each,
+  its float32 outputs compared bit for bit between the first two
+  checkouts; then each launch again with bf16 products (x in bf16, the
+  other operands float32, as the bf16 node step's; library: one bf16
+  ``torch.mm`` with a float32 result); then the node step on Planetoid
+  files of Cora's shape (``chip_smoke.write_planetoid_like``, the node
+  CLI's configuration), float32 and ``--compute_dtype bfloat16``: 20 steps
+  by CUDA events after 3, and a profile of 5 (busy share, K18's device ms
+  a step).
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -133,9 +137,11 @@ ONLY_SOURCES = {"wide_fwd": ("wide_fwd", "encoder_layer", "stored_fwd",
                                "mega_bwd"),
                 "sampler": ("sampler",),
                 "rows_gemm": ("rows_gemm", "rows_attention", "rows_ln")}
-# K18's float32 product kernel before it ran on the tensor cores (K18's
-# kernels in any checkout: this and chip_smoke.K18_KERNELS)
+# K18's float32 product kernel before it ran on the tensor cores, and its
+# bf16 product kernel before it ran on wgmma (K18's kernels in any
+# checkout: these and chip_smoke.K18_KERNELS)
 K18_F32_BEFORE = "rg_f32_kernel"
+K18_BF16_BEFORE = "rg_bf16_kernel"
 # DD (public TU statistics: 1,178 graphs, 334,925 nodes, 89 node labels)
 # cut to graphs of 284 nodes, a batch of 16, K=8
 DD = dict(nodes=334925, graph_nodes=284, batch=16, D=89, K=8)
@@ -646,35 +652,18 @@ def sampler(cs, dev, seed):
     return res
 
 
-def rows_gemm(cs, dev, root) -> dict:
-    """K18 at the node step's launches (and the full-q shapes), each
-    device ms a launch beside one library call, then the node step."""
+def node_step(cs, root, flags, k18) -> dict:
+    """The node step of ``flags`` on Planetoid files of Cora's shape: 20
+    steps by CUDA events after 3, and a profile of 5 (K18's kernels
+    ``k18``)."""
     import torch
 
     from graph_transformer_tpu_torch.cli import train_node
-    from graph_transformer_tpu_torch.ops import rows_encoder as re
     from graph_transformer_tpu_torch.train.node_trainer import NodeTrainer
 
-    N, S, D, F = 2816, 5, 1433, 1024
-    k18_all = cs.K18_KERNELS + (K18_F32_BEFORE,)
-    launches = cs.node_k18_launches(dev, N, S, D, F, views=False)
-    g = torch.Generator(device=dev).manual_seed(9)
-    x = torch.randn(N * S, D, device=dev, generator=g)
-    w = torch.randn(D, 3 * D, device=dev, generator=g) * 0.016
-    b = torch.randn(3 * D, device=dev, generator=g)
-    dqkv = torch.randn(N * S, 3 * D, device=dev, generator=g)
-    launches["qkv nn (full q)"] = (lambda: re.gemm(x, w, bias=b),
-                                   lambda: torch.addmm(b, x, w), 0, 0, 0)
-    launches["dW_in tn (full q)"] = (lambda: re.weight_grad(x, dqkv),
-                                     lambda: torch.mm(x.t(), dqkv), 0, 0, 0)
-    k18, lib = {}, {}
-    for name, (fn, ref, *_) in launches.items():
-        k18[name] = cs.device_ms(fn, 10, k18_all)
-        lib[name] = cs.time_ms(ref, 10)
-    del x, w, b, dqkv
     root_d = os.path.join(root, "build", "node", "cora")
     cs.write_planetoid_like(root_d)
-    cfg, args = cs.node_config(cs.NODE_FLAGS + ["--citation_dir", root_d])
+    cfg, args = cs.node_config(flags + ["--citation_dir", root_d])
     t = NodeTrainer(train_node.load(args), cfg, device="cuda")
     for _ in range(3):
         t.train_step(t.next_seed())
@@ -687,13 +676,53 @@ def rows_gemm(cs, dev, root) -> dict:
     end.record()
     end.synchronize()
     prof = cs.profile_busy(lambda: [t.train_step(t.next_seed())
-                                    for _ in range(5)], 5, sum_of=k18_all)
+                                    for _ in range(5)], 5, sum_of=k18)
     node = {"ms_per_step": start.elapsed_time(end) / 20}
     if prof:
         node.update(busy_share=prof["busy_share"],
                     busy_ms_per_step=prof["busy_ms_per_step"],
                     k18_ms_per_step=prof["ms_per_step_of"])
-    return {"K18": k18, "library": lib, "node": node}
+    return node
+
+
+def rows_gemm(cs, dev, root) -> dict:
+    """K18 at the node step's launches (and the full-q shapes), each
+    device ms a launch beside one library call, float32 then bf16 (x in
+    bf16, the other operands float32, as the bf16 step's); the float32
+    outputs kept under ``build/ab_k18.pt`` for :func:`bit_equal_k18`; then
+    the node step in float32 and in bf16."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    k18_all = cs.K18_KERNELS + (K18_F32_BEFORE, K18_BF16_BEFORE)
+    N, S, D, F = 2816, 5, 1433, 1024
+    launches = cs.node_k18_launches(dev, N, S, D, F, views=False)
+    keep = {}
+    for name, (fn, *_) in launches.items():
+        got = fn()
+        keep[name] = [t.detach().cpu() for t in
+                      (got if isinstance(got, tuple) else (got,))]
+    torch.save(keep, os.path.join(root, "build", "ab_k18.pt"))
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(N * S, D, device=dev, generator=g)
+    w = torch.randn(D, 3 * D, device=dev, generator=g) * 0.016
+    b = torch.randn(3 * D, device=dev, generator=g)
+    dqkv = torch.randn(N * S, 3 * D, device=dev, generator=g)
+    launches["qkv nn (full q)"] = (lambda: re.gemm(x, w, bias=b),
+                                   lambda: torch.addmm(b, x, w), 0, 0, 0)
+    launches["dW_in tn (full q)"] = (lambda: re.weight_grad(x, dqkv),
+                                     lambda: torch.mm(x.t(), dqkv), 0, 0, 0)
+    launches.update({f"bf16 {k}": v for k, v in cs.node_k18_launches(
+        dev, N, S, D, F, views=False, bf16=True).items()})
+    k18, lib = {}, {}
+    for name, (fn, ref, *_) in launches.items():
+        k18[name] = cs.device_ms(fn, 10, k18_all)
+        lib[name] = cs.time_ms(ref, 10)
+    del x, w, b, dqkv, launches
+    return {"K18": k18, "library": lib,
+            "node": node_step(cs, root, cs.NODE_FLAGS, k18_all),
+            "node_bf16": node_step(cs, root, cs.NODE_BF16_FLAGS, k18_all)}
 
 
 def worker(root: str, only: str = "") -> dict:
@@ -906,6 +935,17 @@ def bit_equal(root_a: str, root_b: str) -> dict:
         torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
 
 
+def bit_equal_k18(root_a: str, root_b: str) -> dict:
+    """Whether K18's float32 outputs that :func:`rows_gemm` kept at two
+    checkouts are equal bit for bit, by launch."""
+    import torch
+
+    a, b = (torch.load(os.path.join(r, "build", "ab_k18.pt"))
+            for r in (root_a, root_b))
+    return {k: len(a[k]) == len(b[k]) and all(
+        torch.equal(x, y) for x, y in zip(a[k], b[k])) for k in a}
+
+
 def main() -> int:
     import torch
 
@@ -960,6 +1000,12 @@ def main() -> int:
             f"{k} {'equal' if v else 'differ'}" for k, v in eq.items()),
             flush=True)
         runs.append({"bit_equal": eq})
+    if len(roots) > 1 and roots[1] != roots[0] and only == "rows_gemm":
+        eq = bit_equal_k18(roots[0], roots[1])
+        print(f"# K18 float32 bit for bit, {roots[1]} against {roots[0]}: "
+              + ", ".join(f"{k} {'equal' if v else 'differ'}"
+                          for k, v in eq.items()), flush=True)
+        runs.append({"bit_equal_k18": eq})
     print(json.dumps({"runs": runs}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -23,7 +23,7 @@ at three of the node step's launches at Cora's shape
 rows, q over 2,816, W_in's k, v columns' weight product), beside one
 ``torch.addmm``/``torch.mm`` (allow_tf32 False); the committed kernel also at the kv product with rows of
 1,436 and 2,872 words (16-byte aligned) against 1,433 and 2,866, and the
-kv product in bf16 (``rg_bf16_kernel``) beside torch's bf16 product.  Then the
+kv product in bf16 (``rg_wgmma_bf16_kernel``) beside torch's bf16 product.  Then the
 float32 distance from float64 (max |err| and relative L2) of the committed
 and the chained kernel beside torch's, on randn rows against weights 0.3 /
 sqrt(K / 6) at K = 1,433 and 3,703 (nn) and on 0/1 and randn rows against
@@ -133,7 +133,7 @@ def main() -> int:
     xb = torch.randn(N * S, D, device="cuda", generator=g).bfloat16()
     wb = (torch.randn(D, 2 * D, device="cuda", generator=g) * 0.02).bfloat16()
     ms = cs.device_ms(lambda: re.gemm(xb, wb, bf16=True), 10, cs.K18_KERNELS)
-    print(f"# kv nn in bf16 (rg_bf16_kernel): {ms:.4f} ms, torch's bf16 "
+    print(f"# kv nn in bf16 (rg_wgmma_bf16_kernel): {ms:.4f} ms, torch's bf16 "
           f"product {cs.time_ms(lambda: xb @ wb, 10):.4f}", flush=True)
     del xb, wb
     g = torch.Generator(device="cuda").manual_seed(1)

@@ -9,8 +9,10 @@ path's widths, the routes at D = 160, the node CLI on Planetoid files at
 Cora's shape (written under ``build/node/cora``), 20 timed node steps with a
 profile of 5, two 5-step runs bit for bit, and each kernel's time at one
 launch of the node step beside its bound, its plain version and a library
-call.  Prints the phases' JSON and the card's name and power limit; about a
-minute on an H100 with the build, where ``chip_smoke.py`` takes eight.
+call; then the CLI, the steps and K18's timings again with
+``--compute_dtype bfloat16``.  Prints the phases' JSON and the card's name
+and power limit; about a minute on an H100 with the build, where
+``chip_smoke.py`` takes ten.
 Exits non-zero without a CUDA device.
 """
 

@@ -404,8 +404,8 @@ def k18_case(cuda, layout, M, N, K, epilogue, dtype, seed):
 
 
 def check_k18(cuda, label, layout, M, N, K, epilogue, dtype, seed):
-    """K18 (``gemm``) against ``gemm_plain`` on the same operands: float32
-    by ``check_rows_forward``'s rule, bf16 by ``check_bf16_spread``."""
+    """K18 (``gemm``) against ``gemm_plain`` on the same operands, by
+    :func:`check_k18_out`."""
     from graph_transformer_tpu_torch.ops import rows_encoder as re
 
     a, b, kw = k18_case(cuda, layout, M, N, K, epilogue, dtype, seed)
@@ -416,7 +416,16 @@ def check_k18(cuda, label, layout, M, N, K, epilogue, dtype, seed):
     torch.cuda.synchronize()
     assert re.K18.launches == launches + 1
     assert got.shape == (M, N)
-    chip_smoke.check_rows_forward(label, got, want, bf)
+    check_k18_out(label, got, want, bf)
+
+
+def check_k18_out(label, got, want, bf):
+    """K18's products against their plain version: float32 by
+    ``check_rows_forward``'s rule, bf16 by ``check_k18_bf16_products``."""
+    if bf:
+        chip_smoke.check_k18_bf16_products(label, got, want)
+    else:
+        chip_smoke.check_rows_forward(label, got, want, bf)
 
 
 def check_k18_weight(cuda, M, N, K, dtype, seed):
@@ -458,6 +467,66 @@ def test_k18_at_the_node_step(cuda, case, dtype):
                   M + N + K)
 
 
+# the node step's launches whose A is x (bf16 in the bf16 step)
+K18_X_ROWS = ("q nn", "kv nn", "dW_in q tn", "dW_in kv tn")
+
+
+@pytest.mark.parametrize("case", K18_NODE, ids=[c[0] for c in K18_NODE])
+def test_k18_bf16_products_of_the_bf16_step(cuda, case):
+    """K18's bf16 products with the bf16 node step's operand types (x in
+    bf16, the weights and K18's own outputs float32) at each launch of the
+    slot-0 layer at Cora's shape: products against ``gemm_plain`` by
+    ``check_k18_bf16_products`` (``check_bf16_spread`` and relative L2
+    1e-4); weight products (with their column sums) against
+    float64 of the bf16-rounded operands, each entry within 1e-4 of sum
+    |a||b|, runs repeating bit for bit."""
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    name, layout, M, N, K, epilogue = case
+    a, b, kw = k18_case(cuda, layout, M, N, K, epilogue, "float32",
+                        M + N + K)
+    if name in K18_X_ROWS:
+        a = a.to(torch.bfloat16)
+    launches = re.K18.launches
+    if layout == "tn":
+        got, col = re.weight_grad(a, b, bf16=True)
+        again, col2 = re.weight_grad(a, b, bf16=True)
+        torch.cuda.synchronize()
+        assert re.K18.launches == launches + 2
+        ab, bb = (t.to(torch.bfloat16).double() for t in (a, b))
+        want, scale = ab.T @ bb, ab.abs().T @ bb.abs()
+        assert torch.equal(got, again) and torch.equal(col, col2)
+        assert bool(((got.double() - want).abs() <= 1e-4 * scale).all())
+        assert bool(((col.double() - b.double().sum(0)).abs()
+                     <= 1e-5 * b.double().abs().sum(0)).all())
+        return
+    got = re.gemm(a, b, layout, bf16=True, **kw)
+    want = re.gemm_plain(a, b, layout, bf16=True, **kw)
+    torch.cuda.synchronize()
+    assert re.K18.launches == launches + 1
+    chip_smoke.check_k18_bf16_products(f"K18 bf16 step {name}", got, want)
+
+
+@pytest.mark.parametrize("case", K18_NODE, ids=[c[0] for c in K18_NODE])
+def test_k18_float32_products_repeat(cuda, case):
+    """K18's float32 products (3xTF32, untouched by the bf16 kernel) at each
+    launch of the slot-0 layer at Cora's shape: two runs on the same
+    operands equal bit for bit (the A/B script holds them to a parent
+    checkout's bit for bit)."""
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    name, layout, M, N, K, epilogue = case
+    a, b, kw = k18_case(cuda, layout, M, N, K, epilogue, "float32",
+                        2 * M + N + K)
+    if layout == "tn":
+        runs = [re.weight_grad(a, b) for _ in range(2)]
+    else:
+        runs = [(re.gemm(a, b, layout, **kw),) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    assert all(bool(torch.isfinite(x).all()) for x in runs[0])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("epilogue", ["bias", "relu_drop", "gate", "add",
                                       "add_every"])
@@ -490,9 +559,8 @@ def test_k18_slot0_views_at_cora_shape(cuda, dtype):
     with chip_smoke.plain_pieces():
         qkv_p = re._qkv_rows(x, w, kw["bias"], S, bf, True)
     torch.cuda.synchronize()
-    chip_smoke.check_rows_forward("K18 slot-0 q, k, v",
-                                  chip_smoke.slot0_qkv(qkv, S),
-                                  chip_smoke.slot0_qkv(qkv_p, S), bf)
+    check_k18_out("K18 slot-0 q, k, v", chip_smoke.slot0_qkv(qkv, S),
+                  chip_smoke.slot0_qkv(qkv_p, S), bf)
     gen = torch.Generator(device=cuda).manual_seed(4)
     dqkv = torch.randn(2816 * S, 3 * D, device=cuda, generator=gen)
     dqkv.view(2816, S, 3 * D)[:, 1:, :D] = 0.0

@@ -8,7 +8,14 @@ against the JAX package's.
    (deterministic, float32); the encoder output and, for the GAE,
    contrastive and default (tf, JAX's candidates and P(k) table handed in)
    losses, the loss and every gradient leaf within 1e-5 of each leaf's
-   largest magnitude (float32 sums in another order).
+   largest magnitude (float32 sums in another order).  The same in bf16
+   (``compute_dtype="bfloat16"``: the rows rounded to bf16, products of
+   bf16-rounded operands summed in float32 in both packages, XLA's and the
+   port's plain K18-K20 at different places and orders): z and the loss
+   within relative L2 5e-3, each gradient leaf at cosine > 0.995 (the CPU
+   reads 2.7e-3 on z, 2.7e-5 on the loss and 0.99907 on the worst leaf);
+   and the port's bf16 z at least 1e-3 from its own float32 z (2.9e-3;
+   a run that kept float32 would read 0).
 2. JAX's own node-trainer cases (``tests/test_node_classification.py``:
    u2gnn with the sampled softmax and the 2-fold probe, the neighbor
    sampler, the contrastive head on a padded batch) on the port on the
@@ -63,6 +70,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
 TOL = 1e-5
+BF16_REL, BF16_COS = 5e-3, 0.995  # bf16: z and the loss; each gradient leaf
+BF16_MOVES = 1e-3  # the least relative L2 of bf16 z from float32 z
 K, F, NS, D_WIDE = 4, 32, 16, 160
 
 
@@ -151,6 +160,62 @@ def test_node_loss_and_grads_match_jax(loss_type, monkeypatch):
     for name, g in flat.items():
         t = got[name].grad
         close(np.zeros_like(g) if t is None else t.numpy(), g, name)
+
+
+def close_bf16(a, b, what=""):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    assert a.shape == b.shape, what
+    rel = np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30)
+    assert rel <= BF16_REL, (what, rel)
+
+
+def cosine_bf16(a, b, what=""):
+    a, b = np.ravel(a).astype(np.float64), np.ravel(b).astype(np.float64)
+    na, nb = np.linalg.norm(a), np.linalg.norm(b)
+    if nb == 0.0:
+        assert na == 0.0, (what, na)
+        return
+    cos = a @ b / max(na * nb, 1e-300)
+    assert cos > BF16_COS, (what, cos)
+
+
+def test_encode_past_128_matches_jax_bf16():
+    _, _, jm, jp, tm, bj, bt = setup(1, compute_dtype="bfloat16")
+    zj = jm.encode(jp, bj, rng=None)
+    zt = tm.encode(bt).detach().float().numpy()
+    close_bf16(zt, np.asarray(zj, np.float32), "z")
+    _, _, _, _, tm32, _, bt32 = setup(1)
+    z32 = tm32.encode(bt32).detach().numpy().astype(np.float64)
+    moved = np.linalg.norm(zt - z32) / np.linalg.norm(z32)
+    assert moved >= BF16_MOVES, ("bf16 z against float32 z", moved)
+
+
+@pytest.mark.parametrize("loss_type", ["gae", "contrastive", "default"])
+def test_node_loss_and_grads_match_jax_bf16(loss_type, monkeypatch):
+    dj, dt, jm, jp, tm, bj, bt = setup(3, loss_type=loss_type,
+                                       compute_dtype="bfloat16")
+    V = dj.num_nodes
+    key = jax.random.key(7)
+    adj = dt.dense_adj(bt.n_pad)
+
+    def loss_j(p):
+        return jm.loss(p, bj, key, jm.spec(), rng=None,
+                       adj_mask=jnp.asarray(adj))
+
+    lj, gj = jax.value_and_grad(loss_j)(jp)
+    ids = np.array(jlu.sample_log_uniform_unique(key, V, NS))
+    table = torch.from_numpy(np.array(jlu.log_uniform_probs(V)))
+    monkeypatch.setattr(sampled_softmax, "probs_table", lambda v, d: table)
+    lt = tm.loss(bt, tm.spec(), candidates=(torch.from_numpy(ids), None),
+                 adj_mask=torch.from_numpy(adj))
+    lt.backward()
+    close_bf16(float(lt.detach()), float(lj), "loss")
+    flat = flatten_jax(gj)
+    got = dict(tm.named_parameters())
+    assert set(flat) == set(got)
+    for name, g in flat.items():
+        t = got[name].grad
+        cosine_bf16(np.zeros_like(g) if t is None else t.numpy(), g, name)
 
 
 # ----------------------------------------------- JAX's node-trainer cases

@@ -18,6 +18,17 @@
 2. The slot-0 layer forms q on slot 0's rows only: its forward and all 12
    gradients equal the formulation that forms q on every row (the parent
    design), float32 and bf16, rates 0 and 0.5, within 1e-6.
+3. K18's bf16 products round each operand element once to bf16 (to
+   nearest even; ``rg_pack_kernel``) and run ``wgmma`` m64n128k16
+   (``rg_wgmma_bf16_kernel``): 16 products of bf16 values, exact, added to
+   one float32 accumulator chained over the block's K, two such a step of
+   32; the weight products split
+   their rows into chunks (``rg_bf16_chunks``, emulated here) summed in chunk
+   order in float32.  The tensor cores' additions are modelled as above
+   (exact, then rounded toward zero).  On bf16-rounded operands at K =
+   1,433, 3,703 and 14,080 that emulation is held against float64 of the
+   same rounded operands to ``chip_smoke.check_bf16_spread``'s rule, and
+   within relative L2 1e-5 (the float32 forward rule, far inside it).
 """
 
 import math
@@ -207,3 +218,89 @@ def test_slot0_queries_equal_full_queries(monkeypatch, D, dtype, rate):
     for a, b in zip(grads, grads_f):
         assert a.shape == b.shape
         assert float((a - b).abs().max()) <= 1e-6
+
+
+# =========================================== 3. the bf16 products' sum order
+def bf16(x: np.ndarray) -> np.ndarray:
+    """float32 values rounded to bf16 (to nearest, ties to even), as
+    float32."""
+    b = np.asarray(x, np.float32).view(np.uint32)
+    up = (b + np.uint32(0x7FFF) + ((b >> np.uint32(16)) & np.uint32(1)))
+    return (up & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def bf16_chunks(M: int, N: int, K: int) -> int:
+    """``rows_gemm.cu``'s ``rg_bf16_chunks``: of 1 to 8 chunks of at least
+    512 rows, the fewest waves of 132 blocks of 256 x 128 a chunk's share,
+    plus 0.05 a chunk."""
+    tiles = -(-M // 256) * -(-N // 128)
+    most = max(1, min(8, K // 512))
+    costs = [((tiles * c + 131) // 132) / c + 0.05 * c
+             for c in range(1, most + 1)]
+    return 1 + min(range(most), key=lambda i: (costs[i] + 1e-9 * i))
+
+
+def emulate_bf16(a: np.ndarray, b: np.ndarray, chunks: int = 1):
+    """C = a @ b (a [M, K], b [K, N] float32) as K18's bf16 kernel sums it:
+    operands rounded to bf16; per chunk of rows (``kchunk`` = K / chunks
+    rounded up to a step of 32) one accumulator from zero, each 16 of K
+    added exactly then rounded toward zero; the chunks' sums added in
+    order, rounded to nearest."""
+    ab, bb = bf16(a).astype(np.float64), bf16(b).astype(np.float64)
+    K = a.shape[1]
+    kchunk = -(-(-(-K // chunks)) // STEP) * STEP
+    out = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for c0 in range(0, K, kchunk):
+        acc = np.zeros_like(out)
+        for k0 in range(c0, min(K, c0 + kchunk), 16):
+            k = slice(k0, min(K, c0 + kchunk, k0 + 16))
+            acc = round_toward_zero(acc.astype(np.float64)
+                                    + ab[:, k] @ bb[k])
+        out = out + acc
+    return out
+
+
+def test_bf16_rounds_to_nearest_even():
+    """The 16 dropped bits: below half truncates, above half rounds the
+    magnitude up, half to the even neighbour; torch's bf16 cast agrees."""
+    one = np.float32(1.0).view(np.uint32)
+    cases = {0x7FFF: 0, 0x8000: 0, 0x8001: 0x10000, 0x18000: 0x20000,
+             0x17FFF: 0x10000}
+    for low, up in cases.items():
+        x = np.uint32(one + low).view(np.float32)
+        want = np.uint32(one + up).view(np.float32)
+        assert bf16(np.array([x, -x])).tolist() == [want, -want]
+    x = np.random.default_rng(1).standard_normal(4096).astype(np.float32)
+    ref = torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()
+    assert np.array_equal(bf16(x), ref)
+
+
+def test_bf16_chunks_of_the_node_step():
+    """The weight products' chunks at the node step's shapes (N = 2,816,
+    S = 5, D = 1,433, F = 1,024): dW_in's k, v over 14,080 rows in 4, the
+    others over 2,816 rows in 2 or 3."""
+    assert bf16_chunks(1433, 2866, 14080) == 4
+    assert bf16_chunks(1433, 1433, 2816) == 3
+    assert bf16_chunks(1433, 1024, 2816) == 2
+    assert bf16_chunks(1024, 1433, 2816) == 2
+    assert bf16_chunks(100, 100, 400) == 1
+
+
+@pytest.mark.parametrize("kind,K", [("node", 1433), ("rows", 1433),
+                                    ("rows", 3703), ("node_dw", 14080),
+                                    ("rows_dw", 14080)])
+def test_bf16_chained_sums_hold_the_bf16_rule(kind, K):
+    """256 outputs of the bf16 kernel's arithmetic (chunks as the weight
+    products' at 14,080 rows) against float64 on the same bf16-rounded
+    operands: ``check_bf16_spread``'s rule (relative L2 <= 1e-2, at most 1%
+    beyond 2e-2 + 2e-2 |ref|), and within relative L2 1e-5."""
+    rng = np.random.default_rng(K + 7 * len(kind))
+    a, b = operands(kind, K, rng)
+    chunks = bf16_chunks(1433, 2866, K) if K == 14080 else 1
+    got = emulate_bf16(a, b, chunks).astype(np.float64)
+    want = bf16(a).astype(np.float64) @ bf16(b).astype(np.float64)
+    d = np.abs(got - want)
+    rel = float(np.linalg.norm(d) / np.linalg.norm(want))
+    frac = float(np.mean(d > 2e-2 + 2e-2 * np.abs(want)))
+    assert rel <= 1e-2 and frac <= 1e-2, (rel, frac)
+    assert rel <= 1e-5, rel
