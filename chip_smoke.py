@@ -3899,6 +3899,128 @@ def node_k18_launches(dev, N, S, D, F, seed=5, views=True,
             for name, _, key in node_k18_table(N, S, D, F, bf16)}
 
 
+def check_rows_bwd(label, got, want) -> None:
+    """K19's or K20's backward outputs (a tensor or a tuple) against the
+    plain version's, float32: the row outputs (dqkv; du, dv) by
+    ``check_rows_forward``'s rule, K20's column sums over the rows (dγ, dβ:
+    the LayerNorm's gradient leaves, their float32 sum order moving them
+    past 1e-4 over 14,080 rows) by the leaves' rule of
+    :func:`check_rows_grads` (cosine > 0.999, relative L2 <= 1e-4)."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for n, (k, p) in enumerate(zip(got, want)):
+        if k.dim() > 1:
+            check_rows_forward(f"{label} output {n}", k, p, False)
+            continue
+        rel = float((k - p).norm() / p.norm().clamp_min(1e-30))
+        if not (cosine(k, p) > 0.999 and rel <= 1e-4):
+            fail(f"{label} column sums {n}: relative L2 {rel}, cosine "
+                 f"{cosine(k, p)}")
+
+
+K19_BWD_KERNELS = ("ra_bwd_kernel",)
+K20_BWD_KERNELS = ("rl_bwd_kernel", "rl_colsum_kernel")
+
+
+def rows_fwd_calls(qkv, x, S, gamma, beta, rnd, rate=0.5) -> dict:
+    """K19's and K20's forward at :func:`rows_bwd_calls`' two shapes:
+    {"K19 slot0", ...: (kernel call, plain call, library call, the kernel's
+    name, bytes, operations)}: bytes K19 q's Sq rows, k, v and ctx; K20
+    res's rows, v, y, γ and β; operations 4 N Sq S D (K19) and 8 R D (K20).
+    The library calls, which the port never makes:
+    ``scaled_dot_product_attention`` on q [N, 1, Sq, D] and k, v [N, 1, S,
+    D] (views of qkv), and ``F.layer_norm`` over v's rows."""
+    import torch.nn.functional as Fn
+
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    D = x.shape[1]
+    N = x.shape[0] // S
+    kw = dict(rate=rate, seed=3, layer=0)
+    t = qkv.view(N, S, 3 * D)[:, None]
+    calls = {}
+    for shape, Sq in (("slot0", 1), ("full", S)):
+        slot0, rows = Sq == 1, N * Sq
+        every = S if slot0 else 1
+        a = rnd(rows, D)
+        calls[f"K19 {shape}"] = (
+            lambda slot0=slot0: re.attention_forward(qkv, S, slot0=slot0,
+                                                     **kw),
+            lambda slot0=slot0: re.attention_forward_plain(
+                qkv, S, slot0=slot0, **kw),
+            lambda Sq=Sq: Fn.scaled_dot_product_attention(
+                t[..., :Sq, :D], t[..., D:2 * D], t[..., 2 * D:]),
+            ("ra_fwd_kernel",), 4 * (2 * rows * D + 2 * N * S * D),
+            4.0 * rows * S * D)
+        calls[f"K20 {shape}"] = (
+            lambda a=a, every=every: re.res_ln_forward(
+                x, a, gamma, beta, res_every=every, site=re.OUT_SITE, **kw),
+            lambda a=a, every=every: re.res_ln_forward_plain(
+                x, a, gamma, beta, res_every=every, site=re.OUT_SITE, **kw),
+            lambda a=a: Fn.layer_norm(a, (D,), gamma, beta),
+            ("rl_fwd_kernel",), 4 * (3 * rows * D + 2 * D), 8.0 * rows * D)
+    return calls
+
+
+def rows_bwd_calls(qkv, x, S, gamma, beta, rnd, rate=0.5) -> dict:
+    """K19's and K20's backward at the node step's two shapes, on ``qkv``
+    [N·S, 3D], the layer input ``x`` [N·S, D] and random cotangents
+    (``rnd(*shape)``): "slot0", the slot-0 layer's attention over N
+    neighborhoods and its first LayerNorm over slot 0's N rows (res every
+    S-th row of x), and "full", a full layer's (Sq = S over N·S rows, res
+    every row).  {"K19 slot0", ...: (kernel call, plain call, library call,
+    the kernels' names, bytes, operations)}: bytes each input read once and
+    each output written once (K19: q's Sq rows, k, v, dctx, dqkv; K20: g,
+    res's rows, v, du, dv, γ and dγ, dβ), operations 10 N Sq S D (K19: the
+    scores, dattn, dq, dk, dv) and 12 R D (K20).  The library calls, which
+    the port never makes: the backward of ``scaled_dot_product_attention``
+    on the forward's q, k, v views of a leaf copy of qkv (every kernel that
+    autograd launches for it, its views' gradients scattered into the
+    leaf's), and ``torch.ops.aten.native_layer_norm_backward`` on u = res +
+    drop(v)."""
+    import torch
+    import torch.nn.functional as Fn
+
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    D = x.shape[1]
+    N = x.shape[0] // S
+    kw = dict(rate=rate, seed=3, layer=0)
+    calls = {}
+    for shape, Sq in (("slot0", 1), ("full", S)):
+        slot0, rows = Sq == 1, N * Sq
+        every = S if slot0 else 1
+        dctx, a, g = rnd(rows, D), rnd(rows, D), rnd(rows, D)
+        leaf = qkv.detach().clone().requires_grad_()
+        t = leaf.view(N, S, 3 * D)[:, None]
+        att = Fn.scaled_dot_product_attention(
+            t[..., :Sq, :D], t[..., D:2 * D], t[..., 2 * D:])
+        gatt = rnd(*att.shape)
+        u = re._res_rows(x, every) + re.dropout(a, rate, 3, 0, re.OUT_SITE)
+        _, mean, rstd = torch.ops.aten.native_layer_norm(u, [D], gamma, beta,
+                                                         1e-5)
+        calls[f"K19 {shape}"] = (
+            lambda dctx=dctx, slot0=slot0: re.attention_backward(
+                qkv, dctx, S, slot0=slot0, **kw),
+            lambda dctx=dctx, slot0=slot0: re.attention_backward_plain(
+                qkv, dctx, S, slot0=slot0, **kw),
+            lambda att=att, leaf=leaf, gatt=gatt: torch.autograd.grad(
+                att, leaf, gatt, retain_graph=True),
+            K19_BWD_KERNELS, 4 * (2 * rows * D + 5 * N * S * D),
+            10.0 * rows * S * D)
+        bwd = dict(res_every=every, site=re.OUT_SITE, **kw)
+        calls[f"K20 {shape}"] = (
+            lambda g=g, a=a, bwd=bwd: re.res_ln_backward(g, x, a, gamma, beta,
+                                                         **bwd),
+            lambda g=g, a=a, bwd=bwd: re.res_ln_backward_plain(
+                g, x, a, gamma, beta, **bwd),
+            lambda g=g, u=u, mean=mean, rstd=rstd:
+                torch.ops.aten.native_layer_norm_backward(
+                    g, u, [D], mean, rstd, gamma, beta, [True, True, True]),
+            K20_BWD_KERNELS, 4 * (5 * rows * D + 4 * D), 12.0 * rows * D)
+    return calls
+
+
 def rows_timings(dev, t, step_shapes, bf16=False) -> dict:
     """Each of K18-K20 at the node step's launches (the trainer ``t``'s
     shapes).  K18: every launch of :func:`node_k18_table`, each first
@@ -3913,15 +4035,17 @@ def rows_timings(dev, t, step_shapes, bf16=False) -> dict:
     ``torch.mm`` (allow_tf32 False).  bf16 (``bf16``, K18 alone): the bf16
     bound (989 TFLOP/s, the operands' bytes as they lie in memory) and the
     library call :func:`bf16_mm` on bf16 copies.  K19 the slot-0 attention
-    forward, K20 the first LayerNorm forward over slot 0's rows, and each
-    one's backward (float32 only).  Per kernel: device ms a launch, the
-    wrapper's ms (CUDA events), the plain version's, one library call's
-    (``torch.addmm``, ``scaled_dot_product_attention`` on q [N, 1, 1, D] and
-    k, v [N, 1, S, D], ``F.layer_norm``; yardsticks the port never calls;
-    none for the backward launches), and the bound from this launch's bytes
-    and operations."""
+    forward, K20 the first LayerNorm forward over slot 0's rows, each one's
+    backward at that shape (``backward``), and both at a full layer's
+    (``forward_full``, ``backward_full``; :func:`rows_fwd_calls`,
+    :func:`rows_bwd_calls`; float32 only).  Per kernel:
+    device ms a launch, the wrapper's ms (CUDA events), the plain version's,
+    one library call's (``torch.addmm``, ``scaled_dot_product_attention``
+    on q [N, 1, 1, D] and k, v [N, 1, S, D], ``F.layer_norm``; for the
+    backward launches the device ms of SDPA's backward and of
+    ``native_layer_norm_backward``; yardsticks the port never calls), and
+    the bound from this launch's bytes and operations."""
     import torch
-    import torch.nn.functional as Fn
 
     from graph_transformer_tpu_torch.ops import rows_encoder as re
 
@@ -3982,64 +4106,39 @@ def rows_timings(dev, t, step_shapes, bf16=False) -> dict:
     x = torch.randn(N * S, D, generator=g).to(dev)
     p = [a.detach()[0] for a in t.model.encoders[0].stacked()]
     qkv = re.gemm(x, p[0], bias=p[1])
-    a = torch.randn(N, D, generator=g).to(dev)
-    kw = dict(rate=0.5, seed=3, layer=0)
-    calls = {
-        "K19": (lambda: re.attention_forward(qkv, S, slot0=True, **kw),
-                lambda: re.attention_forward_plain(qkv, S, slot0=True, **kw),
-                lambda: Fn.scaled_dot_product_attention(
-                    qkv.view(N, S, 3 * D)[:, None, :1, :D],
-                    qkv.view(N, S, 3 * D)[:, None, :, D:2 * D],
-                    qkv.view(N, S, 3 * D)[:, None, :, 2 * D:]),
-                ("ra_fwd_kernel",),
-                4 * (2 * N * D + 2 * N * S * D), 4.0 * N * S * D),
-        "K20": (lambda: re.res_ln_forward(x, a, p[4], p[5], res_every=S,
-                                          site=1, **kw),
-                lambda: re.res_ln_forward_plain(x, a, p[4], p[5], res_every=S,
-                                                site=1, **kw),
-                lambda: Fn.layer_norm(a, (D,), p[4], p[5]),
-                ("rl_fwd_kernel",), 4 * (3 * N * D + 2 * D), 8.0 * N * D),
-    }
-    for key, (fn, plain, lib, names, b, f) in calls.items():
-        ms = device_ms(fn, 10, names)
-        bms, by = bound(b, f, F32_FLOP_PER_S)
-        out[key] = dict(ms=ms, wrapper_ms=time_ms(fn, 10),
-                        plain_ms=time_ms(plain, 10),
-                        library_ms=time_ms(lib, 10), bound_ms=bms,
-                        bound_by=by, bytes=b, flops=f)
-        print(f"# {key} at the node step's shape: {ms:.4f} ms a launch "
-              f"(wrapper {out[key]['wrapper_ms']:.4f}, plain "
-              f"{out[key]['plain_ms']:.4f}, library "
-              f"{out[key]['library_ms']:.4f}, bound {bms:.5f} by {by})",
-              flush=True)
-    # the backward launches (no one library call computes either): K19's
-    # slot-0 attention backward (q of slot 0's rows, k and v of every row
-    # and dctx read, dqkv written), K20's first LayerNorm backward over slot
-    # 0's rows (its per-block dgamma, dbeta partials summed in order)
-    d = torch.randn(N, D, generator=g).to(dev)
-    bwd = {
-        "K19": (lambda: re.attention_backward(qkv, d, S, slot0=True, **kw),
-                lambda: re.attention_backward_plain(qkv, d, S, slot0=True,
-                                                    **kw),
-                ("ra_bwd_kernel",),
-                4 * (2 * N * D + 2 * N * S * D + 3 * N * S * D),
-                10.0 * N * S * D),
-        "K20": (lambda: re.res_ln_backward(d, x, a, p[4], p[5], res_every=S,
-                                           site=1, **kw),
-                lambda: re.res_ln_backward_plain(d, x, a, p[4], p[5],
-                                                 res_every=S, site=1, **kw),
-                ("rl_bwd_kernel", "rl_reduce_kernel"),
-                4 * (5 * N * D + 4 * D), 12.0 * N * D),
-    }
-    for key, (fn, plain, names, b, f) in bwd.items():
-        ms = device_ms(fn, 10, names)
-        bms, by = bound(b, f, F32_FLOP_PER_S)
-        out[key]["backward"] = dict(ms=ms, plain_ms=time_ms(plain, 10),
-                                    library_ms=None, bound_ms=bms,
-                                    bound_by=by, bytes=b, flops=f)
-        print(f"# {key} backward at the node step's shape: {ms:.4f} ms a "
-              f"launch (plain {out[key]['backward']['plain_ms']:.4f}, bound "
-              f"{bms:.5f} by {by}; no library call)", flush=True)
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    # forward and backward at the slot-0 layer's shape, which the node step
+    # launches, and a full layer's; the backward first held to its plain
+    # version, its library call timed by the device time of its kernels
+    for kind, calls in (("forward", rows_fwd_calls(qkv, x, S, p[4], p[5],
+                                                   rnd)),
+                        ("backward", rows_bwd_calls(qkv, x, S, p[4], p[5],
+                                                    rnd))):
+        bwd = kind == "backward"
+        for name, (fn, plain, lib, names, b, f) in calls.items():
+            key, shape = name.split()
+            if bwd:
+                check_rows_bwd(f"{name} backward", fn(), plain())
+            ms = device_ms(fn, 10, names)
+            bms, by = bound(b, f, F32_FLOP_PER_S)
+            v = dict(ms=ms, wrapper_ms=time_ms(fn, 10),
+                     plain_ms=time_ms(plain, 10),
+                     library_ms=(device_ms(lib, 10, ("",)) if bwd
+                                 else time_ms(lib, 10)),
+                     bound_ms=bms, bound_by=by, bytes=b, flops=f)
+            if shape == "full":
+                out[key][f"{kind}_full"] = v
+            elif bwd:
+                out[key][kind] = v
+            else:
+                out[key] = v
+            print(f"# {key} {kind} at the {shape} shape: "
+                  f"{ms:.4f} ms a launch (wrapper {v['wrapper_ms']:.4f}, "
+                  f"plain {v['plain_ms']:.4f}, library {v['library_ms']:.4f}"
+                  f", bound {bms:.5f} by {by}, {bms / ms:.1%} of it)",
+                  flush=True)
     return out
 
 

@@ -113,9 +113,9 @@ SIGNATURES = {
                       _U, _U, _U, _F, _I, _P],
 }
 # integer-valued helpers: K18's chunk counts (M, N, K, bf16) and (rows),
-# K20's backward blocks (R)
+# K20's backward blocks (R, D)
 COUNT_FNS = {"gt_k18_chunks": 4, "gt_k18_colsum_chunks": 1,
-             "gt_k20_bwd_blocks": 1}
+             "gt_k20_bwd_blocks": 2}
 # scratch bytes: K6, K8w/K10w (N, S, D, F, G, slot0, bf16), K12 (M, D, F,
 # bf16), K14w (N, S, D, F, G, T, bf16), K18's bf16 packed tiles (M, N, K)
 # -> bytes; the split-K products' scratch (rows, M1, N1) -> floats

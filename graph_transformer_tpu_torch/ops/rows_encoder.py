@@ -75,6 +75,7 @@ from graph_transformer_tpu_torch.ops.random import (
 )
 
 MAX_S = 32  # K19: a neighborhood's slots in one warp's lanes
+LN_BWD_MAX_D = 19370  # K20's backward: gamma and the column sums in 227 KB
 ATTN_SITE, OUT_SITE, HIDDEN_SITE, FFN_SITE = 0, 1, 2, 3
 
 
@@ -494,9 +495,9 @@ def res_ln_forward(res, v, gamma, beta, *, res_every: int = 1,
 def res_ln_backward(g, res, v, gamma, beta, *, res_every: int = 1,
                     rate: float = 0.0, seed: Optional[int] = None,
                     layer: int = 0, site: int = OUT_SITE):
-    """K20's backward on CUDA tensors (dγ and dβ from per-block partials
-    summed in block order), :func:`res_ln_backward_plain` on CPU
-    tensors."""
+    """K20's backward on CUDA tensors (a row a block of 8 warps, dγ and dβ
+    from per-block partials summed in a fixed order; D up to
+    ``LN_BWD_MAX_D``), :func:`res_ln_backward_plain` on CPU tensors."""
     if not _device_ok(g, res, v):
         return res_ln_backward_plain(g, res, v, gamma, beta,
                                      res_every=res_every, rate=rate,
@@ -509,7 +510,11 @@ def res_ln_backward(g, res, v, gamma, beta, *, res_every: int = 1,
     dgb = torch.zeros(2, D, **f32)
     if R:
         lib = _build.load("rows_ln")
-        blocks = lib.gt_k20_bwd_blocks(R)
+        blocks = lib.gt_k20_bwd_blocks(R, D)
+        if blocks < 1:
+            raise NotImplementedError(
+                f"D={D}: K20's backward takes rows of at most "
+                f"{LN_BWD_MAX_D} columns")
         part = torch.empty(blocks * 2 * D, **f32)
         res = res.contiguous()
         err = lib.gt_k20_ln_bwd(

@@ -95,7 +95,9 @@ that checkout's package and times, by torch.profiler device time a launch
   files of Cora's shape (``chip_smoke.write_planetoid_like``, the node
   CLI's configuration), float32 and ``--compute_dtype bfloat16``: 20 steps
   by CUDA events after 3, and a profile of 5 (busy share, K18's device ms
-  a step).
+  a step); before the steps, K19 and K20, forward and backward, at the
+  slot-0 layer's and a full layer's shape (:func:`k19_k20`), each device ms
+  a launch and the bytes bound's share of it.
 
 Prints one line a checkout and a JSON line of every number, then the card's
 name and power limit.
@@ -141,6 +143,8 @@ ONLY_SOURCES = {"wide_fwd": ("wide_fwd", "encoder_layer", "stored_fwd",
 # bf16 product kernel before it ran on wgmma (K18's kernels in any
 # checkout: these and chip_smoke.K18_KERNELS)
 K18_F32_BEFORE = "rg_f32_kernel"
+# K20's backward partial sums' kernel before a row took a block of 8 warps
+K20_BWD_BEFORE = ("rl_reduce_kernel",)
 K18_BF16_BEFORE = "rg_bf16_kernel"
 # DD (public TU statistics: 1,178 graphs, 334,925 nodes, 89 node labels)
 # cut to graphs of 284 nodes, a batch of 16, K=8
@@ -720,9 +724,38 @@ def rows_gemm(cs, dev, root) -> dict:
         k18[name] = cs.device_ms(fn, 10, k18_all)
         lib[name] = cs.time_ms(ref, 10)
     del x, w, b, dqkv, launches
-    return {"K18": k18, "library": lib,
+    ms, share = k19_k20(cs, dev, N, S, D)
+    return {"K18": k18, "library": lib, "K19_K20_ms": ms,
+            "K19_K20_share_of_bound": share,
             "node": node_step(cs, root, cs.NODE_FLAGS, k18_all),
             "node_bf16": node_step(cs, root, cs.NODE_BF16_FLAGS, k18_all)}
+
+
+def k19_k20(cs, dev, N, S, D) -> tuple:
+    """K19's and K20's forward and backward at ``chip_smoke``'s two shapes
+    (``rows_fwd_calls``, ``rows_bwd_calls``: the slot-0 layer's and a full
+    layer's, float32, rate 0.5) on random rows: device ms a launch (K20's
+    backward with its partial sums' kernel, whichever a checkout has) and
+    the bytes bound's share of it."""
+    import torch
+
+    g = torch.Generator().manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g).to(dev)
+
+    x, qkv = rnd(N * S, D), rnd(N * S, 3 * D)
+    gamma, beta = 1.0 + 0.1 * rnd(D), 0.1 * rnd(D)
+    ms, share = {}, {}
+    for kind, calls in (("forward", cs.rows_fwd_calls(qkv, x, S, gamma, beta,
+                                                      rnd)),
+                        ("backward", cs.rows_bwd_calls(qkv, x, S, gamma, beta,
+                                                       rnd))):
+        for name, (fn, _, _, names, b, f) in calls.items():
+            label = f"{name} {kind}"
+            ms[label] = cs.device_ms(fn, 10, names + K20_BWD_BEFORE)
+            share[label] = cs.bound(b, f, cs.F32_FLOP_PER_S)[0] / ms[label]
+    return ms, share
 
 
 def worker(root: str, only: str = "") -> dict:

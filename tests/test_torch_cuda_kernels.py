@@ -576,6 +576,85 @@ def test_k18_slot0_views_at_cora_shape(cuda, dtype):
                  <= 1e-5 * dqkv.double().abs().sum(0)).all())
 
 
+# K19's and K20's backward held directly against their plain versions: 133
+# neighborhoods and 1,001 rows are multiples of no block, stage or group
+# count the kernels use
+ROWS_BWD_N, ROWS_BWD_R = 133, 1001
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("D", [160, 1433])
+@pytest.mark.parametrize("slot0", [True, False])
+@pytest.mark.parametrize("S", [1, 5, 17, 32])
+def test_rows_k19_backward_matches_plain(cuda, S, slot0, D, rate, bf16):
+    """K19's backward (``dqkv``) against ``attention_backward_plain`` at S up
+    to 32 (past one block's shared memory at D = 1,433: rows staged in
+    column chunks), the slot-0 layer (q NaN off slot 0, as the layer leaves
+    it unwritten; dq exactly 0 there) and the full one: float32 by
+    ``check_rows_forward``'s rule, bf16 products by ``check_bf16_spread``;
+    two launches equal bit for bit."""
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    N = ROWS_BWD_N
+    gen = torch.Generator(device=cuda).manual_seed(S * D + slot0)
+    qkv = torch.randn(N * S, 3 * D, device=cuda, generator=gen)
+    dctx = torch.randn(N if slot0 else N * S, D, device=cuda, generator=gen)
+    if slot0:
+        qkv.view(N, S, 3 * D)[:, 1:, :D] = float("nan")
+    kw = dict(slot0=slot0, rate=rate, seed=77, layer=1, bf16=bf16)
+    launches = re.K19.launches
+    got = re.attention_backward(qkv, dctx, S, **kw)
+    again = re.attention_backward(qkv, dctx, S, **kw)
+    want = re.attention_backward_plain(qkv, dctx, S, **kw)
+    torch.cuda.synchronize()
+    assert re.K19.launches == launches + 2
+    assert torch.equal(got, again)
+    if slot0:
+        assert bool((got.view(N, S, 3 * D)[:, 1:, :D] == 0).all())
+    chip_smoke.check_rows_forward(
+        f"K19 backward S={S} D={D} {'slot0' if slot0 else 'full'} rate "
+        f"{rate} bf16 {bf16}", got, want, bf16)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.5])
+@pytest.mark.parametrize("every", [1, 5])
+@pytest.mark.parametrize("res_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,R", [(160, ROWS_BWD_R), (1433, ROWS_BWD_R),
+                                 (3703, ROWS_BWD_R), (13001, 301)])
+def test_rows_k20_backward_matches_plain(cuda, D, R, res_dtype, every, rate):
+    """K20's backward (du, dv, dγ, dβ) against ``res_ln_backward_plain``: a
+    row a warp (D = 160, 1,433), four warps (3,703) and eight with the
+    column sums in shared memory (13,001); res in float32 and bf16 (the bf16
+    layer's x), every row or every 5th (the slot-0 layer's residual).  K20
+    has no bf16 products: its arithmetic is float32 on the values given,
+    so every output is held by ``check_rows_forward``'s float32 rule; two
+    launches equal bit for bit."""
+    from graph_transformer_tpu_torch.ops import rows_encoder as re
+
+    gen = torch.Generator(device=cuda).manual_seed(D + every)
+
+    def rnd(*shape, sc=1.0):
+        return torch.randn(*shape, device=cuda, generator=gen) * sc
+
+    res = rnd((R - 1) * every + 1, D).to(getattr(torch, res_dtype))
+    v, g = rnd(R, D), rnd(R, D)
+    gamma, beta = 1.0 + rnd(D, sc=0.1), rnd(D, sc=0.1)
+    kw = dict(res_every=every, rate=rate, seed=5, layer=1, site=3)
+    launches = re.K20.launches
+    got = re.res_ln_backward(g, res, v, gamma, beta, **kw)
+    again = re.res_ln_backward(g, res, v, gamma, beta, **kw)
+    want = re.res_ln_backward_plain(g, res, v, gamma, beta, **kw)
+    torch.cuda.synchronize()
+    assert re.K20.launches == launches + 2
+    for name, a, b, p in zip(("du", "dv", "dgamma", "dbeta"), got, again,
+                             want):
+        assert torch.equal(a, b), name
+        chip_smoke.check_rows_forward(
+            f"K20 backward {name} D={D} res {res_dtype} every {every} rate "
+            f"{rate}", a, p, False)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows", [5760, 5761])
 @pytest.mark.parametrize("M1,N1", [(68, 204), (68, 68), (68, 1024),

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of it (the HPO harness, a numpy
 module, included), and neither chip_smoke.py
 nor scripts/torch_wide_probe.py, torch_determinism_probe.py,
-torch_node_phases.py, torch_k18_variants.py or torch_parallel_probe.py,
-imports jax,
+torch_node_phases.py, torch_k18_variants.py, torch_parallel_probe.py or
+torch_rows_bwd_variants.py, imports jax,
 jaxlib or the JAX package, nor sklearn, pandas or networkx (the card's
 machine has none of them); importing it builds nothing and does not import
 triton."""
@@ -36,7 +36,8 @@ FILES = sorted(ROOT.glob("graph_transformer_tpu_torch/**/*.py")) + [
     ROOT / "scripts" / "torch_determinism_probe.py",
     ROOT / "scripts" / "torch_node_phases.py",
     ROOT / "scripts" / "torch_k18_variants.py",
-    ROOT / "scripts" / "torch_parallel_probe.py"]
+    ROOT / "scripts" / "torch_parallel_probe.py",
+    ROOT / "scripts" / "torch_rows_bwd_variants.py"]
 
 
 def imported_roots(path: Path):
