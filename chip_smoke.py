@@ -204,6 +204,19 @@
    K8; K18 32, K19 6, K20 10; twice that overlapped; K7, K4t, K8s, 2 K8 a
    step and K4 an eval batch); each rank's ms a step blocking and
    overlapped, one card shared by 4 ranks (not gated).
+9g. Drives JAX's one-dispatch training (``replay_phases``; run after 9,
+   before 9b): for the bench's fused flags, the README quickstart at full
+   width, the MUTAG HPO arm (two U2GNN layers, 16 graphs a batch), ACT (16
+   graphs) and the README's unsup command, on files under
+   ``build/replay/``, 20 steps of the captured step replayed as a CUDA
+   graph (``train/step_graph.py``, the first run capturing) against the
+   same step run eagerly 20 times, from one saved state, one list of
+   batches and one seed list: every loss and every parameter, moment and
+   Adam count bit for bit (the first leaf that differs is named), equal
+   launches a step; then each way's ms a step and edges/s by CUDA events,
+   and its busy share and device operations a step over 5 profiled steps.
+   Every ``train_steps`` of the sections above replays too, and the
+   ``--scan_epochs`` CLI runs train through ``train_epoch_stacked``.
 10. Prints edges/s, one JSON line describing every kernel (its device time
    per launch from torch.profiler, the whole wrapper's time from CUDA
    events, launches on its main path, bound, plain version's time, library
@@ -5095,6 +5108,195 @@ def parallel_phases(ds, cora_root, ds_cv) -> tuple:
     return ref["r4"], out
 
 
+# ------------------------------------------------ one-dispatch training
+REPLAY_STEPS = 20
+REPLAY_CASES = ("bench fused", "quickstart float32", "hpo arm", "act",
+                "unsup")
+
+
+def replay_cases(root, small=False) -> dict:
+    """Makers of fresh trainers for the paths JAX trains in one dispatch,
+    at full width (``small``: fewer graphs, for the card tests), on files
+    written under ``root``: the bench's fused flags (K1-K3, D = 4, bf16),
+    the README quickstart (two-pass float32, D = 68), the MUTAG HPO arm (two
+    U2GNN layers, 16 graphs a batch), ACT (16 graphs) and the README's
+    unsup command."""
+    from graph_transformer_tpu_torch.cli.common import (
+        base_parser, config_from_args)
+    from graph_transformer_tpu_torch.config import (
+        DataConfig, ExperimentConfig, ModelConfig, TrainConfig)
+    from graph_transformer_tpu_torch.data.tu import (
+        load_tu_dataset, synthetic_powerlaw_dataset)
+    from graph_transformer_tpu_torch.train.sup_trainer import SupTrainer
+    from graph_transformer_tpu_torch.train.unsup_trainer import UnsupTrainer
+
+    data = os.path.join(root, "data")
+    write_imdb_like_tu(data, num_graphs=100 if small else 1000)
+    write_mutag_like_tu(data)
+    imdb = load_tu_dataset("IMDBBINARY", data_dir=data)
+    mutag = load_tu_dataset("MUTAG", data_dir=data, degree_as_tag=True)
+    mutag_act = load_tu_dataset("MUTAG", data_dir=data)
+    bench = synthetic_powerlaw_dataset(
+        "REDDITMULTI5K-like", num_graphs=16 if small else 64,
+        mean_nodes=509, seed=0)
+    bench_cfg = ExperimentConfig(
+        data=DataConfig(batch_size=BATCH, num_neighbors=K),
+        model=ModelConfig(num_timesteps=T, num_hidden_layers=1,
+                          ff_hidden_size=FF, compute_dtype="bfloat16",
+                          use_pallas=True, use_pallas_whole_encoder=True,
+                          use_fused_sampler=True, use_stored_bwd=True,
+                          use_folded=True),
+        train=TrainConfig(num_epochs=1))
+
+    def cli(flags):
+        return config_from_args(base_parser("replay").parse_args(flags))
+
+    return {
+        "bench fused": lambda: SupTrainer(
+            bench, bench_cfg, train_idx=np.arange(bench.num_graphs),
+            test_idx=np.arange(8), device="cuda"),
+        "quickstart float32": lambda: SupTrainer(
+            imdb, cli(QUICKSTART_FLAGS), device="cuda"),
+        "hpo arm": lambda: SupTrainer(
+            mutag, cli(TWO_PASS_FLAGS["MUTAG"] + ["--batch_size", "16"]),
+            device="cuda"),
+        "act": lambda: SupTrainer(
+            mutag_act, cli(PER_LAYER_FLAGS["act"] + ["--batch_size", "16"]),
+            device="cuda"),
+        "unsup": lambda: UnsupTrainer(imdb, unsup_config(UNSUP_FLAGS),
+                                      device="cuda"),
+    }
+
+
+def trainer_leaves(t) -> list:
+    """(name, tensor) of what a training step changes: the parameters,
+    Adam's moments and its count."""
+    names = [n for n, _ in t.model.named_parameters()]
+    return (list(zip(names, t.model.parameters()))
+            + [(f"mu {n}", m) for n, m in zip(names, t.opt.mu)]
+            + [(f"nu {n}", v) for n, v in zip(names, t.opt.nu)]
+            + [("count", t.opt.count_t)])
+
+
+def save_leaves(t) -> list:
+    return [x.detach().clone() for _, x in trainer_leaves(t)]
+
+
+def load_leaves(t, saved) -> None:
+    import torch
+
+    with torch.no_grad():
+        for (_, x), s in zip(trainer_leaves(t), saved):
+            x.copy_(s)
+
+
+def first_difference(label, t, want, losses_want, losses_got) -> None:
+    """Fail naming the first loss or leaf of ``t`` that differs from
+    ``want`` (saved leaves) in a bit."""
+    import torch
+
+    if not torch.equal(losses_want, losses_got):
+        i = int((losses_want != losses_got).nonzero()[0])
+        fail(f"{label}: step {i}'s loss {float(losses_got[i])!r} replayed "
+             f"against {float(losses_want[i])!r} eager")
+    for (name, x), w in zip(trainer_leaves(t), want):
+        if not torch.equal(x.detach(), w):
+            fail(f"{label}: leaf {name} differs between the replayed and "
+                 "the eager steps")
+
+
+def replay_against_eager(label, make, n=REPLAY_STEPS) -> dict:
+    """``n`` replayed steps against ``n`` eager steps of the trainer
+    ``make()`` makes, from one saved state, one list of batches (drawn by
+    its builder) and one seed list: every loss and every leaf bit for bit
+    (the first run captures), the launches a step alike, then each way
+    timed by CUDA events (after a run of each), profiled over 5 steps.  The
+    eager step is the captured one (``StepGraph.step``) run eagerly, each
+    batch copied to the card first, as ``train_epoch`` copies it."""
+    import torch
+
+    from graph_transformer_tpu_torch.ops.random import device_seed
+    from graph_transformer_tpu_torch.train.step_graph import stack_batches
+
+    t = make()
+    dev = t.device
+    batches = [t.builder.sample() for _ in range(n)]
+    seeds = [t.next_seed() for _ in range(n)]
+    edges = float(np.mean([float(b.edge_mask.sum()) for b in batches]))
+    g = t.step_graph(n)
+    s0 = save_leaves(t)
+    counters = launch_counters()
+
+    def eager(k=n):
+        return torch.stack([g.step(b.to(dev), device_seed(s, dev))
+                            for b, s in zip(batches[:k], seeds[:k])])
+
+    def replay(k=n):
+        return g.run(stack_batches(batches, dev), range(k), seeds[:k])
+
+    def timed(fn):
+        load_leaves(t, s0)
+        for c in counters.values():
+            c.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return (out, start.elapsed_time(end) / n,
+                {k: c.launches for k, c in counters.items() if c.launches})
+
+    losses_e = eager()
+    want = save_leaves(t)
+    load_leaves(t, s0)
+    t0 = time.perf_counter()
+    losses_r = replay()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first_difference(label, t, want, losses_e, losses_r)
+    if not bool(torch.isfinite(losses_e).all()):
+        fail(f"{label}: losses not finite: {losses_e}")
+    out_e, ms_e, launches_e = timed(eager)
+    out_r, ms_r, launches_r = timed(replay)
+    first_difference(label + " (timed)", t, want, losses_e, out_r)
+    if not torch.equal(out_e, losses_e):
+        fail(f"{label}: the eager steps do not repeat")
+    if launches_e != launches_r or not launches_r:
+        fail(f"{label}: launches eager {launches_e}, replayed {launches_r}")
+    k = min(5, n)
+    load_leaves(t, s0)
+    prof_e = profile_busy(lambda: eager(k), k)
+    load_leaves(t, s0)
+    prof_r = profile_busy(lambda: replay(k), k)
+    load_leaves(t, s0)
+    out = {"eager_ms": ms_e, "replay_ms": ms_r,
+           "eager_edges_per_s": edges * 1e3 / ms_e,
+           "replay_edges_per_s": edges * 1e3 / ms_r,
+           "edges_per_step": edges, "first_run_s": first_s,
+           "launches_per_step": {k: v / n for k, v in launches_r.items()},
+           "eager_profile": prof_e, "replay_profile": prof_r}
+    busy = [p and (p["busy_share"], p["ops_per_step"]) for p in
+            (prof_e, prof_r)]
+    print(f"# replay {label}: {n} losses and {len(want)} leaves bit for bit;"
+          f" eager {ms_e:.3f} ms a step ({out['eager_edges_per_s']:.1f} "
+          f"edges/s), replayed {ms_r:.3f} ({out['replay_edges_per_s']:.1f});"
+          f" busy share, device operations a step: eager {busy[0]}, "
+          f"replayed {busy[1]}; capture and first {n} steps {first_s:.2f} s;"
+          f" launches a step {out['launches_per_step']}", flush=True)
+    return out
+
+
+def replay_phases(root) -> dict:
+    """Section 9g: :func:`replay_against_eager` on every case of
+    :func:`replay_cases` at full width."""
+    t0 = time.perf_counter()
+    out = {name: replay_against_eager(name, make)
+           for name, make in replay_cases(root).items()}
+    print(f"# replay phases: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def timed_steps(trainer, batch, edges: float) -> tuple:
     """(ms/step, edges/s) of ``train_steps(batch, STEPS)`` after WARMUP
     steps, by CUDA events; fails on a loss that is not finite, and on the
@@ -6066,6 +6268,10 @@ def main() -> int:
                 "graph_transformer_tpu/ops/pallas_stored_bwd.py:106",
                 k17_bytes, v_flops, bf),
     }
+    # ---- 9g. one-dispatch training: each path JAX scans, 20 replayed
+    # steps of the captured step against 20 eager ones, bit for bit, timed
+    # and profiled both ways
+    replay = replay_phases(os.path.join(here, "build", "replay"))
     # ---- 9b. the unsupervised path (the README's unsup command through the
     # CLI, the fused flags, two U2GNN layers, a vocabulary past 32,768, the
     # probe on learnable labels); its kernel checks join the errors that the
@@ -6162,6 +6368,7 @@ def main() -> int:
                       "multiplex": multiplex,
                       "slice19": rest,
                       "parallel": parallel,
+                      "replay": replay,
                       "hash_floor": floor,
                       "steps": STEPS, "build_s": build_s}))
     smi = subprocess.run(

@@ -7,8 +7,10 @@ and config field, plus ``--device`` (default ``cuda``).  As in JAX,
 path's gate also needs ``use_fused_sampler``, which no CLI sets, so every CLI
 run trains on the two-pass path (``train/sup_trainer.fused_gate_ok``).
 ``--sampled_num`` sets the unsupervised models' candidate count
-(``cli/train_unsup.py``), and ``--scan_epochs`` trains the same per-step
-loop (PyTorch runs eagerly).
+(``cli/train_unsup.py``), and ``--scan_epochs`` trains each epoch as JAX's
+one-dispatch epoch: ``train_epoch_stacked``, one replay of a captured CUDA
+graph a step on the card (``train/step_graph.py``), the same step run
+eagerly over the same buffers on the CPU.
 """
 
 from __future__ import annotations
@@ -72,8 +74,9 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--whole_encoder", action="store_true",
                    help="sets ModelConfig.use_pallas_whole_encoder")
     p.add_argument("--scan_epochs", action="store_true",
-                   help="accepted for parity with the JAX CLI; the port "
-                        "trains the same per-step loop either way")
+                   help="train each epoch's batches, built first and "
+                        "stacked on the device, by replaying one captured "
+                        "CUDA graph a step (eagerly on the CPU)")
     p.add_argument("--host_sampling", action="store_true",
                    help="sample neighborhoods on host instead of on device")
     p.add_argument("--checkpoint_dir", default=None)

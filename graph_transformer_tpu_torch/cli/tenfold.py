@@ -7,7 +7,11 @@ best test accuracy over the epochs, then mean ± std.
         --num_epochs 50 --num_timesteps 3 --learning_rate 0.0005
 
 By default the folds train one after another, a ``SupTrainer`` each, over
-``stratified_kfold_indices(labels, 10, seed=0)``.  ``--vmap_folds`` trains
+``stratified_kfold_indices(labels, 10, seed=0)``; with ``--scan_epochs``
+each epoch is ``SupTrainer.train_epoch_stacked``, one replay of the
+captured step a batch, as JAX's loop takes ``train_epoch_stacked``
+(``--vmap_folds``, ``--cv_on_device`` and ``--shard_folds`` keep their
+eager runners).  ``--vmap_folds`` trains
 every fold each epoch (``train/tenfold_vmap.py``; a fold whose batch count
 is the largest trains bit for bit as in the default loop), and
 ``--cv_on_device`` runs the whole CV with on-device batching, selection,
@@ -105,8 +109,10 @@ def main(argv=None):
                                                           seed=0)):
         trainer = SupTrainer(ds, cfg, tr, te, args.device, tables)
         best = 0.0
+        epoch = (trainer.train_epoch_stacked if cfg.train.scan_epochs
+                 else trainer.train_epoch)
         for _ in range(cfg.train.num_epochs):
-            trainer.train_epoch()
+            epoch()
             best = max(best, trainer.evaluate())
         accs.append(best)
         print(f"fold {i}: best acc {best:.4f}")

@@ -6,8 +6,10 @@
         --num_epochs 50 --num_timesteps 4 --learning_rate 0.0005 --device cuda
 
 Writes per-epoch accuracy lines to ``<run_folder>/<model_name>/model_acc.txt``
-in the reference's format.  With ``--checkpoint_every N`` it saves, every N
-epochs, the model, the Adam state, the epoch, the loss history, the best
+in the reference's format.  ``--scan_epochs`` trains each epoch through
+``SupTrainer.train_epoch_stacked`` (one replay of the captured step a
+batch; ``train/step_graph.py``).  With ``--checkpoint_every N`` it saves,
+every N epochs, the model, the Adam state, the epoch, the loss history, the best
 accuracy and the host generators' states (``train/checkpoint.py``; into
 ``--checkpoint_dir``, default ``<run_folder>/<model_name>/checkpoints``);
 ``--resume`` restores the latest one, replays the plateau rule over the
@@ -78,7 +80,8 @@ def main(argv=None):
             print(f"# resumed from {path} at epoch {start_epoch}")
     for epoch in range(start_epoch, cfg.train.num_epochs + 1):
         t0 = time.time()
-        loss = trainer.train_epoch()
+        loss = (trainer.train_epoch_stacked() if cfg.train.scan_epochs
+                else trainer.train_epoch())
         acc = (trainer.evaluate() if epoch % cfg.train.eval_every == 0
                else float("nan"))
         best_acc = max(best_acc, acc if acc == acc else 0.0)

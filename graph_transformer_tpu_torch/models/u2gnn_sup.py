@@ -162,8 +162,9 @@ class U2GNNSup(nn.Module):
                 regather: Optional[Callable] = None):
         """Scores [B, C], or ``(scores, ponder)`` with ``return_ponder``.
         Fused training: ``sampled_inputs`` = (tag_rows [N,128], deg [N],
-        self_tag [N], codebook [C,D]) and an int ``seed`` for the sampler and
-        all dropout.  Two-pass training: ``neigh_feat`` [N, K+1, D], the
+        self_tag [N], codebook [C,D]) and a ``seed`` (an int or a 0-d int64
+        tensor, ``ops/random.device_seed``) for the sampler and all
+        dropout.  Two-pass training: ``neigh_feat`` [N, K+1, D], the
         features of the neighborhoods whose batch rows ``batch.neigh``
         holds, or of the global ids ``neigh_global`` [N, K+1] (then with
         ``num_total_nodes``), and a ``seed``, or none for a deterministic

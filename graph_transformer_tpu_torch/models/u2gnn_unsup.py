@@ -272,7 +272,7 @@ class U2GNNUnsup(nn.Module):
                 emb = self.weight
                 V = emb.shape[0]
                 adj_mask = adj_mask[:V, :V]
-                n_real = torch.tensor(float(V), device=emb.device)
+                n_real = emb.new_full((), float(V))
             else:
                 n_real = batch.node_mask.sum()
             n_pos = adj_mask.sum()

@@ -37,80 +37,82 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _PARAMS = ctypes.c_void_p * 12
 _FFN_PARAMS = ctypes.c_void_p * 6
-# argument types of each exported function
+# argument types of each exported function; a kernel that draws bits takes
+# its seed as a device pointer (`const long long* seed`, a `_P`:
+# ops/random.seed_ptr), never by value
 SIGNATURES = {
     "gt_k1_sampled_fwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _P, _P, _P,
-                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U,
+                          _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U,
                           _F, _I, _P],
     "gt_k2_layer_bwd": [_P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P, _P, _I,
-                        _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+                        _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
     "gt_k3_slot0_bwd": [_P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P, _P, _I,
-                        _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+                        _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
     "gt_k4_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _I, _I, _I, _I, _I, _I,
-                          _F, _U, _U, _F, _I, _P],
+                          _F, _P, _U, _F, _I, _P],
     "gt_k4w_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _U, _U, _F, _I, _P],
+                           _F, _P, _U, _F, _I, _P],
     "gt_k5_stored_fwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                         _U, _U, _F, _I, _P],
+                         _P, _U, _F, _I, _P],
     "gt_k6_layer_bwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+                        _P, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
     "gt_k6_slot0_bwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _I, _P, _P,
-                        _P, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
-    "gt_k7_sample": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _U,
+                        _P, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
+    "gt_k7_sample": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P,
                      _P],
     "gt_k4t_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _F, _U, _U, _F, _I, _P],
+                           _I, _F, _P, _U, _F, _I, _P],
     "gt_k8_layer_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+                        _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
     "gt_k8s_slot0_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
-    "gt_k9_layer_fwd": [_P, _I, _P, _PARAMS, _I, _I, _I, _I, _I, _I, _F, _U,
+                         _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
+    "gt_k9_layer_fwd": [_P, _I, _P, _PARAMS, _I, _I, _I, _I, _I, _I, _F, _P,
                         _U, _F, _I, _P],
     "gt_k10_layer_bwd": [_P, _I, _P, _PARAMS, _I, _P, _P, _P, _P, _P, _P, _I,
-                         _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
+                         _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
     "gt_k4tw_encoder_fwd": [_P, _I, _PARAMS, _I, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _F, _U, _U, _F, _I, _P],
+                            _I, _F, _P, _U, _F, _I, _P],
     "gt_k8w_layer_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _F, _U, _U, _F, _I, _P],
+                         _I, _I, _F, _P, _U, _F, _I, _P],
     "gt_k8ws_slot0_bwd": [_P, _I, _P, _PARAMS, _I, _I, _P, _P, _P, _I, _I, _I,
-                          _I, _I, _F, _U, _U, _F, _I, _P],
-    "gt_k9w_layer_fwd": [_P, _I, _P, _PARAMS, _I, _I, _I, _I, _I, _I, _F, _U,
+                          _I, _I, _F, _P, _U, _F, _I, _P],
+    "gt_k9w_layer_fwd": [_P, _I, _P, _PARAMS, _I, _I, _I, _I, _I, _I, _F, _P,
                          _U, _F, _I, _P],
     "gt_k10w_layer_bwd": [_P, _I, _P, _PARAMS, _I, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _F, _U, _U, _F, _I, _P],
+                          _I, _F, _P, _U, _F, _I, _P],
     "gt_k13_sampled_fwd": [_P, _I, _P, _P, _P, _P, _P, _PARAMS, _I, _P, _P, _I,
-                           _I, _I, _I, _I, _I, _F, _U, _U, _F, _I, _P],
-    "gt_k11_ffn_fwd": [_P, _I, _P, _FFN_PARAMS, _I, _I, _I, _I, _U, _U, _F,
+                           _I, _I, _I, _I, _I, _F, _P, _U, _F, _I, _P],
+    "gt_k11_ffn_fwd": [_P, _I, _P, _FFN_PARAMS, _I, _I, _I, _I, _P, _U, _F,
                        _I, _P],
     "gt_k12_ffn_bwd": [_P, _I, _P, _FFN_PARAMS, _I, _P, _P, _P, _I, _I, _I,
-                       _U, _U, _F, _I, _P],
+                       _P, _U, _F, _I, _P],
     "gt_wgrad": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "gt_k14_mega_bwd": [_P, _P, _I, _P, _PARAMS, _I, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I,
+                        _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I,
                         _P],
     "gt_k14w_mega_bwd": [_P, _P, _I, _P, _PARAMS, _I, _P, _P, _P, _I, _I, _I,
-                         _I, _I, _I, _F, _U, _U, _F, _I, _P],
+                         _I, _I, _I, _F, _P, _U, _F, _I, _P],
     "gt_k15_folded_stored_fwd": [_P, _PARAMS, _I, _P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _I, _F, _U, _U, _F, _I,
+                                 _I, _I, _I, _I, _I, _I, _F, _P, _U, _F, _I,
                                  _P],
-    "gt_k16_folded_fwd": [_P, _PARAMS, _I, _P, _I, _I, _I, _I, _I, _I, _F, _U,
+    "gt_k16_folded_fwd": [_P, _PARAMS, _I, _P, _I, _I, _I, _I, _I, _I, _F, _P,
                           _U, _F, _I, _P],
     "gt_k17_stored_rows_fwd": [_P, _I, _PARAMS, _I, _P, _P, _P, _P, _P, _P,
-                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _U,
+                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P,
                                _U, _F, _I, _P],
     "gt_k18_gemm": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                    _P, _I, _P, _P, _F, _I, _U, _U, _U, _F, _I, _I, _P, _P,
+                    _P, _I, _P, _P, _F, _I, _P, _U, _U, _F, _I, _I, _P, _P,
                     _P],
     "gt_k18_colsum": [_P, _I, _P, _P, _I, _I, _I, _I, _P],
-    "gt_k19_attn_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F, _I,
+    "gt_k19_attn_fwd": [_P, _P, _I, _I, _I, _I, _I, _F, _P, _U, _U, _F, _I,
                         _P],
-    "gt_k19_attn_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _U, _U, _U, _F,
+    "gt_k19_attn_bwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _U, _U, _F,
                         _I, _P],
-    "gt_k20_ln_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _U, _U, _U, _F, _I,
+    "gt_k20_ln_fwd": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _U, _U, _F, _I,
                       _P],
     "gt_k20_ln_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                      _U, _U, _U, _F, _I, _P],
+                      _P, _U, _U, _F, _I, _P],
 }
 # integer-valued helpers: K18's chunk counts (M, N, K, bf16) and (rows),
 # K20's backward blocks (R, D)

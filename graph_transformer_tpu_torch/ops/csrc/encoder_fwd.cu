@@ -27,7 +27,7 @@ extern "C" size_t gt_k4_smem_bytes(int G, int S, int D) {
 extern "C" int gt_k4_encoder_fwd(const void* x_rows, int x_bf16,
                                  const float* const* params, int stored,
                                  float* out, int N, int S, int D, int F, int T,
-                                 int G, float scale, unsigned int seed,
+                                 int G, float scale, const long long* seed,
                                  unsigned int keep24, float keep, int drop_on,
                                  void* stream) {
   GtFwdIO io = {};
@@ -45,7 +45,7 @@ extern "C" int gt_k4t_encoder_fwd(const void* x_rows, int x_bf16,
                                   const float* const* params, int stored,
                                   float* out, void* xs, int N, int S, int D,
                                   int F, int T, int G, float scale,
-                                  unsigned int seed, unsigned int keep24,
+                                  const long long* seed, unsigned int keep24,
                                   float keep, int drop_on, void* stream) {
   GtFwdIO io = {};
   io.x_rows = x_rows;

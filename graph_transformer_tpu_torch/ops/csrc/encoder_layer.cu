@@ -57,6 +57,7 @@ __global__ void __launch_bounds__(GT_BWD_THREADS, GT_FWD_MIN_BLOCKS(DM))
 gt_layer_fwd_kernel(const void* x, int x_bf16, void* out, GtLayer w, GtDrop dr,
                     int layer, int N, int S, int D, int F, int G,
                     float scale) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const int r = threadIdx.x;
   const int g = r / S;
@@ -107,7 +108,7 @@ static cudaError_t launch_k9(const void* x, int x_bf16, void* out,
 extern "C" int gt_k9_layer_fwd(const void* x, int x_bf16, void* out,
                                const float* const* params, int layer, int N,
                                int S, int D, int F, int G, float scale,
-                               unsigned int seed, unsigned int keep24,
+                               const long long* seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   const GtLayer w = gt_layer_at(gt_make_stack(params, 1), 0, D, F);
   const GtDrop dr{seed, keep24, keep, drop_on};
@@ -126,7 +127,7 @@ extern "C" int gt_k10_layer_bwd(const void* x, int x_bf16, const float* dout,
                                 float* dx, float* qkv, float* attn,
                                 float* strip, float* partial, float* grads,
                                 int N, int S, int D, int F, int G, float scale,
-                                unsigned int seed, unsigned int keep24,
+                                const long long* seed, unsigned int keep24,
                                 float keep, int drop_on, void* stream) {
   return gt_dispatch_recompute<false>(x, x_bf16, dout, params, /*stored=*/1,
                                       layer, dx, qkv, attn, strip, partial,
@@ -153,7 +154,7 @@ extern "C" size_t gt_k10w_work_bytes(int N, int S, int D, int F, int G,
 extern "C" int gt_k9w_layer_fwd(const void* x, int x_bf16, void* out,
                                 const float* const* params, int layer, int N,
                                 int S, int D, int F, int G, float scale,
-                                unsigned int seed, unsigned int keep24,
+                                const long long* seed, unsigned int keep24,
                                 float keep, int drop_on, void* stream) {
   WdFwdIO io = {};
   io.x_rows = x;
@@ -173,7 +174,7 @@ extern "C" int gt_k10w_layer_bwd(const void* x, int x_bf16, const float* dout,
                                  const float* const* params, int layer,
                                  float* dx, void* work, float* grads, int N,
                                  int S, int D, int F, int G, float scale,
-                                 unsigned int seed, unsigned int keep24,
+                                 const long long* seed, unsigned int keep24,
                                  float keep, int drop_on, void* stream) {
   return wd_recompute_bwd<false>(x, x_bf16, dout, params, /*stored=*/1, layer,
                                  dx, work, grads, N, S, D, F, G, scale, seed,

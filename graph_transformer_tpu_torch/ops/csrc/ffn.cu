@@ -141,6 +141,7 @@ __device__ __forceinline__ float ff_ln_row(const FfParams& p, const GtDrop& dr,
 __global__ void __launch_bounds__(FF_THREADS, 2)
 ff_fwd_kernel(const void* x, int x_bf16, void* out, FfParams p, GtDrop dr,
               int layer, int M, int D, int F) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const WdMmaGemm mma{smem};          // [WM_STAGE_FLOATS] staging
   float* sX = smem + WM_STAGE_FLOATS; // [R, D] input rows
@@ -209,6 +210,7 @@ static size_t ff_work(int M, int D, int F, int bf, char* base, FfWork* w) {
 __global__ void __launch_bounds__(FF_THREADS, 2)
 ff_bwd_kernel(const void* x, int x_bf16, const float* dout, FfParams p,
               GtDrop dr, int layer, int M, int D, int F, void* dx, FfWork w) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const WdMmaGemm mma{smem};          // [WM_STAGE_FLOATS] staging
   float* sX = smem + WM_STAGE_FLOATS; // [R, D] input rows
@@ -337,7 +339,7 @@ extern "C" size_t gt_k12_work_bytes(int M, int D, int F, int bf) {
 // w2 [F,D], b2 [D], gamma [D], beta [D] (f32)
 extern "C" int gt_k11_ffn_fwd(const void* x, int x_bf16, void* out,
                               const float* const* params, int layer, int M,
-                              int D, int F, unsigned int seed,
+                              int D, int F, const long long* seed,
                               unsigned int keep24, float keep, int drop_on,
                               void* stream) {
   if (D < 1 || D > WD_MAXD || M < 1) return (int)cudaErrorInvalidValue;
@@ -357,7 +359,7 @@ extern "C" int gt_k11_ffn_fwd(const void* x, int x_bf16, void* out,
 extern "C" int gt_k12_ffn_bwd(const void* x, int x_bf16, const float* dout,
                               const float* const* params, int layer, void* dx,
                               void* work, float* grads, int M, int D, int F,
-                              unsigned int seed, unsigned int keep24,
+                              const long long* seed, unsigned int keep24,
                               float keep, int drop_on, void* stream) {
   if (D < 1 || D > WD_MAXD || M < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -34,7 +34,7 @@ extern "C" int gt_k15_folded_stored_fwd(
     const void* x_rows, const float* const* params, int stored, float* out,
     void* xs, float* qkv, float* attn_full, float* attn_last,
     float* strip_full, float* strip_last, int N, int S, int D, int F, int T,
-    int G, float scale, unsigned int seed, unsigned int keep24, float keep,
+    int G, float scale, const long long* seed, unsigned int keep24, float keep,
     int drop_on, void* stream) {
   GtFwdIO io = {};
   io.x_rows = x_rows;
@@ -58,7 +58,7 @@ extern "C" int gt_k15_folded_stored_fwd(
 extern "C" int gt_k16_folded_fwd(const void* x_rows,
                                  const float* const* params, int stored,
                                  float* out, int N, int S, int D, int F, int T,
-                                 int G, float scale, unsigned int seed,
+                                 int G, float scale, const long long* seed,
                                  unsigned int keep24, float keep, int drop_on,
                                  void* stream) {
   GtFwdIO io = {};

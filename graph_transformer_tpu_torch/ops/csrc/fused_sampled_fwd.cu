@@ -47,7 +47,7 @@ extern "C" int gt_k13_sampled_fwd(
     const int* tag_rows, int table_w, const int* deg, const int* self_tag,
     const float* codebook, const int* draws, int* draws_out,
     const float* const* params, int stored, float* out, void* xs, int N,
-    int S, int D, int F, int T, int G, float scale, unsigned int seed,
+    int S, int D, int F, int T, int G, float scale, const long long* seed,
     unsigned int keep24, float keep, int drop_on, void* stream) {
   const GtStack st = gt_make_stack(params, stored);
   const GtDrop dr{seed, keep24, keep, drop_on};

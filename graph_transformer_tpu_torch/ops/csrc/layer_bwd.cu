@@ -31,7 +31,7 @@ static int dispatch_bwd(const void* xs, const float* qkv, const float* attn,
                         const float* strip, const float* dout,
                         const float* const* params, int stored, int layer,
                         float* dx, float* partial, float* grads, int N, int S,
-                        int D, int F, int G, float scale, unsigned int seed,
+                        int D, int F, int G, float scale, const long long* seed,
                         unsigned int keep24, float keep, int drop_on,
                         void* stream) {
   const GtLayer w = gt_layer_at(gt_make_stack(params, stored), layer, D, F);
@@ -52,7 +52,7 @@ extern "C" int gt_k2_layer_bwd(const void* xs, const float* qkv,
                                int stored, int layer, float* dx,
                                float* partial, float* grads, int N, int S,
                                int D, int F, int G, float scale,
-                               unsigned int seed, unsigned int keep24,
+                               const long long* seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   return dispatch_bwd<false>(xs, qkv, attn, strip, dout, params, stored, layer,
                              dx, partial, grads, N, S, D, F, G, scale, seed,
@@ -66,7 +66,7 @@ extern "C" int gt_k3_slot0_bwd(const void* xs, const float* qkv,
                                int stored, int layer, float* dx,
                                float* partial, float* grads, int N, int S,
                                int D, int F, int G, float scale,
-                               unsigned int seed, unsigned int keep24,
+                               const long long* seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   return dispatch_bwd<true>(xs, qkv, attn0, strip0, dout, params, stored,
                             layer, dx, partial, grads, N, S, D, F, G, scale,

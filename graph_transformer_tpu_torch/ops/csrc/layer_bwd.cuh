@@ -452,6 +452,7 @@ gt_layer_bwd_kernel(const void* xs, int x_bf16, const float* qkv,
                     const float* attn, const float* strip, const float* dout,
                     GtLayer w, GtDrop dr, int layer, float* dx, float* partial,
                     int N, int S, int D, int F, int G, float scale) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   float* part = partial + (size_t)blockIdx.x * gt_grad_offsets(D, F).P;
   gt_layer_bwd_body<DM, SLOT0>(smem, xs, x_bf16, qkv, attn, strip, dout, w,

@@ -85,6 +85,7 @@ gt_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
                    const float* dout, GtStack st, GtDrop dr, float* dx,
                    GtMegaScratch sc, float* partial, int N, int S, int D,
                    int F, int T, int G, float scale) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const int r = threadIdx.x;
   const int g = r / S;
@@ -191,7 +192,7 @@ extern "C" int gt_k14_mega_bwd(const void* x, const void* xs, int x_bf16,
                                float* attn_last, float* strip_last,
                                float* partial, float* grads, int N, int S,
                                int D, int F, int T, int G, float scale,
-                               unsigned int seed, unsigned int keep24,
+                               const long long* seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   const GtStack st = gt_make_stack(params, stored);
   const GtDrop dr{seed, keep24, keep, drop_on};
@@ -268,6 +269,7 @@ wd_mega_bwd_kernel(const void* x, const void* xs, int x_bf16,
                    const float* dout, GtStack st, GtDrop dr, float* dx,
                    WdBwdWork wfull, size_t stride, WdBwdWork wlast, int N,
                    int S, int D, int F, int T, int G, float scale) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const int n0 = blockIdx.x * G;
   const int Gv = min(G, N - n0);
@@ -311,7 +313,7 @@ extern "C" int gt_k14w_mega_bwd(const void* x, const void* xs, int x_bf16,
                                 const float* const* params, int stored,
                                 float* dx, void* work, float* grads, int N,
                                 int S, int D, int F, int T, int G,
-                                float scale, unsigned int seed,
+                                float scale, const long long* seed,
                                 unsigned int keep24, float keep, int drop_on,
                                 void* stream) {
   if (D > WD_MAXD || S > 32 || G < 1 || G * S > 32 || T < 1)

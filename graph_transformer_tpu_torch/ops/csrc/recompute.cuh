@@ -33,6 +33,7 @@ __global__ void __launch_bounds__(GT_BWD_THREADS, GT_FWD_MIN_BLOCKS(DM))
 gt_recompute_fwd_kernel(const void* x, int x_bf16, GtLayer w, GtDrop dr,
                         int layer, float* qkv, float* attn, float* strip,
                         int N, int S, int D, int F, int G, float scale) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const int r = threadIdx.x;
   const int g = r / S;
@@ -86,7 +87,7 @@ static int gt_dispatch_recompute(const void* x, int x_bf16, const float* dout,
                                  int layer, float* dx, float* qkv, float* attn,
                                  float* strip, float* partial, float* grads,
                                  int N, int S, int D, int F, int G,
-                                 float scale, unsigned int seed,
+                                 float scale, const long long* seed,
                                  unsigned int keep24, float keep, int drop_on,
                                  void* stream) {
   const GtLayer w = gt_layer_at(gt_make_stack(params, stored), layer, D, F);

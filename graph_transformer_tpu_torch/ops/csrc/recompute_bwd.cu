@@ -58,7 +58,7 @@ extern "C" int gt_k8_layer_bwd(const void* x, int x_bf16, const float* dout,
                                int layer, float* dx, float* qkv, float* attn,
                                float* strip, float* partial, float* grads,
                                int N, int S, int D, int F, int G, float scale,
-                               unsigned int seed, unsigned int keep24,
+                               const long long* seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   return gt_dispatch_recompute<false>(x, x_bf16, dout, params, stored, layer,
                                       dx, qkv, attn, strip, partial, grads, N,
@@ -72,7 +72,7 @@ extern "C" int gt_k8s_slot0_bwd(const void* x, int x_bf16, const float* dout,
                                 int layer, float* dx, float* qkv, float* attn,
                                 float* strip, float* partial, float* grads,
                                 int N, int S, int D, int F, int G, float scale,
-                                unsigned int seed, unsigned int keep24,
+                                const long long* seed, unsigned int keep24,
                                 float keep, int drop_on, void* stream) {
   return gt_dispatch_recompute<true>(x, x_bf16, dout, params, stored, layer,
                                      dx, qkv, attn, strip, partial, grads, N,
@@ -102,7 +102,7 @@ extern "C" int gt_k8w_layer_bwd(const void* x, int x_bf16, const float* dout,
                                 const float* const* params, int stored,
                                 int layer, float* dx, void* work,
                                 float* grads, int N, int S, int D, int F,
-                                int G, float scale, unsigned int seed,
+                                int G, float scale, const long long* seed,
                                 unsigned int keep24, float keep, int drop_on,
                                 void* stream) {
   return wd_recompute_bwd<false>(x, x_bf16, dout, params, stored, layer, dx,
@@ -116,7 +116,7 @@ extern "C" int gt_k8ws_slot0_bwd(const void* x, int x_bf16, const float* dout,
                                  const float* const* params, int stored,
                                  int layer, float* dx, void* work,
                                  float* grads, int N, int S, int D, int F,
-                                 int G, float scale, unsigned int seed,
+                                 int G, float scale, const long long* seed,
                                  unsigned int keep24, float keep, int drop_on,
                                  void* stream) {
   return wd_recompute_bwd<true>(x, x_bf16, dout, params, stored, layer, dx,

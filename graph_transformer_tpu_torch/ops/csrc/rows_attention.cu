@@ -84,6 +84,7 @@ __global__ void __launch_bounds__(RA_THREADS)
     ra_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ ctx,
                   int S, int D, int slot0, int bf, float scale, GtDrop dr,
                   uint32_t key) {
+  gt_read_seed(dr, key);
   __shared__ float sp[RA_MAX_S * RA_MAX_S];
   const int n = blockIdx.x, Sq = slot0 ? 1 : S;
   const size_t ld = 3 * (size_t)D;
@@ -362,6 +363,7 @@ __device__ void ra_grads(const RaBwd& a, int n, const float* buf,
 // one's copies overlap another's arithmetic.
 template <bool BF>
 __global__ void __launch_bounds__(RA_THREADS) ra_bwd_kernel(RaBwd a) {
+  gt_read_seed(a.dr, a.key);
   extern __shared__ __align__(16) float buf[];
   const int nseg = 2 * (a.Sq + a.S), SS = a.Sq * a.S;
   float* red = buf + (size_t)nseg * a.pitch;  // [RA_WARPS][2 SS]
@@ -406,26 +408,26 @@ static int ra_pitch(int L) { return (L + 3 + 3) & ~3; }
 // 4*layer)
 extern "C" int gt_k19_attn_fwd(const float* qkv, float* ctx, int N, int S,
                                int D, int slot0, int bf, float scale,
-                               unsigned int seed, unsigned int stream_id,
-                               unsigned int keep24, float keep, int drop_on,
-                               void* stream) {
+                               const long long* seed,
+                               unsigned int stream_id, unsigned int keep24,
+                               float keep, int drop_on, void* stream) {
   if (S < 1 || S > RA_MAX_S) return (int)cudaErrorInvalidValue;
   const GtDrop dr{seed, keep24, keep, drop_on};
   ra_fwd_kernel<<<N, RA_THREADS, 0, (cudaStream_t)stream>>>(
-      qkv, ctx, S, D, slot0, bf, scale, dr, gt_stream_key(seed, stream_id));
+      qkv, ctx, S, D, slot0, bf, scale, dr, stream_id);
   return (int)cudaGetLastError();
 }
 
 // dqkv [N*S, 3D] from qkv and dctx [N*Sq, D] (f32)
 extern "C" int gt_k19_attn_bwd(const float* qkv, const float* dctx,
                                float* dqkv, int N, int S, int D, int slot0,
-                               int bf, float scale, unsigned int seed,
+                               int bf, float scale, const long long* seed,
                                unsigned int stream_id, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   if (S < 1 || S > RA_MAX_S) return (int)cudaErrorInvalidValue;
+  // `key` holds the stream id until the kernel reads the seed
   RaBwd a{qkv, dctx, dqkv, S, slot0 ? 1 : S, D, D, 1, ra_pitch(D),
-          scale, GtDrop{seed, keep24, keep, drop_on},
-          gt_stream_key(seed, stream_id), bf};
+          scale, GtDrop{seed, keep24, keep, drop_on}, stream_id, bf};
   // the fewest column chunks that fit the budget (past any budget, chunks
   // of 4 columns: S = 32 at 227 KB)
   for (int k = 2; ra_bwd_smem(S, a.Sq, a.pitch) > RA_BWD_BUDGET && a.dc > 4;

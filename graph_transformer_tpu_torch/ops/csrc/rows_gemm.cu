@@ -347,7 +347,8 @@ __device__ __forceinline__ void rg_wgmma(float (&d)[64],
 
 template <bool AK, bool BK>
 __global__ void __launch_bounds__(RG_THREADS, 1)
-    rg_tf32_kernel(const RgArgs g) {
+    rg_tf32_kernel(RgArgs g) {
+  gt_read_seed(g.dr, g.key);
   // [RG_RING][A, B] staged tiles, then [2][B high, B remainder]
   extern __shared__ __align__(128) float rg_smem[];
   float* bparts = rg_smem + RG_RING * 2 * RG_TILE;
@@ -834,8 +835,9 @@ __device__ __forceinline__ void rb_epilogue(const RgArgs& g,
 // has landed, one group in flight; a stage is refilled once both
 // warpgroups' products of it are done.
 __global__ void __launch_bounds__(RB_THREADS, 1)
-    rg_wgmma_bf16_kernel(const RgArgs g, const char* __restrict__ pa,
+    rg_wgmma_bf16_kernel(RgArgs g, const char* __restrict__ pa,
                          const char* __restrict__ pb, int ks) {
+  gt_read_seed(g.dr, g.key);
   extern __shared__ __align__(128) char rb_dyn[];
   char* st = (char*)(((uintptr_t)rb_dyn + 1023) & ~(uintptr_t)1023);
   uint64_t* full = (uint64_t*)(st + RB_STAGES * (RB_TILE_A + RB_TILE_B));
@@ -1000,7 +1002,7 @@ extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
                            int sak, int sbk, int sbn, int ldc, int mma_bf16,
                            const float* bias, int relu, const float* gate,
                            const float* add, float gate_keep, int add_every,
-                           unsigned int seed, unsigned int stream_id,
+                           const long long* seed, unsigned int stream_id,
                            unsigned int keep24, float keep, int drop_on,
                            int chunks, float* partial, void* scratch,
                            void* stream) {
@@ -1035,7 +1037,7 @@ extern "C" int gt_k18_gemm(const void* a, int a_bf16, const void* b,
   g.add = add;
   g.add_every = add_every;
   g.dr = GtDrop{seed, keep24, keep, drop_on};
-  g.key = gt_stream_key(seed, stream_id);
+  g.key = stream_id;  // the stream's key once the kernel reads the seed
   g.kchunk = ((K + chunks - 1) / chunks + RG_BK - 1) / RG_BK * RG_BK;
   g.partial = chunks > 1 ? partial : nullptr;
   if (mma_bf16) {

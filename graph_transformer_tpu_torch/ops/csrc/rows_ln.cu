@@ -97,6 +97,7 @@ __global__ void __launch_bounds__(RL_THREADS)
                   const float* __restrict__ v, const float* __restrict__ gamma,
                   const float* __restrict__ beta, float* __restrict__ y,
                   int D, GtDrop dr, uint32_t key) {
+  gt_read_seed(dr, key);
   extern __shared__ float su[];  // [D]
   __shared__ float red[33];
   const int r = blockIdx.x;
@@ -155,6 +156,7 @@ __global__ void __launch_bounds__(RL_BWD_THREADS, 1)
                   const float* __restrict__ gamma, float* __restrict__ du,
                   float* __restrict__ dv, float* __restrict__ part, int R,
                   int D, GtDrop dr, uint32_t key) {
+  gt_read_seed(dr, key);
   extern __shared__ float smem[];  // gamma [D], the column sums [2D]
   __shared__ float red[3][2 * RL_BWD_THREADS / 32];
   const int t = threadIdx.x;
@@ -268,7 +270,7 @@ static cudaError_t rl_smem(const void* kernel, size_t bytes) {
 extern "C" int gt_k20_ln_fwd(const void* res, int res_bf16, int res_every,
                              const float* v, const float* gamma,
                              const float* beta, float* y, int R, int D,
-                             unsigned int seed, unsigned int stream_id,
+                             const long long* seed, unsigned int stream_id,
                              unsigned int keep24, float keep, int drop_on,
                              void* stream) {
   const size_t bytes = (size_t)D * sizeof(float);
@@ -276,8 +278,7 @@ extern "C" int gt_k20_ln_fwd(const void* res, int res_bf16, int res_every,
   if (err != cudaSuccess) return (int)err;
   const GtDrop dr{seed, keep24, keep, drop_on};
   rl_fwd_kernel<<<R, RL_THREADS, bytes, (cudaStream_t)stream>>>(
-      res, res_bf16, res_every, v, gamma, beta, y, D, dr,
-      gt_stream_key(seed, stream_id));
+      res, res_bf16, res_every, v, gamma, beta, y, D, dr, stream_id);
   return (int)cudaGetLastError();
 }
 
@@ -315,7 +316,7 @@ extern "C" int gt_k20_ln_bwd(const float* g, const void* res, int res_bf16,
                              int res_every, const float* v, const float* gamma,
                              const float* beta, float* du, float* dv,
                              float* part, float* dgb, int R, int D, int blocks,
-                             unsigned int seed, unsigned int stream_id,
+                             const long long* seed, unsigned int stream_id,
                              unsigned int keep24, float keep, int drop_on,
                              void* stream) {
   (void)beta;
@@ -326,7 +327,7 @@ extern "C" int gt_k20_ln_bwd(const float* g, const void* res, int res_bf16,
   cudaError_t err = rl_smem(kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const GtDrop dr{seed, keep24, keep, drop_on};
-  const uint32_t key = gt_stream_key(seed, stream_id);
+  uint32_t key = stream_id;  // the kernel makes it the stream's key
   void* args[] = {(void*)&g,  (void*)&res, (void*)&res_bf16,
                   (void*)&res_every, (void*)&v, (void*)&gamma,
                   (void*)&du, (void*)&dv,  (void*)&part,

@@ -28,8 +28,9 @@ extern "C" int gt_k1_sampled_fwd(
     const float* codebook, const int* draws, int* draws_out,
     const float* const* params, int stored, float* out, void* xs, float* qkv,
     float* attn_full, float* attn_last, float* strip_full, float* strip_last,
-    int N, int S, int D, int F, int T, int G, float scale, unsigned int seed,
-    unsigned int keep24, float keep, int drop_on, void* stream) {
+    int N, int S, int D, int F, int T, int G, float scale,
+    const long long* seed, unsigned int keep24, float keep, int drop_on,
+    void* stream) {
   GtFwdIO io = {};
   io.tag_rows = tag_rows;
   io.deg = deg;

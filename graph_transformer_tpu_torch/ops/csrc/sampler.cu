@@ -46,7 +46,8 @@ gt_sample_kernel(const int* __restrict__ table, int table_w,
                  const float* __restrict__ node_mask,
                  const U* __restrict__ x, int units, U* __restrict__ feat,
                  long long* __restrict__ slots, int* __restrict__ ids, int N,
-                 int K, int per, uint32_t key) {
+                 int K, int per, const long long* seed) {
+  const uint32_t key = gt_stream_key(gt_seed_at(seed), GT_SAMPLER_STREAM);
   __shared__ int s_id[GT_K7_THREADS];
   const int K1 = K + 1;
   const long long s0 = (long long)blockIdx.x * per;
@@ -89,7 +90,7 @@ static void launch_k7(const int* table, int table_w, const int* deg,
                       int by_gidx, const int* node_gidx,
                       const float* node_mask, const void* x, int row_bytes,
                       void* feat, long long* slots, int* ids, int N, int K,
-                      uint32_t key, cudaStream_t stream) {
+                      const long long* seed, cudaStream_t stream) {
   const int units = x ? row_bytes / (int)sizeof(U) : 0;
   int per = units ? GT_K7_UNITS / units : GT_K7_THREADS;
   per = per < 1 ? 1 : (per > GT_K7_THREADS ? GT_K7_THREADS : per);
@@ -97,7 +98,7 @@ static void launch_k7(const int* table, int table_w, const int* deg,
   const unsigned int blocks = (unsigned int)((total + per - 1) / per);
   gt_sample_kernel<U><<<blocks, GT_K7_THREADS, 0, stream>>>(
       table, table_w, deg, by_gidx, node_gidx, node_mask, (const U*)x, units,
-      (U*)feat, slots, ids, N, K, per, key);
+      (U*)feat, slots, ids, N, K, per, seed);
 }
 
 // table [*, table_w] int32 and deg [*] int32, read at row node_gidx[n]
@@ -108,10 +109,10 @@ extern "C" int gt_k7_sample(const int* table, int table_w, const int* deg,
                             int by_gidx, const int* node_gidx,
                             const float* node_mask, const void* x,
                             int row_bytes, void* feat, long long* slots,
-                            int* ids, int N, int K, unsigned int seed,
+                            int* ids, int N, int K, const long long* seed,
                             void* stream) {
   if ((long long)N * (K + 1) == 0) return 0;
-  const uint32_t key = gt_stream_key(seed, GT_SAMPLER_STREAM);
+  if (!seed) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   // the widest unit that divides the row and both pointers
   const uintptr_t a = (uintptr_t)row_bytes | (uintptr_t)x | (uintptr_t)feat
@@ -119,21 +120,21 @@ extern "C" int gt_k7_sample(const int* table, int table_w, const int* deg,
   switch (x ? (int)(a & (~a + 1)) : 16) {
     case 16:
       launch_k7<uint4>(table, table_w, deg, by_gidx, node_gidx, node_mask, x,
-                       row_bytes, feat, slots, ids, N, K, key, st);
+                       row_bytes, feat, slots, ids, N, K, seed, st);
       break;
     case 8:
       launch_k7<uint2>(table, table_w, deg, by_gidx, node_gidx, node_mask, x,
-                       row_bytes, feat, slots, ids, N, K, key, st);
+                       row_bytes, feat, slots, ids, N, K, seed, st);
       break;
     case 4:
       launch_k7<unsigned int>(table, table_w, deg, by_gidx, node_gidx,
                               node_mask, x, row_bytes, feat, slots, ids, N, K,
-                              key, st);
+                              seed, st);
       break;
     default:
       launch_k7<unsigned short>(table, table_w, deg, by_gidx, node_gidx,
                                 node_mask, x, row_bytes, feat, slots, ids, N,
-                                K, key, st);
+                                K, seed, st);
   }
   return (int)cudaGetLastError();
 }

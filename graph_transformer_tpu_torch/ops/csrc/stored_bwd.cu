@@ -55,6 +55,7 @@ wd_stored_bwd_kernel(const float* __restrict__ qkv,
                      const float* __restrict__ dout, GtLayer w, GtDrop dr,
                      int layer, float* dx, WdBwdWork wk, int N, int S, int D,
                      int F, int G, float scale, int bf) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const WdMmaGemm mma{smem + wd_k6_stage_offset(G, S, D, SLOT0)};
   wd_bwd_body<SLOT0>(smem, qkv, attn, strip, h, dout, w, dr, layer, dx, wk, N,
@@ -75,7 +76,7 @@ static int wd_bwd(const void* xs, int x_bf16, const float* qkv,
                   const float* dout,
                   const float* const* params, int stored, int layer, float* dx,
                   void* work, float* grads, int N, int S, int D, int F, int G,
-                  float scale, unsigned int seed, unsigned int keep24,
+                  float scale, const long long* seed, unsigned int keep24,
                   float keep, int drop_on, void* stream) {
   if (D > WD_MAXD || S > 32 || G < 1 || G * S > 32)
     return (int)cudaErrorInvalidValue;
@@ -109,7 +110,7 @@ extern "C" int gt_k6_layer_bwd(const void* xs, int x_bf16, const float* qkv,
                                const float* const* params, int stored,
                                int layer, float* dx, void* work, float* grads,
                                int N, int S, int D, int F, int G, float scale,
-                               unsigned int seed, unsigned int keep24,
+                               const long long* seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   return wd_bwd<false>(xs, x_bf16, qkv, attn, strip, h, dout, params, stored,
                        layer, dx, work, grads, N, S, D, F, G, scale, seed,
@@ -125,7 +126,7 @@ extern "C" int gt_k6_slot0_bwd(const void* xs, int x_bf16, const float* qkv,
                                const float* const* params, int stored,
                                int layer, float* dx, void* work, float* grads,
                                int N, int S, int D, int F, int G, float scale,
-                               unsigned int seed, unsigned int keep24,
+                               const long long* seed, unsigned int keep24,
                                float keep, int drop_on, void* stream) {
   return wd_bwd<true>(xs, x_bf16, qkv, attn0, strip0, h0, dout, params,
                       stored, layer, dx, work, grads, N, S, D, F, G, scale,

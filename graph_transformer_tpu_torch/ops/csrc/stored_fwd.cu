@@ -33,7 +33,7 @@ extern "C" int gt_k5_stored_fwd(
     const float* const* params, int stored, float* out, void* xs, float* qkv,
     float* attn_full, float* attn_last, float* strip_full, float* strip_last,
     void* h_full, void* h_last, int N, int S, int D, int F, int T, int G,
-    float scale, unsigned int seed, unsigned int keep24, float keep,
+    float scale, const long long* seed, unsigned int keep24, float keep,
     int drop_on, void* stream) {
   WdFwdIO io = {};
   io.tag_rows = tag_rows;
@@ -90,7 +90,7 @@ extern "C" int gt_k17_stored_rows_fwd(
     const void* x_rows, int x_bf16, const float* const* params, int stored,
     float* out, void* xs, float* qkv, float* attn_full, float* attn_last,
     float* strip_full, float* strip_last, void* h_full, void* h_last, int N,
-    int S, int D, int F, int T, int G, float scale, unsigned int seed,
+    int S, int D, int F, int T, int G, float scale, const long long* seed,
     unsigned int keep24, float keep, int drop_on, void* stream) {
   const GtStack st = gt_make_stack(params, stored);
   GtDrop dr{seed, keep24, keep, drop_on};

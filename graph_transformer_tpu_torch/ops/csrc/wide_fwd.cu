@@ -30,9 +30,9 @@ extern "C" size_t gt_k4w_smem_bytes(int G, int S, int D) {
 extern "C" int gt_k4w_encoder_fwd(const void* x_rows, int x_bf16,
                                   const float* const* params, int stored,
                                   float* out, int N, int S, int D, int F,
-                                  int T, int G, float scale, unsigned int seed,
-                                  unsigned int keep24, float keep, int drop_on,
-                                  void* stream) {
+                                  int T, int G, float scale,
+                                  const long long* seed, unsigned int keep24,
+                                  float keep, int drop_on, void* stream) {
   WdFwdIO io = {};
   io.x_rows = x_rows;
   io.x_bf16 = x_bf16;
@@ -48,7 +48,7 @@ extern "C" int gt_k4tw_encoder_fwd(const void* x_rows, int x_bf16,
                                    const float* const* params, int stored,
                                    float* out, void* xs, int N, int S, int D,
                                    int F, int T, int G, float scale,
-                                   unsigned int seed, unsigned int keep24,
+                                   const long long* seed, unsigned int keep24,
                                    float keep, int drop_on, void* stream) {
   WdFwdIO io = {};
   io.x_rows = x_rows;

@@ -420,6 +420,7 @@ wd_recompute_bwd_kernel(const void* x, int x_bf16, const float* dout,
                         GtLayer w, GtDrop dr, int layer, float* dx,
                         WdBwdWork wk, int N, int S, int D, int F, int G,
                         float scale) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const int n0 = blockIdx.x * G;
   const int Gv = min(G, N - n0);
@@ -451,7 +452,7 @@ static int wd_recompute_bwd(const void* x, int x_bf16, const float* dout,
                             const float* const* params, int stored,
                             int layer, float* dx, void* work, float* grads,
                             int N, int S, int D, int F, int G, float scale,
-                            unsigned int seed, unsigned int keep24, float keep,
+                            const long long* seed, unsigned int keep24, float keep,
                             int drop_on, void* stream) {
   if (D > WD_MAXD || S > 32 || G < 1 || G * S > 32)
     return (int)cudaErrorInvalidValue;

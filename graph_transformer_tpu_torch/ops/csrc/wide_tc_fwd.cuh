@@ -407,6 +407,7 @@ __global__ void __launch_bounds__(WD_THREADS, 2)
 wd_encoder_fwd_kernel(WdFwdIO io, GtStack st, GtDrop dr, int N, int S, int D,
                       int F, int T, int G, float scale, int mmbf,
                       int sampled) {
+  gt_read_seed(dr);
   extern __shared__ float smem[];
   const int MP = wd_pad(G * S);
   const int D3 = 3 * D, SW = 4 * D + 2;

@@ -33,7 +33,7 @@ import torch
 
 from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
-from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.random import device_seed, drop_launch
 from graph_transformer_tpu_torch.ops.rows_encoder import (
     layer_rows_backward,
     layer_rows_forward,
@@ -135,10 +135,11 @@ def _forward(x2d, params, S, rate, seed, layer, wide):
                                 WIDE_ROWS) if wide else
              _build.pick_fwd_groups("encoder_layer", "gt_k9_smem_bytes", S, D,
                                     N))
+        seed = device_seed(seed, x2d.device)
         err = getattr(_build.load("encoder_layer"), fn)(
             x2d.data_ptr(), int(x2d.dtype == torch.bfloat16), out.data_ptr(),
             _build.params_array(ps), layer, N, S, D, ps[6].shape[1], G,
-            1.0 / math.sqrt(D), *drop_args(rate, seed),
+            1.0 / math.sqrt(D), *drop_launch(rate, seed),
             _build.stream_ptr(x2d.device))
         _build.check(err, fn)
         (wide_encoder_layer_forward if wide
@@ -209,10 +210,12 @@ def _backward(x2d, dout, params, S, rate, seed, layer, wide):
                 (N * S, 3 * D), (N * S, S), (N * S, 4 * D + 2),
                 ((N + G - 1) // G, P))]
         g = dout.to(x2d.dtype).to(torch.float32).contiguous()
+        seed = device_seed(seed, x2d.device)
         err = getattr(lib, fn)(
             x2d.data_ptr(), bf, g.data_ptr(), _build.params_array(ps), layer,
             dx.data_ptr(), *(t.data_ptr() for t in scratch), grads.data_ptr(),
-            N, S, D, F, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+            N, S, D, F, G, 1.0 / math.sqrt(D),
+            *drop_launch(rate, seed),
             _build.stream_ptr(x2d.device))
         _build.check(err, fn)
         (wide_encoder_layer_backward if wide
@@ -251,6 +254,7 @@ def fused_encoder_layer(x2d: torch.Tensor, w_in, b_in, w_out, b_out, ln1g,
     ``seq_len``), the 12 tensors in the JAX call's order (KERNEL_ORDER),
     dropout from ``seed`` at timestep ``layer``'s streams; every row out, in
     ``x2d``'s dtype, differentiable in ``x2d`` and the tensors."""
+    seed = device_seed(seed, x2d.device)
     return EncoderLayerFn.apply(x2d, seed, seq_len, rate, layer, w_in, b_in,
                                 w_out, b_out, ln1g, ln1b, w1, b1, w2, b2,
                                 ln2g, ln2b)

@@ -30,7 +30,7 @@ from graph_transformer_tpu_torch.ops.attention import (
     layer_norm,
     rnd,
 )
-from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.random import device_seed, drop_launch
 from graph_transformer_tpu_torch.ops.rows_encoder import (
     ffn_rows_backward,
     ffn_rows_forward,
@@ -103,10 +103,11 @@ def ffn_forward(x, w1, b1, w2, b2, gamma, beta, rate: float = 0.0,
     ps = _build.f32_params((w1, b1, w2, b2, gamma, beta))
     out = torch.empty_like(x)
     if M:
+        seed = device_seed(seed, x.device)
         err = _build.load("ffn").gt_k11_ffn_fwd(
             x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             _build.params_array(ps), layer, M, D, w1.shape[1],
-            *drop_args(rate, seed), _build.stream_ptr(x.device))
+            *drop_launch(rate, seed), _build.stream_ptr(x.device))
         _build.check(err, "K11 ffn_fwd")
         ffn_forward.launches += 1
     return out
@@ -139,10 +140,11 @@ def ffn_backward(x, dout, w1, b1, w2, b2, gamma, beta, rate: float = 0.0,
         work = torch.empty(lib.gt_k12_work_bytes(M, D, F, bf),
                            dtype=torch.uint8, device=x.device)
         g = dout.to(x.dtype).to(torch.float32).contiguous()
+        seed = device_seed(seed, x.device)
         err = lib.gt_k12_ffn_bwd(
             x.data_ptr(), bf, g.data_ptr(), _build.params_array(ps), layer,
             dx.data_ptr(), work.data_ptr(), grads.data_ptr(), M, D, F,
-            *drop_args(rate, seed), _build.stream_ptr(x.device))
+            *drop_launch(rate, seed), _build.stream_ptr(x.device))
         _build.check(err, "K12 ffn_bwd")
         ffn_backward.launches += 1
     db1, db2, dg, dbeta, dw1, dw2 = grads.split([F, D, D, D, D * F, F * D])
@@ -216,5 +218,6 @@ def ffn_residual_ln(x: torch.Tensor, w1, b1, w2, b2, gamma, beta,
     differentiable in ``x`` and the six tensors (w1 [D, F], b1 [F], w2
     [F, D], b2, gamma, beta [D]); dropout from ``seed``, sites 2-3 of
     timestep ``layer``."""
+    seed = device_seed(seed, x.device)
     return FFNResidualLNFn.apply(x, seed, rate, layer, w1, b1, w2, b2, gamma,
                                  beta)

@@ -34,7 +34,7 @@ from typing import Optional, Sequence
 import torch
 
 from graph_transformer_tpu_torch.ops import _build
-from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.random import device_seed, drop_launch
 from graph_transformer_tpu_torch.ops.sampled_encoder import (
     encoder_backward,
     rows_forward_plain,
@@ -100,7 +100,9 @@ def _launch(x2d, params, S, T, rate, seed, residuals: bool):
         lib = _build.load("folded_fwd")
         G = _build.pick_fwd_groups("folded_fwd", "gt_k15_smem_bytes", S,
                                    D, N)
-        tail = (N, S, D, F, T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+        seed = device_seed(seed, dev)
+        tail = (N, S, D, F, T, G, 1.0 / math.sqrt(D),
+                *drop_launch(rate, seed),
                 _build.stream_ptr(dev))
         head = (x.data_ptr(), _build.params_array(ps), ps[0].shape[0],
                 out.data_ptr())
@@ -201,6 +203,7 @@ def folded_u2gnn_encoder_grad(x2d: torch.Tensor,
     and the 12 stacked ``params``: K15, then K3 and (T-1)×K2.  Past D = 32
     (S <= 3), K17 with K6 on the bf16 rows, the same function."""
     if _narrow(seq_len, x2d.shape[1]):
+        seed = device_seed(seed, x2d.device)
         return FoldedEncoderFn.apply(x2d, seed, seq_len, num_timesteps, rate,
                                      *params)
     # the folded gate admits D > 32 only at S <= 3, past K15's rows; K17/K6

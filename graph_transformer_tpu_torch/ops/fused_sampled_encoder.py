@@ -33,7 +33,7 @@ from typing import Optional, Sequence
 import torch
 
 from graph_transformer_tpu_torch.ops import _build
-from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.random import device_seed, drop_launch
 from graph_transformer_tpu_torch.ops.sampled_encoder import (
     _i32,
     sampled_forward_plain,
@@ -95,13 +95,15 @@ def fused_sampled_forward(tag_rows, deg, self_tag, codebook, params,
                                 D, WIDE_ROWS) if wide else
              _build.pick_fwd_groups("fused_sampled_fwd", "gt_k13_smem_bytes",
                                     S, D, N))
+        seed = device_seed(seed, dev)
         err = _build.load("fused_sampled_fwd").gt_k13_sampled_fwd(
             tag_rows.data_ptr(), W, deg.data_ptr(), self_tag.data_ptr(),
             codebook.data_ptr(),
             None if draws_in is None else draws_in.data_ptr(),
             draws_out.data_ptr(), _build.params_array(ps), ps[0].shape[0],
             out.data_ptr(), xs.data_ptr(), N, S, D, F, T, G,
-            1.0 / math.sqrt(D), *drop_args(rate, seed), _build.stream_ptr(dev))
+            1.0 / math.sqrt(D), *drop_launch(rate, seed),
+            _build.stream_ptr(dev))
         _build.check(err, "K13 fused_sampled_fwd")
         fused_sampled_forward.launches += 1
     return out, xs, draws_out.to(torch.int64)
@@ -158,6 +160,7 @@ def fused_sampled_encoder(tag_rows, deg, self_tag, codebook,
     stacked tensors in KERNEL_ORDER, ``draws`` made outside or None), always
     in bf16.  ``mega_bwd`` takes the whole-stack backward (K14/K14w) in
     place of the per-layer chain."""
+    seed = device_seed(seed, tag_rows.device)
     return FusedSampledEncoderFn.apply(tag_rows, deg, self_tag, codebook,
                                        draws, seed, seq_len, num_timesteps,
                                        rate, mega_bwd, *params)

@@ -19,6 +19,14 @@ Element indices are row-major over the site's logical shape: ``[N, S, S]``
 attention, ``[N, S, D]`` attention output and FFN output, ``[N, S, F]`` FFN
 hidden (``[N, S]``, ``[N, D]``, ``[N, F]`` in the slot-0 last layer), and
 ``[N, K]`` for the sampler's draws.
+
+The seed is a 0-d int64 tensor (:func:`device_seed`): every kernel reads it
+from device memory at its start, so that a captured CUDA graph
+(``train/step_graph.py``) replays each step with the seed its buffer holds
+then.  A layer's seed and a stream's key are computed from it with tensor
+ops, on its device.  Every function here also takes a Python int, and then
+computes with ints (or makes the int into a tensor where bits are drawn):
+given the tensor of an int, each draws exactly what it draws from that int.
 """
 
 from __future__ import annotations
@@ -50,15 +58,43 @@ def mix32(x):
     return x ^ (x >> 16)
 
 
-def stream_key(seed: int, stream: int) -> int:
-    """32-bit key of one stream (a plain Python int)."""
-    k = mix32((int(seed) & M32) ^ 0x9E3779B9)
+def device_seed(seed, device=None):
+    """The seed as the kernels take it: a 0-d int64 tensor, on ``device``
+    where one is given (an int becomes such a tensor, filled on the device
+    with no copy from the host and no wait; a tensor moves there); None
+    stays None."""
+    if seed is None:
+        return None
+    if not torch.is_tensor(seed):
+        return torch.full((), int(seed), dtype=torch.int64, device=device)
+    if seed.dim() != 0 or seed.dtype != torch.int64:
+        raise TypeError(f"a seed is a 0-d int64 tensor, got {seed.dtype} "
+                        f"of shape {tuple(seed.shape)}")
+    return seed if device is None else seed.to(device)
+
+
+def _seed_device(seed, device):
+    """Where draws from ``seed`` land: ``device``, else the seed's."""
+    if device is not None:
+        return device
+    return seed.device if torch.is_tensor(seed) else "cpu"
+
+
+def stream_key(seed, stream: int):
+    """32-bit key of one stream: a Python int of an int seed, a 0-d int64
+    tensor (on the seed's device) of a tensor seed."""
+    s = seed if torch.is_tensor(seed) else int(seed)
+    k = mix32((s & M32) ^ 0x9E3779B9)
     return mix32((k + _mul32(int(stream) & M32, 0x632BE5AB)) & M32)
 
 
-def random_bits(seed: int, stream: int, n: int, device="cpu") -> torch.Tensor:
-    """[n] int64 tensor of 32-bit words for element indices 0..n-1."""
+def random_bits(seed, stream: int, n: int, device=None) -> torch.Tensor:
+    """[n] int64 tensor of 32-bit words for element indices 0..n-1, on
+    ``device`` (default: the seed's)."""
+    device = _seed_device(seed, device)
     key = stream_key(seed, stream)
+    if torch.is_tensor(key):
+        key = key.to(device)
     idx = torch.arange(n, dtype=torch.int64, device=device)
     return mix32((mix32(idx ^ key) + key) & M32)
 
@@ -68,8 +104,8 @@ def keep_threshold(rate: float) -> int:
     return int(round((1.0 - float(rate)) * (1 << 24)))
 
 
-def keep_mask(seed: int, stream: int, shape, rate: float,
-              device="cpu") -> torch.Tensor:
+def keep_mask(seed, stream: int, shape, rate: float,
+              device=None) -> torch.Tensor:
     """f32 0/1 keep mask of ``shape`` (row-major element indices)."""
     n = 1
     for s in shape:
@@ -82,7 +118,7 @@ def dropout_stream(layer: int, site: int) -> int:
     return layer * SITES + site
 
 
-def uniform_draws(seed: int, n_rows: int, k: int, deg: torch.Tensor,
+def uniform_draws(seed, n_rows: int, k: int, deg: torch.Tensor,
                   table_width: int = 128) -> torch.Tensor:
     """[n_rows, k] int64 draws ``min(floor(u·deg), deg-1)`` with ``u`` the top
     24 bits of a word over 2^24 and ``deg`` ([n_rows] ints) clamped to
@@ -93,13 +129,14 @@ def uniform_draws(seed: int, n_rows: int, k: int, deg: torch.Tensor,
     return torch.minimum(torch.floor(u * d), d - 1.0).to(torch.int64)
 
 
-def layer_seed(seed: int, layer: int) -> int:
+def layer_seed(seed, layer: int):
     """The seed of U2GNN layer ``layer`` within a training step: layer 0
     keeps the step's seed (so a one-layer model draws what the fused path
     draws), layer i > 0 takes a 31-bit word of stream ``LAYER_STREAM + i``
-    (the JAX model splits its key per layer instead)."""
+    (the JAX model splits its key per layer instead).  An int of an int, a
+    0-d int64 tensor of a tensor (tensor ops on its device)."""
     if layer == 0:
-        return int(seed)
+        return seed if torch.is_tensor(seed) else int(seed)
     return stream_key(seed, LAYER_STREAM + layer) & 0x7FFFFFFF
 
 
@@ -142,7 +179,7 @@ def select_without_replacement(seed: int, epoch: int, counts, k: int,
 
 
 def drop_args(rate: float, seed) -> tuple:
-    """(seed, keep24, keep, on) as the kernels take them: ``on`` 0 keeps
+    """(seed, keep24, keep, on), the seed as given: ``on`` 0 keeps
     every value (rate 0, or a rate so small that every word is kept and
     keep rounds to 1.0 in float32), 2 marks keep = 0.5 in float32 (a word is
     then kept iff its top bit is 0, and kept values double exactly; the
@@ -155,4 +192,24 @@ def drop_args(rate: float, seed) -> tuple:
     on = 0
     if rate > 0.0 and keep24 < 1 << 24:
         on = 2 if keep == 0.5 else 1
-    return (int(seed or 0) & M32, keep24, 1.0 - float(rate), on)
+    return (seed, keep24, 1.0 - float(rate), on)
+
+
+def seed_ptr(seed):
+    """The address a launch function takes: ``seed``'s, a 0-d int64 tensor
+    on the launch's device (:func:`device_seed`) that the caller holds until
+    the launch is queued; None for None (nothing drawn)."""
+    if seed is None:
+        return None
+    if not torch.is_tensor(seed):
+        raise TypeError("a launch takes the seed as a device tensor "
+                        "(ops/random.device_seed), not "
+                        f"{type(seed).__name__}")
+    return seed.data_ptr()
+
+
+def drop_launch(rate: float, seed) -> tuple:
+    """:func:`drop_args` as a launch function takes them: (the address of
+    the device seed ``seed``, keep24, keep, on)."""
+    _, keep24, keep, on = drop_args(rate, seed)
+    return (seed_ptr(seed), keep24, keep, on)

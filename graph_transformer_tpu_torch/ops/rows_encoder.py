@@ -70,7 +70,8 @@ from graph_transformer_tpu_torch.ops.attention import (
     rnd,
 )
 from graph_transformer_tpu_torch.ops.random import (
-    drop_args,
+    device_seed,
+    drop_launch,
     dropout_stream,
 )
 
@@ -114,11 +115,11 @@ def _device_ok(*ts) -> bool:
     raise ValueError(f"tensors on {sorted(devs)}: cuda or cpu, one device")
 
 
-def _drop_key(rate: float, seed: Optional[int], layer: int, site: int):
-    """(seed, stream, keep24, keep, on) of one dropout site, as the kernels
-    take them."""
-    seed_, keep24, keep, on = drop_args(rate, seed)
-    return seed_, dropout_stream(layer, site), keep24, keep, on
+def _drop_key(rate: float, seed, layer: int, site: int):
+    """(the device seed's address, stream, keep24, keep, on) of one dropout
+    site, as the kernels take them."""
+    ptr, keep24, keep, on = drop_launch(rate, seed)
+    return ptr, dropout_stream(layer, site), keep24, keep, on
 
 
 # ===================================================================== K18
@@ -177,7 +178,10 @@ def gemm(a, b, layout: str = "nn", *, bf16: bool = False, bias=None,
         raise ValueError("K18: empty inner dimension")
     a, b = _operands(a, b, bf16)
     eps = [_f32(t) for t in (bias, gate, add)]
-    dk = _drop_key(*drop) if drop is not None else (0, 0, 1 << 24, 1.0, 0)
+    if drop is not None:
+        drop = (drop[0], device_seed(drop[1], a.device), *drop[2:])
+    dk = (_drop_key(*drop) if drop is not None
+          else (None, 0, 1 << 24, 1.0, 0))
     lib = _build.load("rows_gemm")
     scratch = _packed(lib, M, N, K, bf16, a.device)
     err = lib.gt_k18_gemm(
@@ -393,6 +397,7 @@ def attention_forward(qkv, S: int, *, slot0: bool = False, rate: float = 0.0,
         return attention_forward_plain(qkv, S, slot0=slot0, rate=rate,
                                        seed=seed, layer=layer, bf16=bf16)
     N, D = qkv.shape[0] // S, qkv.shape[1] // 3
+    seed = device_seed(seed, qkv.device)
     ctx = torch.empty(N if slot0 else N * S, D, dtype=torch.float32,
                       device=qkv.device)
     if N:
@@ -416,6 +421,7 @@ def attention_backward(qkv, dctx, S: int, *, slot0: bool = False,
         return attention_backward_plain(qkv, dctx, S, slot0=slot0, rate=rate,
                                         seed=seed, layer=layer, bf16=bf16)
     N, D = qkv.shape[0] // S, qkv.shape[1] // 3
+    seed = device_seed(seed, qkv.device)
     dqkv = torch.empty(N * S, 3 * D, dtype=torch.float32, device=qkv.device)
     if N:
         err = _build.load("rows_attention").gt_k19_attn_bwd(
@@ -478,6 +484,7 @@ def res_ln_forward(res, v, gamma, beta, *, res_every: int = 1,
                                     rate=rate, seed=seed, layer=layer,
                                     site=site)
     R, D = _ln_args(res, v, res_every)
+    seed = device_seed(seed, v.device)
     y = torch.empty(R, D, dtype=torch.float32, device=v.device)
     if R:
         res = res.contiguous()
@@ -504,6 +511,7 @@ def res_ln_backward(g, res, v, gamma, beta, *, res_every: int = 1,
                                      seed=seed, layer=layer, site=site)
     R, D = _ln_args(res, v, res_every)
     dev = v.device
+    seed = device_seed(seed, dev)
     f32 = dict(dtype=torch.float32, device=dev)
     du = torch.empty(R, D, **f32)
     dv = torch.empty(R, D, **f32)

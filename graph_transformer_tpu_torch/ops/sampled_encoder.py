@@ -37,7 +37,11 @@ from graph_transformer_tpu_torch.ops.attention import (
     layer_forward,
     rnd,
 )
-from graph_transformer_tpu_torch.ops.random import drop_args, uniform_draws
+from graph_transformer_tpu_torch.ops.random import (
+    device_seed,
+    drop_launch,
+    uniform_draws,
+)
 from graph_transformer_tpu_torch.ops.u2gnn_encoder import _check_shapes
 
 TABLE_WIDTH = 128
@@ -131,6 +135,7 @@ def sampled_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
         lib = _build.load("sampled_fwd")
         G = _build.pick_fwd_groups("sampled_fwd", "gt_k1_smem_bytes", S,
                                    D, N)
+        seed = device_seed(seed, dev)
         err = lib.gt_k1_sampled_fwd(
             tag_rows.data_ptr(), W, deg.data_ptr(), self_tag.data_ptr(),
             codebook.data_ptr(),
@@ -139,7 +144,8 @@ def sampled_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
             out.data_ptr(), xs.data_ptr(), qkv.data_ptr(),
             attn_full.data_ptr() if T > 1 else None, attn_last.data_ptr(),
             strip_full.data_ptr() if T > 1 else None, strip_last.data_ptr(),
-            N, S, D, F, T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+            N, S, D, F, T, G, 1.0 / math.sqrt(D),
+            *drop_launch(rate, seed),
             _build.stream_ptr(dev))
         _build.check(err, "K1 sampled_fwd")
         sampled_forward.launches += 1
@@ -307,13 +313,15 @@ def _bwd_kernel(fn_name, smem_fn, x, qkv, attn, strip, g, params, layer,
     partial = torch.empty(max(blocks, 1), P, dtype=torch.float32, device=dev)
     grads = torch.zeros(P, dtype=torch.float32, device=dev)
     if N:
+        seed = device_seed(seed, dev)
         err = getattr(lib, fn_name)(
             x.contiguous().data_ptr(), qkv.contiguous().data_ptr(),
             attn.contiguous().data_ptr(), strip.contiguous().data_ptr(),
             g.to(torch.float32).contiguous().data_ptr(),
             _build.params_array(ps), ps[0].shape[0], layer, dx.data_ptr(),
             partial.data_ptr(), grads.data_ptr(), N, S, D, F, G,
-            1.0 / math.sqrt(D), *drop_args(rate, seed), _build.stream_ptr(dev))
+            1.0 / math.sqrt(D), *drop_launch(rate, seed),
+            _build.stream_ptr(dev))
         _build.check(err, fn_name)
     return dx, _split_grads(grads, D, F)
 
@@ -419,6 +427,7 @@ def sampled_encoder(tag_rows, deg, self_tag, codebook,
     tensors in KERNEL_ORDER.  ``draws`` [N, S-1]: neighbor draws made
     outside (indices into the tag rows) in place of the in-kernel sampler;
     the CPU parity tests hand both packages the same draws this way."""
+    seed = device_seed(seed, tag_rows.device)
     return SampledEncoderFn.apply(tag_rows, deg, self_tag, codebook, draws,
                                   seed, seq_len, num_timesteps, rate, mm,
                                   *params)

@@ -88,9 +88,16 @@ class Segments:
 
     @classmethod
     def of(cls, ids: torch.Tensor, num_segments: int) -> "Segments":
+        """The segments of ``ids``, each in [0, num_segments): the lengths
+        are counted by ``scatter_add_`` into ``num_segments`` slots (what
+        ``bincount`` counts, without reading the ids' maximum on the host,
+        so that a captured step may build them)."""
         ids = ids.to(torch.int64)
         order = torch.sort(ids, stable=True).indices
-        return cls(ids, order, torch.bincount(ids, minlength=num_segments))
+        lengths = torch.zeros(num_segments, dtype=torch.int64,
+                              device=ids.device).scatter_add_(
+                                  0, ids, torch.ones_like(ids))
+        return cls(ids, order, lengths)
 
     @property
     def num_segments(self) -> int:

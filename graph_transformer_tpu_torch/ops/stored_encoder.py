@@ -41,7 +41,7 @@ from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.fused_sampled_encoder import (
     fused_sampled_encoder,
 )
-from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.random import device_seed, drop_launch
 from graph_transformer_tpu_torch.ops.sampled_encoder import (
     _i32,
     _split_grads,
@@ -147,6 +147,7 @@ def stored_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
         def opt(t):
             return t.data_ptr() if T > 1 else None
 
+        seed = device_seed(seed, dev)
         err = lib.gt_k5_stored_fwd(
             tag_rows.data_ptr(), W, deg.data_ptr(), self_tag.data_ptr(),
             codebook.data_ptr(),
@@ -155,7 +156,8 @@ def stored_forward(tag_rows, deg, self_tag, codebook, params, seq_len: int,
             out.data_ptr(), xs.data_ptr(), qkv.data_ptr(), opt(attn_full),
             attn_last.data_ptr(), opt(strip_full), strip_last.data_ptr(),
             opt(h_full), h_last.data_ptr(), N, S, D, F, T, G,
-            1.0 / math.sqrt(D), *drop_args(rate, seed), _build.stream_ptr(dev))
+            1.0 / math.sqrt(D), *drop_launch(rate, seed),
+            _build.stream_ptr(dev))
         _build.check(err, "K5 stored_fwd")
         stored_forward.launches += 1
     res = dict(draws=draws_out.to(torch.int64), xs=list(xs.unbind(0)),
@@ -222,12 +224,13 @@ def stored_rows_forward(x2d, params, seq_len: int, num_timesteps: int,
         def opt(t):
             return t.data_ptr() if T > 1 else None
 
+        seed = device_seed(seed, dev)
         err = lib.gt_k17_stored_rows_fwd(
             x.data_ptr(), int(dt == torch.bfloat16), _build.params_array(ps),
             ps[0].shape[0], out.data_ptr(), opt(xs), qkv.data_ptr(),
             opt(attn_full), attn_last.data_ptr(), opt(strip_full),
             strip_last.data_ptr(), opt(h_full), h_last.data_ptr(), N, S, D, F,
-            T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+            T, G, 1.0 / math.sqrt(D), *drop_launch(rate, seed),
             _build.stream_ptr(dev))
         _build.check(err, "K17 stored_rows_fwd")
         stored_rows_forward.launches += 1
@@ -279,6 +282,7 @@ def _bwd_kernel(fn_name, x, qkv, attn, strip, h, g, params, layer, rate,
         work = torch.empty(lib.gt_k6_work_bytes(N, S, D, F, G, int(slot0),
                                                 bf),
                            dtype=torch.uint8, device=dev)
+        seed = device_seed(seed, dev)
         err = getattr(lib, fn_name)(
             x.contiguous().data_ptr(), bf, qkv.contiguous().data_ptr(),
             attn.contiguous().data_ptr(), strip.contiguous().data_ptr(),
@@ -286,7 +290,8 @@ def _bwd_kernel(fn_name, x, qkv, attn, strip, h, g, params, layer, rate,
             g.to(torch.float32).contiguous().data_ptr(),
             _build.params_array(ps), ps[0].shape[0], layer, dx.data_ptr(),
             work.data_ptr(), grads.data_ptr(), N, S, D, F, G,
-            1.0 / math.sqrt(D), *drop_args(rate, seed), _build.stream_ptr(dev))
+            1.0 / math.sqrt(D), *drop_launch(rate, seed),
+            _build.stream_ptr(dev))
         _build.check(err, fn_name)
     return dx, _split_grads(grads, D, F)
 
@@ -379,6 +384,7 @@ def stored_encoder(tag_rows, deg, self_tag, codebook,
     """[N] rows -> [N, D] float32, differentiable in ``params``: the same
     contract as ``sampled_encoder.sampled_encoder`` (12 stacked tensors in
     KERNEL_ORDER, tag rows [N, 128], ``draws`` made outside or None)."""
+    seed = device_seed(seed, tag_rows.device)
     return StoredEncoderFn.apply(tag_rows, deg, self_tag, codebook, draws,
                                  seed, seq_len, num_timesteps, rate, mm,
                                  *params)
@@ -420,5 +426,6 @@ def fused_u2gnn_encoder_stored(x2d: torch.Tensor,
     K17 forward, K6 (slot 0), then K6 per earlier layer backward, products
     in the rows' dtype.  The contract of ``u2gnn_train.u2gnn_train_encoder``
     with the stored-residual backward."""
+    seed = device_seed(seed, x2d.device)
     return StoredRowsEncoderFn.apply(x2d, seed, seq_len, num_timesteps, rate,
                                      *params)

@@ -27,7 +27,7 @@ import torch
 
 from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
-from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.random import device_seed, drop_launch
 from graph_transformer_tpu_torch.ops.rows_encoder import encoder_train_rows
 
 MAX_D = 32        # K1-K4, K4t, K8-K10: one thread per row, D floats in
@@ -178,10 +178,11 @@ def _launch(x2d, params, seq_len, num_timesteps, rate, seed, wide: bool,
         fn = "gt_k4_encoder_fwd" if xs is None else "gt_k4t_encoder_fwd"
         G = _build.pick_fwd_groups(src, "gt_k4_smem_bytes", S, D, N)
     saved = () if xs is None else (xs.data_ptr() if T > 1 else None,)
+    seed = device_seed(seed, x2d.device)
     err = getattr(_build.load(src), fn)(
         x2d.data_ptr(), int(x2d.dtype == torch.bfloat16),
         _build.params_array(ps), ps[0].shape[0], out.data_ptr(), *saved, N, S,
-        D, F, T, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+        D, F, T, G, 1.0 / math.sqrt(D), *drop_launch(rate, seed),
         _build.stream_ptr(x2d.device))
     _build.check(err, fn)
     counters = ((u2gnn_encoder, u2gnn_encoder_train),

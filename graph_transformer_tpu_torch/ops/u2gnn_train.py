@@ -45,7 +45,7 @@ import torch
 
 from graph_transformer_tpu_torch.ops import _build
 from graph_transformer_tpu_torch.ops.attention import layer_forward
-from graph_transformer_tpu_torch.ops.random import drop_args
+from graph_transformer_tpu_torch.ops.random import device_seed, drop_launch
 from graph_transformer_tpu_torch.ops.rows_encoder import (
     recompute_backward_rows,
 )
@@ -117,11 +117,12 @@ def _recompute_kernel(fn_name, smem_fn, x, g, params, layer, rate, seed,
             ((N + G - 1) // G, P))]
     x = x.contiguous()
     g = g.to(torch.float32).contiguous()
+    seed = device_seed(seed, dev)
     err = getattr(lib, fn_name)(
         x.data_ptr(), bf, g.data_ptr(), _build.params_array(ps),
         ps[0].shape[0], layer, dx.data_ptr(),
         *(t.data_ptr() for t in scratch), grads.data_ptr(), N,
-        S, D, F, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+        S, D, F, G, 1.0 / math.sqrt(D), *drop_launch(rate, seed),
         _build.stream_ptr(dev))
     _build.check(err, fn_name)
     return dx, _split_grads(grads, D, F)
@@ -251,9 +252,10 @@ def _mega_kernel(x2d, xs, dout, params, S, T, rate, seed, wide):
                                    WIDE_ROWS)
             work = torch.empty(lib.gt_k14w_work_bytes(N, S, D, F, G, T, bf),
                                dtype=torch.uint8, device=dev)
+            seed = device_seed(seed, dev)
             err = lib.gt_k14w_mega_bwd(
                 *args, work.data_ptr(), grads.data_ptr(), *tail, G,
-                1.0 / math.sqrt(D), *drop_args(rate, seed),
+                1.0 / math.sqrt(D), *drop_launch(rate, seed),
                 _build.stream_ptr(dev))
         else:
             G = _build.pick_groups("mega_bwd", "gt_k14_smem_bytes", S, D,
@@ -261,9 +263,10 @@ def _mega_kernel(x2d, xs, dout, params, S, T, rate, seed, wide):
             scratch = [torch.empty(*shape, **f32) for shape in (
                 (N * S, 3 * D), (N * S, S), (N * S, 4 * D + 2), (N, S),
                 (N, 4 * D + 2), ((N + G - 1) // G, T, P))]
+            seed = device_seed(seed, dev)
             err = lib.gt_k14_mega_bwd(
                 *args, *(t.data_ptr() for t in scratch), grads.data_ptr(),
-                *tail, G, 1.0 / math.sqrt(D), *drop_args(rate, seed),
+                *tail, G, 1.0 / math.sqrt(D), *drop_launch(rate, seed),
                 _build.stream_ptr(dev))
         _build.check(err, "K14w mega_bwd" if wide else "K14 mega_bwd")
     per_slice = [_split_grads(grads[s], D, F) for s in range(stored)]
@@ -365,5 +368,6 @@ def u2gnn_train_encoder(x2d: torch.Tensor, params: Sequence[torch.Tensor],
     (KERNEL_ORDER; timestep t uses slice ``t % stored``).  ``mega_bwd``
     takes the whole-stack backward (K14/K14w) in place of the per-layer
     chain."""
+    seed = device_seed(seed, x2d.device)
     return U2GNNTrainFn.apply(x2d, seed, seq_len, num_timesteps, rate,
                               mega_bwd, *params)

@@ -31,7 +31,7 @@ import torch
 
 from graph_transformer_tpu_torch.data.tu import GraphDataset
 from graph_transformer_tpu_torch.ops import _build
-from graph_transformer_tpu_torch.ops.random import M32, uniform_draws
+from graph_transformer_tpu_torch.ops.random import device_seed, uniform_draws
 
 TABLE_WIDTH = 128  # entries per table row; the sampler clamps degree to it
 
@@ -110,9 +110,10 @@ def sample_neighbors(seed: int, table_rows: torch.Tensor, deg: torch.Tensor,
     deg = deg.to(torch.int32).reshape(N).contiguous()
     gidx = node_gidx.to(torch.int32).reshape(N).contiguous()
     out = torch.empty(N, K + 1, dtype=torch.int32, device=rows.device)
+    seed = device_seed(seed, rows.device)
     err = _build.load("sampler").gt_k7_sample(
         rows.data_ptr(), W, deg.data_ptr(), 0, gidx.data_ptr(), None, None, 0,
-        None, None, out.data_ptr(), N, K, int(seed) & M32,
+        None, None, out.data_ptr(), N, K, seed.data_ptr(),
         _build.stream_ptr(rows.device))
     _build.check(err, "K7 sample")
     sample_neighbors.launches += 1
@@ -170,11 +171,12 @@ def sample_neighborhoods(seed: int, table: torch.Tensor, deg: torch.Tensor,
     slots = torch.empty(N, K + 1, dtype=torch.int64, device=dev)
     ids = (torch.empty(N, K + 1, dtype=torch.int32, device=dev) if with_ids
            else None)
+    seed = device_seed(seed, dev)
     err = _build.load("sampler").gt_k7_sample(
         table.data_ptr(), TABLE_WIDTH, deg.data_ptr(), 1, node_gidx.data_ptr(),
         node_mask.data_ptr(), x_global.data_ptr(),
         D * x_global.element_size(), feat.data_ptr(), slots.data_ptr(),
-        None if ids is None else ids.data_ptr(), N, K, int(seed) & M32,
+        None if ids is None else ids.data_ptr(), N, K, seed.data_ptr(),
         _build.stream_ptr(dev))
     _build.check(err, "K7 sample")
     sample_neighborhoods.launches += 1

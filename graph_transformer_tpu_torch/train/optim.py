@@ -6,9 +6,13 @@
 ``g / ‖g‖ · max``; no epsilon on the norm, unlike
 ``torch.nn.utils.clip_grad_norm_``), then Adam (b1 0.9, b2 0.999, eps 1e-8,
 bias-corrected moments, ``-lr · m̂ / (sqrt(v̂) + eps)``), then × ``lr_scale``.
-Parameters update in place; ``state_dict``/``load_state_dict`` carry
-optax's state (``count``, ``mu``, ``nu``, the injected ``lr_scale``) for
-``train/checkpoint.py``.  :class:`PlateauStepLR` is the reference's
+Parameters update in place.  The step count and the scale live in device
+tensors beside the moments, and the bias corrections are computed from the
+count on the device, so that a captured CUDA graph of a training step
+(``train/step_graph.py``) replays each step with its own count and the
+scale the plateau rule last wrote.  ``state_dict``/``load_state_dict`` carry
+optax's state (``count`` an int, ``mu``, ``nu``, the injected ``lr_scale``)
+for ``train/checkpoint.py``.  :class:`PlateauStepLR` is the reference's
 plateau-gated StepLR, unchanged.
 """
 
@@ -27,10 +31,43 @@ class ClippedAdam:
         self.lr = float(learning_rate)
         self.max_norm = float(grad_clip_norm)
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.lr_scale = 1.0
-        self.count = 0
+        dev = self.params[0].device if self.params else torch.device("cpu")
+        # the step count and the scale the update reads, on the device
+        self.count_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self.scale_t = torch.ones((), dtype=torch.float32, device=dev)
+        self._lr_scale = 1.0
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @property
+    def count(self) -> int:
+        """Steps taken (read from the device)."""
+        return int(self.count_t)
+
+    @count.setter
+    def count(self, n: int) -> None:
+        self.count_t.fill_(int(n))
+
+    @property
+    def lr_scale(self):
+        """The scale as last set (a float, or a device scalar where the
+        plateau rule runs on the device); setting it writes the device
+        scale the update reads."""
+        return self._lr_scale
+
+    @lr_scale.setter
+    def lr_scale(self, scale) -> None:
+        self._lr_scale = scale
+        if torch.is_tensor(scale):
+            self.scale_t.copy_(scale)
+        else:
+            self.scale_t.fill_(float(scale))
+
+    def bias_corrections(self) -> tuple:
+        """(1 - b1^count, 1 - b2^count), float64 device scalars from the
+        device count: the one formula of the eager and the captured step."""
+        n = self.count_t.to(torch.float64)
+        return 1.0 - self.b1 ** n, 1.0 - self.b2 ** n
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -48,15 +85,14 @@ class ClippedAdam:
         if g_norm is None:
             g_norm = global_norm(grads)
         clip = g_norm < self.max_norm
-        self.count += 1
-        c1 = 1.0 - self.b1 ** self.count
-        c2 = 1.0 - self.b2 ** self.count
+        self.count_t.add_(1)
+        c1, c2 = self.bias_corrections()
         for p, g, m, v in zip(self.params, grads, self.mu, self.nu):
             g = torch.where(clip, g, g / g_norm * self.max_norm)
             m.mul_(self.b1).add_(g * (1.0 - self.b1))
             v.mul_(self.b2).add_(g * g * (1.0 - self.b2))
             u = -self.lr * ((m / c1) / (torch.sqrt(v / c2) + self.eps))
-            p.add_(u * self.lr_scale)
+            p.add_(u * self.scale_t)
 
     def state_dict(self) -> dict:
         """``count``, ``mu``, ``nu`` and ``lr_scale`` (a float, or a device
@@ -77,7 +113,7 @@ class ClippedAdam:
                             + list(state["nu"])):
             dst.copy_(src)
         scale = state["lr_scale"]
-        self.lr_scale = (scale.to(self.mu[0].device)
+        self.lr_scale = (scale.to(self.scale_t.device)
                          if torch.is_tensor(scale) else float(scale))
 
 

@@ -37,8 +37,14 @@ step trains the two-pass encoders on the host batch's own neighborhoods
 keeps fixed and ``train_epoch`` draws anew with every batch.
 
 :meth:`train_steps` runs n steps on one fixed batch — the counterpart of the
-JAX ``_train_scan`` (``sup_trainer.py:204-242``) that the benchmark drives.
-An epoch sums its step losses on the device and reads the sum once.
+JAX ``_train_scan`` (``sup_trainer.py:204-243``) that the benchmark drives —
+and :meth:`train_epoch_stacked` an epoch of batches built first on the host
+and stacked on the device, the counterpart of ``_train_scan_stacked``
+(``:245-283``); both replay one captured CUDA graph a step
+(``train/step_graph.py``; on the CPU the same step runs eagerly over the
+same buffers), and from the same state and generators they train bit for
+bit what :meth:`train_epoch`'s eager loop trains.  An epoch sums its step
+losses on the device and reads the sum once.
 Evaluation runs the deterministic model (K4, or the wide K4 past D = 32,
 for the whole-encoder configurations; the per-layer encoder at rate 0 for
 the others); the test fold's eval batches are built at the first
@@ -49,12 +55,12 @@ JAX's order.  The CV runners (``train/tenfold_vmap.py``,
 
 Random numbers: the host draws one 31-bit seed per step from a CPU
 ``torch.Generator`` (seeded by ``cfg.train.seed + 1``; :meth:`train_step`
-takes the seed from its caller instead); the sampler, the encoder dropout
-and the head dropout take disjoint streams of that seed
-(``ops/random.py``), so no device generator and no host-device sync are
-needed per step.  :meth:`rng_state` holds the host generators for a
-checkpoint.  Nothing on the path adds with float atomics, so a step
-repeats bit for bit on the card.
+takes the seed from its caller instead), which the step takes as a 0-d
+int64 device tensor; the sampler, the encoder dropout and the head dropout
+take disjoint streams of that seed (``ops/random.py``), so no device
+generator and no host-device sync are needed per step.  :meth:`rng_state`
+holds the host generators for a checkpoint.  Nothing on the path adds with
+float atomics, so a step repeats bit for bit on the card.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
 """
@@ -82,6 +88,7 @@ from graph_transformer_tpu_torch.ops.losses import (
     label_smoothing,
     soft_cross_entropy,
 )
+from graph_transformer_tpu_torch.ops.random import device_seed
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     build_neighbor_table,
     sample_neighborhoods,
@@ -91,6 +98,10 @@ from graph_transformer_tpu_torch.train.optim import (
     PlateauStepLR,
     make_optimizer,
     set_lr_scale,
+)
+from graph_transformer_tpu_torch.train.step_graph import (
+    StepGraph,
+    stack_batches,
 )
 
 
@@ -183,6 +194,7 @@ class SupTrainer:
                                    cfg.train.lr_decay_gamma,
                                    cfg.train.plateau_window)
         self._eval_stack = self._eval_rng = None
+        self._graphs: Dict[int, StepGraph] = {}
 
     # ----------------------------------------------------------- one step
     def sampled_inputs(self, batch: GraphBatch) -> tuple:
@@ -208,7 +220,7 @@ class SupTrainer:
         return (self.two_pass_inputs(batch) if self.two_pass
                 else self.sampled_inputs(batch))
 
-    def _scores(self, batch: GraphBatch, si: tuple, seed: int):
+    def _scores(self, batch: GraphBatch, si: tuple, seed):
         """(scores, ponder) of one training step."""
         if self.host_sampling:
             return self.model(batch, seed=seed, return_ponder=True)
@@ -230,28 +242,44 @@ class SupTrainer:
         return soft_cross_entropy(scores, targets) + self.act_weight * ponder
 
     def train_step(self, batch: GraphBatch, si: tuple,
-                   seed: int) -> torch.Tensor:
+                   seed) -> torch.Tensor:
         """One step on ``batch`` (with its :meth:`step_inputs` ``si``),
-        drawing the sampler's and the dropout's bits from ``seed``; returns
-        the loss on the device."""
+        drawing the sampler's and the dropout's bits from ``seed`` (an int
+        or a 0-d int64 tensor); returns the loss on the device."""
+        seed = device_seed(seed, self.device)
         loss = self.loss(batch, *self._scores(batch, si, seed))
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
         return loss.detach()
 
+    def next_seed(self) -> int:
+        """The next step's seed from the host generator."""
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self._seeds))
+
     def _step(self, batch: GraphBatch, si: tuple) -> torch.Tensor:
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=self._seeds))
-        return self.train_step(batch, si, seed)
+        return self.train_step(batch, si, self.next_seed())
+
+    def step_graph(self, m: int) -> StepGraph:
+        """The captured step over stacks of ``m`` batches, made at the first
+        use (a stack of 1 for :meth:`train_steps`, an epoch's for
+        :meth:`train_epoch_stacked`)."""
+        if m not in self._graphs:
+            self._graphs[m] = StepGraph(
+                lambda b, seed: self.train_step(b, self.step_inputs(b), seed),
+                self.model.parameters(), self.opt, self.device)
+        return self._graphs[m]
 
     def train_steps(self, batch: GraphBatch, n_steps: int) -> torch.Tensor:
         """``n_steps`` steps on one fixed batch (neighborhoods resample every
         step on the device; with host sampling every step reuses the batch's
-        ``neigh``); returns the [n_steps] losses on the device,
-        unsynchronised."""
-        batch = batch.to(self.device)
-        si = self.step_inputs(batch)
-        return torch.stack([self._step(batch, si) for _ in range(n_steps)])
+        ``neigh``), as JAX's ``_train_scan``: the batch is copied to the
+        device once, the seeds are drawn as :meth:`train_epoch` draws them,
+        and the captured step replays ``n_steps`` times; returns the
+        [n_steps] losses on the device, unsynchronised."""
+        seeds = [self.next_seed() for _ in range(n_steps)]
+        return self.step_graph(1).run(stack_batches([batch], self.device),
+                                      [0] * n_steps, seeds)
 
     # ---------------------------------------------------------------- loops
     def train_batches(self, n: int) -> torch.Tensor:
@@ -265,7 +293,23 @@ class SupTrainer:
 
     def train_epoch(self) -> float:
         """One epoch; returns the summed batch loss."""
-        total = float(self.train_batches(self.num_batches_per_epoch))
+        return self._end_epoch(
+            float(self.train_batches(self.num_batches_per_epoch)))
+
+    def train_epoch_stacked(self) -> float:
+        """:meth:`train_epoch` as JAX's ``_train_scan_stacked``: the epoch's
+        batches built on the host first, in :meth:`train_epoch`'s order,
+        stacked on the device, then one replay of the captured step a
+        batch; returns the summed batch loss, read once."""
+        n = self.num_batches_per_epoch
+        batches = [self.builder.sample() for _ in range(n)]
+        seeds = [self.next_seed() for _ in range(n)]
+        losses = self.step_graph(n).run(stack_batches(batches, self.device),
+                                        range(n), seeds)
+        return self._end_epoch(float(losses.sum()))
+
+    def _end_epoch(self, total: float) -> float:
+        """Record an epoch's summed loss and apply the plateau rule."""
         self.epoch_losses.append(total)
         new_scale = self.sched.update(self.epoch_losses)
         if new_scale != self.lr_scale:
@@ -328,14 +372,15 @@ class SupTrainer:
 def train_evaluate_sup(ds: GraphDataset, cfg: ExperimentConfig,
                        log_fn=print, device="cuda") -> Dict[str, object]:
     """Full train/eval loop for one fold; returns history + best accuracy.
-    (``cfg.train.scan_epochs`` trains the same per-step loop: PyTorch runs
-    eagerly, so there is no one-dispatch epoch to choose.)"""
+    ``cfg.train.scan_epochs`` trains each epoch through
+    :meth:`SupTrainer.train_epoch_stacked`, as JAX's does."""
     trainer = SupTrainer(ds, cfg, device=device)
     history = []
     best_acc = 0.0
     for epoch in range(1, cfg.train.num_epochs + 1):
         t0 = time.time()
-        loss = trainer.train_epoch()
+        loss = (trainer.train_epoch_stacked() if cfg.train.scan_epochs
+                else trainer.train_epoch())
         acc = (trainer.evaluate() if epoch % cfg.train.eval_every == 0
                else float("nan"))
         best_acc = max(best_acc, acc if acc == acc else 0.0)

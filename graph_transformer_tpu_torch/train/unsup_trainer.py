@@ -29,14 +29,18 @@ Paths, as the JAX trainer picks them (``unsup_trainer.py:80-101``):
 The dataset's tables come from ``train/sup_trainer.device_tables`` (one
 build); the CSR is built only for ``sampler_type == "neighbor"``.  The
 id-symmetric protocol's permutation is ``np.random.default_rng(seed +
-7).permutation(V)`` (``:122-129``).  The plateau rule is ``PlateauStepLR``,
-and :meth:`UnsupTrainer.train_epoch_stacked` trains the same eager loop as
-:meth:`UnsupTrainer.train_epoch` (PyTorch has no one-dispatch epoch).
+7).permutation(V)`` (``:122-129``).  The plateau rule is ``PlateauStepLR``.
+:meth:`UnsupTrainer.train_epoch_stacked` is JAX's one-dispatch epoch
+(``_train_scan_stacked``, ``:190-221``): the epoch's batches built on the
+host and stacked on the device, then one replay a step of the captured
+step (``train/step_graph.py``; eagerly over the same buffers on the CPU),
+which trains bit for bit what :meth:`UnsupTrainer.train_epoch` trains.
 
 Random numbers as in ``SupTrainer``: one 31-bit seed a step from a CPU
-``torch.Generator`` (``cfg.train.seed + 1``); the sampler, the dropout
-sites, the candidates and the neighbor negatives take disjoint streams of
-it, so no device generator and no host-device sync are needed a step.
+``torch.Generator`` (``cfg.train.seed + 1``), taken as a 0-d int64 device
+tensor; the sampler, the dropout sites, the candidates and the neighbor
+negatives take disjoint streams of it, so no device generator and no
+host-device sync are needed a step.
 The Adam update is dense over the [V, k·D] output table, as optax's is.
 
 Entry points run on ``device="cuda"`` unless the caller asks for the CPU.
@@ -60,6 +64,7 @@ from graph_transformer_tpu_torch.models.u2gnn_unsup import (
     U2GNNUnsup,
     encoder_config,
 )
+from graph_transformer_tpu_torch.ops.random import device_seed
 from graph_transformer_tpu_torch.sampling.neighbor_table import (
     sample_neighborhoods,
 )
@@ -72,6 +77,10 @@ from graph_transformer_tpu_torch.train.optim import (
     PlateauStepLR,
     make_optimizer,
     set_lr_scale,
+)
+from graph_transformer_tpu_torch.train.step_graph import (
+    StepGraph,
+    stack_batches,
 )
 from graph_transformer_tpu_torch.train.sup_trainer import (
     device_tables,
@@ -134,9 +143,10 @@ class UnsupTrainer:
         self.sched = PlateauStepLR(self.num_batches_per_epoch,
                                    cfg.train.lr_decay_gamma,
                                    cfg.train.plateau_window)
+        self._graphs: Dict[int, StepGraph] = {}
 
     # ----------------------------------------------------------- one step
-    def loss(self, batch: GraphBatch, seed: int) -> torch.Tensor:
+    def loss(self, batch: GraphBatch, seed) -> torch.Tensor:
         """The training loss of ``batch`` (on the device) for the step
         seeded ``seed``, on this trainer's path."""
         if self.gcn:
@@ -157,10 +167,10 @@ class UnsupTrainer:
         return self.model.loss(dataclasses.replace(batch, neigh=slots),
                                self.spec, seed, neigh_feat=feat, **kw)
 
-    def train_step(self, batch: GraphBatch, seed: int) -> torch.Tensor:
-        """One step on ``batch`` (on the device) seeded ``seed``; returns
-        the loss on the device."""
-        loss = self.loss(batch, seed)
+    def train_step(self, batch: GraphBatch, seed) -> torch.Tensor:
+        """One step on ``batch`` (on the device) seeded ``seed`` (an int or
+        a 0-d int64 tensor); returns the loss on the device."""
+        loss = self.loss(batch, device_seed(seed, self.device))
         self.opt.zero_grad()
         loss.backward()
         self.opt.step()
@@ -179,16 +189,39 @@ class UnsupTrainer:
 
     def train_epoch(self) -> float:
         """One epoch; returns the summed batch loss."""
-        total = float(self.train_batches(self.num_batches_per_epoch))
+        return self._end_epoch(
+            float(self.train_batches(self.num_batches_per_epoch)))
+
+    def train_epoch_stacked(self) -> float:
+        """:meth:`train_epoch` in one replay of the captured step a batch
+        (JAX's ``_train_scan_stacked``): the epoch's batches built on the
+        host in :meth:`train_epoch`'s order and stacked on the device;
+        candidates, neighborhoods and dropout drawn a step on the device
+        from the step's seed.  Returns the summed batch loss, read once."""
+        n = self.num_batches_per_epoch
+        batches = [self.builder.sample() for _ in range(n)]
+        seeds = [self.next_seed() for _ in range(n)]
+        losses = self.step_graph(n).run(stack_batches(batches, self.device),
+                                        range(n), seeds)
+        return self._end_epoch(float(losses.sum()))
+
+    def step_graph(self, m: int) -> StepGraph:
+        """The captured :meth:`train_step` over stacks of ``m`` batches,
+        made at the first use."""
+        if m not in self._graphs:
+            self._graphs[m] = StepGraph(self.train_step,
+                                        self.model.parameters(), self.opt,
+                                        self.device)
+        return self._graphs[m]
+
+    def _end_epoch(self, total: float) -> float:
+        """Record an epoch's summed loss and apply the plateau rule."""
         self.epoch_losses.append(total)
         new_scale = self.sched.update(self.epoch_losses)
         if new_scale != self.lr_scale:
             self.lr_scale = new_scale
             set_lr_scale(self.opt, self.lr_scale)
         return total
-
-    # PyTorch runs eagerly: the stacked epoch is the same loop
-    train_epoch_stacked = train_epoch
 
     def graph_embeddings(self) -> np.ndarray:
         """[G, embedding_dim] sum-pooled output rows, on the host."""
@@ -220,15 +253,18 @@ def train_evaluate_unsup(ds: GraphDataset, cfg: ExperimentConfig,
                          on_epoch: Optional[Callable] = None
                          ) -> Dict[str, object]:
     """Train epochs ``start_epoch..cfg.train.num_epochs`` of ``trainer`` (a
-    new one by default), probing every ``eval_every`` epochs from the best
-    (mean, std) ``best``; ``on_epoch(trainer, row, best)`` runs after each
-    epoch's line.  Returns the history and the best mean with its std."""
+    new one by default; :meth:`UnsupTrainer.train_epoch_stacked` under
+    ``cfg.train.scan_epochs``, as JAX's), probing every ``eval_every``
+    epochs from the best (mean, std) ``best``; ``on_epoch(trainer, row,
+    best)`` runs after each epoch's line.  Returns the history and the best
+    mean with its std."""
     trainer = trainer or UnsupTrainer(ds, cfg, device=device)
     history = []
     best_mean, best_std = best
     for epoch in range(start_epoch, cfg.train.num_epochs + 1):
         t0 = time.time()
-        loss = trainer.train_epoch()
+        loss = (trainer.train_epoch_stacked() if cfg.train.scan_epochs
+                else trainer.train_epoch())
         if epoch % cfg.train.eval_every == 0:
             mean, std = trainer.evaluate()
         else:

@@ -103,7 +103,12 @@ def test_trainer_paths_and_refusals():
     t = UnsupTrainer(ds, small_cfg(id_symmetric=True), device="cpu")
     want = np.random.default_rng(123 + 7).permutation(ds.num_nodes)
     np.testing.assert_array_equal(t.vocab_perm.numpy(), want)
-    assert t.train_epoch_stacked.__func__ is UnsupTrainer.train_epoch
+    # the stacked epoch (one replay of the captured step a batch on the
+    # card, the same step eagerly here) trains what the eager epoch trains
+    twin = UnsupTrainer(ds, small_cfg(id_symmetric=True), device="cpu")
+    assert twin.train_epoch_stacked() == t.train_epoch()
+    for a, b in zip(twin.model.parameters(), t.model.parameters()):
+        assert torch.equal(a, b)
     # the fused gate needs the default loss and sampler
     flags = dict(use_fused_sampler=True, use_pallas=True,
                  use_pallas_whole_encoder=True)
